@@ -1,0 +1,35 @@
+"""Model configs the port serves: the dense transformer family.
+
+qwen3-1.7b is the served model; h2o-danube-1.8b carries the sliding-window
+attention path.  ``get_config`` raises for every other name.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import (
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    XLSTMConfig,
+    reduced,
+)
+from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
+from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN3_1_7B
+
+ARCHITECTURES = {c.name: c for c in (QWEN3_1_7B, H2O_DANUBE_1_8B)}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCHITECTURES:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHITECTURES)}")
+    return ARCHITECTURES[name]
+
+
+__all__ = [
+    "ARCHITECTURES",
+    "ModelConfig",
+    "MoEConfig",
+    "SSMConfig",
+    "XLSTMConfig",
+    "get_config",
+    "reduced",
+]

@@ -1,0 +1,318 @@
+"""Model building blocks on the paged serving path (PyTorch).
+
+Counterparts of the JAX package's ``models/layers.py`` functions, with the
+same names, argument orders and tensor layouts.  Parameters are nested
+dicts of tensors; activations are bf16 with f32 normalisation and softmax
+statistics.  The paged attention functions hand their operands to the
+kernel wrappers in ``repro_torch.kernels.paged_attention``: a CUDA tensor
+launches the hand-written kernel, a CPU tensor takes the plain version.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import paged_attention as pa
+
+DEFAULT_DTYPE = torch.bfloat16
+NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *, lead=(), dtype=DEFAULT_DTYPE):
+    """N(0, 1/in_dim) weights [*lead, in_dim, out_dim], drawn in f32."""
+    w = torch.randn((*lead, in_dim, out_dim), generator=gen, device=gen.device)
+    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=DEFAULT_DTYPE):
+    w = torch.randn((vocab, dim), generator=gen, device=gen.device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, weight, eps: float = 1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * weight.float()).to(x.dtype)
+
+
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
+def make_norm(cfg_norm: str, dim: int, *, lead=(), device=None):
+    w = torch.ones((*lead, dim), dtype=DEFAULT_DTYPE, device=device)
+    if cfg_norm == "rmsnorm":
+        return {"w": w}
+    return {"w": w, "b": torch.zeros_like(w)}
+
+
+def apply_norm(cfg_norm: str, p, x):
+    if cfg_norm == "rmsnorm":
+        return rms_norm(x, p["w"])
+    return layer_norm(x, p["w"], p["b"])
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings (split-half, f32 angles)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: [..., S, H, D]; positions: [..., S] (int)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)  # [D/2]
+    angles = positions[..., :, None, None].float() * freqs  # [..., S, 1, D/2]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention core
+# ---------------------------------------------------------------------------
+
+
+def attention_prefill(
+    q, k, v, *, q_positions, kv_positions, causal: bool = True, window: int = 0,
+    softcap: float = 0.0, q_chunk: int = 512, kv_chunk: int = 1024,
+):
+    """Chunked online-softmax attention (plain PyTorch).
+
+    q: [B, Sq, H, D]; k, v: [B, Sk, KV, D]; positions: [B, S*] (kv position
+    -1 = padding).  GQA without repeating KV.  Returns [B, Sq, H, D].
+    """
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)  # [B, KV, G, Sq, D]
+    kb = k.permute(0, 2, 1, 3)  # [B, KV, Sk, D]
+    vb = v.permute(0, 2, 1, 3)
+    outs = []
+    for q0 in range(0, Sq, q_chunk):
+        qb = qg[:, :, :, q0 : q0 + q_chunk]
+        qp = q_positions[:, q0 : q0 + q_chunk]
+        cq = qb.shape[3]
+        m = torch.full((B, KV, G, cq), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, KV, G, cq, D), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Skv, kv_chunk):
+            kc, vc = kb[:, :, k0 : k0 + kv_chunk], vb[:, :, k0 : k0 + kv_chunk]
+            kp = kv_positions[:, k0 : k0 + kv_chunk]
+            s = torch.einsum("bkgqd,bksd->bkgqs", qb, kc).float() * scale
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            mask = (kp >= 0)[:, None, None, None, :]
+            if causal:
+                mask = mask & (qp[:, None, None, :, None] >= kp[:, None, None, None, :])
+            if window:
+                mask = mask & (qp[:, None, None, :, None] - kp[:, None, None, None, :] < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = torch.einsum("bkgqs,bksd->bkgqd", p.to(vc.dtype), vc)
+            acc = acc * corr[..., None] + pv.float()
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3)  # [B, KV, G, Sq, D]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def paged_attention_decode(
+    q, k_pages, v_pages, block_tables, prefix_len, k_tail, v_tail, tail_pos,
+    cur_pos, *, window: int = 0, softcap: float = 0.0,
+):
+    """Single-step decode attention over PAGED prefix KV plus a dense tail.
+
+    q:            [B, 1, H, D]
+    k/v_pages:    [KV, N, page, D]   (this layer's slice of the pool)
+    block_tables: [B, P] int32       page ids per request (padding masked
+                                     by prefix_len)
+    prefix_len:   [B] int32          tokens addressed via the block table
+    k/v_tail:     [B, T, KV, D]      in-flight tail (this layer)
+    tail_pos:     [B, T] int32       absolute tail positions (-1 = empty)
+    cur_pos:      [B] int32          query token position
+    Returns [B, 1, H, D].  The pool is read in place through the block
+    table (kernels/paged_attention.paged_decode_attention).
+    """
+    B, _, H, D = q.shape
+    KV = k_pages.shape[0]
+    out = pa.paged_decode_attention(
+        q[:, 0].reshape(B, KV, H // KV, D),
+        k_pages, v_pages, block_tables, prefix_len,
+        k_tail.transpose(1, 2), v_tail.transpose(1, 2),
+        tail_pos, cur_pos, softcap=softcap, window=window,
+    )
+    return out.reshape(B, 1, H, D)
+
+
+def paged_attention_prefill(
+    q, k_pages, v_pages, block_tables, prefix_len, k_chunk, v_chunk, q_positions,
+    *, window: int = 0, softcap: float = 0.0,
+):
+    """Chunk-of-queries prefill attention over PAGED prefix KV plus the
+    chunk itself (causal within the chunk).
+
+    q:            [B, C, H, D]       chunk queries
+    k/v_pages:    [KV, N, page, D]   (this layer's slice of the pool)
+    block_tables: [B, P] int32       page ids per request
+    prefix_len:   [B] int32          tokens addressed via the block table
+    k/v_chunk:    [B, C, KV, D]      the chunk's own keys/values
+    q_positions:  [B, C] int32       absolute chunk positions; must equal
+                                     prefix_len + arange(C) (the kernel
+                                     derives positions from prefix_len)
+    Returns [B, C, H, D].
+    """
+    B, C, H, D = q.shape
+    KV = k_pages.shape[0]
+    G = H // KV
+    qg = q.reshape(B, C, KV, G, D).permute(0, 2, 3, 1, 4)  # [B, KV, G, C, D]
+    out = pa.paged_prefill_attention(
+        qg, k_pages, v_pages, block_tables, prefix_len,
+        k_chunk.transpose(1, 2), v_chunk.transpose(1, 2),
+        softcap=softcap, window=window,
+    )
+    return out.permute(0, 3, 1, 2, 4).reshape(B, C, H, D)
+
+
+# ---------------------------------------------------------------------------
+# attention layer (projections + qk-norm + rope + cache plumbing)
+# ---------------------------------------------------------------------------
+
+
+def attn_init(gen: torch.Generator, cfg, *, lead=()):
+    d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    p = {
+        "wq": dense_init(gen, d, H * Dh, lead=lead),
+        "wk": dense_init(gen, d, KV * Dh, lead=lead),
+        "wv": dense_init(gen, d, KV * Dh, lead=lead),
+        "wo": dense_init(gen, H * Dh, d, lead=lead),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((*lead, Dh), dtype=DEFAULT_DTYPE, device=gen.device)
+        p["k_norm"] = torch.ones((*lead, Dh), dtype=DEFAULT_DTYPE, device=gen.device)
+    return p
+
+
+def attn_qkv(p, cfg, x, positions, *, use_rope: bool = True):
+    """Projections, then qk-norm, then RoPE.  x: [B, S, d]."""
+    B, S, _ = x.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, Dh)
+    k = (x @ p["wk"]).reshape(B, S, KV, Dh)
+    v = (x @ p["wv"]).reshape(B, S, KV, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_prefill_layer(p, cfg, x, positions, *, use_rope=True):
+    """Full attention layer at prefill; returns (out, (k, v))."""
+    q, k, v = attn_qkv(p, cfg, x, positions, use_rope=use_rope)
+    out = attention_prefill(
+        q, k, v, q_positions=positions, kv_positions=positions,
+        causal=True, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
+    )
+    out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+    return out, (k, v)
+
+
+def slot_update(cache, value, slot):
+    """Write ``value`` [B, 1, ...] at per-row ``slot`` into [B, S, ...]
+    (a broadcast select: rows whose slot is out of range stay unchanged)."""
+    S = cache.shape[1]
+    hit = torch.arange(S, device=cache.device)[None, :] == slot[:, None]  # [B, S]
+    hit = hit.reshape(hit.shape + (1,) * (cache.ndim - 2))
+    return torch.where(hit, value.to(cache.dtype), cache)
+
+
+def attn_paged_prefill_layer(p, cfg, x, k_pages, v_pages, block_tables, prefix_len, positions, *, use_rope=True):
+    """One chunk of paged prefill: the chunk's (k, v) plus attention over the
+    prefix pages (in place, via the block table) and the chunk causally.
+
+    x: [B, C, d]; k/v_pages: [KV, N, page, Dh]; positions: [B, C] absolute
+    chunk positions (= prefix_len + arange(C)).
+    Returns (out [B, C, d], (k, v) [B, C, KV, Dh]).
+    """
+    B, C, _ = x.shape
+    q, k, v = attn_qkv(p, cfg, x, positions, use_rope=use_rope)
+    out = paged_attention_prefill(
+        q, k_pages, v_pages, block_tables, prefix_len, k, v, positions,
+        window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
+    )
+    out = out.reshape(B, C, -1) @ p["wo"]
+    return out, (k, v)
+
+
+def attn_paged_decode_layer(
+    p, cfg, x, k_pages, v_pages, block_tables, prefix_len,
+    tail_k, tail_v, tail_pos, cur_pos, tail_slot, *, use_rope=True
+):
+    """One-token decode over paged prefix KV: writes the new (k, v) into the
+    tail at ``tail_slot`` and attends pages + tail in place.
+
+    x: [B, 1, d]; k/v_pages: [KV, N, page, Dh]; tail_k/v: [B, T, KV, Dh];
+    tail_pos: [B, T] (already updated with cur_pos at tail_slot).
+    Returns (out [B, 1, d], new_tail_k, new_tail_v).
+    """
+    B = x.shape[0]
+    q, k, v = attn_qkv(p, cfg, x, cur_pos[:, None], use_rope=use_rope)
+    new_tk = slot_update(tail_k, k, tail_slot)
+    new_tv = slot_update(tail_v, v, tail_slot)
+    out = paged_attention_decode(
+        q, k_pages, v_pages, block_tables, prefix_len,
+        new_tk, new_tv, tail_pos, cur_pos,
+        window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
+    )
+    out = out.reshape(B, 1, -1) @ p["wo"]
+    return out, new_tk, new_tv
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_init(gen: torch.Generator, d: int, ff: int, activation: str, *, lead=()):
+    if activation == "silu":  # SwiGLU
+        return {
+            "w_gate": dense_init(gen, d, ff, lead=lead),
+            "w_up": dense_init(gen, d, ff, lead=lead),
+            "w_down": dense_init(gen, ff, d, lead=lead),
+        }
+    return {"w_up": dense_init(gen, d, ff, lead=lead), "w_down": dense_init(gen, ff, d, lead=lead)}
+
+
+def mlp_apply(p, x, activation: str):
+    if activation == "silu":
+        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]

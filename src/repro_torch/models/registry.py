@@ -1,0 +1,52 @@
+"""Model registry for the port: the dense transformer family's paged
+serving entry points behind one bundle.
+
+``build_model(cfg, device=None)`` returns a ``ModelBundle`` exposing:
+  - init_params(generator)                         -> params on the device
+  - prefill_collect_fn(params, batch)              -> (last-valid logits, k, v [L,B,S,KV,Dh])
+  - paged_decode_fn(params, state, tokens, cur_pos) -> (logits, state)
+  - prefill_chunk_fn(params, state, tokens, positions) -> (ck, cv) [L,B,C,KV,Dh]
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import partial
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tf_lib
+
+
+@dataclass(frozen=True)
+class ModelBundle:
+    cfg: ModelConfig
+    device: torch.device
+    init_params: Callable[[torch.Generator], Any]
+    prefill_collect_fn: Callable[..., Any]
+    paged_decode_fn: Callable[..., Any]
+    prefill_chunk_fn: Callable[..., Any]
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
+    """Bundle for a dense transformer config on ``device`` (CUDA unless the
+    caller passes ``device="cpu"``).  Other families raise."""
+    tf_lib.check_supported(cfg)
+    if cfg.kv_cache_dtype != "bf16":
+        raise NotImplementedError(f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported")
+    dev = resolve_device(device)
+    return ModelBundle(
+        cfg=cfg,
+        device=dev,
+        init_params=lambda generator: tf_lib.init_params(cfg, generator, dev),
+        prefill_collect_fn=partial(_call, tf_lib.prefill_collect, cfg),
+        paged_decode_fn=partial(_call, tf_lib.paged_decode_step, cfg),
+        prefill_chunk_fn=partial(_call, tf_lib.prefill_chunk, cfg),
+    )
+
+
+def _call(fn, cfg, params, *args):
+    with torch.no_grad():
+        return fn(params, cfg, *args)

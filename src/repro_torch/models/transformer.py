@@ -1,0 +1,212 @@
+"""Dense decoder-only transformer LM on the paged serving path (PyTorch).
+
+Counterpart of the JAX package's ``models/transformer.py`` for the dense
+family (qwen3-1.7b, h2o-danube-1.8b).  The layer stack keeps a leading ``L``
+axis on every parameter and runs as a Python loop over layers (the JAX
+package's ``lax.scan``).  A batch runs as one batched computation per layer:
+the paged attention kernels compute every row independently of the batch
+width, while ``torch.matmul`` may pick other kernels per width, so results
+across different widths agree within a tolerance, not bitwise.
+
+Token ids outside ``[0, vocab)`` are clamped at the embedding, as the JAX
+package's gather clamps them.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import (
+    DEFAULT_DTYPE,
+    apply_norm,
+    attn_init,
+    attn_paged_decode_layer,
+    attn_paged_prefill_layer,
+    attn_prefill_layer,
+    embed_init,
+    make_norm,
+    mlp_apply,
+    mlp_init,
+    slot_update,
+)
+
+
+def check_supported(cfg) -> None:
+    """The port serves the dense family only (ROADMAP: MoE/VLM/SSM later)."""
+    if cfg.moe.num_experts or cfg.family != "dense" or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: only dense transformer configs are ported (family={cfg.family})"
+        )
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+
+def _device_generator(generator: torch.Generator, device: torch.device) -> torch.Generator:
+    """Draw on ``device``: the caller's generator when it lives there, else a
+    generator on the device seeded from one draw of the caller's."""
+    if generator.device.type == device.type:
+        return generator
+    seed = int(torch.randint(0, 2**62, (1,), generator=generator))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def init_params(cfg, generator: torch.Generator, device: DeviceLike = None) -> Dict[str, Any]:
+    """The JAX package's parameter tree (names, shapes, init scales) drawn
+    from ``generator`` on ``device``.  The numbers differ from JAX's."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = _device_generator(generator, dev)
+    L, d = cfg.num_layers, cfg.d_model
+    params = {
+        "embed": embed_init(gen, cfg.vocab_size, d),
+        "layers": {
+            "ln1": make_norm(cfg.norm, d, lead=(L,), device=dev),
+            "attn": attn_init(gen, cfg, lead=(L,)),
+            "ln2": make_norm(cfg.norm, d, lead=(L,), device=dev),
+            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.activation, lead=(L,)),
+        },
+        "final_norm": make_norm(cfg.norm, d, device=dev),
+    }
+    if not cfg.tie_embeddings:
+        w = torch.randn((d, cfg.vocab_size), generator=gen, device=dev)
+        params["lm_head"] = (w * 0.02).to(DEFAULT_DTYPE)
+    return params
+
+
+def unembed(cfg, params):
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def layer_params(layers: Dict[str, Any], num_layers: int) -> List[Dict[str, Any]]:
+    """Per-layer views of a stacked-L parameter dict."""
+
+    def pick(tree, i):
+        if isinstance(tree, dict):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return tree[i]
+
+    return [pick(layers, i) for i in range(num_layers)]
+
+
+def embed_tokens(params, cfg, tokens):
+    """Token embedding; ids are clamped to [0, vocab - 1]."""
+    return params["embed"][tokens.long().clamp(0, cfg.vocab_size - 1)]
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False):
+    """Run the layer stack.  x: [B, S, d] embedded inputs.
+
+    Returns (hidden [B, S, d], cache_kv or None); cache_kv is (k, v)
+    stacked [L, B, S, KV, Dh].
+    """
+    ks, vs = [], []
+    for lp in layer_params(params["layers"], cfg.num_layers):
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions)
+        x = x + a
+        h = apply_norm(cfg.norm, lp["ln2"], x)
+        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        if collect_cache:
+            ks.append(k_)
+            vs.append(v_)
+    cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
+    return x, cache
+
+
+def prefill_collect(params, cfg, batch):
+    """Monolithic batched prefill for the paged serving path
+    (``prefill_chunk=0``): returns (last-valid logits [B, V] f32, k, v
+    [L, B, S, KV, Dh]).  ``batch["valid_len"]`` [B] marks right-padded
+    prompts; only the logit gather needs it (causal masking keeps padding
+    out of every valid row)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    valid_len = batch.get("valid_len")
+    if valid_len is None:
+        last = torch.full((B,), S - 1, device=tokens.device, dtype=torch.long)
+    else:
+        last = valid_len.long() - 1
+    logits = (x[torch.arange(B, device=tokens.device), last] @ unembed(cfg, params)).float()
+    return logits, ck, cv
+
+
+def prefill_chunk(params, cfg, state, tokens, positions):
+    """One chunk of chunked paged prefill — the O(chunk) serving path.
+
+    ``state``:
+      k_pages/v_pages [L, KV, N, page, Dh]  the device page pool (read-only)
+      block_tables    [B, P] int32          pages of the already-prefilled prefix
+      prefix_len      [B] int32             tokens addressed via the table
+    tokens: [B, C] the chunk's token ids; positions: [B, C] absolute
+    positions (= prefix_len + arange(C)).
+
+    Returns the chunk's KV ``(ck, cv)`` stacked [L, B, C, KV, Dh] — the only
+    KV this launch materializes.
+    """
+    x = embed_tokens(params, cfg, tokens)  # [B, C, d]
+    bt, plen = state["block_tables"], state["prefix_len"]
+    ks, vs = [], []
+    for i, lp in enumerate(layer_params(params["layers"], cfg.num_layers)):
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        a, (k_, v_) = attn_paged_prefill_layer(
+            lp["attn"], cfg, h, state["k_pages"][i], state["v_pages"][i], bt, plen, positions
+        )
+        x = x + a
+        h = apply_norm(cfg.norm, lp["ln2"], x)
+        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        ks.append(k_)
+        vs.append(v_)
+    return torch.stack(ks), torch.stack(vs)
+
+
+def paged_decode_step(params, cfg, state, tokens, cur_pos):
+    """One decode step over paged prefix KV — the zero-copy serving path.
+
+    ``state``:
+      k_pages/v_pages [L, KV, N, page, Dh]  the device page pool (read-only)
+      block_tables    [B, P] int32          per-request page ids
+      prefix_len      [B] int32             tokens addressed via the table
+      k_tail/v_tail   [L, B, T, KV, Dh]     in-flight tail (written here)
+      tail_pos        [B, T] int32          absolute tail positions (-1 empty)
+    tokens, cur_pos: [B] int32.  Returns (logits [B, V] f32, new state).
+
+    The page pool is never rewritten: a step only appends one (k, v) row to
+    the tail at ``cur_pos - prefix_len`` and attends pages + tail in place.
+    The returned state holds new tail tensors; the input state is unchanged.
+    """
+    x = embed_tokens(params, cfg, tokens)[:, None, :]  # [B, 1, d]
+    slot = cur_pos - state["prefix_len"]
+    tail_pos = slot_update(state["tail_pos"][..., None], cur_pos[:, None, None], slot)[..., 0]
+    ks, vs = [], []
+    for i, lp in enumerate(layer_params(params["layers"], cfg.num_layers)):
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        a, ntk, ntv = attn_paged_decode_layer(
+            lp["attn"], cfg, h, state["k_pages"][i], state["v_pages"][i],
+            state["block_tables"], state["prefix_len"],
+            state["k_tail"][i], state["v_tail"][i], tail_pos, cur_pos, slot,
+        )
+        x = x + a
+        h = apply_norm(cfg.norm, lp["ln2"], x)
+        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        ks.append(ntk)
+        vs.append(ntv)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    logits = (x[:, 0] @ unembed(cfg, params)).float()
+    new_state = dict(state, k_tail=torch.stack(ks), v_tail=torch.stack(vs), tail_pos=tail_pos)
+    return logits, new_state

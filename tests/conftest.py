@@ -7,3 +7,10 @@ row position inside batched ops, so the paged decode step runs rows through
 padded to a fixed width bucket (serving/engine.BATCH_PAD) — every row
 executes the same compiled body regardless of batch composition.
 """
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA GPU; run with python -m pytest -m gpu tests/test_torch_gpu.py",
+    )

@@ -1,0 +1,215 @@
+"""The port's plain kernel versions against the JAX package's oracles.
+
+Each plain PyTorch version (``repro_torch.kernels.*``, what a CPU tensor
+runs and what the CUDA kernels are held against on the card) is compared
+with ``repro.kernels.ref`` and with the Pallas kernel run in interpret mode
+(``repro.kernels.ops``), on the parametrizations of tests/test_kernels.py,
+in float32 and bfloat16.  Inputs are drawn with numpy from a seed and
+handed to both frameworks.  Tolerances are those of tests/test_kernels.py:
+1e-5 in float32, 2e-2 in bfloat16 (the two frameworks round bf16 outputs
+from differently ordered f32 sums).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref
+from repro_torch.kernels import kv_block_copy as kbc
+from repro_torch.kernels import paged_attention as pa
+
+TOLS = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a, dtype):
+    """The same numpy draw as a JAX array and a torch tensor."""
+    a = np.asarray(a)
+    if a.dtype.kind in "iu":
+        return jnp.asarray(a, jnp.int32), torch.from_numpy(a.astype(np.int32))
+    return jnp.asarray(a, JDT[dtype]), torch.from_numpy(a.astype(np.float32)).to(TDT[dtype])
+
+
+def _close(got_t, want_j, dtype):
+    np.testing.assert_allclose(
+        got_t.float().numpy(), np.asarray(want_j, np.float32), **TOLS[dtype]
+    )
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,KV,G,D,page,P,N,T,window,softcap",
+    [
+        (2, 2, 2, 16, 4, 4, 16, 8, 0, 0.0),
+        (1, 4, 1, 32, 8, 3, 8, 4, 0, 0.0),
+        (3, 1, 4, 16, 4, 5, 32, 8, 12, 0.0),  # sliding window
+        (2, 2, 2, 16, 4, 4, 16, 8, 0, 20.0),  # softcap
+    ],
+)
+def test_paged_decode_plain_matches_jax(dtype, B, KV, G, D, page, P, N, T, window, softcap):
+    rng = np.random.default_rng(5)
+    prefix_len = rng.integers(1, P * page + 1, (B,))
+    t_used = rng.integers(1, T + 1, (B,))
+    tail_pos = np.full((B, T), -1, np.int32)
+    for b in range(B):
+        tail_pos[b, : t_used[b]] = prefix_len[b] + np.arange(t_used[b])
+    draws = [
+        rng.normal(size=(B, KV, G, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.integers(0, N, (B, P)),
+        prefix_len,
+        rng.normal(size=(B, KV, T, D)),
+        rng.normal(size=(B, KV, T, D)),
+        tail_pos,
+        prefix_len + t_used - 1,
+    ]
+    pairs = [_pair(a, dtype) for a in draws]
+    jargs = [p[0] for p in pairs]
+    targs = [p[1] for p in pairs]
+    got = pa.paged_decode_attention(*targs, softcap=softcap, window=window)
+    _close(got, ref.paged_decode_attention_ref(*jargs, softcap=softcap, window=window), dtype)
+    _close(got, ops.paged_decode_attention(*jargs, softcap=softcap, window=window, interpret=True), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,KV,G,D,page,P,N,C,window,softcap",
+    [
+        (2, 2, 2, 16, 4, 4, 16, 8, 0, 0.0),
+        (1, 4, 1, 32, 8, 3, 8, 16, 0, 0.0),
+        (3, 1, 4, 16, 4, 5, 32, 8, 12, 0.0),  # sliding window
+        (1, 2, 2, 16, 4, 3, 8, 8, 0, 20.0),   # softcap
+    ],
+)
+def test_paged_prefill_plain_matches_jax(dtype, B, KV, G, D, page, P, N, C, window, softcap):
+    rng = np.random.default_rng(7)
+    draws = [
+        rng.normal(size=(B, KV, G, C, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.integers(0, N, (B, P)),
+        rng.integers(0, P + 1, (B,)) * page,  # block-aligned, including empty
+        rng.normal(size=(B, KV, C, D)),
+        rng.normal(size=(B, KV, C, D)),
+    ]
+    pairs = [_pair(a, dtype) for a in draws]
+    jargs = [p[0] for p in pairs]
+    targs = [p[1] for p in pairs]
+    got = pa.paged_prefill_attention(*targs, softcap=softcap, window=window)
+    _close(got, ref.paged_prefill_attention_ref(*jargs, softcap=softcap, window=window), dtype)
+    _close(got, ops.paged_prefill_attention(*jargs, softcap=softcap, window=window, interpret=True), dtype)
+
+
+def test_paged_prefill_plain_composes_to_full_causal():
+    """Chunk by chunk over landed pages == one full causal attention (f32,
+    1e-5): the identity chunked prefill rests on, in the port."""
+    rng = np.random.default_rng(9)
+    B, KV, G, D, page, C = 1, 2, 2, 16, 4, 8
+    S = 4 * C
+    H = KV * G
+    q_all = rng.normal(size=(B, H, S, D)).astype(np.float32)
+    k_all = rng.normal(size=(B, KV, S, D)).astype(np.float32)
+    v_all = rng.normal(size=(B, KV, S, D)).astype(np.float32)
+    full = np.asarray(ref.flash_attention_ref(jnp.asarray(q_all), jnp.asarray(k_all), jnp.asarray(v_all), causal=True))
+    P = S // page
+    k_pages = torch.zeros((KV, P, page, D))
+    v_pages = torch.zeros((KV, P, page, D))
+    bt = torch.arange(P, dtype=torch.int32)[None]
+    outs = []
+    for lo in range(0, S, C):
+        q = torch.from_numpy(q_all[:, :, lo : lo + C]).reshape(B, KV, G, C, D)
+        kc = torch.from_numpy(k_all[:, :, lo : lo + C])
+        vc = torch.from_numpy(v_all[:, :, lo : lo + C])
+        out = pa.paged_prefill_attention(
+            q, k_pages, v_pages, bt, torch.tensor([lo], dtype=torch.int32), kc, vc
+        )
+        outs.append(out.numpy())
+        for b0 in range(lo // page, (lo + C) // page):
+            k_pages[:, b0] = torch.from_numpy(k_all[0, :, b0 * page : (b0 + 1) * page])
+            v_pages[:, b0] = torch.from_numpy(v_all[0, :, b0 * page : (b0 + 1) * page])
+    got = np.concatenate(outs, axis=3).reshape(B, H, S, D)
+    np.testing.assert_allclose(got, full, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+def test_kv_block_copy_plain_matches_jax(dtype):
+    """Exact: a page gather moves bytes."""
+    rng = np.random.default_rng(4)
+    N, page, KV, D = 16, 8, 2, 32
+    if dtype == "int32":
+        src = rng.integers(0, 100, (N, page, KV, D)).astype(np.int32)
+        s_j, s_t = jnp.asarray(src), torch.from_numpy(src)
+    else:
+        s_j, s_t = _pair(rng.normal(size=(N, page, KV, D)), dtype)
+    idx = rng.permutation(N)[:5].astype(np.int32)
+    got = kbc.kv_block_copy(s_t, torch.from_numpy(idx))
+    want = ops.kv_block_copy(s_j, jnp.asarray(idx), interpret=True)
+    if dtype == "bfloat16":
+        assert np.array_equal(got.view(torch.int16).numpy(), np.asarray(want).view(np.int16))
+    else:
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(np.asarray(ref.kv_block_copy_ref(s_j, jnp.asarray(idx))), np.asarray(want))
+
+
+def test_gather_payloads_plain_path():
+    """Uniform payloads come back as fresh equal tensors in order; mixed
+    shapes take the counted per-array copy, chosen from shapes alone."""
+    g = torch.Generator().manual_seed(0)
+    arrays = [torch.randn((2, 4, 2, 16), generator=g).to(torch.bfloat16) for _ in range(3)]
+    before = kbc.gather_payloads.plain_copies
+    out = kbc.gather_payloads(arrays, "cpu")
+    assert kbc.gather_payloads.plain_copies == before
+    for a, b in zip(arrays, out):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+    mixed = kbc.gather_payloads([arrays[0], arrays[1][:, :2]], "cpu")
+    assert kbc.gather_payloads.plain_copies == before + 1
+    assert torch.equal(mixed[1], arrays[1][:, :2])
+
+
+def test_wrappers_raise_on_unsupported_devices():
+    """No silent fallback: a tensor that is neither CPU nor a supported CUDA
+    operand raises instead of taking the plain version."""
+    q = torch.empty((1, 1, 2, 16), device="meta")
+    pages = torch.empty((1, 4, 4, 16), device="meta")
+    bt = torch.zeros((1, 1), dtype=torch.int32, device="meta")
+    ln = torch.zeros((1,), dtype=torch.int32, device="meta")
+    tail = torch.empty((1, 1, 4, 16), device="meta")
+    tpos = torch.zeros((1, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pa.paged_decode_attention(q, pages, pages, bt, ln, tail, tail, tpos, ln)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kbc.kv_block_copy(pages, torch.tensor([0]))
+
+
+def test_fully_masked_row_reproduces_reference_quirk():
+    """A decode row with no valid key (empty prefix, empty tail): the JAX
+    reference's dense softmax gives every masked position the same weight,
+    so the row is the plain mean of all value rows; the port's plain version
+    reproduces that (f32, 1e-5).  The CUDA kernel returns zeros there
+    instead (tests/test_torch_gpu.py); the serving path never builds such
+    a row."""
+    rng = np.random.default_rng(11)
+    B, KV, G, D, page, P, N, T = 1, 2, 2, 16, 4, 2, 8, 4
+    draws = [
+        rng.normal(size=(B, KV, G, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.integers(0, N, (B, P)),
+        np.zeros((B,), np.int32),
+        rng.normal(size=(B, KV, T, D)),
+        rng.normal(size=(B, KV, T, D)),
+        np.full((B, T), -1, np.int32),
+        np.zeros((B,), np.int32),
+    ]
+    pairs = [_pair(a, "float32") for a in draws]
+    got = pa.paged_decode_attention(*[p[1] for p in pairs])
+    want = ref.paged_decode_attention_ref(*[p[0] for p in pairs])
+    _close(got, want, "float32")
+    v_all = np.concatenate(
+        [draws[2][:, draws[3][0]].reshape(KV, P * page, D), draws[6][0]], axis=1
+    )  # [KV, P*page + T, D]
+    np.testing.assert_allclose(
+        got[0].numpy(), np.broadcast_to(v_all.mean(axis=1)[:, None], (KV, G, D)), rtol=1e-5, atol=1e-5
+    )

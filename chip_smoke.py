@@ -12,13 +12,23 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      the card could take; plus the reduced qwen3 model served on the card
      against the same model served on the CPU;
   3. full-width qwen3-1.7b (28 layers, random weights from seed 0) serving 8
-     requests of 64-512 tokens, half of them sharing a 256-token prefix;
+     requests of 64-512 tokens in the paged mode, half of them sharing a
+     256-token prefix;
   4. the claim witness paths at full width: A (offload, restore, reuse with
      the tokens of a never-offloaded engine) and B (same-claim restore
-     failure refused fail-closed, in order).
-Launch counters are zeroed before phase 3 and read after phase 4, so the
-counts show the serving path itself went through the kernels.  The last two
-lines are the kernels' JSON record and the device JSON line.
+     failure refused fail-closed, in order);
+  5. the dense decode mode at full width: 6 requests in two batches (full-
+     length prefills through the flash-attention kernel, then cached-prefix
+     hits gathered into the dense cache), and a prompt too long for the
+     cache refused fail-closed;
+  6. full-width cross-checks: dense (flash-attention) against paged
+     (chunked-prefill kernel) prefill logits, monolithic against chunked,
+     witness path A's restored logits dense against paged, and the paged-
+     attention kernel over a served request's dense cache against the
+     dense decode attention.
+Every launch count is zeroed just before each of phases 3-6 and read just
+after it, so the counts show each path itself went through its kernels.
+The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+DENSE_CACHE_LEN = 640  # the dense mode's per-request cache at full width
 TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
 
@@ -208,10 +219,97 @@ def kernel_phase(gen_seed: int = 0):
         replaces="src/repro/kernels/kv_block_copy.py:25", max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
     )
+    results["flash_attention"] = flash_kernel_check(dev, g, rnd)
+    results["paged_attention"] = paged_attention_kernel_check(dev, rnd, perm)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}, library {r['library_ms']})")
     return results
+
+
+def flash_kernel_check(dev, g, rnd):
+    """K5 at the serving shape of qwen3-1.7b's full-length prefill (B=1,
+    16 query heads over 8 kv heads, S=512, D=128, bf16, causal) with every
+    window/softcap combination, plus a ragged non-causal Sq != Sk case and
+    h2o-danube's head_dim 80.  Operands are [B, H, S, D] views of
+    [B, S, H, D] activations, as the model hands them over."""
+    from repro_torch.kernels import flash_attention as fa
+
+    bf = torch.bfloat16
+    act = lambda B, S, H, D: rnd(B, S, H, D).transpose(1, 2)
+    B, H, KV, S, D = 1, 16, 8, 512, 128
+    errs = []
+    cases = [(S, S, D, H, True, w, c) for w in (0, 128) for c in (0.0, 30.0)]
+    cases += [(300, S, D, H, False, 0, 0.0), (S, S, 80, 32, True, 0, 0.0)]
+    for Sq, Sk, d, h, causal, window, softcap in cases:
+        q, k, v = act(B, Sq, h, d), act(B, Sk, KV, d), act(B, Sk, KV, d)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        errs.append(e)
+        print(f"K5 flash_attention Sq={Sq} Sk={Sk} H={h} D={d} causal={causal} window={window} "
+              f"softcap={softcap}: max|d|={e:.3e}")
+        check(within(got, want, bf), f"K5 disagrees with its plain version ({e})")
+    copies = [(act(B, S, H, D), act(B, S, KV, D), act(B, S, KV, D)) for _ in range(16)]
+    ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), copies)
+    plain_ms = time_ms(lambda q, k, v: fa.flash_attention_ref(q, k, v), copies, iters=10)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
+        lib = lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        lib_calls = copies
+    else:  # K/V repeated per query head outside the timed call
+        lib = lambda q, k, v: sdpa(q, k, v, is_causal=True)
+        lib_calls = [(q, k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1))
+                     for q, k, v in copies]
+    e = max_err(lib(*lib_calls[0]), fa.flash_attention(*copies[0]))
+    print(f"K5 against scaled_dot_product_attention: max|d|={e:.3e}")
+    check(e <= 2e-2, f"K5 and scaled_dot_product_attention disagree ({e})")
+    library_ms = time_ms(lib, lib_calls)
+    nbytes = 2.0 * (2 * B * H * S * D + 2 * B * KV * S * D)  # q, out, k, v in bf16
+    flops = 4.0 * B * H * D * S * (S + 1) / 2  # the causal pairs this input attends
+    b_ms, b_by = bound(nbytes, flops)
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:98", max_abs_err=max(errs),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+    )
+
+
+def paged_attention_kernel_check(dev, rnd, perm):
+    """K4 at decode widths: 8 sequences, KV=8, G=2, D=128, page=16, lengths
+    ragged from 1 to 512; block-table entries past each length hold -7
+    (never read)."""
+    from repro_torch.kernels import paged_attention as pa
+
+    W, KV, G, D, page, N = 8, 8, 2, 128, 16, 320
+    lengths = torch.tensor([1, 37, 64, 100, 256, 300, 411, 512], dtype=torch.int32)
+    P = 512 // page
+    bt = perm[: W * P].reshape(W, P).to(torch.int32)
+    for b in range(W):
+        bt[b, -(-int(lengths[b]) // page):] = -7
+    copies = [(rnd(W, KV, G, D), rnd(KV, N, page, D), rnd(KV, N, page, D), bt.to(dev), lengths.to(dev))
+              for _ in range(6)]
+    errs = []
+    for softcap in (0.0, 30.0):
+        got = pa.paged_attention(*copies[0], softcap=softcap)
+        want = pa.paged_attention_ref(*copies[0], softcap=softcap)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        errs.append(e)
+        print(f"K4 paged_attention softcap={softcap}: max|d|={e:.3e}")
+        check(within(got, want, torch.bfloat16), f"K4 disagrees with its plain version ({e})")
+    ms = time_ms(lambda *a: pa.paged_attention(*a), copies)
+    plain_ms = time_ms(lambda *a: pa.paged_attention_ref(*a), copies, iters=10)
+    keys = float(lengths.sum())
+    nbytes = 2 * W * KV * G * D * 2 + 2 * keys * KV * D * 2 + (W * P + W) * 4
+    b_ms, b_by = bound(nbytes, 4.0 * keys * KV * G * D)
+    return dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:87", max_abs_err=max(errs),
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+    )
 
 
 def reduced_parity_phase():
@@ -326,20 +424,146 @@ def serving_phase(bundle, params, cfg):
     busy = sum(getattr(e, "self_device_time_total", 0.0) for e in avg) / 1e6
     print(f"profiled request (64-token prompt, 8 new tokens): wall {w:.3f} s, device busy "
           f"{busy:.3f} s ({100 * busy / w:.1f}%), {sum(e.count for e in avg)} device ops")
-    # full-width cross-check of the chunked path (K2 prefill) against the
-    # monolithic plain-attention prefill of the same prompt
-    prompt = first[2]
-    with ServingEngine(bundle, params, block_size=16, device_blocks=64, device=bundle.device) as a, \
-            ServingEngine(bundle, params, block_size=16, device_blocks=64, prefill_chunk=0,
-                          device=bundle.device) as b:
-        la, lb = a.prefill_logits(prompt), b.prefill_logits(prompt)
-    e = float(np.abs(la - lb).max())
-    print(f"chunked (kernel) vs monolithic (plain) prefill logits, 150 tokens: max|d|={e:.3e}, "
-          f"argmax {la.argmax()} vs {lb.argmax()}")
-    check(np.isfinite(la).all() and la.shape == (cfg.vocab_size,), "bad prefill logits")
-    check(e <= 0.25, f"chunked and monolithic prefill disagree ({e})")
-    check(la.argmax() == lb.argmax(), "chunked and monolithic prefill pick different tokens")
     eng.close()
+
+
+def dense_phase(bundle, params, cfg):
+    """The dense decode mode at full width: a first batch of four fresh
+    prompts (full-length K5 prefills), a second batch of two prompts that
+    hit the first prompt's 256-token prefix (gather-to-dense, 8 replayed
+    tokens each), 16 new tokens per request; then a prompt too long for the
+    cache, refused fail-closed."""
+    from repro_torch.serving.engine import ServingEngine
+
+    rng = np.random.default_rng(2)
+    V = cfg.vocab_size
+    fresh = lambda n: tuple(int(t) for t in rng.integers(0, V, n))
+    first = [fresh(512), fresh(300), fresh(150), fresh(64)]
+    second = [first[0][:256] + fresh(8), first[0][:256] + fresh(8)]
+    eng = ServingEngine(bundle, params, block_size=16, device_blocks=192, cache_len=DENSE_CACHE_LEN,
+                        decode_mode="dense", device=bundle.device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    reqs, ttft = [], []
+    for batch in (first, second):
+        rs = [eng.submit(p, max_new_tokens=16) for p in batch]
+        tb = time.monotonic()
+        eng.run_batch(rs)
+        torch.cuda.synchronize()
+        ttft += [r.first_token_ts - tb for r in rs if r.first_token_ts is not None]
+        reqs += rs
+    wall = time.monotonic() - t0
+    for r in reqs:
+        check(r.status == "finished", f"dense {r.request_id}: {r.status} ({r.error})")
+        check(len(r.output_tokens) == 16, f"dense {r.request_id}: {len(r.output_tokens)} tokens")
+        check(all(0 <= t < V for t in r.output_tokens), f"dense {r.request_id}: token out of range")
+    check([r.cached_tokens for r in reqs[4:]] == [256, 256], "dense second batch missed the prefix")
+    check(not eng.fail_closed_total(), f"dense fail-closed outcomes: {eng.fail_closed_total()}")
+    n_out = sum(len(r.output_tokens) for r in reqs)
+    ttft = sorted(ttft)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stage = {k: sum(eng.stage_seconds.samples(stage=k)) for k in ("prefill", "decode_step")}
+    print(f"dense serving qwen3-1.7b full width: {len(reqs)} requests finished, {n_out} tokens in "
+          f"{wall:.3f} s ({n_out / wall:.1f} tok/s incl. prefill), TTFT median "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, peak device memory "
+          f"{peak:.2f} GiB")
+    print(f"dense serving time: wall {wall:.3f} s = prefill (K5) {stage['prefill']:.3f} s "
+          f"({len(eng.stage_seconds.samples(stage='prefill'))} launches) + decode steps "
+          f"{stage['decode_step']:.3f} s ({len(eng.stage_seconds.samples(stage='decode_step'))} "
+          f"steps) + other host work (cache gather, replayed tokens, page stores) "
+          f"{wall - sum(stage.values()):.3f} s")
+    over = eng.submit(fresh(600), max_new_tokens=64)
+    eng.run_batch([over])
+    check(over.status == "refused" and over.error.startswith("dense_cache_overflow"),
+          f"600 + 64 tokens were not refused: {over.status} ({over.error})")
+    check(eng.fail_closed_total() == {"dense_cache_overflow": 1},
+          f"overflow refusal not counted: {eng.fail_closed_total()}")
+    check(_first(eng.events.events, "scheduler_admission_refused", request_id=over.request_id,
+                 trigger="dense_cache_overflow") is not None, "no dense_cache_overflow event")
+    print(f"dense overflow: 600 + 64 tokens > cache_len {DENSE_CACHE_LEN} refused fail-closed "
+          f"({over.error})")
+    eng.close()
+    return first[0]
+
+
+def dense_checks(bundle, params, cfg, served_prompt):
+    """Full-width cross-checks of the K5 prefills against the K2 chunked
+    path, witness path A in dense mode against the paged engine, and K4
+    over a served request's dense cache against ``attention_decode``."""
+    from repro_torch.core.claims import ClaimMode, ClaimState
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.layers import attention_decode
+    from repro_torch.serving.engine import ServingEngine
+
+    rng = np.random.default_rng(3)
+    V = cfg.vocab_size
+    fresh = lambda n: tuple(int(t) for t in rng.integers(0, V, n))
+    dev = bundle.device
+    engine = lambda **kw: ServingEngine(bundle, params, block_size=16, device_blocks=64,
+                                        cache_len=DENSE_CACHE_LEN, device=dev, **kw)
+
+    def compare(label, la, lb):
+        e = float(np.abs(la - lb).max())
+        print(f"{label}: max|d|={e:.3e}, argmax {la.argmax()} vs {lb.argmax()}")
+        check(np.isfinite(la).all() and la.shape == (V,), f"{label}: bad logits")
+        check(e <= 0.25, f"{label}: disagree ({e})")
+        check(la.argmax() == lb.argmax(), f"{label}: different tokens")
+
+    prompt = fresh(150)
+    n0 = fa.flash_attention.launches
+    with engine(decode_mode="dense") as d, engine() as pg:
+        compare("dense (K5) vs paged (K2) prefill logits, 150 tokens",
+                d.prefill_logits(prompt), pg.prefill_logits(prompt))
+    n1 = fa.flash_attention.launches
+    with engine() as a, engine(prefill_chunk=0) as b:
+        compare("chunked (K2) vs monolithic (K5) prefill logits, 150 tokens",
+                a.prefill_logits(prompt), b.prefill_logits(prompt))
+    check(n1 > n0, "the dense prefill never launched K5")
+    check(fa.flash_attention.launches > n1, "the monolithic prefill never launched K5")
+
+    prefix = fresh(256)
+    first, reuse = prefix + fresh(16), prefix + fresh(8)
+    restored = {}
+    for mode in ("dense", "paged"):
+        with engine(decode_mode=mode) as eng:
+            claim = eng.accept_claim(prefix, ClaimMode.OFFLOADABLE)
+            r1 = eng.run(eng.submit(first, max_new_tokens=1))
+            check(r1.status == "finished" and claim.state == ClaimState.MATERIALIZED,
+                  f"{mode} path A: claim not materialized ({r1.status}, {claim.state})")
+            check(eng.offload_claim(claim.claim_id, request_id=r1.request_id),
+                  f"{mode} path A: offload failed")
+            restored[mode] = eng.prefill_logits(reuse)
+            check(claim.state == ClaimState.RESTORED, f"{mode} path A: claim {claim.state}")
+            check(not eng.fail_closed_total(), f"{mode} path A: {eng.fail_closed_total()}")
+    compare("witness path A restored prefill logits, dense vs paged",
+            restored["dense"], restored["paged"])
+
+    # K4 over layer 0 of the dense cache of a prompt the dense phase served,
+    # paged out in shuffled page order, against attention_decode
+    _, cache = bundle.prefill_fn(
+        params, {"tokens": torch.tensor([served_prompt], dtype=torch.int32, device=dev)},
+        DENSE_CACHE_LEN)
+    k, v, pos = cache["k"][0], cache["v"][0], cache["pos"]  # [1, Sc, KV, D], [1, Sc]
+    Sc, KV, D = k.shape[1:]
+    H, page = cfg.num_heads, 16
+    P = Sc // page
+    order = torch.randperm(P, generator=torch.Generator().manual_seed(4))
+    pool = lambda t: t[0].reshape(P, page, KV, D).permute(2, 0, 1, 3)[:, torch.argsort(order)].contiguous()
+    lengths = torch.tensor([512, 300, 150, 64], dtype=torch.int32, device=dev)
+    W = lengths.shape[0]
+    bt = order[None].expand(W, P).to(torch.int32).to(dev).contiguous()
+    q = torch.randn((W, 1, H, D), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev).to(k.dtype)
+    got = pa.paged_attention(q[:, 0].reshape(W, KV, H // KV, D), pool(k), pool(v), bt, lengths)
+    want = attention_decode(q, k.expand(W, -1, -1, -1), v.expand(W, -1, -1, -1),
+                            kv_positions=pos.expand(W, -1), cur_pos=lengths - 1)
+    torch.cuda.synchronize()
+    e = max_err(got.reshape(W, 1, H, D), want)
+    print(f"K4 over a served request's dense cache (layer 0, lengths 512/300/150/64) vs "
+          f"attention_decode: max|d|={e:.3e}")
+    check(within(got.reshape(W, 1, H, D), want, torch.bfloat16),
+          f"K4 disagrees with attention_decode ({e})")
 
 
 def _first(events, name, after=-1, **match):
@@ -451,6 +675,7 @@ def main() -> None:
         raise SystemExit(2)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kv_block_copy as kbc
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models.registry import build_model
@@ -491,19 +716,36 @@ def main() -> None:
         "paged_decode_attention": pa.paged_decode_attention,
         "paged_prefill_attention": pa.paged_prefill_attention,
         "kv_block_copy": kbc.kv_block_copy,
+        "flash_attention": fa.flash_attention,
+        "paged_attention": pa.paged_attention,
     }
-    for w in wrappers.values():
-        w.launches = 0
+
+    def drive(name, fn, *args):
+        """One path of the main run, with every launch count zeroed just
+        before it and read just after."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn(*args)
+        counts[name] = {k: w.launches for k, w in wrappers.items()}
+        print(f"launches in {name}: {counts[name]}")
+        return out
+
+    counts = {}
     plain_before = kbc.gather_payloads.plain_copies
-    serving_phase(bundle, params, cfg)
-    served = {k: w.launches for k, w in wrappers.items()}
-    witness_phase(bundle, params, cfg)
-    launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"launches in the serving phase: {served}; through the witness paths: {launches}")
-    check(served["paged_decode_attention"] > 0, "serving never launched the paged decode kernel")
-    check(served["paged_prefill_attention"] > 0, "serving never launched the prefill kernel")
-    check(launches["kv_block_copy"] > served["kv_block_copy"], "offload/restore never launched K3")
+    drive("paged serving", serving_phase, bundle, params, cfg)
+    drive("witness paths", witness_phase, bundle, params, cfg)
+    served_prompt = drive("dense serving", dense_phase, bundle, params, cfg)
+    drive("dense checks", dense_checks, bundle, params, cfg, served_prompt)
+    check(counts["paged serving"]["paged_decode_attention"] > 0,
+          "serving never launched the paged decode kernel")
+    check(counts["paged serving"]["paged_prefill_attention"] > 0,
+          "serving never launched the prefill kernel")
+    check(counts["witness paths"]["kv_block_copy"] > 0, "offload/restore never launched K3")
+    check(counts["dense serving"]["flash_attention"] > 0, "dense serving never launched K5")
+    check(counts["dense checks"]["flash_attention"] > 0, "the dense checks never launched K5")
+    check(counts["dense checks"]["paged_attention"] > 0, "the dense checks never launched K4")
     check(kbc.gather_payloads.plain_copies == plain_before, "a payload gather took the plain copy")
+    launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
 
     print("kernels: " + json.dumps([{"name": k, "launches": v} for k, v in launches.items()]))
     record = []

@@ -1,6 +1,6 @@
 // Paged attention for the serving path, written for Hopper (sm_90a).
 //
-// One kernel body serves both serving entry points:
+// One kernel body serves three entry points:
 //   * paged decode  (replaces kernels/paged_attention.py:paged_decode_attention_pallas)
 //     rows = the G grouped queries of one (sequence, kv head); keys = the
 //     block-table prefix pages, then the dense in-flight tail whose absolute
@@ -9,6 +9,11 @@
 //     rows = G*C chunk queries, row r at chunk offset r % C and absolute
 //     position prefix_len + r % C; keys = the prefix pages, then the chunk's
 //     own keys at positions prefix_len + t (causal within the chunk).
+//   * paged attention (replaces kernels/paged_attention.py:paged_attention_pallas)
+//     rows = the G grouped queries; keys = the first prefix_len (= lengths)
+//     keys of the block-table pages, nothing else: the caller passes T = 0,
+//     null tail pointers and no cur_pos, so the query sits at position
+//     prefix_len and the mask reduces to k_pos < prefix_len.
 //
 // Masks (both entry points): a key at absolute position k_pos is attended by
 // a query at q_pos iff k_pos >= 0, k_pos <= q_pos, a prefix key also has

@@ -1,0 +1,119 @@
+"""Flash attention for full-length prefill: a hand-written CUDA kernel
+(``csrc/flash_attention.cu``) and its plain PyTorch version.
+
+``flash_attention`` replaces the TPU kernel
+``kernels/flash_attention.py:flash_attention_pallas``: tiled forward
+attention with GQA, top-left causal alignment, a sliding window, tanh
+soft-capping and f32 accumulation.  It runs once per layer in every
+full-length prefill of the serving engine (the dense mode's ``prefill`` and
+the monolithic ``prefill_collect``), where the model hands it its
+[B, S, H, D] activations as [B, H, S, D] views, without a copy.
+
+What bounds it on the card: at the serving shapes its roofline bound is
+bytes (about 170 FLOPs per byte, under the bf16 ridge), but this first
+kernel runs both products on the f32 CUDA cores, so operations bound it;
+see the source for the design and what is left.
+
+Dispatch: a CPU tensor goes to the plain version (a port of the JAX
+package's naive oracle, ``kernels/ref.py:flash_attention_ref``); a CUDA
+tensor goes to the kernel, and anything the kernel does not take raises.
+``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = (
+    [ctypes.c_int]
+    + [ctypes.c_void_p] * 4
+    + [ctypes.c_int64] * 12
+    + [ctypes.c_int] * 8
+    + [ctypes.c_float, ctypes.c_void_p]
+)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_forward
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
+    """Naive quadratic attention.  q: [B, H, Sq, D]; k, v: [B, KV, Sk, D]
+    -> [B, H, Sq, D].  Positions are the row indices (top-left causal)."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, Sq, D)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) / math.sqrt(D)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= q_pos - k_pos < window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p, v.float())
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
+    """Forward attention.  q: [B, H, Sq, D]; k, v: [B, KV, Sk, D], any
+    strides with D contiguous -> [B, H, Sq, D] (a view of a [B, Sq, H, D]
+    buffer on the card, so ``out.transpose(1, 2)`` is contiguous)."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    name = "flash_attention"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if tuple(k.shape) != (B, KV, Sk, D) or v.shape != k.shape or KV == 0 or H % KV:
+        raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    vec = 16 // q.element_size()
+    if D > 128 or D % vec:
+        raise ValueError(f"{name}: head_dim {D} must be <= 128 and a multiple of {vec}")
+    for t in (k, v):
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError(f"{name}: every operand must be {q.dtype} on {q.device}")
+    for t in (q, k, v):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: the head dimension must be contiguous")
+        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
+            raise ValueError(f"{name}: operands must be 16-byte aligned for vector loads")
+    out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if B == 0 or Sq == 0 or H == 0:
+        return out
+    if B > 65535 or H > 65535:
+        raise ValueError(f"{name}: batch {B} and heads {H} must be <= 65535")
+    qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = _lib().flash_attention_forward(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os_[0], os_[1], os_[2],
+        B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), float(softcap), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,7 +1,7 @@
 """Paged attention for the serving path: hand-written CUDA kernels and their
 plain PyTorch versions.
 
-Two entry points, one CUDA kernel body (``csrc/paged_attention.cu``):
+Three entry points, one CUDA kernel body (``csrc/paged_attention.cu``):
 
 * ``paged_decode_attention`` replaces the TPU kernel
   ``kernels/paged_attention.py:paged_decode_attention_pallas`` — the G grouped
@@ -12,9 +12,15 @@ Two entry points, one CUDA kernel body (``csrc/paged_attention.cu``):
   ``kernels/paged_attention.py:paged_prefill_attention_pallas`` — one chunk of
   queries at positions ``prefix_len + c`` attends the prefix pages and then
   its own keys causally.  It runs once per layer on every prefill chunk.
+* ``paged_attention`` replaces ``kernels/paged_attention.py:paged_attention_pallas``
+  — the G grouped queries of each (sequence, kv head) attend the first
+  ``lengths[b]`` keys of the block-table pages: no tail, no causal cut, no
+  window.  The kernel body runs it with no in-flight keys (T = 0) and the
+  query at position ``lengths[b]``.  As in the JAX package, no model path
+  calls it; it is held against the dense decode mode's ``attention_decode``.
 
-What bounds both on the card is bytes: every key/value element is used for
-4*G FLOPs at decode (G = 2 on qwen3-1.7b) and 4*G*C at prefill, far below
+What bounds all three on the card is bytes: every key/value element is used
+for 4*G FLOPs at decode (G = 2 on qwen3-1.7b) and 4*G*C at prefill, far below
 the ~295 FLOPs per byte where the H100's tensor cores would bound it.  The
 kernel reads each page once per CTA with 16-byte vector loads, looks its page
 ids up in the block table itself, and never loads pages past ``prefix_len``
@@ -127,6 +133,32 @@ def paged_prefill_attention_ref(
     s = torch.where(valid[:, None, None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bkgcs,bksd->bkgcd", p, v_all).to(q.dtype)
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *, softcap: float = 0.0):
+    """Dense-gather plain version of the decode entry point over pages only.
+
+    q: [B, KV, G, D]; k/v_pages: [KV, N, page, D]; block_tables: [B, P];
+    lengths: [B] -> [B, KV, G, D].  Block-table entries are wrapped and
+    clamped into [0, N) as the JAX package's gather does, so entries past
+    ``lengths`` may hold anything.  A ``lengths[b] == 0`` row returns the
+    plain mean of all P * page gathered value rows (the reference's dense
+    softmax over a fully masked row); the kernel returns zeros there.
+    """
+    B, KV, G, D = q.shape
+    N, page = k_pages.shape[1], k_pages.shape[2]
+    P = block_tables.shape[1]
+    bt = block_tables.long()
+    bt = torch.where(bt < 0, bt + N, bt).clamp(0, N - 1)
+    kd = k_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D).float()
+    vd = v_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D).float()
+    s = torch.einsum("bkgd,bksd->bkgs", q.float(), kd) / math.sqrt(D)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    pos = torch.arange(P * page, device=q.device)[None, :]
+    s = torch.where((pos < lengths[:, None].long())[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgs,bksd->bkgd", p, vd).to(q.dtype)
 
 
 # ----------------------------------------------------------------- kernel
@@ -255,3 +287,44 @@ def paged_prefill_attention(
 
 
 paged_prefill_attention.launches = 0
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, softcap: float = 0.0):
+    """Decode attention over the first ``lengths[b]`` keys of each
+    sequence's block-table pages.
+
+    q: [B, KV, G, D] (any strides with D contiguous); k/v_pages:
+    [KV, N, page, D]; block_tables: [B, P] int32 (entries at or past page
+    ``ceil(lengths[b] / page)`` are never read); lengths: [B] int32
+    -> [B, KV, G, D].
+    """
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, softcap=softcap)
+    B, KV, G, D = q.shape
+    KVp, N, page, Dp = k_pages.shape
+    _check_operands(
+        "paged_attention", q, k_pages, v_pages, (), (block_tables, lengths),
+    )
+    if (KVp, Dp) != (KV, D) or tuple(lengths.shape) != (B,) or block_tables.shape[0] != B:
+        raise ValueError("paged_attention: shape mismatch")
+    out = torch.empty((B, KV, G, D), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    qs = q.stride()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    # no in-flight keys (T = 0, null tail) and no cur_pos: the query sits at
+    # position lengths[b], so the kernel's mask is k_pos < lengths[b]
+    rc = _lib().paged_attention_forward(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), None, None, None, None, out.data_ptr(),
+        qs[0], qs[1], qs[2], 0, 0, 0, 0,
+        B, KV, G, 1, D, N, page, block_tables.shape[1], 0,
+        float(softcap), 0, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_attention: kernel launch failed (CUDA error {rc})")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

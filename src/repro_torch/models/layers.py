@@ -1,11 +1,14 @@
-"""Model building blocks on the paged serving path (PyTorch).
+"""Model building blocks on the serving paths (PyTorch).
 
 Counterparts of the JAX package's ``models/layers.py`` functions, with the
 same names, argument orders and tensor layouts.  Parameters are nested
 dicts of tensors; activations are bf16 with f32 normalisation and softmax
 statistics.  The paged attention functions hand their operands to the
-kernel wrappers in ``repro_torch.kernels.paged_attention``: a CUDA tensor
-launches the hand-written kernel, a CPU tensor takes the plain version.
+kernel wrappers in ``repro_torch.kernels.paged_attention``, and a full-length
+prefill on the card hands its attention to ``kernels.flash_attention``: a
+CUDA tensor launches the hand-written kernel, a CPU tensor takes the plain
+version.  Dense-cache decode attention (``attention_decode``) is plain
+PyTorch on either device, as the JAX package leaves it outside any kernel.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 
 DEFAULT_DTYPE = torch.bfloat16
@@ -143,6 +147,37 @@ def attention_prefill(
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
 
 
+def attention_decode(q, k_cache, v_cache, *, kv_positions, cur_pos, window: int = 0, softcap: float = 0.0):
+    """Single-step decode attention against a dense (or ring) KV cache.
+
+    q: [B, 1, H, D]; caches: [B, S_cache, KV, D]; kv_positions: [B, S_cache]
+    absolute positions of cache entries (-1 for unwritten slots);
+    cur_pos: [B] current absolute position of the query token.  The QK
+    product runs in the promoted operand type (an f32 query against the
+    bf16 cache runs in f32) and PV with the weights cast to the cache type,
+    as the JAX package's ``attention_decode`` does.
+    """
+    B, _, H, D = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(D)
+    dt = torch.promote_types(q.dtype, k_cache.dtype)
+    qg = q.reshape(B, 1, KV, G, D).permute(0, 2, 3, 1, 4)  # [B, KV, G, 1, D]
+    kb = k_cache.permute(0, 2, 1, 3)  # [B, KV, S, D]
+    vb = v_cache.permute(0, 2, 1, 3)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qg.to(dt), kb.to(dt)).float() * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    cur = cur_pos[:, None]
+    valid = (kv_positions >= 0) & (kv_positions <= cur)
+    if window:
+        valid &= cur - kv_positions < window
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bksd->bkgqd", p.to(vb.dtype), vb)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, 1, H, D).to(q.dtype)
+
+
 def paged_attention_decode(
     q, k_pages, v_pages, block_tables, prefix_len, k_tail, v_tail, tail_pos,
     cur_pos, *, window: int = 0, softcap: float = 0.0,
@@ -235,15 +270,44 @@ def attn_qkv(p, cfg, x, positions, *, use_rope: bool = True):
     return q, k, v
 
 
-def attn_prefill_layer(p, cfg, x, positions, *, use_rope=True):
-    """Full attention layer at prefill; returns (out, (k, v))."""
+def attn_prefill_layer(p, cfg, x, positions, *, use_rope=True, contiguous=False):
+    """Full attention layer at prefill; returns (out, (k, v)).
+
+    ``contiguous=True`` is the caller's statement that every row's
+    positions are ``arange(S)`` for queries and keys alike, as both
+    full-length prefills (``prefill``, ``prefill_collect``) build them.
+    On the card the attention runs in the flash-attention kernel, which
+    assumes exactly that, so a CUDA tensor needs ``contiguous=True`` and is
+    not checked (reading the positions back would wait for the device).  A
+    CPU tensor runs the plain ``attention_prefill`` over ``positions``, and
+    raises if it was told they are contiguous and they are not.
+    """
     q, k, v = attn_qkv(p, cfg, x, positions, use_rope=use_rope)
-    out = attention_prefill(
-        q, k, v, q_positions=positions, kv_positions=positions,
-        causal=True, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
-    )
+    if q.device.type == "cpu":
+        if contiguous and not torch.equal(
+            positions, torch.arange(x.shape[1]).expand_as(positions).to(positions.dtype)
+        ):
+            raise ValueError("contiguous=True, but the positions are not arange(S)")
+        out = attention_prefill(
+            q, k, v, q_positions=positions, kv_positions=positions,
+            causal=True, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
+        )
+    elif not contiguous:
+        raise ValueError("the flash-attention kernel takes positions arange(S) only")
+    else:  # [B, S, H, D] handed over as [B, H, S, D] views, no copies
+        out = fa.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
+        ).transpose(1, 2)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
     return out, (k, v)
+
+
+def decode_slot(cfg, S_cache: int, cur_pos):
+    """Cache slot written by the current decode step (ring for SWA)."""
+    if cfg.sliding_window and S_cache <= cfg.sliding_window:
+        return cur_pos % S_cache  # ring buffer
+    return torch.clamp(cur_pos, max=S_cache - 1)
 
 
 def slot_update(cache, value, slot):
@@ -253,6 +317,25 @@ def slot_update(cache, value, slot):
     hit = torch.arange(S, device=cache.device)[None, :] == slot[:, None]  # [B, S]
     hit = hit.reshape(hit.shape + (1,) * (cache.ndim - 2))
     return torch.where(hit, value.to(cache.dtype), cache)
+
+
+def attn_decode_layer(p, cfg, x, cache_k, cache_v, kv_positions, cur_pos, slot, *, use_rope=True):
+    """One-token decode; writes (k, v) at ``slot`` and attends over the cache.
+
+    x: [B, 1, d]; cache_*: [B, S_cache, KV, Dh]; kv_positions: [B, S_cache]
+    (already updated with cur_pos at slot); cur_pos, slot: [B].
+    Returns (out [B, 1, d], new_k, new_v); the input caches are unchanged.
+    """
+    B = x.shape[0]
+    q, k, v = attn_qkv(p, cfg, x, cur_pos[:, None], use_rope=use_rope)
+    new_k = slot_update(cache_k, k, slot)
+    new_v = slot_update(cache_v, v, slot)
+    out = attention_decode(
+        q, new_k, new_v, kv_positions=kv_positions, cur_pos=cur_pos,
+        window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
+    )
+    out = out.reshape(B, 1, -1) @ p["wo"]
+    return out, new_k, new_v
 
 
 def attn_paged_prefill_layer(p, cfg, x, k_pages, v_pages, block_tables, prefix_len, positions, *, use_rope=True):

@@ -1,8 +1,11 @@
-"""Model registry for the port: the dense transformer family's paged
-serving entry points behind one bundle.
+"""Model registry for the port: the dense transformer family's serving
+entry points behind one bundle.
 
 ``build_model(cfg, device=None)`` returns a ``ModelBundle`` exposing:
   - init_params(generator)                         -> params on the device
+  - prefill_fn(params, batch, cache_len)           -> (last logits, dense cache)
+  - decode_fn(params, cache, tokens, cur_pos)      -> (logits, cache)
+  - make_cache(batch, cache_len)                   -> empty dense cache on the device
   - prefill_collect_fn(params, batch)              -> (last-valid logits, k, v [L,B,S,KV,Dh])
   - paged_decode_fn(params, state, tokens, cur_pos) -> (logits, state)
   - prefill_chunk_fn(params, state, tokens, positions) -> (ck, cv) [L,B,C,KV,Dh]
@@ -25,6 +28,9 @@ class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     init_params: Callable[[torch.Generator], Any]
+    prefill_fn: Callable[..., Any]
+    decode_fn: Callable[..., Any]
+    make_cache: Callable[[int, int], Any]
     prefill_collect_fn: Callable[..., Any]
     paged_decode_fn: Callable[..., Any]
     prefill_chunk_fn: Callable[..., Any]
@@ -41,6 +47,9 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
         cfg=cfg,
         device=dev,
         init_params=lambda generator: tf_lib.init_params(cfg, generator, dev),
+        prefill_fn=partial(_call, tf_lib.prefill, cfg),
+        decode_fn=partial(_call, tf_lib.decode_step, cfg),
+        make_cache=lambda batch, cache_len: tf_lib.make_cache(cfg, batch, cache_len, device=dev),
         prefill_collect_fn=partial(_call, tf_lib.prefill_collect, cfg),
         paged_decode_fn=partial(_call, tf_lib.paged_decode_step, cfg),
         prefill_chunk_fn=partial(_call, tf_lib.prefill_chunk, cfg),

@@ -1,7 +1,9 @@
-"""Dense decoder-only transformer LM on the paged serving path (PyTorch).
+"""Dense decoder-only transformer LM on the serving paths (PyTorch).
 
 Counterpart of the JAX package's ``models/transformer.py`` for the dense
-family (qwen3-1.7b, h2o-danube-1.8b).  The layer stack keeps a leading ``L``
+family (qwen3-1.7b, h2o-danube-1.8b): the paged entry points
+(``prefill_collect``, ``prefill_chunk``, ``paged_decode_step``) and the
+dense-cache ones (``make_cache``, ``prefill``, ``decode_step``).  The layer stack keeps a leading ``L``
 axis on every parameter and runs as a Python loop over layers (the JAX
 package's ``lax.scan``).  A batch runs as one batched computation per layer:
 the paged attention kernels compute every row independently of the batch
@@ -21,10 +23,12 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import (
     DEFAULT_DTYPE,
     apply_norm,
+    attn_decode_layer,
     attn_init,
     attn_paged_decode_layer,
     attn_paged_prefill_layer,
     attn_prefill_layer,
+    decode_slot,
     embed_init,
     make_norm,
     mlp_apply,
@@ -105,8 +109,11 @@ def embed_tokens(params, cfg, tokens):
 # ---------------------------------------------------------------------------
 
 
-def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False):
-    """Run the layer stack.  x: [B, S, d] embedded inputs.
+def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
+                   contiguous: bool = False):
+    """Run the layer stack.  x: [B, S, d] embedded inputs.  ``contiguous``
+    states that ``positions`` are ``arange(S)`` in every row, which the
+    card's flash-attention kernel requires (``attn_prefill_layer``).
 
     Returns (hidden [B, S, d], cache_kv or None); cache_kv is (k, v)
     stacked [L, B, S, KV, Dh].
@@ -114,7 +121,7 @@ def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False):
     ks, vs = [], []
     for lp in layer_params(params["layers"], cfg.num_layers):
         h = apply_norm(cfg.norm, lp["ln1"], x)
-        a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions)
+        a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=contiguous)
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
         x = x + mlp_apply(lp["mlp"], h, cfg.activation)
@@ -123,6 +130,68 @@ def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False):
             vs.append(v_)
     cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
     return x, cache
+
+
+def make_cache(cfg, batch: int, cache_len: int, dtype=DEFAULT_DTYPE, device: DeviceLike = None):
+    """Dense decode cache: ``k``/``v`` [L, B, Sc, KV, Dh] and ``pos`` [B, Sc]
+    (-1 = unwritten), with ``Sc = min(cache_len, window)`` for sliding-window
+    configs (a ring).  bf16 whatever the parameters' type, as in the JAX
+    package; the int8 cache is not ported and raises.  On the card unless
+    ``device`` names the CPU."""
+    if cfg.kv_cache_dtype != "bf16":
+        raise NotImplementedError(f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported")
+    device = resolve_device(device)
+    L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    Sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+    return {
+        "pos": torch.full((batch, Sc), -1, dtype=torch.int32, device=device),
+        "k": torch.zeros((L, batch, Sc, KV, Dh), dtype=dtype, device=device),
+        "v": torch.zeros((L, batch, Sc, KV, Dh), dtype=dtype, device=device),
+    }
+
+
+def prefill(params, cfg, batch, cache_len: int):
+    """Prefill for the dense decode mode; returns (last-position logits
+    [B, V] f32, cache).  The trailing ``min(Sc, S)`` positions of the prefill
+    KV land in cache slots ``0..keep-1`` (for a prompt longer than a
+    sliding-window ring this is not the ring slot ``p % Sc`` that decode
+    later writes; the JAX package does the same)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    x, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    logits = (x[:, -1] @ unembed(cfg, params)).float()
+    cache = make_cache(cfg, B, cache_len, device=tokens.device)
+    keep = min(cache["k"].shape[2], S)
+    cache["k"][:, :, :keep] = ck[:, :, S - keep :]
+    cache["v"][:, :, :keep] = cv[:, :, S - keep :]
+    cache["pos"][:, :keep] = positions[:, S - keep :]
+    return logits, cache
+
+
+def decode_step(params, cfg, cache, tokens, cur_pos):
+    """One dense-cache decode step.  tokens, cur_pos: [B] int.  Returns
+    (logits [B, V] f32, new cache); the input cache is unchanged."""
+    x = embed_tokens(params, cfg, tokens)[:, None, :]  # [B, 1, d]
+    Sc = cache["k"].shape[2]
+    slot = decode_slot(cfg, Sc, cur_pos)
+    new_pos = slot_update(cache["pos"][..., None], cur_pos[:, None, None], slot)[..., 0]
+    ks, vs = [], []
+    for i, lp in enumerate(layer_params(params["layers"], cfg.num_layers)):
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        a, nk, nv = attn_decode_layer(
+            lp["attn"], cfg, h, cache["k"][i], cache["v"][i], new_pos, cur_pos, slot
+        )
+        x = x + a
+        h = apply_norm(cfg.norm, lp["ln2"], x)
+        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        ks.append(nk)
+        vs.append(nv)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    logits = (x[:, 0] @ unembed(cfg, params)).float()
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "pos": new_pos}
 
 
 def prefill_collect(params, cfg, batch):
@@ -135,7 +204,7 @@ def prefill_collect(params, cfg, batch):
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
-    x, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True)
+    x, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     valid_len = batch.get("valid_len")
     if valid_len is None:

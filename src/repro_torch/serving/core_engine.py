@@ -21,6 +21,9 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+import numpy as np
+import torch
+
 from repro_torch.core.claims import (
     CacheIdentity,
     ClaimMode,
@@ -37,6 +40,7 @@ from repro_torch.serving.chaos import (
 from repro_torch.serving.kv_cache import BlockPool, KVBlock, PoolExhausted
 from repro_torch.serving.metrics import MetricsRegistry
 from repro_torch.serving.offload import FailureInjectionConfig, OffloadingConnector
+from repro_torch.serving.scheduler_loop import device_sync
 from repro_torch.serving.tiers import DiskTier, HostTier
 from repro_torch.serving.transfer_queue import RetryPolicy
 
@@ -216,6 +220,7 @@ class EngineCore:
         *,
         block_size: int,
         device_blocks: int,
+        cache_len: int = 128,
         event_log: Optional[EventLog] = None,
         injection: Optional[FailureInjectionConfig] = None,
         namespace: str = "default",
@@ -231,6 +236,7 @@ class EngineCore:
         self.cfg = bundle.cfg
         self.params = params
         self.block_size = block_size
+        self.cache_len = cache_len
         self.events = event_log or EventLog()
         self.identity = CacheIdentity(
             model=self.cfg.name,
@@ -289,6 +295,9 @@ class EngineCore:
         self._req_ids = itertools.count()
         self.requests: Dict[str, Request] = {}
         self._claim_prefixes: Dict[str, Tuple[int, ...]] = {}
+        # the dense-cache step pair (the JAX package's _jitted_steps; eager)
+        self._step_prefill = lambda p, batch: bundle.prefill_fn(p, batch, cache_len)
+        self._step_decode = bundle.decode_fn
 
     # ---------------------------------------------------------------- teardown
     def close(self) -> None:
@@ -572,6 +581,43 @@ class EngineCore:
         self.events.emit(
             "request_finished", request_id=req.request_id, status="FINISHED_ERROR"
         )
+
+    # ------------------------------------------------------------ shared decode
+    def _greedy_decode_loop(self, reqs, state, logits, pos, step):
+        """Ragged batched greedy decode: ONE step per token position for the
+        whole batch.
+
+        ``step(state, tokens [B], pos [B]) -> (logits [B, V], state)`` is the
+        kind-specific transition (the dense-cache step here).  Finished rows
+        re-feed their last token at a frozen position — a no-op replay that
+        keeps the batch dense.  Each step's launch-to-result time is one
+        ``decode_step`` stage observation.
+        """
+        B = int(logits.shape[0])
+        pos = np.array(pos, np.int32)
+        max_steps = max(r.max_new_tokens for r in reqs)
+        last_tok = np.zeros(B, np.int32)
+        dev = self.device
+        for s in range(max_steps):
+            toks = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy().copy()
+            for i, r in enumerate(reqs):
+                if s < r.max_new_tokens:
+                    r.output_tokens.append(int(toks[i]))
+                    if r.first_token_ts is None:
+                        r.first_token_ts = time.monotonic()
+                    last_tok[i] = toks[i]
+                else:
+                    toks[i] = last_tok[i]
+            t0 = time.monotonic()
+            logits, state = step(
+                state, torch.from_numpy(toks).to(dev), torch.from_numpy(pos.copy()).to(dev)
+            )
+            device_sync(dev)
+            self._observe_stage("decode_step", time.monotonic() - t0)
+            for i, r in enumerate(reqs):
+                if s + 1 < r.max_new_tokens:
+                    pos[i] += 1
+        return state
 
     # ---------------------------------------------------------------- terminal
     def _release_claim_blocks(self, claims) -> None:

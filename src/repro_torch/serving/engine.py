@@ -14,7 +14,7 @@ property is the ordered, claim-scoped path:
 The claim lifecycle itself lives in ``core_engine.EngineCore``; this
 module adds what is specific to KV block chains and the execution strategy:
 
-**Paged decode (the only mode ported).**  Block payloads live in the pool's
+**Paged decode (default).**  Block payloads live in the pool's
 page store (kv_cache.BlockPool, host memory) and decode attends over them IN
 PLACE through per-request block tables (models/transformer.paged_decode_step;
 on the GPU the CUDA kernel behind kernels/paged_attention.py), reading the
@@ -23,7 +23,11 @@ ever assembled: a reused or restored block is consumed at its page slot,
 shared prefixes occupy their pages ONCE across the whole batch, and context
 length is bounded by pool pages — not by a per-request cache shape.  Only
 the in-flight tail (trailing partial block + decoded tokens) is per-request
-state.  ``decode_mode="dense"`` is not ported yet and raises.
+state.  ``decode_mode="dense"`` keeps the gather-to-dense path (the parity
+anchor): each request's prefix blocks are copied from the host page store
+into a per-request [cache_len] cache, a fresh prompt runs one full-length
+prefill (on the GPU the flash-attention kernel behind
+kernels/flash_attention.py), and decode attends that cache.
 
 **Batched prefill.**  ``run_batch`` groups fresh prompts into same-bucket
 launches (padded to the bucket length and masked by per-row valid lengths),
@@ -48,7 +52,8 @@ plus at most one in-flight prefill chunk under ``max_tokens_per_step``,
 waiting requests are admitted/restored between steps, and a request that
 completes mid-stream frees its pages immediately.  Decode rows launch
 every step — admission bursts never stall in-flight decodes behind a full
-prefill.  ``run(req)`` is ``run_batch([req])``.
+prefill.  ``run(req)`` is ``run_batch([req])``; dense mode keeps the
+phased prefill-then-decode path (parity anchor).
 
 ``prefill_chunk`` is ON BY DEFAULT (``DEFAULT_PREFILL_CHUNK``): the chunk
 graph is chunk-size-invariant (bitwise — every chunk size stores the same
@@ -63,6 +68,7 @@ restoration failure — that is the fail-closed semantics).
 """
 from __future__ import annotations
 
+import math
 import time
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
@@ -128,6 +134,7 @@ class ServingEngine(EngineCore):
         *,
         block_size: int = 8,
         device_blocks: int = 64,
+        cache_len: int = 128,
         event_log=None,
         injection: Optional[FailureInjectionConfig] = None,
         namespace: str = "default",
@@ -142,16 +149,14 @@ class ServingEngine(EngineCore):
         prefix_sharing: bool = True,
         device: DeviceLike = None,
     ):
-        if decode_mode != "paged":
-            raise NotImplementedError(
-                f"decode_mode={decode_mode!r} is not ported: the port serves the paged "
-                "path only (ROADMAP Q1, 'dense decode mode')"
-            )
+        if decode_mode not in ("paged", "dense"):
+            raise ValueError(f"decode_mode={decode_mode!r}: expected 'paged' or 'dense'")
         super().__init__(
             bundle,
             params,
             block_size=block_size,
             device_blocks=device_blocks,
+            cache_len=cache_len,
             event_log=event_log,
             injection=injection,
             namespace=namespace,
@@ -186,7 +191,7 @@ class ServingEngine(EngineCore):
         self._pages_mirror: Optional[Tuple[int, Any, Any]] = None
         # step-scheduler observability (registered unconditionally so the
         # reconcile rule step_tokens.count == |step_scheduled| holds 0==0
-        # for idle engines too)
+        # for dense/idle engines too)
         self.step_tokens = self.metrics.histogram(
             "scheduler_step_tokens",
             "tokens carried per unified scheduler step (decode+feed rows + prefill chunk)",
@@ -262,6 +267,32 @@ class ServingEngine(EngineCore):
         return self._new_request(tokens, max_new_tokens)
 
     # ------------------------------------------------------------ cache plumbing
+    def _dense_cache(self, blocks: List[KVBlock], batch: int = 1):
+        """Gather-to-dense assembly (decode_mode="dense" only): copies every
+        block payload from the host page store into row 0 of a fresh cache
+        on the engine's device.  A prefix longer than the cache (possible
+        only on a sliding-window ring) raises ValueError, as the JAX
+        package's scatter does; nothing is truncated."""
+        cache = self.bundle.make_cache(batch, self.cache_len)
+        if not blocks:
+            return cache, 0
+        k = torch.cat([b.k for b in blocks], dim=1)  # [L, n_tok, KV, Dh]
+        v = torch.cat([b.v for b in blocks], dim=1)
+        pos = np.concatenate([b.positions for b in blocks])
+        n = k.shape[1]
+        Sc = cache["k"].shape[2]
+        # on a ring, blocks stored from a long prefill hold fewer payload
+        # rows than positions, so both lengths are checked
+        if max(n, len(pos)) > Sc:
+            raise ValueError(
+                f"dense cache of {Sc} slots cannot hold a cached prefix of {len(pos)} positions"
+            )
+        dev = self.device
+        cache["k"][:, 0, :n] = k.to(dev)
+        cache["v"][:, 0, :n] = v.to(dev)
+        cache["pos"][0, : len(pos)] = torch.from_numpy(pos.astype(np.int32)).to(dev)
+        return cache, n
+
     def _device_pages(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device mirror of the host pool page store, rebuilt only when pages
         change (version-keyed).  Page frees alone never re-upload: no block
@@ -473,7 +504,7 @@ class ServingEngine(EngineCore):
         arrive unpinned and claimless (claims bind at prefill observation
         points, never retroactively), so they are ordinary eviction
         victims and a full pool skips readmission rather than evict."""
-        if not self.prefix_sharing:
+        if not (self.prefix_sharing and self.decode_mode == "paged"):
             return
         seq = tuple(req.tokens) + tuple(int(t) for t in req.output_tokens)
         self._fold_sequence_blocks(
@@ -531,16 +562,50 @@ class ServingEngine(EngineCore):
             )
             return None
 
+        # --- dense cache-shape ceiling (fail closed, not silent truncation) ---
+        # The dense path writes prefill KV into a fixed [cache_len] cache;
+        # a longer prompt would silently drop leading KV (make_cache keeps
+        # the trailing slice) and decode would overwrite the last slot.
+        # Refuse instead — the paged path has no such shape: context is
+        # bounded by pool pages (SWA rings are exempt: the window is the
+        # contract there).
+        if (
+            self.decode_mode != "paged"
+            and not self.cfg.sliding_window
+            and len(req.tokens) + req.max_new_tokens > self.cache_len
+        ):
+            req.status = "refused"
+            req.error = (
+                f"dense_cache_overflow: {len(req.tokens)} prompt + "
+                f"{req.max_new_tokens} new tokens > cache_len={self.cache_len}"
+            )
+            self.events.emit(
+                "scheduler_admission_refused",
+                request_id=req.request_id,
+                blocking_claim_ids=[],
+                conflict_action="refuse",
+                stage="cache_shape",
+                trigger="dense_cache_overflow",
+            )
+            self.fail_closed.increment("dense_cache_overflow")
+            self.events.emit(
+                "request_finished", request_id=req.request_id, status="REFUSED_ADMISSION"
+            )
+            return None
+
         # --- device-resident prefix reuse (radix descent from this
         # request's chain root) ---
         root = self._chain_root(req)
         dev_blocks = self.pool.lookup_prefix(req.tokens, self.block_size, root=root)
 
         # --- explicit active/resident conflict action (admission) ---
-        # paged: decode tokens live in the tail, not in pool pages, and
-        # already-resident blocks are shared — only missing full prompt
-        # blocks need pages
-        needed = len(req.tokens) // self.block_size - len(dev_blocks)
+        if self.decode_mode == "paged":
+            # paged: decode tokens live in the tail, not in pool pages, and
+            # already-resident blocks are shared — only missing full prompt
+            # blocks need pages
+            needed = len(req.tokens) // self.block_size - len(dev_blocks)
+        else:
+            needed = math.ceil((len(req.tokens) + req.max_new_tokens) / self.block_size)
         refusal = self.scheduler.admission_check(req, needed)
         if refusal is not None:
             req.status = "refused"
@@ -567,17 +632,19 @@ class ServingEngine(EngineCore):
             )
 
         # --- sub-block (decode-tail) reuse: the longest partial child under
-        # the full-block hit (the partial page relies on prefix_len masking
-        # past its valid length) ---
+        # the full-block hit.  Paged only — the partial page relies on
+        # prefix_len masking past its valid length; dense assembly needs
+        # contiguous full payloads. ---
         partial_tokens = 0
-        covered = len(dev_blocks) * self.block_size
-        pb = self.pool.lookup_partial(
-            dev_blocks[-1].chain if dev_blocks else root,
-            req.tokens[covered:],
-        )
-        if pb is not None:
-            partial_tokens = len(pb.tokens)
-            dev_blocks = dev_blocks + [pb]
+        if self.decode_mode == "paged":
+            covered = len(dev_blocks) * self.block_size
+            pb = self.pool.lookup_partial(
+                dev_blocks[-1].chain if dev_blocks else root,
+                req.tokens[covered:],
+            )
+            if pb is not None:
+                partial_tokens = len(pb.tokens)
+                dev_blocks = dev_blocks + [pb]
 
         req.cached_tokens = sum(len(b.tokens) for b in dev_blocks)
         if self.prefix_sharing and req.cached_tokens:
@@ -861,6 +928,67 @@ class ServingEngine(EngineCore):
             stored.append((req, blocks, n - n % self.block_size))
         return stored
 
+    # ------------------------------------------------------------- dense phase
+    def _prepare_dense(self, req: Request, dev_blocks: List[KVBlock]) -> Dict[str, Any]:
+        """Dense-assembly prefill (decode_mode="dense"): a fresh prompt runs
+        one full-length prefill; a cached prefix is gathered into a
+        contiguous per-request cache and the uncached suffix (or, for an
+        exact-prefix hit, the last prompt token) is replayed one token at a
+        time through the decode step."""
+        cached = req.cached_tokens
+        dev = self.device
+        tok = lambda t: torch.tensor([t], dtype=torch.int32, device=dev)
+        pin_chain(dev_blocks)
+        try:
+            if cached == 0:
+                t0 = time.monotonic()
+                logits, cache = self._step_prefill(
+                    self.params, {"tokens": torch.tensor([req.tokens], dtype=torch.int32, device=dev)}
+                )
+                device_sync(dev)
+                self._observe_stage("prefill", time.monotonic() - t0)
+                logits = logits[0]
+            else:
+                cache, _n = self._dense_cache(dev_blocks)
+                logits = None
+                for i, t in enumerate(req.tokens[cached:]):
+                    lg, cache = self._step_decode(self.params, cache, tok(t), tok(cached + i))
+                    logits = lg[0]
+                if logits is None:  # full prefix cached: replay last token
+                    n = len(req.tokens)
+                    lg, cache = self._step_decode(
+                        self.params, cache, tok(req.tokens[-1]), tok(n - 1)
+                    )
+                    logits = lg[0]
+            ck = cache["k"][:, 0].cpu()  # [L, Sc, KV, Dh]
+            cv = cache["v"][:, 0].cpu()
+            # dense decode owns a private cache copy, so the pins taken by
+            # the store (to protect the chain mid-store) release right away
+            unpin_chain(self._store_prefix_blocks(req, ck, cv, len(req.tokens)))
+            self._materialize_claims(
+                req, len(req.tokens) - len(req.tokens) % self.block_size
+            )
+        finally:
+            unpin_chain(dev_blocks)
+        return {"req": req, "cache": cache, "logits": logits, "pos": len(req.tokens)}
+
+    @staticmethod
+    def _stack_caches(caches: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
+        """Stack B single-request dense caches into one [B]-batched cache:
+        ``pos`` is [B, Sc] (batch axis 0); ``k``/``v`` carry the batch on
+        axis 1."""
+        return {
+            key: torch.cat([c[key] for c in caches], dim=0 if key == "pos" else 1)
+            for key in caches[0]
+        }
+
+    def _decode_dense(self, entries: List[Dict[str, Any]]) -> None:
+        reqs = [e["req"] for e in entries]
+        cache = self._stack_caches([e["cache"] for e in entries])
+        logits = torch.stack([e["logits"] for e in entries])  # [B, V]
+        step = lambda c, t, p: self._step_decode(self.params, c, t, p)
+        self._greedy_decode_loop(reqs, cache, logits, [e["pos"] for e in entries], step)
+
     # ---------------------------------------------------------------- execution
     def _refuse_allocation(self, req: Request, e: PoolExhausted) -> None:
         """Mid-prefill allocation hit protected-claim blocks: refuse THIS
@@ -895,6 +1023,9 @@ class ServingEngine(EngineCore):
         dev = self._admit_and_restore(req)
         if dev is None:
             raise RuntimeError(f"request terminated: {req.status} ({req.error})")
+        if self.decode_mode != "paged":
+            entry = self._prepare_dense(req, dev)
+            return entry["logits"].float().cpu().numpy()
         if req.cached_tokens:
             entry = self._continue_paged(req, dev)
         else:
@@ -921,7 +1052,9 @@ class ServingEngine(EngineCore):
         blocking_claim_ids are per-request, as in witness path C), and a
         launch failure terminates its rows through the fail-closed boundary
         (``_fail_closed_error``) instead of escaping with requests stranded
-        non-terminal.
+        non-terminal.  Dense mode runs phased instead: every request is
+        admitted and prefilled in turn, then one batched greedy decode runs
+        them together; its launch failure fails every row closed.
         """
         reqs = list(reqs)
         # --- expiry boundary sweep precedes scheduling; an expired claim's
@@ -935,5 +1068,31 @@ class ServingEngine(EngineCore):
             batch_size=len(reqs),
             request_ids=[r.request_id for r in reqs],
         )
-        StepLoop(self, reqs).run()
+        if self.decode_mode == "paged":
+            StepLoop(self, reqs).run()
+            return reqs
+        # --- dense mode: phased prefill-then-decode (parity anchor) ---
+        entries: List[Dict[str, Any]] = []
+        for req in reqs:
+            try:
+                dev_blocks = self._admit_and_restore(req)
+                if dev_blocks is None:
+                    continue
+                entries.append(self._prepare_dense(req, dev_blocks))
+            except PoolExhausted as e:
+                self._refuse_allocation(req, e)
+                continue
+        if entries:
+            try:
+                self._decode_dense(entries)
+            except Exception as e:  # noqa: BLE001 — launch boundary fails closed
+                reason = f"{type(e).__name__}: {e}"
+                for entry in entries:
+                    self._fail_closed_error(
+                        entry["req"], scope="decode_step",
+                        trigger="decode_launch_failure", reason=reason,
+                    )
+                return reqs
+        for entry in entries:
+            self._finish_ok(entry["req"])
         return reqs

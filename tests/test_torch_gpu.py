@@ -7,14 +7,16 @@ Run on a machine with an NVIDIA GPU and nvcc:
 Without a card every test here skips (the check happens inside the
 fixture, never at import).  Tolerances are those of tests/test_kernels.py:
 1e-5 in float32, 2e-2 in bfloat16; the page copy is exact.  Only
-``test_fully_masked_row_kernel_returns_zeros`` holds a query row with no
-valid key (the kernel returns zeros there, the dense plain version uniform
-weights; the serving path never builds one).
+``test_fully_masked_row_kernel_returns_zeros`` and
+``test_paged_attention_zero_length_kernel_returns_zeros`` hold a query row
+with no valid key (the kernels return zeros there, the dense plain versions
+uniform weights; the serving path never builds one).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_block_copy as kbc
 from repro_torch.kernels import paged_attention as pa
 
@@ -182,3 +184,141 @@ def test_fully_masked_row_kernel_returns_zeros(dev):
     torch.cuda.synchronize()
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     _close(got[1], want[1], torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,D,causal,window,softcap",
+    [
+        (1, 4, 4, 32, 32, 16, True, 0, 0.0),
+        (2, 4, 2, 64, 64, 32, True, 0, 0.0),
+        (1, 2, 1, 48, 48, 16, True, 16, 0.0),
+        (1, 2, 2, 32, 32, 16, True, 0, 30.0),
+        (2, 2, 2, 40, 72, 16, False, 0, 0.0),
+        (1, 8, 8, 128, 128, 64, True, 0, 0.0),
+        (1, 4, 2, 150, 150, 80, True, 0, 0.0),  # h2o-danube head_dim
+        (1, 16, 8, 512, 512, 128, True, 0, 0.0),  # qwen3-1.7b prefill
+        (1, 16, 8, 512, 512, 128, True, 128, 30.0),
+    ],
+)
+def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, KV, Sq, Sk, D, causal, window, softcap):
+    """q, k, v arrive as [B, H, S, D] views of [B, S, H, D] activations,
+    the layout the model hands over."""
+    rng = np.random.default_rng(0)
+    q = _t(rng.normal(size=(B, Sq, H, D)), dtype, dev).transpose(1, 2)
+    k = _t(rng.normal(size=(B, Sk, KV, D)), dtype, dev).transpose(1, 2)
+    v = _t(rng.normal(size=(B, Sk, KV, D)), dtype, dev).transpose(1, 2)
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    assert fa.flash_attention.launches == n0 + 1
+    assert got.shape == (B, H, Sq, D) and got.transpose(1, 2).is_contiguous()
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    _close(got, want, dtype)
+
+
+def test_flash_attention_kernel_contiguous_operands(dev):
+    rng = np.random.default_rng(1)
+    q, k, v = (_t(rng.normal(size=(2, 4, 40, 32)), torch.float32, dev) for _ in range(3))
+    got = fa.flash_attention(q, k, v)
+    _close(got, fa.flash_attention_ref(q, k, v), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,KV,G,D,page,P,N,softcap",
+    [
+        (2, 2, 2, 16, 8, 4, 16, 0.0),
+        (1, 4, 1, 32, 16, 3, 8, 0.0),
+        (3, 1, 8, 64, 8, 5, 32, 0.0),
+        (8, 8, 2, 128, 16, 32, 320, 0.0),  # qwen3-1.7b decode widths
+        (8, 8, 2, 128, 16, 32, 320, 30.0),
+    ],
+)
+def test_paged_attention_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, softcap):
+    rng = np.random.default_rng(2)
+    lengths = rng.integers(1, P * page + 1, (B,))
+    bt = rng.integers(0, N, (B, P))
+    for b in range(B):  # entries past the length are never read
+        bt[b, -(-lengths[b] // page):] = -7
+    args = [
+        _t(rng.normal(size=(B, KV, G, D)), dtype, dev),
+        _t(rng.normal(size=(KV, N, page, D)), dtype, dev),
+        _t(rng.normal(size=(KV, N, page, D)), dtype, dev),
+        _t(bt, dtype, dev),
+        _t(lengths, dtype, dev),
+    ]
+    n0 = pa.paged_attention.launches
+    got = pa.paged_attention(*args, softcap=softcap)
+    assert pa.paged_attention.launches == n0 + 1
+    _close(got, pa.paged_attention_ref(*args, softcap=softcap), dtype)
+
+
+def test_paged_attention_zero_length_kernel_returns_zeros(dev):
+    """A ``lengths[b] == 0`` row: the kernel feeds no key to its softmax and
+    returns zeros; the plain version (like the JAX reference) returns the
+    mean of every gathered value row."""
+    B, KV, G, D, page, P, N = 2, 2, 2, 16, 4, 3, 8
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    args = (
+        rnd(B, KV, G, D), rnd(KV, N, page, D), rnd(KV, N, page, D),
+        torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32, device=dev),
+        torch.tensor([0, 7], dtype=torch.int32, device=dev),
+    )
+    got = pa.paged_attention(*args)
+    want = pa.paged_attention_ref(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    mean = args[2][:, [1, 2, 3]].reshape(KV, P * page, D).mean(dim=1)  # [KV, D]
+    torch.testing.assert_close(want[0], mean[:, None].expand(KV, G, D), rtol=1e-5, atol=1e-5)
+    _close(got[1], want[1], torch.float32)
+
+
+def test_dense_engine_on_card_matches_cpu(dev):
+    """The reduced qwen3 dense-mode engine on the card (K5 prefill, plain
+    dense decode) against the same weights on the CPU (bf16, 3e-2)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = reduced(get_config("qwen3-1.7b"))
+    params = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+
+    def to(tree, d):
+        return {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(d)
+
+    prompt = tuple(range(300, 341))
+    logits, status = {}, {}
+    n0 = fa.flash_attention.launches
+    for d in ("cpu", dev):
+        with ServingEngine(build_model(cfg, device=d), to(params, d), block_size=4,
+                           device_blocks=64, cache_len=64, decode_mode="dense", device=d) as eng:
+            logits[str(d)] = eng.prefill_logits(prompt)
+            r = eng.run(eng.submit(prompt[:20], max_new_tokens=4))
+            status[str(d)] = (r.status, len(r.output_tokens))
+    assert fa.flash_attention.launches > n0
+    assert status[str(dev)] == status["cpu"] == ("finished", 4)
+    np.testing.assert_allclose(logits[str(dev)], logits["cpu"], rtol=3e-2, atol=3e-2)
+
+
+def test_prefill_layer_on_card_needs_contiguous_positions(dev):
+    """The card's prefill layer runs K5, which assumes arange(S) positions:
+    it refuses a call that does not state them and launches K5 for one
+    that does, matching the CPU layer over the same weights (bf16, 3e-2)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import layers as tl
+    from repro_torch.models.registry import build_model
+
+    cfg = reduced(get_config("qwen3-1.7b"))
+    p_cpu = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    p_cpu = {k: v[0] for k, v in p_cpu["layers"]["attn"].items()}
+    p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+    x = torch.randn((2, 24, cfg.d_model), generator=torch.Generator().manual_seed(1)).bfloat16()
+    pos = torch.arange(24)[None].expand(2, 24)
+    with pytest.raises(ValueError, match="arange"):
+        tl.attn_prefill_layer(p_dev, cfg, x.to(dev), pos.to(dev))
+    n0 = fa.flash_attention.launches
+    got, _ = tl.attn_prefill_layer(p_dev, cfg, x.to(dev), pos.to(dev), contiguous=True)
+    assert fa.flash_attention.launches == n0 + 1
+    want, _ = tl.attn_prefill_layer(p_cpu, cfg, x, pos, contiguous=True)
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=3e-2, atol=3e-2)

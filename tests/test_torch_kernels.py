@@ -15,8 +15,10 @@ import pytest
 import torch
 
 from repro.kernels import ops, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_block_copy as kbc
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.models.layers import attention_decode
 
 TOLS = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -213,3 +215,126 @@ def test_fully_masked_row_reproduces_reference_quirk():
     np.testing.assert_allclose(
         got[0].numpy(), np.broadcast_to(v_all.mean(axis=1)[:, None], (KV, G, D)), rtol=1e-5, atol=1e-5
     )
+
+
+FLASH_CASES = [
+    (1, 4, 4, 32, 32, 16, True, 0, 0.0),
+    (2, 4, 2, 64, 64, 32, True, 0, 0.0),  # GQA
+    (1, 2, 1, 48, 48, 16, True, 16, 0.0),  # sliding window
+    (1, 2, 2, 32, 32, 16, True, 0, 30.0),  # softcap
+    (2, 2, 2, 40, 72, 16, False, 0, 0.0),  # non-causal, ragged Sq != Sk
+    (1, 8, 8, 128, 128, 64, True, 0, 0.0),
+]
+
+
+def _flash_draws(B, H, KV, Sq, Sk, D, dtype):
+    rng = np.random.default_rng(0)
+    return [
+        _pair(rng.normal(size=shape), dtype)
+        for shape in ((B, H, Sq, D), (B, KV, Sk, D), (B, KV, Sk, D))
+    ]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,window,softcap", FLASH_CASES)
+def test_flash_attention_plain_matches_jax(dtype, B, H, KV, Sq, Sk, D, causal, window, softcap):
+    pairs = _flash_draws(B, H, KV, Sq, Sk, D, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fa.flash_attention(*[p[1] for p in pairs], **kw)
+    assert got.shape == (B, H, Sq, D) and got.dtype == TDT[dtype]
+    _close(got, ref.flash_attention_ref(*[p[0] for p in pairs], **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [FLASH_CASES[2], FLASH_CASES[4]], ids=["window", "ragged"])
+def test_flash_attention_plain_matches_pallas_interpret(dtype, case):
+    """Against the Pallas kernel itself, run in interpret mode with the
+    block sizes of tests/test_kernels.py."""
+    B, H, KV, Sq, Sk, D, causal, window, softcap = case
+    pairs = _flash_draws(B, H, KV, Sq, Sk, D, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fa.flash_attention(*[p[1] for p in pairs], **kw)
+    want = ops.flash_attention(*[p[0] for p in pairs], **kw, block_q=16, block_k=16, interpret=True)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,KV,G,D,page,P,N",
+    [
+        (2, 2, 2, 16, 8, 4, 16),
+        (1, 4, 1, 32, 16, 3, 8),
+        (3, 1, 8, 64, 8, 5, 32),
+    ],
+)
+def test_paged_attention_plain_matches_jax(dtype, B, KV, G, D, page, P, N):
+    rng = np.random.default_rng(2)
+    draws = [
+        rng.normal(size=(B, KV, G, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.integers(0, N, (B, P)),
+        rng.integers(1, P * page + 1, (B,)),
+    ]
+    pairs = [_pair(a, dtype) for a in draws]
+    got = pa.paged_attention(*[p[1] for p in pairs])
+    _close(got, ref.paged_attention_ref(*[p[0] for p in pairs]), dtype)
+    _close(got, ops.paged_attention(*[p[0] for p in pairs], interpret=True), dtype)
+
+
+def test_paged_attention_matches_dense_decode():
+    """Paged attention over a dense cache paged out == the dense decode
+    mode's ``attention_decode`` on the same data (f32, 1e-5), the property
+    of tests/test_kernels.py held inside the port."""
+    rng = np.random.default_rng(3)
+    B, KV, G, D, page, P = 2, 2, 2, 16, 8, 4
+    S, H = page * P, KV * G
+    k_dense = torch.from_numpy(rng.normal(size=(B, S, KV, D)).astype(np.float32))
+    v_dense = torch.from_numpy(rng.normal(size=(B, S, KV, D)).astype(np.float32))
+    lengths = torch.tensor([S, S // 2], dtype=torch.int32)
+    q = torch.from_numpy(rng.normal(size=(B, 1, H, D)).astype(np.float32))
+    # page n of sequence b lives at page id b*P + n
+    k_pages = k_dense.reshape(B, P, page, KV, D).permute(3, 0, 1, 2, 4).reshape(KV, B * P, page, D)
+    v_pages = v_dense.reshape(B, P, page, KV, D).permute(3, 0, 1, 2, 4).reshape(KV, B * P, page, D)
+    bt = torch.tensor([[b * P + n for n in range(P)] for b in range(B)], dtype=torch.int32)
+    out_paged = pa.paged_attention(q[:, 0].reshape(B, KV, G, D), k_pages, v_pages, bt, lengths)
+    kv_positions = torch.arange(S)[None].expand(B, S)
+    out_dense = attention_decode(q, k_dense, v_dense, kv_positions=kv_positions, cur_pos=lengths - 1)
+    np.testing.assert_allclose(
+        out_paged.reshape(B, H, D).numpy(), out_dense.reshape(B, H, D).numpy(), rtol=1e-5, atol=1e-5
+    )
+
+
+def test_paged_attention_zero_length_reproduces_reference_quirk():
+    """``lengths[b] == 0``: the reference's dense softmax over a fully
+    masked row returns the plain mean of all P * page gathered value rows;
+    the plain version reproduces it (f32, 1e-5).  The CUDA kernel returns
+    zeros (tests/test_torch_gpu.py)."""
+    rng = np.random.default_rng(12)
+    B, KV, G, D, page, P, N = 2, 2, 2, 16, 4, 3, 8
+    draws = [
+        rng.normal(size=(B, KV, G, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.integers(0, N, (B, P)),
+        np.array([0, 5], np.int32),
+    ]
+    pairs = [_pair(a, "float32") for a in draws]
+    got = pa.paged_attention(*[p[1] for p in pairs])
+    _close(got, ref.paged_attention_ref(*[p[0] for p in pairs]), "float32")
+    mean = draws[2][:, draws[3][0]].reshape(KV, P * page, D).mean(axis=1)
+    np.testing.assert_allclose(
+        got[0].numpy(), np.broadcast_to(mean[:, None], (KV, G, D)), rtol=1e-5, atol=1e-5
+    )
+
+
+def test_new_wrappers_raise_on_unsupported_devices():
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    kv = torch.empty((1, 1, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.flash_attention(q, kv, kv)
+    pages = torch.empty((1, 4, 4, 16), device="meta")
+    bt = torch.zeros((1, 1), dtype=torch.int32, device="meta")
+    ln = torch.zeros((1,), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        pa.paged_attention(torch.empty((1, 1, 2, 16), device="meta"), pages, pages, bt, ln)

@@ -160,3 +160,24 @@ def test_attention_prefill_matches():
             window=window, q_chunk=qc, kv_chunk=kc,
         )
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+@pytest.mark.parametrize("offset", [0, 5])
+def test_attn_prefill_layer_positions_contract(layer_setup, offset):
+    """The prefill layer over arange(S) or offset positions matches JAX's
+    (f32).  ``contiguous=True`` — the promise the card's flash-attention
+    kernel relies on — is accepted for arange(S) and refused otherwise."""
+    cfg, tcfg, p0 = layer_setup
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 12, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(offset, offset + 12), (2, 12)).astype(np.int32)
+    want, _ = jl.attn_prefill_layer(jax.tree.map(jnp.asarray, p0), cfg, jnp.asarray(x), jnp.asarray(pos))
+    tp, tx, tpos = params_from_jax(p0, "cpu"), torch.from_numpy(x), torch.from_numpy(pos)
+    got, _ = tl.attn_prefill_layer(tp, tcfg, tx, tpos)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    if offset:
+        with pytest.raises(ValueError, match="not arange"):
+            tl.attn_prefill_layer(tp, tcfg, tx, tpos, contiguous=True)
+    else:
+        same, _ = tl.attn_prefill_layer(tp, tcfg, tx, tpos, contiguous=True)
+        assert torch.equal(same, got)

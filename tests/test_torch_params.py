@@ -96,6 +96,9 @@ def test_entry_points_need_a_card_unless_cpu_is_asked_for(monkeypatch):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         t_tf.init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_tf.make_cache(cfg, 1, 16)
+    assert t_tf.make_cache(cfg, 1, 16, device="cpu")["k"].device.type == "cpu"
     bundle = build_model(cfg, device="cpu")
     params = bundle.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -108,7 +111,9 @@ def test_unported_modes_raise():
     cfg = t_reduced(t_get_config("qwen3-1.7b"))
     bundle = build_model(cfg, device="cpu")
     params = bundle.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="dense decode mode"):
-        ServingEngine(bundle, params, decode_mode="dense", device="cpu")
+    with pytest.raises(NotImplementedError, match="kv_cache_dtype=int8 is not ported"):
+        build_model(cfg.replace(kv_cache_dtype="int8"), device="cpu")
+    with pytest.raises(ValueError, match="decode_mode"):
+        ServingEngine(bundle, params, decode_mode="ring", device="cpu")
     with pytest.raises(NotImplementedError):
         build_model(cfg.replace(family="moe"), device="cpu")

@@ -4,13 +4,18 @@
 
 Phases, each stopping the run with a non-zero exit at its first failed check:
   1. the card's name and power limit (nvidia-smi), then the build of every
-     CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc (seconds);
+     CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc (seconds,
+     each kernel's registers, shared memory and spills), and whether the
+     flash-attention library's SASS holds tensor-core instructions;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it (seeded bf16 inputs; f32 and int32 for
      the page copy), with times of the kernel, the plain version, the
      library call where one computes the same function, and the least time
-     the card could take; plus the reduced qwen3 model served on the card
-     against the same model served on the CPU;
+     the card could take; besides, the paged decode kernel at a long-context
+     shape (8 x 2048 prefix keys) and the flash-attention kernel in float32
+     (its SIMT instantiation), each with its own bound; plus the reduced
+     qwen3 model served on the card against the same model served on the
+     CPU;
   3. full-width qwen3-1.7b (28 layers, random weights from seed 0) serving 8
      requests of 64-512 tokens in the paged mode, half of them sharing a
      256-token prefix;
@@ -19,7 +24,8 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      failure refused fail-closed, in order);
   5. the dense decode mode at full width: 6 requests in two batches (full-
      length prefills through the flash-attention kernel, then cached-prefix
-     hits gathered into the dense cache), and a prompt too long for the
+     hits gathered into the dense cache), one more request under the
+     profiler for the device busy share, and a prompt too long for the
      cache refused fail-closed;
   6. full-width cross-checks: dense (flash-attention) against paged
      (chunked-prefill kernel) prefill logits, monolithic against chunked,
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -47,6 +54,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, H100 SXM data sheet
 DENSE_CACHE_LEN = 640  # the dense mode's per-request cache at full width
 TOLS = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
 
@@ -61,7 +69,7 @@ def check(cond, msg: str) -> None:
         fail(msg)
 
 
-def time_ms(fn, calls, iters: int = 30) -> float:
+def time_ms(fn, calls, iters: int = 30, breakdown: bool = False) -> float:
     """Device time of one call: the profiler's sum of every kernel and copy
     the calls ran on the card, over ``iters`` warm calls cycling over
     ``calls`` argument sets (sized to exceed the L2 cache).  Host overhead
@@ -75,7 +83,11 @@ def time_ms(fn, calls, iters: int = 30) -> float:
         for i in range(iters):
             fn(*calls[i % len(calls)])
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages())
+    avg = [e for e in prof.key_averages() if getattr(e, "self_device_time_total", 0.0) > 0]
+    us = sum(e.self_device_time_total for e in avg)
+    if breakdown:  # each device kernel of the call, by name
+        for e in sorted(avg, key=lambda e: -e.self_device_time_total):
+            print(f"    {e.self_device_time_total / 1e3 / iters:.4f} ms  {e.key[:90]}")
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for i in range(iters):
@@ -91,8 +103,8 @@ def time_ms(fn, calls, iters: int = 30) -> float:
     return events_ms
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_BF16_FLOPS
+def bound(nbytes: float, flops: float, peak: float = H100_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -102,6 +114,19 @@ def max_err(got, want) -> float:
 
 def within(got, want, dtype) -> bool:
     return bool(torch.allclose(got.float(), want.float(), **TOLS[dtype]))
+
+
+def tensor_core_sass(lib) -> None:
+    """Count the tensor-core instructions (HGMMA for wgmma, HMMA for
+    mma.sync) in the flash-attention library's SASS."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("K5 SASS: cuobjdump not found, tensor-core instructions could not be checked")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120).stdout
+    hgmma, hmma = sass.count("HGMMA"), sass.count("HMMA")
+    print(f"K5 SASS ({lib.name}): {hgmma} HGMMA, {hmma} HMMA instructions")
+    check(hgmma + hmma > 0, "the flash-attention kernel has no tensor-core instruction")
 
 
 # --------------------------------------------------------------------- phase 2
@@ -143,7 +168,7 @@ def kernel_phase(gen_seed: int = 0):
             errs.append(e)
             print(f"K1 paged_decode window={window} softcap={softcap}: max|d|={e:.3e}")
             check(within(got, want, bf), f"K1 disagrees with its plain version ({e})")
-    ms = time_ms(lambda *a: pa.paged_decode_attention(*a), copies)
+    ms = time_ms(lambda *a: pa.paged_decode_attention(*a), copies, breakdown=True)
     plain_ms = time_ms(lambda *a: pa.paged_decode_attention_ref(*a), copies, iters=10)
     keys = (plen + t_used).double()
     nbytes = (2 * W * KV * G * D * 2 + 2 * float(plen.sum()) * KV * D * 2
@@ -151,10 +176,11 @@ def kernel_phase(gen_seed: int = 0):
     flops = 4.0 * float(keys.sum()) * KV * G * D
     b_ms, b_by = bound(nbytes, flops)
     results["paged_decode_attention"] = dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
         replaces="src/repro/kernels/paged_attention.py:405", max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
+    long_context_decode_check(dev, rnd, gen_seed)
 
     # ---- K2: chunked prefill, B=4, C=32, same heads
     B, C = 4, 32
@@ -227,6 +253,44 @@ def kernel_phase(gen_seed: int = 0):
     return results
 
 
+def long_context_decode_check(dev, rnd, gen_seed):
+    """K1 at a long-context shape: W=8 sequences of 2048 prefix keys each
+    (KV=8, G=2, D=128, page=16, a 1024-page pool of 67 MB of bf16 K/V per
+    copy), tails of 1-24 slots; timed over 3 copies so no launch runs from
+    L2."""
+    from repro_torch.kernels import paged_attention as pa
+
+    W, KV, G, D, page, T, L = 8, 8, 2, 128, 16, 24, 2048
+    P = L // page
+    N = W * P
+    plen = torch.full((W,), L, dtype=torch.int32)
+    t_used = torch.tensor([1, 24, 5, 17, 9, 24, 2, 13], dtype=torch.int32)
+    bt = torch.randperm(N, generator=torch.Generator().manual_seed(gen_seed + 2)).reshape(W, P)
+    tail_pos = torch.full((W, T), -1, dtype=torch.int32)
+    for b in range(W):
+        tail_pos[b, : t_used[b]] = L + torch.arange(int(t_used[b]), dtype=torch.int32)
+    copies = [(rnd(W, KV, G, D), rnd(KV, N, page, D), rnd(KV, N, page, D), bt.to(torch.int32).to(dev),
+               plen.to(dev), rnd(W, KV, T, D), rnd(W, KV, T, D), tail_pos.to(dev),
+               (plen + t_used - 1).to(dev)) for _ in range(3)]
+    errs = []
+    for window, softcap in ((0, 0.0), (1000, 30.0)):
+        got = pa.paged_decode_attention(*copies[0], softcap=softcap, window=window)
+        want = pa.paged_decode_attention_ref(*copies[0], softcap=softcap, window=window)
+        torch.cuda.synchronize()
+        errs.append(max_err(got, want))
+        print(f"K1 long context window={window} softcap={softcap}: max|d|={errs[-1]:.3e}")
+        check(within(got, want, torch.bfloat16), f"K1 long context disagrees ({errs[-1]})")
+    ms = time_ms(lambda *a: pa.paged_decode_attention(*a), copies, breakdown=True)
+    plain_ms = time_ms(lambda *a: pa.paged_decode_attention_ref(*a), copies, iters=6)
+    keys = float((plen + t_used).sum())
+    nbytes = (2 * W * KV * G * D * 2 + 2 * float(plen.sum()) * KV * D * 2
+              + 2 * W * KV * T * D * 2 + (W * P + 2 * W + W * T) * 4)
+    b_ms, b_by = bound(nbytes, 4.0 * keys * KV * G * D)
+    print(f"K1 long context (8 x {L} keys + tail): {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of the bound, "
+          f"{nbytes / ms / 1e6:.0f} GB/s), max|d|={max(errs):.3e}")
+
+
 def flash_kernel_check(dev, g, rnd):
     """K5 at the serving shape of qwen3-1.7b's full-length prefill (B=1,
     16 query heads over 8 kv heads, S=512, D=128, bf16, causal) with every
@@ -253,7 +317,7 @@ def flash_kernel_check(dev, g, rnd):
               f"softcap={softcap}: max|d|={e:.3e}")
         check(within(got, want, bf), f"K5 disagrees with its plain version ({e})")
     copies = [(act(B, S, H, D), act(B, S, KV, D), act(B, S, KV, D)) for _ in range(16)]
-    ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), copies)
+    ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), copies, breakdown=True)
     plain_ms = time_ms(lambda q, k, v: fa.flash_attention_ref(q, k, v), copies, iters=10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
@@ -270,6 +334,24 @@ def flash_kernel_check(dev, g, rnd):
     nbytes = 2.0 * (2 * B * H * S * D + 2 * B * KV * S * D)  # q, out, k, v in bf16
     flops = 4.0 * B * H * D * S * (S + 1) / 2  # the causal pairs this input attends
     b_ms, b_by = bound(nbytes, flops)
+    print(f"K5 bf16 (tensor cores) {ms:.4f} ms vs scaled_dot_product_attention {library_ms:.4f} ms "
+          f"({ms / library_ms:.2f}x), plain {plain_ms:.4f} ms")
+
+    # float32 runs the SIMT instantiation (1e-5 against the plain version)
+    f32 = [tuple(t.float() for t in c) for c in copies[:8]]
+    errs32 = []
+    for causal, window, softcap in ((True, 0, 0.0), (True, 128, 30.0), (False, 0, 0.0)):
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = fa.flash_attention(*f32[0], **kw)
+        want = fa.flash_attention_ref(*f32[0], **kw)
+        torch.cuda.synchronize()
+        errs32.append(max_err(got, want))
+        check(within(got, want, torch.float32), f"K5 float32 disagrees ({errs32[-1]})")
+    ms32 = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), f32)
+    plain32 = time_ms(lambda q, k, v: fa.flash_attention_ref(q, k, v), f32, iters=10)
+    b32, by32 = bound(2 * nbytes, flops, H100_F32_FLOPS)  # f32 FMAs on the CUDA cores
+    print(f"K5 float32 (SIMT) at the serving shape: {ms32:.4f} ms (plain {plain32:.4f} ms, bound "
+          f"{b32:.4f} ms by {by32}), max|d|={max(errs32):.3e} over causal/window+softcap/non-causal")
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:98", max_abs_err=max(errs),
@@ -306,7 +388,7 @@ def paged_attention_kernel_check(dev, rnd, perm):
     nbytes = 2 * W * KV * G * D * 2 + 2 * keys * KV * D * 2 + (W * P + W) * 4
     b_ms, b_by = bound(nbytes, 4.0 * keys * KV * G * D)
     return dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
         replaces="src/repro/kernels/paged_attention.py:87", max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
@@ -472,6 +554,19 @@ def dense_phase(bundle, params, cfg):
           f"{stage['decode_step']:.3f} s ({len(eng.stage_seconds.samples(stage='decode_step'))} "
           f"steps) + other host work (cache gather, replayed tokens, page stores) "
           f"{wall - sum(stage.values()):.3f} s")
+    # one more request under the profiler: how busy the card is on this path
+    extra = eng.submit(fresh(150), max_new_tokens=8)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.monotonic()
+        eng.run_batch([extra])
+        torch.cuda.synchronize()
+        w = time.monotonic() - t
+    check(extra.status == "finished", f"dense profiled request {extra.status}")
+    avg = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in avg) / 1e6
+    print(f"dense profiled request (150-token prompt, 8 new tokens): wall {w:.3f} s, device busy "
+          f"{busy:.3f} s ({100 * busy / w:.1f}%), {sum(e.count for e in avg)} device ops")
     over = eng.submit(fresh(600), max_new_tokens=64)
     eng.run_batch([over])
     check(over.status == "refused" and over.error.startswith("dense_cache_overflow"),
@@ -698,8 +793,11 @@ def main() -> None:
     for name in build.SOURCES:
         log = (build.BUILD_DIR / f"{name}.log").read_text()
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line:
+                print(f"  {name}: {line.split(chr(39))[1] if chr(39) in line else line.strip()}")
+            elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    tensor_core_sass(build.library_path("flash_attention"))
 
     kernels = kernel_phase()
     reduced_parity_phase()

@@ -1,9 +1,10 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and compiles on
-its own into ``build/kernels/<name>-<sha>.so`` at the repository root (the
-digest of the source keys the file, so an edited source never loads a stale
-library).  Nothing is compiled when a module is imported: the first wrapper
+its own into ``build/kernels/<name>-<sha>.so`` at the repository root.  The
+digest covers the source, every header of ``csrc/`` it includes (followed
+through the headers' own includes) and the nvcc flags, so an edited source,
+header or flag never loads a stale library.  Nothing is compiled when a module is imported: the first wrapper
 call that launches a kernel builds its library, and ``build_all`` compiles
 every source at once, one nvcc process per source running side by side.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -23,7 +25,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
-SOURCES = ("paged_attention", "kv_block_copy", "flash_attention")
+SOURCES = ("paged_attention", "paged_decode", "kv_block_copy", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -40,9 +42,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _local_files(path: Path, seen: Dict[Path, bytes]) -> None:
+    """``path`` and every ``#include "..."`` it reaches under ``csrc/``."""
+    if path in seen:
+        return
+    text = path.read_bytes()
+    seen[path] = text
+    for inc in _INCLUDE.findall(text):
+        dep = (path.parent / inc.decode()).resolve()
+        if not dep.is_file():
+            raise RuntimeError(f"{path.name} includes {inc.decode()}, which is not in {CSRC}")
+        _local_files(dep, seen)
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    files: Dict[Path, bytes] = {}
+    _local_files(CSRC / f"{name}.cu", files)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(files):
+        h.update(path.name.encode() + b"\0" + files[path])
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def compile_source(name: str) -> Path:

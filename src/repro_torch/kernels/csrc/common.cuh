@@ -1,0 +1,36 @@
+// Element conversions shared by the attention kernels of this directory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro_kernels {
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// 16 bytes of T -> 16 / sizeof(T) floats
+template <typename T>
+__device__ __forceinline__ void unpack16(float* dst, const uint4& u) {
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < int(16 / sizeof(T)); ++i) dst[i] = to_f<T>(e[i]);
+}
+
+}  // namespace repro_kernels

@@ -5,52 +5,72 @@
 // repeated in memory), top-left causal alignment (q_pos = row, k_pos = col,
 // also when Sq != Sk), a sliding window (q_pos - k_pos < window), tanh
 // soft-capping applied before the mask, and masking of the ragged key edge
-// (k_pos < Sk).  q, k and v are upcast to f32 before both products; the
-// softmax statistics and the accumulator are f32, and the output is
-// acc / max(l, 1e-30) cast to q's type.
+// (k_pos < Sk).  The softmax statistics and the accumulator are f32, and the
+// output is acc / max(l, 1e-30) cast to q's type.  Operands are addressed by
+// strides (the head dimension contiguous), so the model hands over
+// [B, S, H, D] activations as [B, H, S, D] views without a copy, and the
+// output is written through strides too.
 //
-// Design.  The Pallas grid's sequential kv axis becomes a loop inside one
-// CTA: one CTA per (64-row query tile, query head, sequence) walks 64-key
-// tiles, with the online-softmax state in registers.  256 threads form a
-// 16 x 16 grid; thread (ty, tx) owns query rows ty + 16 i (i < 4), for the
-// scores keys tx + 16 j (j < 4) of the tile, and for the output columns
-// tx + 16 c (c < 8) of its rows.  The 16 threads that share a row sit in one
-// half-warp, so the row max is a 4-step shuffle and the rescale factor of a
-// row is known to every thread that holds its accumulator; the running sum
-// is kept per thread and reduced once at the end.  Q, K and V tiles live in
-// shared memory as f32 with an odd row stride (D + 1), so the 16 different
-// key rows a half-warp reads hit 16 different banks; the tile's
-// unnormalised weights go through shared memory to the PV product.  Key
-// tiles wholly outside the causal range or before the window of every row
-// of the CTA are never loaded.  Operands are addressed by strides (the head
-// dimension contiguous), so the model hands over [B, S, H, D] activations
-// as [B, H, S, D] views without a copy, and the output is written through
-// strides too.
+// Two kernels, chosen by dtype (not a fallback: each takes only its type):
 //
-// What bounds it on the card: at the serving shape (S = 512, D = 128, 16
-// query heads over 8 kv heads, causal) the call does 4 * S^2 / 2 * D FLOPs
-// per query head and moves q, k, v and the output once: about 170 FLOPs per
-// byte, under the H100's bf16 ridge (~295), so its roofline bound is bytes.
-// This kernel runs both products on the f32 CUDA cores (67 TFLOP/s, not the
-// tensor cores), where the same FLOPs take ~16 us: operations bound it.
-// Left for later: wgmma for QK^T and PV, TMA tile loads in a ring of
-// stages, and sharing one K/V tile across the G query heads of a kv head.
+// * bfloat16, the serving dtype: tc_flash_kernel, on the tensor cores.
+//   What bounds it: at the serving shape (S = 512, D = 128, 16 query heads
+//   over 8 kv heads, causal) the call does 4 * S^2 / 2 * D FLOPs per query
+//   head and moves q, k, v and the output once, about 170 FLOPs per byte,
+//   under the H100's bf16 ridge (~295): bytes bound it, and at this size
+//   the latency of the longest CTA (the last causal q tile walks every key
+//   tile) sets its time.  Design: one CTA of two warpgroups (8 warps) per
+//   (64 stacked rows, kv head, sequence).  The stacked rows are the (query,
+//   head) pairs of the kv head's G query heads, query-major (row s = q * G +
+//   g), so one K/V tile serves every query head of its group and is loaded
+//   once.  Both warpgroups hold the same 64 rows (16 per warp) and take
+//   alternate 64-key tiles, each with its own online softmax, so the last
+//   causal q tile walks half its keys per warpgroup; at the end warpgroup 1
+//   hands its (m, l, acc) to warpgroup 0 through shared memory, which merges
+//   and writes.  QK^T and PV run as mma.sync.m16n8k16 bf16 with f32
+//   accumulators, A and B fragments read from swizzled shared memory by
+//   ldmatrix (V with .trans, since it is key-major), each k-step's fragments
+//   loaded before its independent mma chains, and P goes from the score
+//   accumulators to A fragments in registers, rounded to bf16 (<= 2^-9
+//   relative per weight; the reference keeps p in f32, so the card tests
+//   hold it at the bf16 tolerance).  Each warpgroup streams its K/V tiles
+//   through its own ring of 2 shared-memory stages by cp.async (16 bytes per
+//   thread per copy, zero-filled past the key edge), so its next tile is in
+//   flight while the current one is computed.  The q tiles of a causal call
+//   are scheduled heaviest first; key tiles wholly outside the causal/window
+//   range of every row of the CTA are never loaded, and the per-element mask
+//   runs only on the diagonal, window-edge and ragged tiles.  D is any multiple of 16 up to
+//   128; the shared tiles are padded to 16, 32, 64 or 128 columns with
+//   zeros (80 runs as 128).  Left for later: wgmma with TMA tile loads and
+//   warp specialisation (this kernel uses the Ampere-style mma.sync path).
+//
+// * float32 (the card tests' 1e-5 checks, which no bf16 or TF32 tensor-core
+//   product meets): flash_attention_kernel, the SIMT kernel of the first
+//   port.  One CTA per (64-row query tile, query head, sequence) walks 64-key
+//   tiles with the online-softmax state in registers; 256 threads form a
+//   16 x 16 grid; thread (ty, tx) owns query rows ty + 16 i (i < 4), for the
+//   scores keys tx + 16 j (j < 4) of the tile, and for the output columns
+//   tx + 16 c (c < 8) of its rows.  Q, K and V tiles live in shared memory as
+//   f32 with an odd row stride (D + 1); both products are f32 FMAs.
 //
 // A query row with no valid key at all (only possible with Sq > Sk under a
-// causal window, or Sk = 0) yields zeros; the dense reference spreads
-// uniform weights over such a row instead.  The model never builds one.
+// causal window, or Sk = 0) yields zeros in both kernels; the dense
+// reference spreads uniform weights over such a row instead.  The model
+// never builds one.
 //
-// The kernel allocates nothing and does not synchronise; the caller passes
+// The kernels allocate nothing and do not synchronise; the caller passes
 // the stream and checks the returned cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <atomic>
 
+#include "common.cuh"
+
 namespace {
+
+using repro_kernels::from_f;
+using repro_kernels::to_f;
 
 constexpr int kThreads = 256;
 constexpr int kSide = 16;              // the 16 x 16 thread grid
@@ -74,24 +94,6 @@ struct Params {
   int causal, window;
   float sm_scale, softcap;
 };
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 // Rows [row0, row0 + kTile) of one head -> f32 shared memory with row
 // stride ld, by 16-byte vector loads; rows at or past n_rows are zeros.
@@ -244,41 +246,426 @@ size_t smem_bytes(int D) {
   return sizeof(float) * (size_t)(3 * kTile * (D + 1) + kTile * kPs);
 }
 
+// ---------------------------------------------------------------- bfloat16
+
+constexpr int kTcWarps = 4;                         // warps per warpgroup, 16 rows each
+constexpr int kTcRows = 16 * kTcWarps;              // stacked (query, head) rows per CTA
+constexpr int kGroupThreads = 32 * kTcWarps;        // one warpgroup
+constexpr int kTcGroups = 2;                        // warpgroups, alternate key tiles
+constexpr int kTcThreads = kTcGroups * kGroupThreads;
+constexpr int kTcKeys = 64;                         // keys per K/V tile
+constexpr int kStages = 2;                          // K/V tiles in flight per warpgroup
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+template <int DP>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(bf16) * (size_t)(kTcRows + 2 * kTcGroups * kStages * kTcKeys) * DP;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return (uint32_t)__cvta_generic_to_shared(ptr);
+}
+
+// Element offset of 16-byte chunk c of row r in a [rows][DP] bf16 tile.
+// Chunks are XOR-swizzled by row, so the 8 rows one ldmatrix reads at the
+// same logical chunk land in different banks.
+template <int DP>
+__device__ __forceinline__ int swz(int r, int c) {
+  constexpr int kChunks = DP / 8;
+  constexpr int kMask = (kChunks < 8 ? kChunks : 8) - 1;
+  return r * DP + ((c ^ (r & kMask)) << 3);
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                          uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sum
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// a score in log2 units: s * scale * log2(e), or with soft-capping
+// cap * tanh(s * scale / cap) * log2(e); a and b are precomputed per launch
+template <bool kSoftcap>
+__device__ __forceinline__ float score_log2(float s, float a, float b) {
+  return kSoftcap ? b * tanhf(s * a) : s * a;
+}
+
+// barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void group_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "n"(kGroupThreads) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// keys [k0, k0 + kTcKeys) of one kv head -> a swizzled [kTcKeys][DP] tile;
+// keys at or past kend and columns at or past D are zeros
+// (by the 128 threads of one warpgroup, gtid = thread index in the group)
+template <int DP>
+__device__ __forceinline__ void load_kv_tile(bf16* dst, const bf16* base, long long stride, int k0,
+                                             int kend, int nch, int gtid) {
+  constexpr int kChunks = DP / 8;
+#pragma unroll
+  for (int i = gtid; i < kTcKeys * kChunks; i += kGroupThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = k0 + r < kend && c < nch;
+    const bf16* src = ok ? base + (long long)(k0 + r) * stride + c * 8 : base;
+    cp_async16(smem_u32(dst + swz<DP>(r, c)), src, ok);
+  }
+}
+
+template <int DP, bool kSoftcap>
+__global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  constexpr int kChunks = DP / 8;
+  constexpr int kKSteps = DP / 16;      // k-steps of QK^T
+  constexpr int kDBlocks = DP / 8;      // 8-column blocks of the output
+  constexpr int kNB = kTcKeys / 8;      // 8-key blocks of the scores
+  constexpr int kTile = kTcKeys * DP;   // elements of one K or V stage
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [kTcRows][DP]
+  bf16* kv_smem = qs + kTcRows * DP;             // K then V: [kTcGroups][kStages][kTcKeys][DP]
+
+  const int G = p.H / p.KV;
+  const int nrows = G * p.Sq;  // stacked rows s = q * G + g of this kv head
+  const int tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // heaviest first
+  const int s0 = tile * kTcRows;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int nch = p.D / 8;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & (kTcWarps - 1);
+  const int grp = threadIdx.x / kGroupThreads, gtid = threadIdx.x % kGroupThreads;
+  bf16* ks = kv_smem + grp * kStages * kTile;
+  bf16* vs = kv_smem + (kTcGroups + grp) * kStages * kTile;
+
+  // keys any row of this CTA can attend: [kbeg, kend); warpgroup grp takes
+  // key tiles grp, grp + 2, ...
+  const int qlo = s0 / G, qhi = (min(s0 + kTcRows, nrows) - 1) / G;
+  int kend = p.Sk;
+  if (p.causal) kend = min(kend, qhi + 1);
+  const int kbeg = p.window > 0 ? max(0, qlo - p.window + 1) : 0;
+  const int n_tiles = kend > kbeg ? (kend - kbeg + kTcKeys - 1) / kTcKeys : 0;
+  const int my_tiles = n_tiles > grp ? (n_tiles - grp + kTcGroups - 1) / kTcGroups : 0;
+
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb;
+  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  auto tile_k0 = [&](int u) { return kbeg + (grp + kTcGroups * u) * kTcKeys; };
+
+  // this lane's two rows of the warp's 16: ra (accumulator slots 0, 1), rb (2, 3)
+  const int ra = s0 + 16 * warp + (lane >> 2), rb = ra + 8;
+  const int qpa = ra / G, qpb = rb / G;
+  const float sa = kSoftcap ? p.sm_scale / p.softcap : p.sm_scale * kLog2e;
+  const float sb = p.softcap * kLog2e;
+
+  float acc[kDBlocks][4];
+#pragma unroll
+  for (int n = 0; n < kDBlocks; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // m in log2 units
+  uint32_t qf[kKSteps][4];
+
+  if (n_tiles > 0) {
+    // commit group u holds this thread's copies of the group's tile u (group
+    // 0 also its share of Q); one group is committed per tile, empty or not
+#pragma unroll
+    for (int i = threadIdx.x; i < kTcRows * kChunks; i += kTcThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const int srow = s0 + r;
+      const bool ok = srow < nrows && c < nch;
+      const bf16* src = qb;
+      if (ok) {
+        const int qp = srow / G, h = kvh * G + srow % G;
+        src = qb + h * p.q_sh + (long long)qp * p.q_ss + c * 8;
+      }
+      cp_async16(smem_u32(qs + swz<DP>(r, c)), src, ok);
+    }
+    for (int u = 0; u < kStages; ++u) {
+      if (u < my_tiles) {
+        load_kv_tile<DP>(ks + u * kTile, kb, p.k_ss, tile_k0(u), kend, nch, gtid);
+        load_kv_tile<DP>(vs + u * kTile, vb, p.v_ss, tile_k0(u), kend, nch, gtid);
+      }
+      cp_async_commit();
+    }
+    cp_async_wait<kStages - 1>();
+    __syncthreads();  // Q and each warpgroup's first tile are in shared memory
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk)
+      ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), qf[kk][0],
+              qf[kk][1], qf[kk][2], qf[kk][3]);
+  }
+
+  for (int u = 0; u < my_tiles; ++u) {
+    const int k0 = tile_k0(u);
+    const int st = u % kStages;
+    if (u > 0) {
+      cp_async_wait<kStages - 1>();
+      group_sync(grp);
+    }
+    const bf16* kt = ks + st * kTile;
+    const bf16* vt = vs + st * kTile;
+
+    // S = Q K^T over this tile's 64 keys: per k-step, the K fragments of all
+    // 8 key blocks are loaded first, then 8 independent mma chains run
+    float sc[kNB][4];
+#pragma unroll
+    for (int j = 0; j < kNB; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t kf[kNB / 2][4];
+#pragma unroll
+      for (int jp = 0; jp < kNB / 2; ++jp) {
+        const int key = 16 * jp + (lane & 7) + ((lane >> 4) << 3);
+        ldsm_x4(smem_u32(kt + swz<DP>(key, 2 * kk + ((lane >> 3) & 1))), kf[jp][0], kf[jp][1],
+                kf[jp][2], kf[jp][3]);
+      }
+#pragma unroll
+      for (int jp = 0; jp < kNB / 2; ++jp) {
+        mma_bf16(sc[2 * jp], qf[kk], kf[jp][0], kf[jp][1]);
+        mma_bf16(sc[2 * jp + 1], qf[kk], kf[jp][2], kf[jp][3]);
+      }
+    }
+
+    // scale and soft-cap into log2 units, then mask (diagonal, window-edge
+    // and ragged tiles only); both choices are made outside the element loop
+    const bool edge = k0 + kTcKeys > p.Sk || (p.causal && k0 + kTcKeys - 1 > qlo) ||
+                      (p.window > 0 && qhi - k0 >= p.window);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < kNB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+          const int qp = e < 2 ? qpa : qpb;
+          bool valid = key < p.Sk;
+          if (p.causal) valid = valid && key <= qp;
+          if (p.window > 0) valid = valid && qp - key < p.window;
+          sc[j][e] = valid ? score_log2<kSoftcap>(sc[j][e], sa, sb) : -INFINITY;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = score_log2<kSoftcap>(sc[j][e], sa, sb);
+    }
+#pragma unroll
+    for (int j = 0; j < kNB; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[j][0], sc[j][1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[j][2], sc[j][3]));
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float corr_a = exp2f(m_a - base_a), corr_b = exp2f(m_b - base_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNB; ++j) {
+      sc[j][0] = exp2f(sc[j][0] - base_a);
+      sc[j][1] = exp2f(sc[j][1] - base_a);
+      sc[j][2] = exp2f(sc[j][2] - base_b);
+      sc[j][3] = exp2f(sc[j][3] - base_b);
+      sum_a += sc[j][0] + sc[j][1];
+      sum_b += sc[j][2] + sc[j][3];
+    }
+    l_a = l_a * corr_a + sum_a;  // this lane's columns; reduced at the end
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < kDBlocks; ++n) {
+      acc[n][0] *= corr_a;
+      acc[n][1] *= corr_a;
+      acc[n][2] *= corr_b;
+      acc[n][3] *= corr_b;
+    }
+
+    // O += P V, P rounded to bf16 straight from the score accumulators; the
+    // V fragments of a 16-key step are loaded before its mma chains
+#pragma unroll
+    for (int kt16 = 0; kt16 < kTcKeys / 16; ++kt16) {
+      uint32_t a[4];
+      a[0] = pack_bf16(sc[2 * kt16][0], sc[2 * kt16][1]);
+      a[1] = pack_bf16(sc[2 * kt16][2], sc[2 * kt16][3]);
+      a[2] = pack_bf16(sc[2 * kt16 + 1][0], sc[2 * kt16 + 1][1]);
+      a[3] = pack_bf16(sc[2 * kt16 + 1][2], sc[2 * kt16 + 1][3]);
+      const int key = 16 * kt16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+      uint32_t vf[kDBlocks / 2][4];
+#pragma unroll
+      for (int dp = 0; dp < kDBlocks / 2; ++dp)
+        ldsm_x4_t(smem_u32(vt + swz<DP>(key, 2 * dp + (lane >> 4))), vf[dp][0], vf[dp][1],
+                  vf[dp][2], vf[dp][3]);
+#pragma unroll
+      for (int dp = 0; dp < kDBlocks / 2; ++dp) {
+        mma_bf16(acc[2 * dp], a, vf[dp][0], vf[dp][1]);
+        mma_bf16(acc[2 * dp + 1], a, vf[dp][2], vf[dp][3]);
+      }
+    }
+    group_sync(grp);  // this stage is read: refill it with tile u + kStages
+    if (u + kStages < my_tiles) {
+      load_kv_tile<DP>(ks + st * kTile, kb, p.k_ss, tile_k0(u + kStages), kend, nch, gtid);
+      load_kv_tile<DP>(vs + st * kTile, vb, p.v_ss, tile_k0(u + kStages), kend, nch, gtid);
+    }
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o);
+  }
+  // warpgroup 1 hands (m, l, acc) to warpgroup 0 through the K/V stages,
+  // slot [register][thread] so the 32 lanes of a warp hit 32 banks
+  constexpr int kRegs = 4 * kDBlocks + 4;
+  static_assert(kRegs * kGroupThreads * sizeof(float) <= 2 * kTcGroups * kStages * kTile * sizeof(bf16),
+                "the hand-over must fit in the K/V stages");
+  float* red = reinterpret_cast<float*>(kv_smem);
+  cp_async_wait<0>();
+  __syncthreads();  // every stage is read
+  if (grp == 1) {
+#pragma unroll
+    for (int n = 0; n < kDBlocks; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(4 * n + e) * kGroupThreads + gtid] = acc[n][e];
+    red[(kRegs - 4) * kGroupThreads + gtid] = m_a;
+    red[(kRegs - 3) * kGroupThreads + gtid] = m_b;
+    red[(kRegs - 2) * kGroupThreads + gtid] = l_a;
+    red[(kRegs - 1) * kGroupThreads + gtid] = l_b;
+  }
+  __syncthreads();
+  if (grp == 1) return;
+  const float om_a = red[(kRegs - 4) * kGroupThreads + gtid];
+  const float om_b = red[(kRegs - 3) * kGroupThreads + gtid];
+  const float mn_a = fmaxf(m_a, om_a), mn_b = fmaxf(m_b, om_b);
+  const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+  const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+  const float c0a = exp2f(m_a - base_a), c1a = exp2f(om_a - base_a);
+  const float c0b = exp2f(m_b - base_b), c1b = exp2f(om_b - base_b);
+  l_a = l_a * c0a + red[(kRegs - 2) * kGroupThreads + gtid] * c1a;
+  l_b = l_b * c0b + red[(kRegs - 1) * kGroupThreads + gtid] * c1b;
+#pragma unroll
+  for (int n = 0; n < kDBlocks; ++n) {
+    acc[n][0] = acc[n][0] * c0a + red[(4 * n + 0) * kGroupThreads + gtid] * c1a;
+    acc[n][1] = acc[n][1] * c0a + red[(4 * n + 1) * kGroupThreads + gtid] * c1a;
+    acc[n][2] = acc[n][2] * c0b + red[(4 * n + 2) * kGroupThreads + gtid] * c1b;
+    acc[n][3] = acc[n][3] * c0b + red[(4 * n + 3) * kGroupThreads + gtid] * c1b;
+  }
+
+  const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  bf16* ob = static_cast<bf16*>(p.out) + b * p.o_sb;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = half ? rb : ra;
+    if (r >= nrows) continue;
+    const float inv = half ? inv_b : inv_a;
+    bf16* orow = ob + (kvh * G + r % G) * p.o_sh + (long long)(r / G) * p.o_ss;
+#pragma unroll
+    for (int n = 0; n < kDBlocks; ++n) {
+      const int d = 8 * n + 2 * (lane & 3);
+      if (d < p.D)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+            __floats2bfloat162_rn(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
+    }
+  }
+}
+
 constexpr int kMaxDevices = 64;
 
-// Raises the dynamic shared-memory limit of one instantiation to what the
-// largest head dim needs, once per device rather than before every launch.
-template <typename T>
-cudaError_t allow_max_smem() {
+// Raises the dynamic shared-memory limit of one kernel (Tag names it) once
+// per device rather than before every launch.
+template <typename Tag>
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
   static std::atomic<bool> done[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   const bool known = dev >= 0 && dev < kMaxDevices;
   if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(flash_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes(kMaxD));
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess && known) done[dev].store(true, std::memory_order_release);
   return err;
 }
 
-template <typename T>
-int launch(const Params& p, int B, cudaStream_t s) {
-  const size_t smem = smem_bytes(p.D);
-  cudaError_t err = allow_max_smem<T>();
+template <int DP, bool kSoftcap>
+struct TcTag {};
+
+int launch_f32(const Params& p, int B, cudaStream_t s) {
+  cudaError_t err = allow_smem<float>((const void*)flash_attention_kernel<float>, smem_bytes(kMaxD));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.Sq + kTile - 1) / kTile, p.H, B);
-  flash_attention_kernel<T><<<grid, kThreads, smem, s>>>(p);
+  flash_attention_kernel<float><<<grid, kThreads, smem_bytes(p.D), s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int DP, bool kSoftcap>
+int launch_tc(const Params& p, int B, cudaStream_t s) {
+  constexpr size_t smem = tc_smem_bytes<DP>();
+  cudaError_t err =
+      allow_smem<TcTag<DP, kSoftcap>>((const void*)tc_flash_kernel<DP, kSoftcap>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int rows = (p.H / p.KV) * p.Sq;
+  dim3 grid((rows + kTcRows - 1) / kTcRows, p.KV, B);
+  tc_flash_kernel<DP, kSoftcap><<<grid, kTcThreads, smem, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+int launch_tc(const Params& p, int B, cudaStream_t s) {
+  return p.softcap > 0.f ? launch_tc<DP, true>(p, B, s) : launch_tc<DP, false>(p, B, s);
+}
+
+int launch_bf16(const Params& p, int B, cudaStream_t s) {
+  if (p.D % 16) return (int)cudaErrorInvalidValue;
+  if (p.D <= 16) return launch_tc<16>(p, B, s);
+  if (p.D <= 32) return launch_tc<32>(p, B, s);
+  if (p.D <= 64) return launch_tc<64>(p, B, s);
+  return launch_tc<128>(p, B, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements.  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for shapes the
-// kernel does not take).
+// dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (tensor-core kernel; D a
+// multiple of 16).  Strides are in elements.  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for shapes the kernels do not take).
 int flash_attention_forward(int dtype, const void* q, const void* k, const void* v, void* out,
                             long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                             long long k_sh, long long k_ss, long long v_sb, long long v_sh,
@@ -315,8 +702,8 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
   p.sm_scale = 1.0f / sqrtf((float)D);
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, B, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, B, s);
+  if (dtype == 0) return launch_f32(p, B, s);
+  if (dtype == 1) return launch_bf16(p, B, s);
   return (int)cudaErrorInvalidValue;
 }
 

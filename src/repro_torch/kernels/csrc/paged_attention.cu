@@ -1,21 +1,17 @@
-// Paged attention for the serving path, written for Hopper (sm_90a).
+// Paged chunked-prefill attention for the serving path, written for Hopper
+// (sm_90a).
 //
-// One kernel body serves three entry points:
-//   * paged decode  (replaces kernels/paged_attention.py:paged_decode_attention_pallas)
-//     rows = the G grouped queries of one (sequence, kv head); keys = the
-//     block-table prefix pages, then the dense in-flight tail whose absolute
-//     positions come from tail_pos.
+// The wrappers call this kernel body for one entry point:
 //   * chunked prefill (replaces kernels/paged_attention.py:paged_prefill_attention_pallas)
 //     rows = G*C chunk queries, row r at chunk offset r % C and absolute
 //     position prefix_len + r % C; keys = the prefix pages, then the chunk's
 //     own keys at positions prefix_len + t (causal within the chunk).
-//   * paged attention (replaces kernels/paged_attention.py:paged_attention_pallas)
-//     rows = the G grouped queries; keys = the first prefix_len (= lengths)
-//     keys of the block-table pages, nothing else: the caller passes T = 0,
-//     null tail pointers and no cur_pos, so the query sits at position
-//     prefix_len and the mask reduces to k_pos < prefix_len.
+// The body also takes the decode layout (rows = the G grouped queries at
+// cur_pos, keys = the prefix pages then a tail at tail_pos; with T = 0 and
+// no cur_pos, the pages-only decode), which paged decode and paged attention
+// ran on before they moved to the split-KV kernel of paged_decode.cu.
 //
-// Masks (both entry points): a key at absolute position k_pos is attended by
+// Masks (every layout): a key at absolute position k_pos is attended by
 // a query at q_pos iff k_pos >= 0, k_pos <= q_pos, a prefix key also has
 // k_pos < prefix_len, and with a window, q_pos - k_pos < window.  Scores are
 // q.k / sqrt(D), optionally soft-capped (softcap * tanh(s / softcap)), and
@@ -40,8 +36,8 @@
 // different rows run side by side).  Each CTA computes its rows independently
 // of the batch width, so a row's result does not depend on where it sits in
 // the batch.  Left for later: wgmma for the QK/PV products, TMA page loads,
-// and splitting long prefixes across CTAs (at decode widths of 8 sequences
-// x 8 kv heads only 64 CTAs run on 132 SMs).
+// and one CTA per (sequence, kv head) instead of re-reading the keys for
+// every 16-row tile.
 //
 // The kernel allocates nothing and does not synchronise; the caller passes
 // the stream and checks the returned cudaGetLastError().

@@ -10,14 +10,19 @@ the monolithic ``prefill_collect``), where the model hands it its
 [B, S, H, D] activations as [B, H, S, D] views, without a copy.
 
 What bounds it on the card: at the serving shapes its roofline bound is
-bytes (about 170 FLOPs per byte, under the bf16 ridge), but this first
-kernel runs both products on the f32 CUDA cores, so operations bound it;
-see the source for the design and what is left.
+bytes (about 170 FLOPs per byte, under the bf16 ridge).  A bfloat16 call
+runs the tensor-core kernel (mma.sync bf16 products, cp.async K/V rings,
+one K/V tile shared by the G query heads of its kv head, two warpgroups on
+alternate key tiles; head_dim a multiple of 16 up to 128); a float32 call runs the SIMT kernel of f32 FMAs, which the
+1e-5 checks need.  Both live in ``csrc/flash_attention.cu``, which says why.
 
 Dispatch: a CPU tensor goes to the plain version (a port of the JAX
 package's naive oracle, ``kernels/ref.py:flash_attention_ref``); a CUDA
-tensor goes to the kernel, and anything the kernel does not take raises.
-``flash_attention.launches`` counts kernel launches.
+tensor goes to the kernel of its dtype, and anything the kernels do not
+take raises.  ``flash_attention.launches`` counts kernel launches.
+``flash_attention_tiled_ref`` repeats the tensor-core kernel's arithmetic
+(online softmax over 64-key tiles, weights rounded to bf16 before PV) in
+plain PyTorch for the tests; nothing on the card path calls it.
 """
 from __future__ import annotations
 
@@ -72,6 +77,47 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, softca
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
+def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                              softcap: float = 0.0, block_k: int = 64,
+                              p_dtype=torch.bfloat16):
+    """The tensor-core kernel's arithmetic: an f32 online softmax over key
+    tiles of ``block_k``, the running sum l over the f32 weights, and the
+    weights rounded to ``p_dtype`` before they multiply V (f32 sums).  (The
+    kernel's two warpgroups take alternate tiles and merge at the end; this
+    model walks the tiles in order, which moves only the f32 rounding.)  A
+    row with no valid key gives zeros.  Shapes as ``flash_attention_ref``."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    G = H // KV
+    qf = q.float().reshape(B, KV, G, Sq, D)
+    kf, vf = k.float(), v.float()
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, KV, G, Sq, 1), -math.inf, device=q.device)
+    l = torch.zeros((B, KV, G, Sq, 1), device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, D), device=q.device)
+    for k0 in range(0, Sk, block_k):
+        kt, vt = kf[:, :, k0 : k0 + block_k], vf[:, :, k0 : k0 + block_k]
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf, kt) / math.sqrt(D)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        k_pos = torch.arange(k0, k0 + kt.shape[2], device=q.device)[None, :]
+        mask = torch.ones((Sq, kt.shape[2]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window:
+            mask &= q_pos - k_pos < window
+        s = s.masked_fill(~mask, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        base = torch.where(torch.isinf(m_new), 0.0, m_new)
+        corr = torch.exp(m - base)
+        w = torch.exp(s - base)
+        l = l * corr + w.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bkgqs,bksd->bkgqd", w.to(p_dtype).float(), vt)
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
     """Forward attention.  q: [B, H, Sq, D]; k, v: [B, KV, Sk, D], any
     strides with D contiguous -> [B, H, Sq, D] (a view of a [B, Sq, H, D]
@@ -88,8 +134,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     if tuple(k.shape) != (B, KV, Sk, D) or v.shape != k.shape or KV == 0 or H % KV:
         raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     vec = 16 // q.element_size()
-    if D > 128 or D % vec:
-        raise ValueError(f"{name}: head_dim {D} must be <= 128 and a multiple of {vec}")
+    mult = 16 if q.dtype == torch.bfloat16 else vec  # bf16: the tensor cores' k-step
+    if D > 128 or D % mult:
+        raise ValueError(f"{name}: head_dim {D} must be <= 128 and a multiple of {mult} "
+                         f"for {q.dtype}")
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name}: every operand must be {q.dtype} on {q.device}")

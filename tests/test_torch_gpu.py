@@ -216,6 +216,115 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, KV, Sq, Sk, D, c
     _close(got, want, dtype)
 
 
+@pytest.mark.parametrize(
+    "B,H,KV,Sq,Sk,D,causal,window,softcap",
+    [
+        (1, 32, 8, 200, 200, 80, True, 0, 0.0),  # h2o-danube heads, ragged tile edge
+        (2, 32, 8, 130, 130, 80, True, 64, 30.0),
+        (1, 4, 2, 41, 41, 16, True, 0, 0.0),  # reduced qwen3
+        (2, 4, 2, 70, 100, 16, False, 0, 0.0),
+    ],
+)
+def test_flash_attention_tensor_core_head_dims(dev, B, H, KV, Sq, Sk, D, causal, window, softcap):
+    """bf16 at head_dim 80 (tiles padded to 128 columns) and 16 through the
+    tensor-core kernel: within 2e-2 of the plain version, and of the plain
+    model of its own arithmetic (weights rounded to bf16 before PV)."""
+    rng = np.random.default_rng(3)
+    bf = torch.bfloat16
+    q = _t(rng.normal(size=(B, Sq, H, D)), bf, dev).transpose(1, 2)
+    k = _t(rng.normal(size=(B, Sk, KV, D)), bf, dev).transpose(1, 2)
+    v = _t(rng.normal(size=(B, Sk, KV, D)), bf, dev).transpose(1, 2)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == n0 + 1
+    _close(got, fa.flash_attention_ref(q, k, v, **kw), bf)
+    _close(got, fa.flash_attention_tiled_ref(q, k, v, **kw), bf)
+
+
+def test_flash_attention_bf16_head_dim_must_be_multiple_of_16(dev):
+    """The tensor cores take bf16 head dims in steps of 16: 24 raises for
+    bf16 (no other kernel is tried) and runs for float32."""
+    rng = np.random.default_rng(4)
+    draw = lambda dtype: [_t(rng.normal(size=(1, 2, 32, 24)), dtype, dev) for _ in range(3)]
+    n0 = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fa.flash_attention(*draw(torch.bfloat16))
+    assert fa.flash_attention.launches == n0
+    args = draw(torch.float32)
+    _close(fa.flash_attention(*args), fa.flash_attention_ref(*args), torch.float32)
+
+
+def _decode_args(rng, dtype, dev, plen, t_used, KV=8, G=2, D=128, page=16, T=24, P=None, N=None):
+    B = len(plen)
+    P = P or -(-max(int(x) for x in plen) // page) or 1
+    N = N or max(B * P, 1)
+    bt = rng.permutation(N)[: B * P].reshape(B, P) if N >= B * P else rng.integers(0, N, (B, P))
+    tail_pos = np.full((B, T), -1, np.int32)
+    for b in range(B):
+        tail_pos[b, : t_used[b]] = plen[b] + np.arange(t_used[b])
+    plen, t_used = np.asarray(plen), np.asarray(t_used)
+    return [
+        _t(rng.normal(size=(B, KV, G, D)), dtype, dev),
+        _t(rng.normal(size=(KV, N, page, D)), dtype, dev),
+        _t(rng.normal(size=(KV, N, page, D)), dtype, dev),
+        _t(bt, dtype, dev),
+        _t(plen, dtype, dev),
+        _t(rng.normal(size=(B, KV, T, D)), dtype, dev),
+        _t(rng.normal(size=(B, KV, T, D)), dtype, dev),
+        _t(tail_pos, dtype, dev),
+        _t(np.maximum(plen + t_used - 1, 0), dtype, dev),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_long_context(dev, dtype):
+    """Eight sequences of 2048 prefix keys (about 67 MB of bf16 K/V, 33
+    splits each) plus a 24-slot tail."""
+    rng = np.random.default_rng(8)
+    args = _decode_args(rng, dtype, dev, [2048] * 8, [1, 24, 5, 17, 9, 24, 2, 13])
+    for window, softcap in ((0, 0.0), (1000, 30.0)):
+        got = pa.paged_decode_attention(*args, softcap=softcap, window=window)
+        _close(got, pa.paged_decode_attention_ref(*args, softcap=softcap, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 70])
+def test_paged_decode_kernel_split_boundaries(dev, dtype, window):
+    """Prefixes on, just before and just past the 64-key split boundaries,
+    and a prefix of 0 with the tail only."""
+    rng = np.random.default_rng(9)
+    plen = [63, 64, 65, 128, 0, 127, 1, 192]
+    t_used = [1, 3, 24, 2, 5, 1, 7, 24]
+    args = _decode_args(rng, dtype, dev, plen, t_used, P=16)
+    got = pa.paged_decode_attention(*args, window=window)
+    _close(got, pa.paged_decode_attention_ref(*args, window=window), dtype)
+    _close(got, pa.paged_decode_attention_split_ref(*args, window=window), dtype)
+
+
+def test_paged_decode_kernel_batch_position_invariant(dev):
+    """A row alone (with a block table only as wide as it needs) and the
+    same row at every place of a batch of 8 give bitwise-equal outputs."""
+    rng = np.random.default_rng(10)
+    plen = [300, 37, 512, 0, 100, 256, 411, 64]
+    t_used = [5, 24, 1, 3, 9, 17, 2, 13]
+    args = _decode_args(rng, torch.bfloat16, dev, plen, t_used, N=320)
+    batch = pa.paged_decode_attention(*args, window=128)
+    for b in range(8):
+        P_b = max(1, -(-plen[b] // 16))
+        one = [a[b : b + 1] for a in args]
+        one[1], one[2] = args[1], args[2]  # the page pool is shared
+        one[3] = args[3][b : b + 1, :P_b].contiguous()
+        alone = pa.paged_decode_attention(*one, window=128)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], batch[b]), f"row {b} differs alone"
+        perm = [(i + b) % 8 for i in range(8)]  # row b moved to place 0
+        shuffled = [a[perm] if a.shape[0] == 8 and i not in (1, 2) else a for i, a in enumerate(args)]
+        moved = pa.paged_decode_attention(*shuffled, window=128)
+        torch.cuda.synchronize()
+        assert torch.equal(moved[0], batch[b]), f"row {b} differs at place 0"
+
+
 def test_flash_attention_kernel_contiguous_operands(dev):
     rng = np.random.default_rng(1)
     q, k, v = (_t(rng.normal(size=(2, 4, 40, 32)), torch.float32, dev) for _ in range(3))

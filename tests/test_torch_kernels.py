@@ -338,3 +338,109 @@ def test_new_wrappers_raise_on_unsupported_devices():
     ln = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         pa.paged_attention(torch.empty((1, 1, 2, 16), device="meta"), pages, pages, bt, ln)
+
+
+def _split_case(split, window, softcap, seed=13):
+    """Prefixes at, one before and one past a split boundary (split keys =
+    ``split``), an in-flight tail, and trailing prefix splits left empty."""
+    rng = np.random.default_rng(seed)
+    B, KV, G, D, page, P, N, T = 3, 2, 2, 16, 4, 5, 32, 8
+    prefix_len = np.array([split, split - 1, split + 1])
+    t_used = rng.integers(1, T + 1, (B,))
+    tail_pos = np.full((B, T), -1, np.int32)
+    for b in range(B):
+        tail_pos[b, : t_used[b]] = prefix_len[b] + np.arange(t_used[b])
+    return [
+        rng.normal(size=(B, KV, G, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.permutation(N)[: B * P].reshape(B, P),
+        prefix_len,
+        rng.normal(size=(B, KV, T, D)),
+        rng.normal(size=(B, KV, T, D)),
+        tail_pos,
+        prefix_len + t_used - 1,
+    ]
+
+
+@pytest.mark.parametrize("split_pages", [1, 2, 4])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (6, 0.0), (0, 20.0), (11, 30.0)])
+def test_paged_decode_split_plain_matches_jax(split_pages, window, softcap):
+    """The split-KV decode kernel's arithmetic (per-split partials, ordered
+    merge) against the reference and the Pallas kernel in interpret mode
+    (f32, 1e-5).  Page 4, so splits of 4, 8 and 16 keys; the window empties
+    the early splits."""
+    split = 4 * split_pages
+    pairs = [_pair(a, "float32") for a in _split_case(split, window, softcap)]
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    m, l, acc = pa.paged_decode_split_partials(*targs, softcap=softcap, window=window, split=split)
+    n_pre = -(-20 // split)
+    assert m.shape == (3, 2, n_pre + -(-8 // split), 2) and acc.shape == m.shape + (16,)
+    assert bool(torch.isinf(m[1, :, 1:n_pre]).all())  # prefix split - 1: later prefix splits empty
+    got = pa.merge_split_partials(m, l, acc)
+    kw = dict(softcap=softcap, window=window)
+    _close(got, ref.paged_decode_attention_ref(*jargs, **kw), "float32")
+    _close(got, ops.paged_decode_attention(*jargs, **kw, interpret=True), "float32")
+    _close(pa.paged_decode_attention_split_ref(*targs, **kw, split=split), got, "float32")
+
+
+@pytest.mark.parametrize("split_pages", [1, 2, 4])
+def test_paged_attention_split_plain_matches_jax(split_pages):
+    """``paged_attention`` through the split-KV arithmetic with T = 0 and the
+    query at ``lengths`` (f32, 1e-5); lengths at, before and past a split
+    boundary."""
+    rng = np.random.default_rng(14)
+    B, KV, G, D, page, P, N = 3, 2, 2, 16, 4, 5, 32
+    split = page * split_pages
+    draws = [
+        rng.normal(size=(B, KV, G, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.integers(0, N, (B, P)),
+        np.array([split, split - 1, split + 1]),
+    ]
+    pairs = [_pair(a, "float32") for a in draws]
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    got = pa.paged_attention_split_ref(*targs, softcap=20.0, split=split)
+    _close(got, ref.paged_attention_ref(*jargs, softcap=20.0), "float32")
+    _close(got, ops.paged_attention(*jargs, softcap=20.0, interpret=True), "float32")
+
+
+def test_paged_decode_split_plain_empty_row_gives_zeros():
+    """A row with no valid key (empty prefix, empty tail) has only empty
+    splits (m = -inf, l = 0): the merge gives zeros, as the kernel does,
+    where the reference gives the mean of every value row; the other row
+    matches the reference (f32, 1e-5)."""
+    draws = _split_case(8, 0, 0.0)
+    draws[4] = np.array([0, 7, 9])
+    draws[7][0] = -1
+    draws[8] = np.array([0, 7 + 2, 9 + 3])
+    draws[7][1, :3] = 7 + np.arange(3)
+    draws[7][2, :] = -1
+    draws[7][2, :4] = 9 + np.arange(4)
+    pairs = [_pair(a, "float32") for a in draws]
+    m, l, acc = pa.paged_decode_split_partials(*[p[1] for p in pairs], split=8)
+    assert bool(torch.isinf(m[0]).all()) and bool((l[0] == 0).all())
+    got = pa.merge_split_partials(m, l, acc)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = ref.paged_decode_attention_ref(*[p[0] for p in pairs])
+    _close(got[1:], np.asarray(want)[1:], "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,window,softcap", FLASH_CASES)
+def test_flash_attention_tiled_model_matches_jax(dtype, B, H, KV, Sq, Sk, D, causal, window, softcap):
+    """The tensor-core flash kernel's arithmetic (online softmax over
+    16-key tiles here, weights rounded to bf16 before PV) against the
+    reference at the bf16 tolerance (2e-2: the rounded weights are within
+    2^-9 of the reference's f32 ones); with f32 weights it holds 1e-5 in
+    float32."""
+    pairs = _flash_draws(B, H, KV, Sq, Sk, D, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    want = ref.flash_attention_ref(*[p[0] for p in pairs], **kw)
+    targs = [p[1] for p in pairs]
+    got = fa.flash_attention_tiled_ref(*targs, **kw, block_k=16)
+    _close(got, want, "bfloat16")
+    if dtype == "float32":
+        exact = fa.flash_attention_tiled_ref(*targs, **kw, block_k=16, p_dtype=torch.float32)
+        _close(exact, want, "float32")

@@ -6,16 +6,20 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
   1. the card's name and power limit (nvidia-smi), then the build of every
      CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc (seconds,
      each kernel's registers, shared memory and spills), and whether the
-     flash-attention library's SASS holds tensor-core instructions;
+     SASS of the flash-attention and chunked-prefill libraries holds
+     tensor-core instructions;
   2. every kernel against its plain PyTorch version on the card, at the
      shapes the serving path gives it (seeded bf16 inputs; f32 and int32 for
      the page copy), with times of the kernel, the plain version, the
      library call where one computes the same function, and the least time
      the card could take; besides, the paged decode kernel at a long-context
-     shape (8 x 2048 prefix keys) and the flash-attention kernel in float32
-     (its SIMT instantiation), each with its own bound; plus the reduced
-     qwen3 model served on the card against the same model served on the
-     CPU;
+     shape (8 x 2048 prefix keys), the chunked-prefill kernel at a
+     long-prefix shape (prefixes of 2048, 2016, 1024 and 32 keys, with
+     scaled_dot_product_attention over pre-gathered K/V as a yardstick) and
+     the flash-attention kernel in float32 (its SIMT kernel, beside
+     scaled_dot_product_attention in float32), each with its own bound;
+     plus the reduced qwen3 model served on the card against the same model
+     served on the CPU;
   3. full-width qwen3-1.7b (28 layers, random weights from seed 0) serving 8
      requests of 64-512 tokens in the paged mode, half of them sharing a
      256-token prefix;
@@ -116,17 +120,17 @@ def within(got, want, dtype) -> bool:
     return bool(torch.allclose(got.float(), want.float(), **TOLS[dtype]))
 
 
-def tensor_core_sass(lib) -> None:
+def tensor_core_sass(label: str, lib) -> None:
     """Count the tensor-core instructions (HGMMA for wgmma, HMMA for
-    mma.sync) in the flash-attention library's SASS."""
+    mma.sync) in a library's SASS; fail if there is none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        print("K5 SASS: cuobjdump not found, tensor-core instructions could not be checked")
+        print(f"{label} SASS: cuobjdump not found, tensor-core instructions could not be checked")
         return
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120).stdout
     hgmma, hmma = sass.count("HGMMA"), sass.count("HMMA")
-    print(f"K5 SASS ({lib.name}): {hgmma} HGMMA, {hmma} HMMA instructions")
-    check(hgmma + hmma > 0, "the flash-attention kernel has no tensor-core instruction")
+    print(f"{label} SASS ({lib.name}): {hgmma} HGMMA, {hmma} HMMA instructions")
+    check(hgmma + hmma > 0, f"the {label} library has no tensor-core instruction")
 
 
 # --------------------------------------------------------------------- phase 2
@@ -204,7 +208,7 @@ def kernel_phase(gen_seed: int = 0):
             errs.append(e)
             print(f"K2 paged_prefill window={window} softcap={softcap}: max|d|={e:.3e}")
             check(within(got, want, bf), f"K2 disagrees with its plain version ({e})")
-    ms = time_ms(lambda *a: pa.paged_prefill_attention(*a), copies2)
+    ms = time_ms(lambda *a: pa.paged_prefill_attention(*a), copies2, breakdown=True)
     plain_ms = time_ms(lambda *a: pa.paged_prefill_attention_ref(*a), copies2, iters=10)
     keys2 = sum(float(p) * C + C * (C + 1) / 2 for p in plen2)  # per (kv, g)
     nbytes = (2 * B * KV * G * C * D * 2 + 2 * float(plen2.sum()) * KV * D * 2
@@ -216,6 +220,7 @@ def kernel_phase(gen_seed: int = 0):
         replaces="src/repro/kernels/paged_attention.py:317", max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
     )
+    long_prefix_prefill_check(dev, rnd, gen_seed)
 
     # ---- K3: page gather of block payloads [448, 8, 128], M=16 of N=32
     M, NP = 16, 32
@@ -291,6 +296,66 @@ def long_context_decode_check(dev, rnd, gen_seed):
           f"{nbytes / ms / 1e6:.0f} GB/s), max|d|={max(errs):.3e}")
 
 
+def long_prefix_prefill_check(dev, rnd, gen_seed):
+    """K2 at a long-prefix shape: B=4 chunks of C=32 queries (KV=8, G=2,
+    D=128, page=16) after prefixes of 2048, 2016, 1024 and 32 keys, a
+    132-column block table over a 528-page pool (35 MB of bf16 K/V per
+    copy), timed over 3 copies so no launch runs from L2; window 0, and a
+    1000-key window with softcap 30.  Beside it, as a yardstick only (not
+    the same function: no paging), scaled_dot_product_attention over the
+    same keys gathered into contiguous K/V beforehand (the gather untimed)
+    with the same mask."""
+    from repro_torch.kernels import paged_attention as pa
+
+    B, C, KV, G, D, page, P = 4, 32, 8, 2, 128, 16, 132
+    N = B * P
+    plen = torch.tensor([2048, 2016, 1024, 32], dtype=torch.int32)
+    bt = torch.randperm(N, generator=torch.Generator().manual_seed(gen_seed + 3)).reshape(B, P)
+    copies = [(rnd(B, KV, G, C, D), rnd(KV, N, page, D), rnd(KV, N, page, D),
+               bt.to(torch.int32).to(dev), plen.to(dev), rnd(B, KV, C, D), rnd(B, KV, C, D))
+              for _ in range(3)]
+    errs = []
+    for window, softcap in ((0, 0.0), (1000, 30.0)):
+        got = pa.paged_prefill_attention(*copies[0], softcap=softcap, window=window)
+        want = pa.paged_prefill_attention_ref(*copies[0], softcap=softcap, window=window)
+        torch.cuda.synchronize()
+        errs.append(max_err(got, want))
+        print(f"K2 long prefix window={window} softcap={softcap}: max|d|={errs[-1]:.3e}")
+        check(within(got, want, torch.bfloat16), f"K2 long prefix disagrees ({errs[-1]})")
+    ms = time_ms(lambda *a: pa.paged_prefill_attention(*a), copies, breakdown=True)
+    plain_ms = time_ms(lambda *a: pa.paged_prefill_attention_ref(*a), copies, iters=6)
+    nbytes = (2 * float(plen.sum()) * KV * D * 2 + 2 * B * KV * G * C * D * 2
+              + 2 * B * KV * C * D * 2 + (B * P + B) * 4)
+    flops = 4.0 * sum(float(p) * C + C * (C + 1) / 2 for p in plen) * KV * G * D
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"K2 long prefix (prefixes 2048/2016/1024/32 + a 32-token chunk): {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of the bound, "
+          f"{nbytes / ms / 1e6:.0f} GB/s), max|d|={max(errs):.3e}")
+
+    # yardstick: the same keys in contiguous [B, KV, P*page + C, D] buffers
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kpos = torch.arange(P * page + C, device=dev)
+    plen_d = plen.to(dev).long()[:, None, None]
+    qpos = plen_d + torch.arange(C, device=dev)[None, :, None]
+    kabs = torch.where(kpos < P * page, kpos, plen_d + kpos - P * page)
+    mask = ((kpos < P * page) & (kpos < plen_d)) | ((kpos >= P * page) & (kabs <= qpos))
+    mask = mask[:, None]  # [B, 1, C, P*page + C]
+
+    def gathered(q, kp, vp, bt_, _, kc, vc):
+        k = torch.cat([kp[:, bt_.long()].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D), kc], 2)
+        v = torch.cat([vp[:, bt_.long()].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D), vc], 2)
+        return q.reshape(B, KV * G, C, D), k.contiguous(), v.contiguous()
+
+    lib_calls = [gathered(*c) for c in copies]
+    lib = lambda q, k, v: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+    e = max_err(lib(*lib_calls[0]).reshape(B, KV, G, C, D), pa.paged_prefill_attention(*copies[0]))
+    check(e <= 2e-2, f"the long-prefix yardstick computes another function ({e})")
+    sdpa_ms = time_ms(lib, lib_calls)
+    print(f"K2 long prefix yardstick (not library_ms): scaled_dot_product_attention with "
+          f"enable_gqa over pre-gathered contiguous K/V and the same mask {sdpa_ms:.4f} ms "
+          f"(max|d| to K2 {e:.3e}); K2 {ms / sdpa_ms:.2f}x of it")
+
+
 def flash_kernel_check(dev, g, rnd):
     """K5 at the serving shape of qwen3-1.7b's full-length prefill (B=1,
     16 query heads over 8 kv heads, S=512, D=128, bf16, causal) with every
@@ -350,8 +415,14 @@ def flash_kernel_check(dev, g, rnd):
     ms32 = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), f32)
     plain32 = time_ms(lambda q, k, v: fa.flash_attention_ref(q, k, v), f32, iters=10)
     b32, by32 = bound(2 * nbytes, flops, H100_F32_FLOPS)  # f32 FMAs on the CUDA cores
+    lib32 = lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    e32 = max_err(lib32(*f32[0]), fa.flash_attention(*f32[0]))
+    check(e32 <= 2e-2, f"float32 scaled_dot_product_attention computes another function ({e32})")
+    lib32_ms = time_ms(lib32, f32)
     print(f"K5 float32 (SIMT) at the serving shape: {ms32:.4f} ms (plain {plain32:.4f} ms, bound "
-          f"{b32:.4f} ms by {by32}), max|d|={max(errs32):.3e} over causal/window+softcap/non-causal")
+          f"{b32:.4f} ms by {by32}, library {lib32_ms:.4f} ms: scaled_dot_product_attention in "
+          f"float32, max|d| to K5 {e32:.3e}), max|d|={max(errs32):.3e} over "
+          "causal/window+softcap/non-causal")
     return dict(
         route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:98", max_abs_err=max(errs),
@@ -797,7 +868,8 @@ def main() -> None:
                 print(f"  {name}: {line.split(chr(39))[1] if chr(39) in line else line.strip()}")
             elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    tensor_core_sass(build.library_path("flash_attention"))
+    tensor_core_sass("K5", build.library_path("flash_attention"))
+    tensor_core_sass("K2", build.library_path("paged_attention"))
 
     kernels = kernel_phase()
     reduced_parity_phase()

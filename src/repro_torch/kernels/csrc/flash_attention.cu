@@ -63,14 +63,12 @@
 
 #include <math.h>
 
-#include <atomic>
-
 #include "common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-using repro_kernels::from_f;
-using repro_kernels::to_f;
+using namespace repro_kernels;  // common.cuh, tensor_core.cuh
 
 constexpr int kThreads = 256;
 constexpr int kSide = 16;              // the 16 x 16 thread grid
@@ -255,81 +253,12 @@ constexpr int kTcGroups = 2;                        // warpgroups, alternate key
 constexpr int kTcThreads = kTcGroups * kGroupThreads;
 constexpr int kTcKeys = 64;                         // keys per K/V tile
 constexpr int kStages = 2;                          // K/V tiles in flight per warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
 
 using bf16 = __nv_bfloat16;
 
 template <int DP>
 constexpr size_t tc_smem_bytes() {
   return sizeof(bf16) * (size_t)(kTcRows + 2 * kTcGroups * kStages * kTcKeys) * DP;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return (uint32_t)__cvta_generic_to_shared(ptr);
-}
-
-// Element offset of 16-byte chunk c of row r in a [rows][DP] bf16 tile.
-// Chunks are XOR-swizzled by row, so the 8 rows one ldmatrix reads at the
-// same logical chunk land in different banks.
-template <int DP>
-__device__ __forceinline__ int swz(int r, int c) {
-  constexpr int kChunks = DP / 8;
-  constexpr int kMask = (kChunks < 8 ? kChunks : 8) - 1;
-  return r * DP + ((c ^ (r & kMask)) << 3);
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !valid
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                          uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr));
-}
-
-// d += a (16 x 16, row-major) * b (16 x 8, column-major), bf16 in, f32 sum
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a score in log2 units: s * scale * log2(e), or with soft-capping
-// cap * tanh(s * scale / cap) * log2(e); a and b are precomputed per launch
-template <bool kSoftcap>
-__device__ __forceinline__ float score_log2(float s, float a, float b) {
-  return kSoftcap ? b * tanhf(s * a) : s * a;
-}
-
-// barrier of one warpgroup (ids 1 and 2; 0 is __syncthreads)
-__device__ __forceinline__ void group_sync(int group) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "n"(kGroupThreads) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // keys [k0, k0 + kTcKeys) of one kv head -> a swizzled [kTcKeys][DP] tile;
@@ -431,7 +360,7 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
     const int st = u % kStages;
     if (u > 0) {
       cp_async_wait<kStages - 1>();
-      group_sync(grp);
+      group_sync<kGroupThreads>(grp);
     }
     const bf16* kt = ks + st * kTile;
     const bf16* vt = vs + st * kTile;
@@ -538,7 +467,7 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
         mma_bf16(acc[2 * dp + 1], a, vf[dp][2], vf[dp][3]);
       }
     }
-    group_sync(grp);  // this stage is read: refill it with tile u + kStages
+    group_sync<kGroupThreads>(grp);  // this stage is read: refill it with tile u + kStages
     if (u + kStages < my_tiles) {
       load_kv_tile<DP>(ks + st * kTile, kb, p.k_ss, tile_k0(u + kStages), kend, nch, gtid);
       load_kv_tile<DP>(vs + st * kTile, vb, p.v_ss, tile_k0(u + kStages), kend, nch, gtid);
@@ -604,23 +533,6 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
             __floats2bfloat162_rn(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
     }
   }
-}
-
-constexpr int kMaxDevices = 64;
-
-// Raises the dynamic shared-memory limit of one kernel (Tag names it) once
-// per device rather than before every launch.
-template <typename Tag>
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  static std::atomic<bool> done[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const bool known = dev >= 0 && dev < kMaxDevices;
-  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess && known) done[dev].store(true, std::memory_order_release);
-  return err;
 }
 
 template <int DP, bool kSoftcap>

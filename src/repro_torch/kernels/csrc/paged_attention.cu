@@ -1,108 +1,116 @@
 // Paged chunked-prefill attention for the serving path, written for Hopper
 // (sm_90a).
 //
-// The wrappers call this kernel body for one entry point:
-//   * chunked prefill (replaces kernels/paged_attention.py:paged_prefill_attention_pallas)
-//     rows = G*C chunk queries, row r at chunk offset r % C and absolute
-//     position prefix_len + r % C; keys = the prefix pages, then the chunk's
-//     own keys at positions prefix_len + t (causal within the chunk).
-// The body also takes the decode layout (rows = the G grouped queries at
-// cur_pos, keys = the prefix pages then a tail at tail_pos; with T = 0 and
-// no cur_pos, the pages-only decode), which paged decode and paged attention
-// ran on before they moved to the split-KV kernel of paged_decode.cu.
-//
-// Masks (every layout): a key at absolute position k_pos is attended by
-// a query at q_pos iff k_pos >= 0, k_pos <= q_pos, a prefix key also has
-// k_pos < prefix_len, and with a window, q_pos - k_pos < window.  Scores are
+// Replaces kernels/paged_attention.py:paged_prefill_attention_pallas: one
+// chunk of C queries per sequence, the G query heads of each kv head, at
+// absolute positions prefix_len + c, attends the prefix keys k < prefix_len
+// through the block table (a table entry outside [0, N) is no key), then
+// the chunk's own C keys at positions prefix_len + t, causally (t <= c).
+// With a window a key counts only while q_pos - k_pos < window.  Scores are
 // q.k / sqrt(D), optionally soft-capped (softcap * tanh(s / softcap)), and
 // reduced with an f32 online softmax; the output is acc / max(l, 1e-30).
 // Only valid keys enter the softmax, so a row with no valid key at all
 // yields zeros (the reference's dense softmax spreads uniform weights over
-// such a row instead; the serving path never produces one).
+// such a row instead; the serving path never produces one: every row
+// attends at least itself).
 //
-// What bounds it on the card: bytes.  At decode each (sequence, kv head)
-// reads its prefix pages and tail once and does 4*G FLOPs per key element;
-// at prefill the G*C = 64 rows reuse each key 64 times, still far below the
-// ~295 FLOPs/byte where the tensor cores would bound it.  The design loads
-// each 32-key tile once per CTA with 16-byte vector loads (coalesced, one
-// page row per 16 threads at D=128 bf16) into registers one tile ahead, so
-// the next tile's loads are in flight while the current one is computed;
-// it reads page ids from the block table inside the kernel, never touches
-// pages past prefix_len or before the window, splits each q.k dot product
-// over up to 8 lanes when the CTA has few rows (decode: G = 2) with four
-// independent partial sums per lane, reduces each row's softmax statistics
-// over 16 lanes, and accumulates values key-outermost so that one shared-
-// memory load of a value feeds every row a thread owns (the FMA chains of
-// different rows run side by side).  Each CTA computes its rows independently
-// of the batch width, so a row's result does not depend on where it sits in
-// the batch.  Left for later: wgmma for the QK/PV products, TMA page loads,
-// and one CTA per (sequence, kv head) instead of re-reading the keys for
-// every 16-row tile.
+// What bounds it on the card.  The G * C rows of one (sequence, kv head)
+// share its keys: G * C = 64 on qwen3-1.7b (G = 2, C = 32), so each bf16
+// key/value element (2 bytes) feeds 4 * 64 = 256 FLOPs, i.e. 128 FLOPs per
+// byte.  That is under the bf16 tensor cores' ridge (989 TFLOP/s over
+// 3.35 TB/s, ~295 FLOPs per byte), so on the tensor cores bytes bound it;
+// on the CUDA cores in f32 (67 TFLOP/s, a ridge of ~20 FLOPs per byte) the
+// same work is bound by operations, about 3x its byte time at long
+// prefixes.  The first kernel of this entry point ran one CTA per (sequence,
+// kv head, 16 rows) on the CUDA cores, re-read every key for each 16-row
+// tile, and walked 32-key f32 tiles through four barrier-separated phases:
+// a serial tile chain, 84x its byte bound on the H100 at the smoke test's
+// serving shape.
 //
-// The kernel allocates nothing and does not synchronise; the caller passes
-// the stream and checks the returned cudaGetLastError().
+// Two kernels, chosen by dtype (not a fallback: each takes only its type):
+//
+// * bfloat16, the serving dtype: tc_prefill_kernel, split-KV on the tensor
+//   cores.  The prefix keys are cut by key index into splits of kSplitKeys
+//   (128) keys, and the chunk's own keys form one more split after them;
+//   the grid is (B * KV, 64-row tiles, n_split), with n_split taken on the
+//   host from the block table's width, so nothing is read back.  A CTA's 64
+//   rows are the stacked (chunk position, head) pairs s = c * G + g of one
+//   kv head, query-major (flash_attention.cu's layout), so one K/V tile in
+//   shared memory serves every head and chunk position; G * C > 64 walks
+//   more row tiles, and the spare rows of a smaller G * C are masked.  The
+//   CTA first reads its split's page ids from the block table into shared
+//   memory in one round; then each 16-byte cp.async takes its source row
+//   from (kv * N + page_id) * page + k % page (zero-filled for an invalid
+//   id, a key past prefix_len or before the window, which are never
+//   loaded) into XOR-swizzled tiles addressed by the tile row alone, so
+//   ldmatrix reads them as if the rows were contiguous.  Two warpgroups
+//   take alternate 64-key tiles, each through its own 2-stage cp.async ring
+//   (a 128-key split is one tile per warpgroup), with QK^T and PV as
+//   mma.sync.m16n8k16 bf16 (V by ldmatrix .trans), P rounded to bf16 for
+//   PV, and merge through shared memory at the end, as in
+//   flash_attention.cu.  Soft-capping is a template parameter; the mask
+//   runs only on edge tiles, with the branch outside the element loop:
+//   prefix tiles need no causal term (every prefix key precedes every chunk
+//   query), so only the ragged last prefix tile, the window's first tiles
+//   and the chunk's own tile mask.  Each CTA writes f32 (m, l, acc) for its
+//   rows into scratch, and split_merge.cuh's kernel, launched by the same C
+//   call, merges the splits in split order: a row's result does not depend
+//   on the batch width, its place in the batch or the table width.  Head
+//   dims are multiples of 16 up to 128, tiles zero-padded to 16, 32, 64 or
+//   128 columns.  Left for later: wgmma with TMA page loads (mma.sync's A
+//   operand is 16 rows, so each of a warpgroup's 4 warps reads the whole K
+//   and V tile from shared memory through ldmatrix, where wgmma reads its B
+//   operand once per warpgroup), and fusing the merge into the last CTA of
+//   each (sequence, kv head).
+//
+// * float32 (the card tests' 1e-5 checks, which no bf16 or TF32 product
+//   meets; no serving path runs it): simt_prefill_kernel, the first port's
+//   kernel.  One CTA per (sequence, kv head, 16 rows) walks 32-key tiles
+//   prefetched into registers one tile ahead; the q.k products and the
+//   weighted values are f32 FMAs on the CUDA cores.
+//
+// The kernels allocate nothing and do not synchronise; the caller passes
+// the stream and the scratch and checks the returned cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
+#include "split_merge.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRowTile = 16;  // query rows per CTA
-constexpr int kKeyTile = 32;  // keys per shared-memory tile
-constexpr int kMaxD = 128;
-constexpr int kAccPerThread = kRowTile * kMaxD / kThreads;  // output rows per thread
-constexpr int kLanesPerRow = kThreads / kRowTile;  // softmax lanes per row
+using namespace repro_kernels;  // common.cuh, split_merge.cuh, tensor_core.cuh
 
 struct Params {
-  const void* q;             // rows addressed by (b, kv, g, c) strides; D contiguous
+  const void* q;             // [B, KV, G, C, D] by strides, D contiguous
   const void* k_pages;       // [KV, N, page, D] contiguous
   const void* v_pages;
   const int* block_tables;   // [B, P]
   const int* prefix_len;     // [B]
-  const void* k_extra;       // decode: tail [B, KV, T, D]; prefill: chunk [B, KV, C, D]
-  const void* v_extra;
-  const int* extra_pos;      // decode: tail_pos [B, T]; prefill: null (prefix_len + t)
-  const int* cur_pos;        // decode: [B]; prefill: null (prefix_len + c)
-  void* out;                 // [B, KV, G*C, D] contiguous
+  const void* k_chunk;       // [B, KV, C, D] by strides, D contiguous
+  const void* v_chunk;
+  void* out;                 // [B, KV, G, C, D] contiguous
+  float* part;               // bfloat16: split partials (split_merge.cuh, R = G * C)
   long long q_sb, q_skv, q_sg, q_sc;
   long long e_sb, e_skv, e_st;
-  int B, KV, G, C, D, N, page, P, T;
+  int B, KV, G, C, D, N, page, P, n_pre, n_split;
   float sm_scale, softcap;
   int window;
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f(T x);
-template <>
-__device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+constexpr int kMaxD = 128;
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// ----------------------------------------------------------------- float32
 
-// 16 bytes of T -> floats in shared memory
-template <typename T>
-__device__ __forceinline__ void unpack16(float* dst, const uint4& u) {
-  const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-  for (int i = 0; i < int(16 / sizeof(T)); ++i) dst[i] = to_f<T>(e[i]);
-}
+constexpr int kThreads = 256;
+constexpr int kRowTile = 16;  // query rows per CTA
+constexpr int kKeyTile = 32;  // keys per shared-memory tile
+constexpr int kAccPerThread = kRowTile * kMaxD / kThreads;  // output rows per thread
+constexpr int kLanesPerRow = kThreads / kRowTile;  // softmax lanes per row
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
-  constexpr int kVec = 16 / sizeof(T);                       // elements per 16-byte load
+__global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
+  constexpr int kVec = 4;                                      // floats per 16-byte load
   constexpr int kLoads = kKeyTile * (kMaxD / kVec) / kThreads;  // max loads per thread per side
   extern __shared__ float smem[];
   const int D = p.D;
@@ -122,28 +130,25 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   const int b = bkv / p.KV;
   const int kv = bkv % p.KV;
   const int R = p.G * p.C;
-  const int r0 = blockIdx.y * kRowTile;
+  const int r0 = blockIdx.y * kRowTile;  // rows r = g * C + c
   const int nr = min(kRowTile, R - r0);
   const int plen = p.prefix_len[b];
   const int n_prefix = max(0, min(plen, p.P * p.page));
   const int nvec = D / kVec;
 
-  const T* q = static_cast<const T*>(p.q);
+  const float* q = static_cast<const float*>(p.q);
   for (int i = tid; i < nr * D; i += kThreads) {
     const int rr = i / D, d = i % D;
     const int r = r0 + rr;
     const int g = r / p.C, c = r % p.C;
-    qs[rr * ld + d] = to_f<T>(q[b * p.q_sb + kv * p.q_skv + g * p.q_sg + c * p.q_sc + d]);
+    qs[rr * ld + d] = q[b * p.q_sb + kv * p.q_skv + g * p.q_sg + c * p.q_sc + d];
   }
   int qmin = 0x7fffffff;
-  for (int rr = 0; rr < nr; ++rr) {
-    const int qp = p.cur_pos ? p.cur_pos[b] : plen + (r0 + rr) % p.C;
-    qmin = min(qmin, qp);
-  }
+  for (int rr = 0; rr < nr; ++rr) qmin = min(qmin, plen + (r0 + rr) % p.C);
   if (tid < kRowTile) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
-    qpos_s[tid] = p.cur_pos ? p.cur_pos[b] : plen + (r0 + tid) % p.C;
+    qpos_s[tid] = plen + (r0 + tid) % p.C;
   }
   // output layout: each thread owns one column of a power-of-two padded
   // width Dp >= D and the rows row0, row0 + rstride, ...
@@ -157,18 +162,18 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
 
   // Tiles: prefix keys [kstart, n_prefix) first — keys before the window of
   // every row in this CTA can never be attended and are not loaded — then
-  // the in-flight keys (decode tail slots or the prefill chunk).
+  // the chunk's own keys.
   const int kstart = p.window > 0 ? min(n_prefix, max(0, qmin - p.window + 1)) : 0;
   const int n_pre_tiles = (n_prefix - kstart + kKeyTile - 1) / kKeyTile;
-  const int n_tiles = n_pre_tiles + (p.T + kKeyTile - 1) / kKeyTile;
-  const T* kp_base = static_cast<const T*>(p.k_pages);
-  const T* vp_base = static_cast<const T*>(p.v_pages);
-  const T* ke = static_cast<const T*>(p.k_extra);
-  const T* ve = static_cast<const T*>(p.v_extra);
+  const int n_tiles = n_pre_tiles + (p.C + kKeyTile - 1) / kKeyTile;
+  const float* kp_base = static_cast<const float*>(p.k_pages);
+  const float* vp_base = static_cast<const float*>(p.v_pages);
+  const float* kc = static_cast<const float*>(p.k_chunk);
+  const float* vc = static_cast<const float*>(p.v_chunk);
 
-  // row of key j of tile t, or null when there is no key there
-  auto key_row = [&](int t, int j, const T* kb, const T* vb, const T* ek, const T* ev,
-                     const T** kr, const T** vr, int* pos) {
+  // rows of key j of tile t and its position, or null and -1 when there is
+  // no key there
+  auto key_row = [&](int t, int j, const float** kr, const float** vr, int* pos) {
     *kr = nullptr;
     *vr = nullptr;
     *pos = -1;
@@ -178,16 +183,16 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
       const int pid = p.block_tables[b * p.P + kidx / p.page];
       if (pid < 0 || pid >= p.N) return;
       const long long row = ((long long)kv * p.N + pid) * p.page + kidx % p.page;
-      *kr = kb + row * D;
-      *vr = vb + row * D;
+      *kr = kp_base + row * D;
+      *vr = vp_base + row * D;
       *pos = kidx;
     } else {
       const int te = (t - n_pre_tiles) * kKeyTile + j;
-      if (te >= p.T) return;
+      if (te >= p.C) return;
       const long long off = b * p.e_sb + kv * p.e_skv + (long long)te * p.e_st;
-      *kr = ek + off;
-      *vr = ev + off;
-      *pos = p.extra_pos ? p.extra_pos[b * p.T + te] : plen + te;
+      *kr = kc + off;
+      *vr = vc + off;
+      *pos = plen + te;
     }
   };
 
@@ -199,10 +204,10 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
       kreg[i] = make_uint4(0u, 0u, 0u, 0u);
       vreg[i] = make_uint4(0u, 0u, 0u, 0u);
       if (v < kKeyTile * nvec) {
-        const T* kr;
-        const T* vr;
+        const float* kr;
+        const float* vr;
         int pos;
-        key_row(t, v / nvec, kp_base, vp_base, ke, ve, &kr, &vr, &pos);
+        key_row(t, v / nvec, &kr, &vr, &pos);
         if (kr != nullptr) {
           kreg[i] = reinterpret_cast<const uint4*>(kr)[v % nvec];
           vreg[i] = reinterpret_cast<const uint4*>(vr)[v % nvec];
@@ -216,15 +221,15 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
       const int v = tid + i * kThreads;
       if (v < kKeyTile * nvec) {
         const int j = v / nvec, dv = v % nvec;
-        unpack16<T>(ks + j * ld + dv * kVec, kreg[i]);
-        unpack16<T>(vs + j * ld + dv * kVec, vreg[i]);
+        unpack16<float>(ks + j * ld + dv * kVec, kreg[i]);
+        unpack16<float>(vs + j * ld + dv * kVec, vreg[i]);
       }
     }
     if (tid < kKeyTile) {
-      const T* kr;
-      const T* vr;
+      const float* kr;
+      const float* vr;
       int pos;
-      key_row(t, tid, kp_base, vp_base, ke, ve, &kr, &vr, &pos);
+      key_row(t, tid, &kr, &vr, &pos);
       kpos_s[tid] = pos;
     }
   };
@@ -331,38 +336,424 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(Params p) {
   }
 
   __syncthreads();  // l_s is final (and visible) even when there was no tile
-  T* out = static_cast<T*>(p.out);
+  float* out = static_cast<float*>(p.out);
 #pragma unroll
   for (int i = 0; i < kAccPerThread; ++i) {
     const int rr = row0 + i * rstride;
     if (rr < nr && col < D) {
       const float l = fmaxf(l_s[rr], 1e-30f);
-      out[((long long)bkv * R + r0 + rr) * D + col] = from_f<T>(acc[i] / l);
+      out[((long long)bkv * R + r0 + rr) * D + col] = acc[i] / l;
     }
   }
 }
 
-size_t smem_bytes(int D) {
+size_t simt_smem_bytes(int D) {
   const int ld = D + 1;
   return sizeof(float) * (size_t)(kRowTile * ld + 2 * kKeyTile * ld + kRowTile * kKeyTile +
                                   3 * kRowTile) +
          sizeof(int) * (size_t)(kKeyTile + kRowTile);
 }
 
+// ---------------------------------------------------------------- bfloat16
+
+constexpr int kTcWarps = 4;                   // warps per warpgroup, 16 rows each
+constexpr int kTcRows = 16 * kTcWarps;        // stacked (chunk position, head) rows per CTA
+constexpr int kGroupThreads = 32 * kTcWarps;  // one warpgroup
+constexpr int kTcGroups = 2;                  // warpgroups, alternate key tiles
+constexpr int kTcThreads = kTcGroups * kGroupThreads;
+constexpr int kTcKeys = 64;                   // keys per K/V tile
+constexpr int kStages = 2;                    // K/V tiles in flight per warpgroup
+constexpr int kSplitKeys = 128;               // prefix keys per split: 1 tile per warpgroup
+constexpr int kMaxSplitPages = kSplitKeys;    // page ids one split can touch (page >= 1)
+constexpr int kMergeParts = 1;                // threads per output element in the merge
+constexpr float kLn2 = 0.6931471805599453f;
+
+static_assert(kMaxSplitPages <= kTcThreads, "one thread reads each page id of a split");
+
+using bf16 = __nv_bfloat16;
+
+template <int DP>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(bf16) * (size_t)(kTcRows + 2 * kTcGroups * kStages * kTcKeys) * DP;
+}
+
+template <int DP, bool kSoftcap>
+__global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char tc_smem[];
+  __shared__ int pid_s[kMaxSplitPages];  // page ids of the split's pages, from base / page
+  constexpr int kChunks = DP / 8;
+  constexpr int kKSteps = DP / 16;      // k-steps of QK^T
+  constexpr int kDBlocks = DP / 8;      // 8-column blocks of the output
+  constexpr int kNB = kTcKeys / 8;      // 8-key blocks of the scores
+  constexpr int kTile = kTcKeys * DP;   // elements of one K or V stage
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [kTcRows][DP]
+  bf16* kv_smem = qs + kTcRows * DP;             // K then V: [kTcGroups][kStages][kTcKeys][DP]
+
+  const int bkv = blockIdx.x, b = bkv / p.KV, kv = bkv % p.KV;
+  const int s0 = blockIdx.y * kTcRows;  // stacked rows s = c * G + g
+  const int split = blockIdx.z;
+  const int G = p.G, C = p.C, R = G * C;
+  const int nch = p.D / 8;
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & (kTcWarps - 1);
+  const int grp = threadIdx.x / kGroupThreads, gtid = threadIdx.x % kGroupThreads;
+  bf16* ks = kv_smem + grp * kStages * kTile;
+  bf16* vs = kv_smem + (kTcGroups + grp) * kStages * kTile;
+
+  // the split's page ids are read while prefix_len is in flight (one round
+  // of table reads, independent of it); thread j holds page base / page + j
+  const bool prefix = split < p.n_pre;
+  const int base = prefix ? split * kSplitKeys : 0;
+  const int pgb = base / p.page;
+  int pid = -1;
+  if (prefix && threadIdx.x < min(p.P, (base + kSplitKeys - 1) / p.page + 1) - pgb)
+    pid = p.block_tables[(long long)b * p.P + pgb + threadIdx.x];
+  const int plen = p.prefix_len[b];
+  const int n_prefix = max(0, min(plen, p.P * p.page));
+  const int qlo = plen + s0 / G, qhi = plen + (min(s0 + kTcRows, R) - 1) / G;
+  // keys of this split that some row of the CTA can attend: [lo, hi), as
+  // prefix key indices or chunk offsets; key k sits at position kpos0 + k
+  const int kpos0 = prefix ? 0 : plen;
+  const int hi = prefix ? min(base + kSplitKeys, n_prefix) : qhi - plen + 1;
+  const int lo = p.window > 0 ? max(base, qlo - p.window + 1 - kpos0) : base;
+
+  const long long prow = ((long long)bkv * p.n_split + split) * R;  // (bkv, split, row 0)
+  const long long total = (long long)p.B * p.KV * p.n_split * R;
+  float* m_out = p.part + prow;
+  float* l_out = p.part + total + prow;
+  float* acc_out = p.part + 2 * total + prow * p.D;
+  if (lo >= hi) {  // an empty partial for every row of the CTA
+    for (int s = s0 + threadIdx.x; s < min(s0 + kTcRows, R); s += kTcThreads) {
+      const int r = (s % G) * C + s / G;
+      m_out[r] = -INFINITY;
+      l_out[r] = 0.f;
+    }
+    return;
+  }
+
+  // Q's copies (commit group 0, with the first K/V tile), then the page ids
+  // into shared memory; an invalid id on a page of [lo, hi) makes every tile
+  // of the CTA an edge tile
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb + kv * p.q_skv;
+#pragma unroll
+  for (int i = threadIdx.x; i < kTcRows * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const int s = s0 + r;
+    const bool ok = s < R && c < nch;
+    const bf16* src = ok ? qb + (s % G) * p.q_sg + (long long)(s / G) * p.q_sc + c * 8 : qb;
+    cp_async16(smem_u32(qs + swz<DP>(r, c)), src, ok);
+  }
+  bool hole = false;
+  if (prefix) {
+    const int pg = pgb + threadIdx.x;
+    if (pg >= lo / p.page && pg <= (hi - 1) / p.page) {
+      pid_s[threadIdx.x] = pid;
+      hole = pid < 0 || pid >= p.N;
+    }
+  }
+  hole = __syncthreads_or(hole);  // pid_s is visible
+
+  // warpgroup grp takes the tiles grp, grp + 2, ... of [lo, hi), aligned to base
+  const int t_first = (lo - base) / kTcKeys;
+  const int n_tiles = (hi - 1 - base) / kTcKeys - t_first + 1;
+  const int my_tiles = n_tiles > grp ? (n_tiles - grp + kTcGroups - 1) / kTcGroups : 0;
+  auto tile_k0 = [&](int u) { return base + (t_first + grp + kTcGroups * u) * kTcKeys; };
+  const bf16* kb = static_cast<const bf16*>(prefix ? p.k_pages : p.k_chunk);
+  const bf16* vb = static_cast<const bf16*>(prefix ? p.v_pages : p.v_chunk);
+  if (!prefix) {
+    kb += b * p.e_sb + kv * p.e_skv;
+    vb += b * p.e_sb + kv * p.e_skv;
+  }
+  // keys [k0, k0 + kTcKeys) -> stage st of this warpgroup's ring; a key
+  // outside [lo, hi) or on an invalid page, and columns past D, are zeros
+  auto load_tile = [&](int st, int k0) {
+#pragma unroll
+    for (int i = gtid; i < kTcKeys * kChunks; i += kGroupThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const int key = k0 + r;
+      bool ok = key >= lo && key < hi && c < nch;
+      long long off = 0;  // element offset of the key's row
+      if (ok && prefix) {
+        const int pid = pid_s[key / p.page - pgb];
+        ok = pid >= 0 && pid < p.N;
+        off = (((long long)kv * p.N + pid) * p.page + key % p.page) * p.D;
+      } else if (ok) {
+        off = (long long)key * p.e_st;
+      }
+      const int dst = swz<DP>(r, c);
+      cp_async16(smem_u32(ks + st * kTile + dst), ok ? kb + off + c * 8 : kb, ok);
+      cp_async16(smem_u32(vs + st * kTile + dst), ok ? vb + off + c * 8 : vb, ok);
+    }
+  };
+
+  // this lane's two rows of the warp's 16: ra (accumulator slots 0, 1), rb (2, 3)
+  const int ra = s0 + 16 * warp + (lane >> 2), rb = ra + 8;
+  const int qpa = plen + ra / G, qpb = plen + rb / G;
+  const float sa = kSoftcap ? p.sm_scale / p.softcap : p.sm_scale * kLog2e;
+  const float sb = p.softcap * kLog2e;
+
+  float acc[kDBlocks][4];
+#pragma unroll
+  for (int n = 0; n < kDBlocks; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // m in log2 units
+  uint32_t qf[kKSteps][4];
+
+  // commit group u holds this thread's copies of its warpgroup's tile u
+  // (group 0 also its share of Q); one group is committed per tile, empty
+  // or not
+  for (int u = 0; u < kStages; ++u) {
+    if (u < my_tiles) load_tile(u, tile_k0(u));
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 1>();
+  __syncthreads();  // Q and each warpgroup's first tile are in shared memory
+#pragma unroll
+  for (int kk = 0; kk < kKSteps; ++kk)
+    ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), qf[kk][0],
+            qf[kk][1], qf[kk][2], qf[kk][3]);
+
+  for (int u = 0; u < my_tiles; ++u) {
+    const int k0 = tile_k0(u);
+    const int st = u % kStages;
+    if (u > 0) {
+      cp_async_wait<kStages - 1>();
+      group_sync<kGroupThreads>(grp);
+    }
+    const bf16* kt = ks + st * kTile;
+    const bf16* vt = vs + st * kTile;
+
+    // S = Q K^T over this tile's 64 keys: per k-step, the K fragments of all
+    // 8 key blocks are loaded first, then 8 independent mma chains run
+    float sc[kNB][4];
+#pragma unroll
+    for (int j = 0; j < kNB; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKSteps; ++kk) {
+      uint32_t kf[kNB / 2][4];
+#pragma unroll
+      for (int jp = 0; jp < kNB / 2; ++jp) {
+        const int key = 16 * jp + (lane & 7) + ((lane >> 4) << 3);
+        ldsm_x4(smem_u32(kt + swz<DP>(key, 2 * kk + ((lane >> 3) & 1))), kf[jp][0], kf[jp][1],
+                kf[jp][2], kf[jp][3]);
+      }
+#pragma unroll
+      for (int jp = 0; jp < kNB / 2; ++jp) {
+        mma_bf16(sc[2 * jp], qf[kk], kf[jp][0], kf[jp][1]);
+        mma_bf16(sc[2 * jp + 1], qf[kk], kf[jp][2], kf[jp][3]);
+      }
+    }
+
+    // scale and soft-cap into log2 units, then mask (edge tiles only: the
+    // ragged end of the split, the window's first tiles, the chunk's causal
+    // tile, or a split with an invalid page); both choices are made outside
+    // the element loop
+    const int kp0 = kpos0 + k0;
+    const bool edge = hole || k0 < lo || k0 + kTcKeys > hi || kp0 + kTcKeys - 1 > qlo ||
+                      (p.window > 0 && qhi - kp0 >= p.window);
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < kNB; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
+          const int qp = e < 2 ? qpa : qpb;
+          const int kp = kpos0 + key;
+          bool valid = key >= lo && key < hi && kp <= qp;
+          if (p.window > 0) valid = valid && qp - kp < p.window;
+          if (hole && valid) {
+            const int pid = pid_s[key / p.page - pgb];
+            valid = pid >= 0 && pid < p.N;
+          }
+          sc[j][e] = valid ? score_log2<kSoftcap>(sc[j][e], sa, sb) : -INFINITY;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kNB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = score_log2<kSoftcap>(sc[j][e], sa, sb);
+    }
+#pragma unroll
+    for (int j = 0; j < kNB; ++j) {
+      mx_a = fmaxf(mx_a, fmaxf(sc[j][0], sc[j][1]));
+      mx_b = fmaxf(mx_b, fmaxf(sc[j][2], sc[j][3]));
+    }
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+    const float corr_a = exp2f(m_a - base_a), corr_b = exp2f(m_b - base_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNB; ++j) {
+      sc[j][0] = exp2f(sc[j][0] - base_a);
+      sc[j][1] = exp2f(sc[j][1] - base_a);
+      sc[j][2] = exp2f(sc[j][2] - base_b);
+      sc[j][3] = exp2f(sc[j][3] - base_b);
+      sum_a += sc[j][0] + sc[j][1];
+      sum_b += sc[j][2] + sc[j][3];
+    }
+    l_a = l_a * corr_a + sum_a;  // this lane's columns; reduced at the end
+    l_b = l_b * corr_b + sum_b;
+#pragma unroll
+    for (int n = 0; n < kDBlocks; ++n) {
+      acc[n][0] *= corr_a;
+      acc[n][1] *= corr_a;
+      acc[n][2] *= corr_b;
+      acc[n][3] *= corr_b;
+    }
+
+    // O += P V, P rounded to bf16 straight from the score accumulators; the
+    // V fragments of a 16-key step are loaded before its mma chains
+#pragma unroll
+    for (int kt16 = 0; kt16 < kTcKeys / 16; ++kt16) {
+      uint32_t a[4];
+      a[0] = pack_bf16(sc[2 * kt16][0], sc[2 * kt16][1]);
+      a[1] = pack_bf16(sc[2 * kt16][2], sc[2 * kt16][3]);
+      a[2] = pack_bf16(sc[2 * kt16 + 1][0], sc[2 * kt16 + 1][1]);
+      a[3] = pack_bf16(sc[2 * kt16 + 1][2], sc[2 * kt16 + 1][3]);
+      const int key = 16 * kt16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+      uint32_t vf[kDBlocks / 2][4];
+#pragma unroll
+      for (int dp = 0; dp < kDBlocks / 2; ++dp)
+        ldsm_x4_t(smem_u32(vt + swz<DP>(key, 2 * dp + (lane >> 4))), vf[dp][0], vf[dp][1],
+                  vf[dp][2], vf[dp][3]);
+#pragma unroll
+      for (int dp = 0; dp < kDBlocks / 2; ++dp) {
+        mma_bf16(acc[2 * dp], a, vf[dp][0], vf[dp][1]);
+        mma_bf16(acc[2 * dp + 1], a, vf[dp][2], vf[dp][3]);
+      }
+    }
+    group_sync<kGroupThreads>(grp);  // this stage is read: refill it with tile u + kStages
+    if (u + kStages < my_tiles) load_tile(st, tile_k0(u + kStages));
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, o);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, o);
+  }
+  // warpgroup 1 hands (m, l, acc) to warpgroup 0 through the K/V stages,
+  // slot [register][thread] so the 32 lanes of a warp hit 32 banks
+  constexpr int kRegs = 4 * kDBlocks + 4;
+  static_assert(kRegs * kGroupThreads * sizeof(float) <= 2 * kTcGroups * kStages * kTile * sizeof(bf16),
+                "the hand-over must fit in the K/V stages");
+  float* red = reinterpret_cast<float*>(kv_smem);
+  cp_async_wait<0>();
+  __syncthreads();  // every stage is read
+  if (grp == 1) {
+#pragma unroll
+    for (int n = 0; n < kDBlocks; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(4 * n + e) * kGroupThreads + gtid] = acc[n][e];
+    red[(kRegs - 4) * kGroupThreads + gtid] = m_a;
+    red[(kRegs - 3) * kGroupThreads + gtid] = m_b;
+    red[(kRegs - 2) * kGroupThreads + gtid] = l_a;
+    red[(kRegs - 1) * kGroupThreads + gtid] = l_b;
+  }
+  __syncthreads();
+  if (grp == 1) return;
+  const float om_a = red[(kRegs - 4) * kGroupThreads + gtid];
+  const float om_b = red[(kRegs - 3) * kGroupThreads + gtid];
+  const float mn_a = fmaxf(m_a, om_a), mn_b = fmaxf(m_b, om_b);
+  const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
+  const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
+  const float c0a = exp2f(m_a - base_a), c1a = exp2f(om_a - base_a);
+  const float c0b = exp2f(m_b - base_b), c1b = exp2f(om_b - base_b);
+  l_a = l_a * c0a + red[(kRegs - 2) * kGroupThreads + gtid] * c1a;
+  l_b = l_b * c0b + red[(kRegs - 1) * kGroupThreads + gtid] * c1b;
+#pragma unroll
+  for (int n = 0; n < kDBlocks; ++n) {
+    acc[n][0] = acc[n][0] * c0a + red[(4 * n + 0) * kGroupThreads + gtid] * c1a;
+    acc[n][1] = acc[n][1] * c0a + red[(4 * n + 1) * kGroupThreads + gtid] * c1a;
+    acc[n][2] = acc[n][2] * c0b + red[(4 * n + 2) * kGroupThreads + gtid] * c1b;
+    acc[n][3] = acc[n][3] * c0b + red[(4 * n + 3) * kGroupThreads + gtid] * c1b;
+  }
+
+  // the split's partial of rows ra and rb, at output rows g * C + c; m in
+  // natural-log units for the merge
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int s = half ? rb : ra;
+    if (s >= R) continue;
+    const int r = (s % G) * C + s / G;
+    float* arow = acc_out + (long long)r * p.D;
+#pragma unroll
+    for (int n = 0; n < kDBlocks; ++n) {
+      const int d = 8 * n + 2 * (lane & 3);
+      if (d < p.D) *reinterpret_cast<float2*>(arow + d) = make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+    }
+    if ((lane & 3) == 0) {
+      m_out[r] = (half ? mn_b : mn_a) * kLn2;
+      l_out[r] = half ? l_b : l_a;
+    }
+  }
+}
+
+template <int DP, bool kSoftcap>
+struct TcTag {};
+
+int launch_f32(const Params& p, cudaStream_t s) {
+  const dim3 grid(p.B * p.KV, (p.G * p.C + kRowTile - 1) / kRowTile);
+  simt_prefill_kernel<<<grid, kThreads, simt_smem_bytes(p.D), s>>>(p);  // < 48 KB
+  return (int)cudaGetLastError();
+}
+
+template <int DP, bool kSoftcap>
+int launch_tc(const Params& p, cudaStream_t s) {
+  constexpr size_t smem = tc_smem_bytes<DP>();
+  cudaError_t err =
+      allow_smem<TcTag<DP, kSoftcap>>((const void*)tc_prefill_kernel<DP, kSoftcap>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int R = p.G * p.C;
+  const dim3 grid(p.B * p.KV, (R + kTcRows - 1) / kTcRows, p.n_split);
+  tc_prefill_kernel<DP, kSoftcap><<<grid, kTcThreads, smem, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_split_merge<bf16>(
+      SplitMerge{p.part, p.out, p.B * p.KV, R, p.D, p.n_pre, p.n_split, kMergeParts, 0}, s);
+}
+
+template <int DP>
+int launch_tc(const Params& p, cudaStream_t s) {
+  return p.softcap > 0.f ? launch_tc<DP, true>(p, s) : launch_tc<DP, false>(p, s);
+}
+
+int launch_bf16(const Params& p, cudaStream_t s) {
+  if (p.D % 16) return (int)cudaErrorInvalidValue;
+  if (p.D <= 16) return launch_tc<16>(p, s);
+  if (p.D <= 32) return launch_tc<32>(p, s);
+  if (p.D <= 64) return launch_tc<64>(p, s);
+  return launch_tc<128>(p, s);
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch (cudaErrorInvalidValue for shapes the kernel does not take).
+// dtype: 0 = float32 (SIMT kernel; part, split_keys, n_pre and n_split are
+// not used), 1 = bfloat16 (tensor-core split kernel and merge; D a multiple
+// of 16; split_keys must equal the kernel's split size (128), n_pre =
+// ceil(P * page / split_keys), n_split = n_pre + 1 (the chunk), and part
+// holds B * KV * n_split * G * C * (D + 2) floats).  Strides are in
+// elements.  Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for shapes the kernels do not take).
 int paged_attention_forward(int dtype, const void* q, const void* k_pages, const void* v_pages,
-                            const int* block_tables, const int* prefix_len, const void* k_extra,
-                            const void* v_extra, const int* extra_pos, const int* cur_pos,
-                            void* out, long long q_sb, long long q_skv, long long q_sg,
-                            long long q_sc, long long e_sb, long long e_skv, long long e_st, int B,
-                            int KV, int G, int C, int D, int N, int page, int P, int T,
+                            const int* block_tables, const int* prefix_len, const void* k_chunk,
+                            const void* v_chunk, void* out, float* part, long long q_sb,
+                            long long q_skv, long long q_sg, long long q_sc, long long e_sb,
+                            long long e_skv, long long e_st, int B, int KV, int G, int C, int D,
+                            int N, int page, int P, int split_keys, int n_pre, int n_split,
                             float softcap, int window, void* stream) {
-  if (D <= 0 || D > kMaxD || B <= 0 || KV <= 0 || G <= 0 || C <= 0 || page <= 0)
+  if (D <= 0 || D > kMaxD || B <= 0 || KV <= 0 || G <= 0 || C <= 0 || page <= 0 || P < 0 ||
+      (G * C + kRowTile - 1) / kRowTile > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -370,11 +761,10 @@ int paged_attention_forward(int dtype, const void* q, const void* k_pages, const
   p.v_pages = v_pages;
   p.block_tables = block_tables;
   p.prefix_len = prefix_len;
-  p.k_extra = k_extra;
-  p.v_extra = v_extra;
-  p.extra_pos = extra_pos;
-  p.cur_pos = cur_pos;
+  p.k_chunk = k_chunk;
+  p.v_chunk = v_chunk;
   p.out = out;
+  p.part = part;
   p.q_sb = q_sb;
   p.q_skv = q_skv;
   p.q_sg = q_sg;
@@ -390,22 +780,18 @@ int paged_attention_forward(int dtype, const void* q, const void* k_pages, const
   p.N = N;
   p.page = page;
   p.P = P;
-  p.T = T;
+  p.n_pre = n_pre;
+  p.n_split = n_split;
   p.sm_scale = 1.0f / sqrtf((float)D);
   p.softcap = softcap;
   p.window = window;
-  const int R = G * C;
-  dim3 grid(B * KV, (R + kRowTile - 1) / kRowTile);
-  const size_t smem = smem_bytes(D);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    paged_attention_kernel<float><<<grid, kThreads, smem, s>>>(p);
-  } else if (dtype == 1) {
-    paged_attention_kernel<__nv_bfloat16><<<grid, kThreads, smem, s>>>(p);
-  } else {
+  if (dtype == 0) return launch_f32(p, s);
+  if (dtype != 1 || part == nullptr || split_keys != kSplitKeys ||
+      (long long)n_pre != ((long long)P * page + kSplitKeys - 1) / kSplitKeys ||
+      n_split != n_pre + 1 || n_split > 65535)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_bf16(p, s);
 }
 
 }  // extern "C"

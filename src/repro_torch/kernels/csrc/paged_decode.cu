@@ -40,11 +40,10 @@
 // comes from a 4-entry shared array; each lane then weights its V slices,
 // and the split's (m, l, acc[G, D]) goes to f32 scratch (the wrapper's one
 // torch.empty).  A second kernel, launched from the same C entry point,
-// merges the splits of each (sequence, kv head): M = max m_i, L = sum l_i
-// exp(m_i - M), O = sum acc_i exp(m_i - M), out = O / max(L, 1e-30),
-// skipping empty splits; up to 4 threads per output element take every
-// 4th prefix split and every 4th tail split with their loads in flight
-// together, and their sums are added in a fixed order.  No atomics touch the values, and split boundaries and
+// merges the splits of each (sequence, kv head) in split order
+// (split_merge.cuh, shared with the chunked-prefill kernel): M = max m_i,
+// out = sum acc_i exp(m_i - M) / max(sum l_i exp(m_i - M), 1e-30), skipping
+// empty splits.  No atomics touch the values, and split boundaries and
 // each split's place in the sums depend only on the key index, so a row's
 // result does not depend on the batch width or on its place in the batch
 // (empty splits add nothing).
@@ -55,15 +54,18 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "split_merge.cuh"
 
 namespace {
 
-using repro_kernels::from_f;
+using repro_kernels::launch_split_merge;
+using repro_kernels::SplitMerge;
 using repro_kernels::unpack16;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSplit = 64;                                    // keys per split
+constexpr int kMergeParts = 4;  // threads per output element in the merge (up to 34 splits at 2k keys)
 constexpr int kKeysPerWarp = kSplit / kWarps;                  // 16
 constexpr int kSlice = 8;                                      // head-dim elements per lane
 constexpr int kMaxD = 128;
@@ -292,74 +294,6 @@ __global__ void __launch_bounds__(kThreads) split_kernel(Params p) {
   }
 }
 
-// One CTA per (sequence, kv head), kParts threads per (g, d): the merge.
-// Warp 0 finds each g's largest split max M; part j of (g, d) sums the
-// prefix splits j, j + parts, ..., then the tail splits j, j + parts, ...
-// (loads of several splits in flight), and part 0 adds the parts in order.
-// A split's place in the sums depends only on its key range.
-constexpr int kCombineThreads = 1024;
-
-template <typename T, int GM>
-__global__ void __launch_bounds__(kCombineThreads) combine_kernel(Params p) {
-  __shared__ float ms[GM];
-  __shared__ float po[kCombineThreads], pl[kCombineThreads];
-  const int bkv = blockIdx.x;
-  const int G = p.G, D = p.D, GD = G * D;
-  const int parts = blockDim.x / GD;
-  const int idx = threadIdx.x % GD, part = threadIdx.x / GD;
-  const int g = idx / D, d = idx % D;
-  const long long total = (long long)p.B * p.KV * p.n_split * G;
-  const long long first = (long long)bkv * p.n_split * G;  // (bkv, split 0, g = 0)
-  const float* m = p.part + first;
-  const float* l = p.part + total + first;
-  const float* acc = p.part + 2 * total + first * D;
-  if (threadIdx.x < 32) {
-    float mx[GM];
-#pragma unroll
-    for (int j = 0; j < GM; ++j) mx[j] = -INFINITY;
-    for (int i = threadIdx.x; i < p.n_split; i += 32) {
-#pragma unroll
-      for (int j = 0; j < GM; ++j)
-        if (j < G) mx[j] = fmaxf(mx[j], m[(long long)i * G + j]);
-    }
-#pragma unroll
-    for (int j = 0; j < GM; ++j) {
-      for (int o = 16; o > 0; o >>= 1) mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], o));
-      if (threadIdx.x == 0) ms[j] = mx[j];
-    }
-  }
-  __syncthreads();
-  const float M = ms[g];
-  float L = 0.f, O = 0.f;
-  // prefix split i goes to part i % parts, tail split j to part j % parts:
-  // the block table's width, which sets n_pre, moves no split between parts
-  auto add = [&](int first_split, int count) {
-#pragma unroll 4
-    for (int j = part; j < count; j += parts) {
-      const long long r = (long long)(first_split + j) * G + g;
-      const float mi = m[r], li = l[r], ai = acc[r * D + d];
-      if (mi != -INFINITY) {  // an empty split wrote no acc
-        const float w = expf(mi - M);
-        L = fmaf(li, w, L);
-        O = fmaf(ai, w, O);
-      }
-    }
-  };
-  if (M != -INFINITY) {
-    add(0, p.n_pre);
-    add(p.n_pre, p.n_split - p.n_pre);
-  }
-  po[threadIdx.x] = O;
-  pl[threadIdx.x] = L;
-  __syncthreads();
-  if (part != 0) return;
-  for (int j = 1; j < parts; ++j) {
-    O += po[j * GD + idx];
-    L += pl[j * GD + idx];
-  }
-  static_cast<T*>(p.out)[((long long)bkv * G + g) * D + d] = from_f<T>(O / fmaxf(L, 1e-30f));
-}
-
 template <typename T, int GM>
 int launch(const Params& p, cudaStream_t s) {
   const dim3 grid(p.B * p.KV, p.n_split);
@@ -369,10 +303,8 @@ int launch(const Params& p, cudaStream_t s) {
     split_kernel<T, GM, false><<<grid, kThreads, 0, s>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int gd = p.G * p.D;
-  const int parts = min(4, kCombineThreads / gd);
-  combine_kernel<T, GM><<<p.B * p.KV, gd * parts, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  const SplitMerge merge{p.part, p.out, p.B * p.KV, p.G, p.D, p.n_pre, p.n_split, kMergeParts, 0};
+  return (int)launch_split_merge<T>(merge, s);
 }
 
 template <typename T>

@@ -15,7 +15,14 @@ Three entry points over two CUDA sources:
   ``kernels/paged_attention.py:paged_prefill_attention_pallas`` — one chunk of
   queries at positions ``prefix_len + c`` attends the prefix pages and then
   its own keys causally.  It runs once per layer on every prefill chunk
-  (``csrc/paged_attention.cu``).
+  (``csrc/paged_attention.cu``).  In bfloat16 it is a split-KV kernel on the
+  tensor cores: the prefix keys are cut into splits of
+  ``PREFILL_SPLIT_KEYS`` by key index and the chunk's own keys form one
+  more split, one CTA per (sequence, kv head, 64 stacked (chunk position,
+  head) rows, split) writes an f32 partial, and the merge of the decode
+  kernel (``csrc/split_merge.cuh``), launched by the same C call, merges the
+  partials in split order.  In float32 (the card tests' 1e-5 path) it is a
+  SIMT kernel of f32 FMAs.
 * ``paged_attention`` replaces ``kernels/paged_attention.py:paged_attention_pallas``
   — the G grouped queries of each (sequence, kv head) attend the first
   ``lengths[b]`` keys of the block-table pages: no tail, no causal cut, no
@@ -25,17 +32,21 @@ Three entry points over two CUDA sources:
   ``attention_decode``.
 
 What bounds all three on the card is bytes: every key/value element is used
-for 4*G FLOPs at decode (G = 2 on qwen3-1.7b) and 4*G*C at prefill, far below
-the ~295 FLOPs per byte where the H100's tensor cores would bound it.  The
-kernels look page ids up in the block table themselves and never load pages
-past ``prefix_len`` or before the window (see the sources for the designs).
+for 4*G FLOPs at decode (G = 2 on qwen3-1.7b) and 4*G*C at prefill (256 at
+G*C = 64), below the ~295 FLOPs per byte where the H100's bf16 tensor cores
+would bound it; the prefill kernel reaches that regime only because its
+bfloat16 products run on the tensor cores (on the CUDA cores in f32 the same
+prefill work would be bound by operations).  The kernels look page ids up in
+the block table themselves and never load pages past ``prefix_len`` or
+before the window (see the sources for the designs).
 
 Dispatch: a CPU tensor goes to the plain version (a port of the JAX
 package's dense-gather oracle, ``kernels/ref.py``); a CUDA tensor goes to the
 kernel, and anything the kernel does not take raises.  Each wrapper counts
-its launches in ``<wrapper>.launches``.  ``paged_decode_split_partials`` and
-``merge_split_partials`` repeat the split-KV kernel's arithmetic in plain
-PyTorch for the tests; nothing on the card path calls them.
+its launches in ``<wrapper>.launches``.  ``paged_decode_split_partials``,
+``paged_prefill_split_partials`` and ``merge_split_partials`` repeat the
+split-KV kernels' arithmetic in plain PyTorch for the tests; nothing on the
+card path calls them.
 """
 from __future__ import annotations
 
@@ -51,9 +62,9 @@ NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
     [ctypes.c_int]
-    + [ctypes.c_void_p] * 10
+    + [ctypes.c_void_p] * 9
     + [ctypes.c_int64] * 7
-    + [ctypes.c_int] * 9
+    + [ctypes.c_int] * 11
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 
@@ -66,6 +77,7 @@ _DECODE_ARGTYPES = (
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 SPLIT_KEYS = 64  # keys per split of the split-KV decode kernel (csrc/paged_decode.cu)
+PREFILL_SPLIT_KEYS = 128  # prefix keys per split of the bf16 prefill kernel (csrc/paged_attention.cu)
 
 
 def _lib() -> ctypes.CDLL:
@@ -244,10 +256,97 @@ def paged_decode_split_partials(
     return m, w.sum(dim=-1), torch.einsum("bkngs,bknsd->bkngd", w, v_all)
 
 
+def _tiled_partials(q, k, v, valid, softcap, block_k, p_dtype):
+    """Per-split (m, l, acc) of q [B, KV, G, C, D] over k, v
+    [B, KV, n, S, D] with valid [B, n, C, S]: an f32 online softmax over
+    tiles of ``block_k`` keys (0: one tile), the weights rounded to
+    ``p_dtype`` before they multiply V."""
+    B, KV, G, C, D = q.shape
+    n, S = k.shape[2], k.shape[3]
+    m = torch.full((B, KV, n, G, C), -math.inf, device=q.device)
+    l = torch.zeros((B, KV, n, G, C), device=q.device)
+    acc = torch.zeros((B, KV, n, G, C, D), device=q.device)
+    step = block_k or max(S, 1)
+    for k0 in range(0, S, step):
+        kt, vt = k[:, :, :, k0 : k0 + step], v[:, :, :, k0 : k0 + step]
+        s = torch.einsum("bkgcd,bknsd->bkngcs", q, kt) / math.sqrt(D)
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        s = s.masked_fill(~valid[:, None, :, None, :, k0 : k0 + step], -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        base = torch.where(torch.isinf(m_new), 0.0, m_new)
+        corr = torch.exp(m - base)
+        w = torch.exp(s - base[..., None])
+        l = l * corr + w.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bkngcs,bknsd->bkngcd", w.to(p_dtype).float(), vt)
+        m = m_new
+    return m, l, acc
+
+
+def paged_prefill_split_partials(
+    q, k_pages, v_pages, block_tables, prefix_len, k_chunk, v_chunk,
+    *, softcap: float = 0.0, window: int = 0, split: int = PREFILL_SPLIT_KEYS,
+    block_k: int = 0, p_dtype=torch.float32,
+):
+    """The bf16 chunked-prefill kernel's per-split partials, in plain PyTorch.
+
+    Prefix split i holds prefix keys [i*split, (i+1)*split) for the
+    ``ceil(P*page / split)`` prefix splits; the chunk's C keys form the last
+    split.  Row (g, c) sits at position ``prefix_len + c`` and attends as in
+    ``paged_prefill_attention_ref``, except that a block-table entry outside
+    [0, N) is no key (the kernel's rule).  Within a split the keys are
+    walked in tiles of ``block_k`` (0: all at once) by an f32 online softmax
+    whose weights are rounded to ``p_dtype`` before they multiply V (the
+    kernel: 64-key tiles and bf16 weights; its two warpgroups take alternate
+    tiles and merge, which moves only the f32 rounding).  Returns f32
+    (m, l, acc) of shapes [B, KV, n_split, G, C], the same and
+    [B, KV, n_split, G, C, D]; an empty split has m = -inf, l = 0, acc = 0.
+    """
+    B, KV, G, C, D = q.shape
+    N, page = k_pages.shape[1], k_pages.shape[2]
+    P = block_tables.shape[1]
+    n_pre = -(-P * page // split)
+    bt = block_tables.long()
+    safe = bt.clamp(0, N - 1)
+    kd = k_pages[:, safe].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
+    vd = v_pages[:, safe].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
+    plen = prefix_len.long()[:, None, None]
+    c = torch.arange(C, device=q.device)
+    kidx = torch.arange(P * page, device=q.device)
+    pre_ok = ((bt >= 0) & (bt < N)).repeat_interleave(page, dim=1)[:, None, :] & (kidx < plen)
+    chunk_ok = (c[None, :] <= c[:, None])[None]  # [1, C, C]: key t <= row c
+    if window:
+        pre_ok = pre_ok & (plen + c[:, None] - kidx < window)
+        chunk_ok = chunk_ok & (c[:, None] - c[None, :] < window)
+    fill = n_pre * split - P * page
+    k_pre = _pad_keys(kd, fill, 2).float().reshape(B, KV, n_pre, split, D)
+    v_pre = _pad_keys(vd, fill, 2).float().reshape(B, KV, n_pre, split, D)
+    ok_pre = _pad_keys(pre_ok.expand(B, C, P * page), fill, 2, False).reshape(B, C, n_pre, split)
+    qf = q.float()
+    pre = _tiled_partials(qf, k_pre, v_pre, ok_pre.transpose(1, 2), softcap, block_k, p_dtype)
+    own = _tiled_partials(qf, k_chunk[:, :, None].float(), v_chunk[:, :, None].float(),
+                          chunk_ok.expand(B, C, C)[:, None], softcap, block_k, p_dtype)
+    return tuple(torch.cat([a, b], dim=2) for a, b in zip(pre, own))
+
+
+def paged_prefill_attention_split_ref(*args, softcap: float = 0.0, window: int = 0,
+                                      split: int = PREFILL_SPLIT_KEYS, block_k: int = 0,
+                                      p_dtype=torch.float32):
+    """``paged_prefill_attention`` as the bf16 split-KV kernel computes it
+    (a row with no valid key gives zeros); ``block_k=64`` with bf16
+    ``p_dtype`` models its tensor-core arithmetic."""
+    out = merge_split_partials(*paged_prefill_split_partials(
+        *args, softcap=softcap, window=window, split=split, block_k=block_k, p_dtype=p_dtype))
+    return out.to(args[0].dtype)
+
+
 def merge_split_partials(m, l, acc):
-    """The combine kernel's merge: M = max m_i, out = sum acc_i exp(m_i - M)
-    / max(sum l_i exp(m_i - M), 1e-30), empty splits skipped.  m, l:
-    [B, KV, n_split, G]; acc: [B, KV, n_split, G, D] -> [B, KV, G, D] f32."""
+    """The split merge (``csrc/split_merge.cuh``): M = max m_i, out =
+    sum acc_i exp(m_i - M) / max(sum l_i exp(m_i - M), 1e-30), empty splits
+    skipped (the kernel folds the splits in one pass with a running max,
+    which moves only the f32 rounding).  m, l: [B, KV, n_split, *rows];
+    acc: [B, KV, n_split, *rows, D] -> [B, KV, *rows, D] f32 (rows: G at
+    decode, G, C at prefill)."""
     M = m.amax(dim=2, keepdim=True)
     w = torch.where(torch.isinf(m), 0.0, torch.exp(m - torch.where(torch.isinf(M), 0.0, M)))
     L = (l * w).sum(dim=2)
@@ -393,32 +492,43 @@ def paged_prefill_attention(
             q, k_pages, v_pages, block_tables, prefix_len, k_chunk, v_chunk,
             softcap=softcap, window=window,
         )
+    name = "paged_prefill_attention"
     B, KV, G, C, D = q.shape
     KVp, N, page, Dp = k_pages.shape
-    _check_operands(
-        "paged_prefill_attention", q, k_pages, v_pages, (k_chunk, v_chunk),
-        (block_tables, prefix_len),
-    )
+    P = block_tables.shape[1]
+    _check_operands(name, q, k_pages, v_pages, (k_chunk, v_chunk), (block_tables, prefix_len))
+    if q.dtype == torch.bfloat16 and D % 16:
+        raise ValueError(f"{name}: bfloat16 head_dim {D} must be a multiple of 16 (the tensor "
+                         "cores' k-step)")
     if (KVp, Dp) != (KV, D) or tuple(k_chunk.shape) != (B, KV, C, D):
-        raise ValueError("paged_prefill_attention: shape mismatch")
+        raise ValueError(f"{name}: shape mismatch")
+    if block_tables.shape[0] != B or tuple(prefix_len.shape) != (B,):
+        raise ValueError(f"{name}: one block-table row and one prefix length per sequence")
     if k_chunk.stride() != v_chunk.stride():
-        raise ValueError("paged_prefill_attention: chunk layout mismatch")
+        raise ValueError(f"{name}: chunk layout mismatch")
     out = torch.empty((B, KV, G, C, D), dtype=q.dtype, device=q.device)
     if B == 0 or C == 0:
         return out
+    # bfloat16: the prefix splits over the table's width, then the chunk's
+    # split; f32 (m, l, acc) per split and row for the merge
+    n_pre = -(-P * page // PREFILL_SPLIT_KEYS)
+    n_split = n_pre + 1
+    part = None
+    if q.dtype == torch.bfloat16:
+        part = torch.empty(B * KV * n_split * G * C * (D + 2), dtype=torch.float32, device=q.device)
     qs = q.stride()
     es = k_chunk.stride()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _lib().paged_attention_forward(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), prefix_len.data_ptr(), k_chunk.data_ptr(),
-        v_chunk.data_ptr(), None, None, out.data_ptr(),
+        v_chunk.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
         qs[0], qs[1], qs[2], qs[3], es[0], es[1], es[2],
-        B, KV, G, C, D, N, page, block_tables.shape[1], C,
+        B, KV, G, C, D, N, page, P, PREFILL_SPLIT_KEYS, n_pre, n_split,
         float(softcap), int(window), stream,
     )
     if rc != 0:
-        raise RuntimeError(f"paged_prefill_attention: kernel launch failed (CUDA error {rc})")
+        raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
     paged_prefill_attention.launches += 1
     return out
 

@@ -431,3 +431,111 @@ def test_prefill_layer_on_card_needs_contiguous_positions(dev):
     assert fa.flash_attention.launches == n0 + 1
     want, _ = tl.attn_prefill_layer(p_cpu, cfg, x, pos, contiguous=True)
     torch.testing.assert_close(got.float().cpu(), want.float(), rtol=3e-2, atol=3e-2)
+
+
+def _prefill_args(rng, dtype, dev, plen, P, KV=8, G=2, C=32, D=128, page=16, N=None):
+    """Chunked-prefill operands: queries [B, KV, G, C, D], a pool of N pages,
+    a block table of distinct random pages (P columns) and the chunk's own
+    keys; prefixes need not be block-aligned."""
+    B = len(plen)
+    N = N or B * P
+    return [
+        _t(rng.normal(size=(B, KV, G, C, D)), dtype, dev),
+        _t(rng.normal(size=(KV, N, page, D)), dtype, dev),
+        _t(rng.normal(size=(KV, N, page, D)), dtype, dev),
+        _t(rng.permutation(N)[: B * P].reshape(B, P), dtype, dev),
+        _t(np.asarray(plen), dtype, dev),
+        _t(rng.normal(size=(B, KV, C, D)), dtype, dev),
+        _t(rng.normal(size=(B, KV, C, D)), dtype, dev),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("plen,P", [([2048, 2016, 1024, 32], 132), ([2016], 128)],
+                         ids=["long-prefix", "lone-prompt"])
+def test_paged_prefill_kernel_long_prefix(dev, dtype, plen, P):
+    """qwen3-1.7b widths at long prefixes: four sequences of 2048, 2016,
+    1024 and 32 prefix keys (17 prefix splits of 128 keys in bfloat16, 528
+    pages), and one lone prompt at 2016 keys (the single-request bucket);
+    window 0 and a 1000-key window with softcap 30.  bf16 is also held
+    against the plain model of its tensor-core arithmetic."""
+    rng = np.random.default_rng(15)
+    args = _prefill_args(rng, dtype, dev, plen, P)
+    for window, softcap in ((0, 0.0), (1000, 30.0)):
+        kw = dict(softcap=softcap, window=window)
+        n0 = pa.paged_prefill_attention.launches
+        got = pa.paged_prefill_attention(*args, **kw)
+        assert pa.paged_prefill_attention.launches == n0 + 1
+        _close(got, pa.paged_prefill_attention_ref(*args, **kw), dtype)
+        if dtype == torch.bfloat16:
+            model = pa.paged_prefill_attention_split_ref(*args, **kw, block_k=64, p_dtype=dtype)
+            _close(got, model, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (300, 30.0)])
+def test_paged_prefill_kernel_split_boundaries(dev, dtype, window, softcap):
+    """G * C = 128 (h2o-danube's G = 4: two 64-row tiles), prefixes on, one
+    before and one past the 128-key split boundaries, an empty prefix, and
+    a 300-key window that empties the first splits of the longest row."""
+    rng = np.random.default_rng(16)
+    plen = [127, 128, 129, 511, 512, 0, 1, 767]
+    args = _prefill_args(rng, dtype, dev, plen, 52, G=4)
+    kw = dict(softcap=softcap, window=window)
+    got = pa.paged_prefill_attention(*args, **kw)
+    _close(got, pa.paged_prefill_attention_ref(*args, **kw), dtype)
+    _close(got, pa.paged_prefill_attention_split_ref(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_kernel_invalid_page_is_no_key(dev, dtype):
+    """A block-table entry outside [0, N) inside the prefix is no key (the
+    kernels' rule, which the split plain version shares)."""
+    rng = np.random.default_rng(17)
+    args = _prefill_args(rng, dtype, dev, [300, 40, 257], 20, C=8, N=64)
+    args[3][0, 12] = -1
+    args[3][1, 0] = 64
+    args[3][2, 16] = 1000
+    got = pa.paged_prefill_attention(*args, window=200)
+    _close(got, pa.paged_prefill_attention_split_ref(*args, window=200), dtype)
+
+
+def test_paged_prefill_kernel_bitwise_invariant(dev):
+    """bf16: two calls give the same bits, and each row alone (with a block
+    table just as wide as it needs, or 24 columns wider) equals the same row
+    inside a batch of 4 and at another place of it."""
+    rng = np.random.default_rng(18)
+    plen = [300, 37, 512, 0]
+    args = _prefill_args(rng, torch.bfloat16, dev, plen, 36, N=160)
+    kw = dict(window=128, softcap=30.0)
+    batch = pa.paged_prefill_attention(*args, **kw)
+    again = pa.paged_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(batch, again)
+    wide = torch.cat([args[3], args[3][:, :24]], dim=1).contiguous()
+    for b in range(4):
+        one = [a[b : b + 1] for a in args]
+        one[1], one[2] = args[1], args[2]  # the page pool is shared
+        for table in (args[3][b : b + 1, : max(1, -(-plen[b] // 16))], wide[b : b + 1]):
+            one[3] = table.contiguous()
+            alone = pa.paged_prefill_attention(*one, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(alone[0], batch[b]), f"row {b} differs alone (P={table.shape[1]})"
+        perm = [(i + b) % 4 for i in range(4)]  # row b moved to place 0
+        moved = [a[perm] if i not in (1, 2) else a for i, a in enumerate(args)]
+        out = pa.paged_prefill_attention(*moved, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], batch[b]), f"row {b} differs at place 0"
+
+
+def test_paged_prefill_bf16_head_dim_must_be_multiple_of_16(dev):
+    """The tensor cores take bf16 head dims in steps of 16: 24 raises for
+    bf16 (no other kernel is tried) and runs for float32 (SIMT kernel)."""
+    rng = np.random.default_rng(19)
+    draw = lambda dtype: _prefill_args(rng, dtype, dev, [5, 16], 2, KV=2, C=8, D=24, page=8)
+    n0 = pa.paged_prefill_attention.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        pa.paged_prefill_attention(*draw(torch.bfloat16))
+    assert pa.paged_prefill_attention.launches == n0
+    args = draw(torch.float32)
+    _close(pa.paged_prefill_attention(*args), pa.paged_prefill_attention_ref(*args), torch.float32)

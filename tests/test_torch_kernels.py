@@ -444,3 +444,99 @@ def test_flash_attention_tiled_model_matches_jax(dtype, B, H, KV, Sq, Sk, D, cau
     if dtype == "float32":
         exact = fa.flash_attention_tiled_ref(*targs, **kw, block_k=16, p_dtype=torch.float32)
         _close(exact, want, "float32")
+
+
+def _prefill_split_case(G, C, split, seed=21):
+    """Chunked-prefill draws with prefixes at, one before and one past a
+    split boundary (split keys = ``split``), an empty prefix and a prefix
+    that fills all but one key of the table (page 4, P = 5)."""
+    rng = np.random.default_rng(seed)
+    B, KV, D, page, P, N = 5, 2, 16, 4, 5, 32
+    return [
+        rng.normal(size=(B, KV, G, C, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)),
+        rng.permutation(N)[: B * P].reshape(B, P),
+        np.array([split, split - 1, split + 1, 0, P * page - 1]),
+        rng.normal(size=(B, KV, C, D)),
+        rng.normal(size=(B, KV, C, D)),
+    ]
+
+
+@pytest.mark.parametrize("split_pages", [1, 2, 4])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (6, 0.0), (0, 20.0), (11, 30.0)])
+def test_paged_prefill_split_plain_matches_jax(split_pages, window, softcap):
+    """The bf16 prefill kernel's split arithmetic (per-split partials with
+    the chunk as the last split, ordered merge) against the reference and
+    the Pallas kernel in interpret mode (f32, 1e-5).  Page 4, so splits of
+    4, 8 and 16 keys; the 6-key window empties the early splits of the
+    19-key prefix for every chunk row."""
+    split = 4 * split_pages
+    pairs = [_pair(a, "float32") for a in _prefill_split_case(2, 8, split)]
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    kw = dict(softcap=softcap, window=window)
+    m, l, acc = pa.paged_prefill_split_partials(*targs, **kw, split=split)
+    n_pre = -(-20 // split)
+    assert m.shape == (5, 2, n_pre + 1, 2, 8) and acc.shape == m.shape + (16,)
+    assert bool(torch.isinf(m[3, :, :n_pre]).all())  # the empty prefix: every prefix split empty
+    if window:  # splits that end before the first chunk row's window
+        first = 19 - window + 1
+        assert bool(torch.isinf(m[4, :, : first // split]).all())
+    got = pa.merge_split_partials(m, l, acc)
+    want_ref = ref.paged_prefill_attention_ref(*jargs, **kw)
+    want_pallas = ops.paged_prefill_attention(*jargs, **kw, interpret=True)
+    d = max(float(np.abs(got.numpy() - np.asarray(w)).max()) for w in (want_ref, want_pallas))
+    print(f"split {split} window {window} softcap {softcap}: max|d| {d:.3e} (limit 1e-5)")
+    _close(got, want_ref, "float32")
+    _close(got, want_pallas, "float32")
+    _close(pa.paged_prefill_attention_split_ref(*targs, **kw, split=split), got, "float32")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G,C", [(1, 16), (2, 8), (2, 32), (4, 32)])
+def test_paged_prefill_tiled_model_matches_jax(dtype, G, C):
+    """G * C below, at and above the kernel's 64-row tile.  The split
+    arithmetic (8-key splits, a 6-key window, softcap 20) holds the
+    reference and the Pallas kernel in interpret mode at the dtype's
+    tolerance (1e-5 in f32, 2e-2 in bf16); the model of the tensor-core
+    arithmetic (4-key tiles in each split, weights rounded to bf16 before
+    PV) holds them at 2e-2 (the rounded weights are within 2^-9 of the
+    reference's f32 ones)."""
+    pairs = [_pair(a, dtype) for a in _prefill_split_case(G, C, 8)]
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    kw = dict(softcap=20.0, window=6)
+    want_ref = ref.paged_prefill_attention_ref(*jargs, **kw)
+    want_pallas = ops.paged_prefill_attention(*jargs, **kw, interpret=True)
+    exact = pa.paged_prefill_attention_split_ref(*targs, **kw, split=8)
+    model = pa.paged_prefill_attention_split_ref(*targs, **kw, split=8, block_k=4,
+                                                 p_dtype=torch.bfloat16)
+    for name, got, tol in (("split", exact, dtype), ("bf16-P model", model, "bfloat16")):
+        d = float(np.abs(got.float().numpy() - np.asarray(want_ref, np.float32)).max())
+        print(f"{name} G={G} C={C} {dtype}: max|d| {d:.3e} (limit {TOLS[tol]['atol']})")
+        _close(got, want_ref, tol)
+        _close(got, want_pallas, tol)
+
+
+@pytest.mark.parametrize(
+    "header,users",
+    [
+        ("common.cuh", {"paged_attention", "paged_decode", "flash_attention"}),
+        ("tensor_core.cuh", {"paged_attention", "flash_attention"}),
+        ("split_merge.cuh", {"paged_attention", "paged_decode"}),
+    ],
+)
+def test_library_digest_covers_shared_headers(tmp_path, monkeypatch, header, users):
+    """A library's name changes when a ``csrc/`` header it includes
+    (directly or through another header) changes, and only then: an edited
+    header never loads a stale library.  Checked on a copy of ``csrc/``."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
+    after = {n: build.library_path(n) for n in build.SOURCES}
+    assert {n for n in build.SOURCES if before[n] != after[n]} == users

@@ -25,7 +25,8 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      256-token prefix;
   4. the claim witness paths at full width: A (offload, restore, reuse with
      the tokens of a never-offloaded engine) and B (same-claim restore
-     failure refused fail-closed, in order);
+     failure refused fail-closed, in order), each judged by the port's
+     analyzer (``check_observation_path``, ``check_failure_outcome_path``);
   5. the dense decode mode at full width: 6 requests in two batches (full-
      length prefills through the flash-attention kernel, then cached-prefix
      hits gathered into the dense cache), one more request under the
@@ -35,8 +36,15 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      (chunked-prefill kernel) prefill logits, monolithic against chunked,
      witness path A's restored logits dense against paged, and the paged-
      attention kernel over a served request's dense cache against the
-     dense decode attention.
-Every launch count is zeroed just before each of phases 3-6 and read just
+     dense decode attention;
+  7. conformance at full width: the seven ResidentClaim mode scenarios
+     (about 30 small engines of block_size 4 sharing the model's parameters)
+     with every gate checked, the native descriptor generated from their
+     results and judged ``native_sound`` in all seven rows by the port's
+     checker (no public runtime's row is), the port's analyzer over phase 3's
+     event log and metrics, and that log exported as a Perfetto trace to
+     ``chiprun_out/paged_serving_trace.json``.
+Every launch count is zeroed just before each of phases 3-7 and read just
 after it, so the counts show each path itself went through its kernels.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
@@ -47,6 +55,7 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -578,6 +587,7 @@ def serving_phase(bundle, params, cfg):
     print(f"profiled request (64-token prompt, 8 new tokens): wall {w:.3f} s, device busy "
           f"{busy:.3f} s ({100 * busy / w:.1f}%), {sum(e.count for e in avg)} device ops")
     eng.close()
+    return eng.events, eng.metrics
 
 
 def dense_phase(bundle, params, cfg):
@@ -644,8 +654,9 @@ def dense_phase(bundle, params, cfg):
           f"600 + 64 tokens were not refused: {over.status} ({over.error})")
     check(eng.fail_closed_total() == {"dense_cache_overflow": 1},
           f"overflow refusal not counted: {eng.fail_closed_total()}")
-    check(_first(eng.events.events, "scheduler_admission_refused", request_id=over.request_id,
-                 trigger="dense_cache_overflow") is not None, "no dense_cache_overflow event")
+    check(any(e.request_id == over.request_id and e.payload.get("trigger") == "dense_cache_overflow"
+              for e in eng.events.named("scheduler_admission_refused")),
+          "no dense_cache_overflow event")
     print(f"dense overflow: 600 + 64 tokens > cache_len {DENSE_CACHE_LEN} refused fail-closed "
           f"({over.error})")
     eng.close()
@@ -732,31 +743,12 @@ def dense_checks(bundle, params, cfg, served_prompt):
           f"K4 disagrees with attention_decode ({e})")
 
 
-def _first(events, name, after=-1, **match):
-    for e in events:
-        if e.name != name or e.seq <= after:
-            continue
-        ok = True
-        for k, v in match.items():
-            actual = getattr(e, k, None)
-            if actual is None:
-                actual = e.payload.get(k)
-            ok = ok and (v(actual) if callable(v) else actual == v)
-        if ok:
-            return e
-    return None
-
-
-def _witness(events, steps):
-    """Each (name, match) step must occur after the previous one."""
-    seq = -1
-    for name, match in steps:
-        e = _first(events, name, after=seq, **match)
-        check(e is not None, f"witness step {name} {match} missing")
-        seq = e.seq
-
-
 def witness_phase(bundle, params, cfg):
+    from repro_torch.core.analyzer import (
+        check_failure_outcome_path,
+        check_observation_path,
+        validate_event_sequence,
+    )
     from repro_torch.core.claims import ClaimMode, ClaimState
     from repro_torch.serving.engine import ServingEngine
 
@@ -765,7 +757,6 @@ def witness_phase(bundle, params, cfg):
     prefix = tuple(int(t) for t in rng.integers(0, V, 256))
     first = prefix + tuple(int(t) for t in rng.integers(0, V, 16))
     reuse = prefix + tuple(int(t) for t in rng.integers(0, V, 8))
-    to_dev = lambda d: isinstance(d, str) and d.endswith("_to_device")
 
     with ServingEngine(bundle, params, block_size=16, device_blocks=64, device=bundle.device) as plain:
         r_plain = plain.run(plain.submit(reuse, max_new_tokens=16))
@@ -785,19 +776,8 @@ def witness_phase(bundle, params, cfg):
                 eng.connector.injection.resident_claim_load_failure = True
                 eng.connector.injection.fail_claim_id = cid
             r2 = eng.run(eng.submit(reuse, max_new_tokens=16))
-            ev = eng.events.events
-            common = [
-                ("resident_claim_accepted", dict(claim_id=cid)),
-                ("claim_materialized", dict(claim_id=cid)),
-                ("offload_store_job_created", dict(claim_id=cid)),
-                ("offload_worker_transfer_finished", dict(claim_id=cid, ok=True)),
-                ("resident_claim_offloaded", dict(claim_id=cid)),
-                ("request_initialized", dict(request_id=r2.request_id)),
-                ("offload_lookup_result", dict(request_id=r2.request_id,
-                                               hit_tokens=lambda h: (h or 0) > 0)),
-                ("resident_claim_restore_required", dict(claim_id=cid)),
-                ("offload_load_job_created", dict(claim_id=cid)),
-            ]
+            order = validate_event_sequence(eng.events)
+            check(order.passed, f"path {path}: {order.reasons}")
             if path == "A":
                 check(r2.status == "finished", f"path A: reuse request {r2.status} ({r2.error})")
                 check(r2.restored_tokens == 256, f"path A: restored {r2.restored_tokens} tokens")
@@ -806,33 +786,115 @@ def witness_phase(bundle, params, cfg):
                       f"path A: restored tokens {r2.output_tokens} != never-offloaded "
                       f"{r_plain.output_tokens}")
                 check(not eng.fail_closed_total(), f"path A fail-closed: {eng.fail_closed_total()}")
-                _witness(ev, common + [
-                    ("offload_worker_transfer_finished", dict(claim_id=cid, ok=True, direction=to_dev)),
-                    ("resident_claim_restored", dict(claim_id=cid)),
-                    ("offload_job_completed", dict(claim_id=cid)),
-                    ("offload_request_finished_no_pending_jobs", dict(request_id=r2.request_id)),
-                ])
+                verdict = check_observation_path(eng.events, cid, r2.request_id)
             else:
                 check(r2.status == "refused" and r2.output_tokens == [],
                       f"path B: reuse request {r2.status} with {len(r2.output_tokens)} tokens")
                 check(claim.state == ClaimState.RESTORATION_FAILED, f"path B: claim {claim.state}")
-                _witness(ev, common + [
-                    ("offload_worker_transfer_finished", dict(claim_id=cid, ok=False, direction=to_dev)),
-                    ("offload_worker_load_failed", dict(claim_id=cid)),
-                    ("scheduler_resident_claim_restoration_failed",
-                     dict(claim_id=cid, request_id=r2.request_id, request_status="FINISHED_ERROR")),
-                    ("scheduler_active_request_refused",
-                     dict(request_id=r2.request_id, blocking_claim_ids=lambda b: cid in (b or []))),
-                    ("offload_request_finished_pending_jobs", dict(request_id=r2.request_id)),
-                    ("request_finished", dict(request_id=r2.request_id, status="FINISHED_ERROR")),
-                ])
-                check(_first(ev, "offload_request_finished_no_pending_jobs",
-                             request_id=r2.request_id) is None, "path B served output")
+                # path A's order holds up to the load job (accept, materialize, store
+                # job, store ok, offload, reuse, lookup hit, E6, load job) and stops
+                # exactly at the restore transfer, which failed after that load job
+                up_to_load = check_observation_path(eng.events, cid, r2.request_id)
+                check(up_to_load.reasons == ["no successful tier->device transfer for the claim"],
+                      f"path B: observation order before the restore: {up_to_load.reasons}")
+                load = min(e.seq for e in eng.events.named("offload_load_job_created")
+                           if e.claim_id == cid)
+                check(any(e.claim_id == cid and e.payload.get("ok") is False and e.seq > load
+                          for e in eng.events.named("offload_worker_transfer_finished")),
+                      "path B: no failed restore transfer after the claim's load job")
+                check(not any(e.request_id == r2.request_id for e in
+                              eng.events.named("offload_request_finished_no_pending_jobs")),
+                      "path B served output")
+                verdict = check_failure_outcome_path(eng.events, cid, r2.request_id)
+            check(verdict.passed, f"path {path}: {verdict.reasons}")
+            print(f"witness path {path} analyzer: {verdict.reasons[0]}")
             outcomes[path] = (r2.status, claim.state.value)
     print(f"witness path A: restored 256 tokens, output equals the never-offloaded run "
           f"({len(r_plain.output_tokens)} tokens), claim {outcomes['A'][1]}")
     print(f"witness path B: request {outcomes['B'][0]}, claim {outcomes['B'][1]}, "
           f"ordered E11 -> E12 -> E13 -> E14 -> FINISHED_ERROR")
+
+
+# --------------------------------------------------------------------- phase 7
+SOFT_PRIORITY_COUNTS = {  # the JAX package's results/native/soft_priority.json
+    "original_lower_priority_lost_first": "5/5",
+    "swapped_lower_priority_lost_first": "5/5",
+    "equal_priority_no_priority_separation": "3/3",
+    "claims_joinable_before_pressure": "13/13",
+    "no_pre_pressure_claim_loss": "13/13",
+}
+
+
+def conformance_phase(bundle, params, serving_log, serving_metrics, card):
+    """(a) the seven mode scenarios on the full-width model, every gate
+    checked; (b) the native descriptor generated from their results and
+    judged by the port's checker, beside the public descriptors' matrix;
+    (c) the port's analyzer over the paged serving phase's event log and
+    metrics; (d) that log exported as a Perfetto trace."""
+    from repro_torch.core import analyzer
+    from repro_torch.core.checker import generate_matrix
+    from repro_torch.core.descriptors import load_all_descriptors, load_descriptor
+    from repro_torch.core.lowering import LABEL_NATIVE, judge_descriptor
+    from repro_torch.core.native_descriptor import (
+        BACKEND,
+        engine_factory,
+        generate_native_descriptor,
+        run_scenarios,
+    )
+    from repro_torch.serving.tracing import build_spans, write_perfetto, validate_perfetto
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="conformance-") as tmp:
+        results = run_scenarios(engine_factory(bundle, params, device=bundle.device),
+                                Path(tmp) / "native")
+        t_scen = time.monotonic() - t0
+        for mode, res in results.items():
+            gates = res["result"]["gates"]
+            print(f"conformance {mode}: " + ", ".join(f"{k}={v}" for k, v in gates.items()))
+            for gate, v in gates.items():
+                if isinstance(v, bool):
+                    check(v, f"conformance {mode}: gate {gate} is False")
+        soft = results["soft_priority"]["result"]["gates"]
+        check({k: soft[k] for k in SOFT_PRIORITY_COUNTS} == SOFT_PRIORITY_COUNTS,
+              f"soft priority counts {soft} differ from the reference's {SOFT_PRIORITY_COUNTS}")
+        path = generate_native_descriptor(results, Path(tmp) / "repro_torch_native.json",
+                                          {"device": str(bundle.device),
+                                           "card": card})
+        rows = judge_descriptor(load_descriptor(path))
+    for r in rows:
+        check(r.label == LABEL_NATIVE, f"{BACKEND} {r.mode}: {r.label} ({r.reasons})")
+    print(f"conformance descriptor: {BACKEND} " + ", ".join(f"{r.mode}={r.label}" for r in rows))
+    public = generate_matrix([d for d in load_all_descriptors() if d.backend != BACKEND])
+    check(public and all(r.label != LABEL_NATIVE for r in public), "a public row reads native_sound")
+    labels = {}
+    for r in public:
+        labels.setdefault(r.backend, {}).setdefault(r.label, 0)
+        labels[r.backend][r.label] += 1
+    for backend, counts in labels.items():
+        print(f"conformance public matrix: {backend} {json.dumps(counts)}")
+
+    checks = {
+        "validate_event_sequence": analyzer.validate_event_sequence(serving_log),
+        "check_step_interleave_order": analyzer.check_step_interleave_order(serving_log),
+        "check_fail_closed_attribution": analyzer.check_fail_closed_attribution(serving_log),
+        "check_metrics_reconcile": analyzer.check_metrics_reconcile(serving_log, serving_metrics),
+        "check_shared_page_immutability": analyzer.check_shared_page_immutability(serving_log),
+    }
+    for name, v in checks.items():
+        check(v.passed, f"analyzer {name} on the paged serving log: {v.reasons}")
+        print(f"analyzer {name} on the paged serving log: {'; '.join(v.reasons)}")
+
+    out = ROOT / "chiprun_out" / "paged_serving_trace.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    trace = write_perfetto(serving_log, out)
+    problems = validate_perfetto(trace)
+    check(problems == [], f"Perfetto trace problems: {problems[:5]}")
+    cats = {}
+    for sp in build_spans(serving_log):
+        cats[sp.cat] = cats.get(sp.cat, 0) + 1
+    print(f"Perfetto trace of the paged serving log: {len(trace['traceEvents'])} trace events, "
+          f"spans per category {json.dumps(cats)}, written to {out.relative_to(ROOT)}")
+    print(f"conformance phase wall {time.monotonic() - t0:.3f} s (scenarios {t_scen:.3f} s)")
 
 
 def main() -> None:
@@ -902,10 +964,11 @@ def main() -> None:
 
     counts = {}
     plain_before = kbc.gather_payloads.plain_copies
-    drive("paged serving", serving_phase, bundle, params, cfg)
+    serving_log, serving_metrics = drive("paged serving", serving_phase, bundle, params, cfg)
     drive("witness paths", witness_phase, bundle, params, cfg)
     served_prompt = drive("dense serving", dense_phase, bundle, params, cfg)
     drive("dense checks", dense_checks, bundle, params, cfg, served_prompt)
+    drive("conformance", conformance_phase, bundle, params, serving_log, serving_metrics, card)
     check(counts["paged serving"]["paged_decode_attention"] > 0,
           "serving never launched the paged decode kernel")
     check(counts["paged serving"]["paged_prefill_attention"] > 0,
@@ -914,6 +977,8 @@ def main() -> None:
     check(counts["dense serving"]["flash_attention"] > 0, "dense serving never launched K5")
     check(counts["dense checks"]["flash_attention"] > 0, "the dense checks never launched K5")
     check(counts["dense checks"]["paged_attention"] > 0, "the dense checks never launched K4")
+    for k in ("paged_decode_attention", "paged_prefill_attention", "kv_block_copy"):
+        check(counts["conformance"][k] > 0, f"the conformance phase never launched {k}")
     check(kbc.gather_payloads.plain_copies == plain_before, "a payload gather took the plain copy")
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
 

@@ -539,3 +539,28 @@ def test_paged_prefill_bf16_head_dim_must_be_multiple_of_16(dev):
     assert pa.paged_prefill_attention.launches == n0
     args = draw(torch.float32)
     _close(pa.paged_prefill_attention(*args), pa.paged_prefill_attention_ref(*args), torch.float32)
+
+
+def test_conformance_scenarios_on_card(dev, tmp_path):
+    """The seven mode scenarios on the reduced qwen3 engine on the card:
+    every gate as on the CPU, the generated descriptor native_sound, and
+    the paged-decode, chunked-prefill and page-copy kernels launched."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import native_descriptor as nd
+    from repro_torch.core.descriptors import load_descriptor
+    from repro_torch.core.lowering import LABEL_NATIVE, judge_descriptor
+    from repro_torch.models.registry import build_model
+
+    bundle = build_model(reduced(get_config("qwen3-1.7b")), device=dev)
+    params = bundle.init_params(torch.Generator().manual_seed(0))
+    wrappers = (pa.paged_decode_attention, pa.paged_prefill_attention, kbc.kv_block_copy)
+    before = [w.launches for w in wrappers]
+    results = nd.run_scenarios(nd.engine_factory(bundle, params), tmp_path / "native")
+    launched = [w.launches - n for w, n in zip(wrappers, before)]
+    assert all(n > 0 for n in launched), launched
+    for mode, res in results.items():
+        for gate, v in res["result"]["gates"].items():
+            assert v is True or (isinstance(v, str) and v.split("/")[0] == v.split("/")[1]), (
+                mode, gate, v)
+    path = nd.generate_native_descriptor(results, tmp_path / "desc.json")
+    assert [r.label for r in judge_descriptor(load_descriptor(path))] == [LABEL_NATIVE] * 7

@@ -44,12 +44,28 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      checker (no public runtime's row is), the port's analyzer over phase 3's
      event log and metrics, and that log exported as a Perfetto trace to
      ``chiprun_out/paged_serving_trace.json``.
-Every launch count is zeroed just before each of phases 3-7 and read just
-after it, so the counts show each path itself went through its kernels.
+Then two more models:
+  8. full-width, full-depth stablelm-12b (head_dim 160, 32 query heads over
+     8 kv heads; random weights from seed 0, qwen3's freed first): six
+     requests in two paged ``run_batch`` calls (fresh prompts of 512, 300,
+     150 and 64 tokens, then two that share the first prompt's 256-token
+     prefix), witness path A (a 256-token claim offloaded and restored
+     through the page copy, tokens equal to a never-offloaded run), and the
+     dense mode (flash-attention prefills of the 512- and 150-token prompts
+     against the paged prefill logits, and the paged-attention kernel over
+     layer 0 of a served dense cache against the dense decode attention);
+  9. full-width, full-depth deepseek-7b (multi-head: 32 kv heads, G = 1),
+     stablelm's weights freed first: the same six-request paged traffic.
+Phase 2 also holds K1, K2, K4 and K5 at stablelm-12b's head_dim 160, K1 and
+K2 at 16 query heads per kv head, K2 and K5 at head_dim 256 and K5 at a
+bf16 head_dim of 24 against their plain versions.  Every launch count is
+zeroed just before each path of phases 3-9 and read just after it, so the
+counts show each path itself went through its kernels.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import shutil
@@ -145,7 +161,6 @@ def tensor_core_sass(label: str, lib) -> None:
 # --------------------------------------------------------------------- phase 2
 def kernel_phase(gen_seed: int = 0):
     from repro_torch.kernels import kv_block_copy as kbc
-    from repro_torch.kernels import paged_attention as pa
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(gen_seed)
@@ -153,81 +168,26 @@ def kernel_phase(gen_seed: int = 0):
     rnd = lambda *s, dtype=bf: torch.randn(s, generator=g, device=dev).to(dtype)
     results = {}
 
-    # ---- K1: paged decode, W=8 rows, KV=8, G=2, D=128, page=16, T=24
-    W, KV, G, D, page, N, T = 8, 8, 2, 128, 16, 320, 24
-    plen = torch.tensor([0, 37, 64, 100, 256, 300, 411, 512], dtype=torch.int32)
-    P = 4 * math.ceil(math.ceil(int(plen.max()) / page) / 4)
-    t_used = torch.tensor([1, 24, 5, 17, 9, 24, 2, 13], dtype=torch.int32)
-    perm = torch.randperm(N, generator=torch.Generator().manual_seed(gen_seed))
-    bt = perm[: W * P].reshape(W, P).to(torch.int32)
-    tail_pos = torch.full((W, T), -1, dtype=torch.int32)
-    for b in range(W):
-        tail_pos[b, : t_used[b]] = plen[b] + torch.arange(int(t_used[b]), dtype=torch.int32)
-    cur = plen + t_used - 1
-    copies = []
-    for _ in range(6):  # 6 pools x 21 MB: timed launches do not run from L2
-        copies.append((
-            rnd(W, KV, G, D), rnd(KV, N, page, D), rnd(KV, N, page, D), bt.to(dev),
-            plen.to(dev), rnd(W, KV, T, D), rnd(W, KV, T, D), tail_pos.to(dev), cur.to(dev),
-        ))
-    errs = []
-    for window in (0, 128):
-        for softcap in (0.0, 30.0):
-            args = copies[0]
-            got = pa.paged_decode_attention(*args, softcap=softcap, window=window)
-            want = pa.paged_decode_attention_ref(*args, softcap=softcap, window=window)
-            torch.cuda.synchronize()
-            e = max_err(got, want)
-            errs.append(e)
-            print(f"K1 paged_decode window={window} softcap={softcap}: max|d|={e:.3e}")
-            check(within(got, want, bf), f"K1 disagrees with its plain version ({e})")
-    ms = time_ms(lambda *a: pa.paged_decode_attention(*a), copies, breakdown=True)
-    plain_ms = time_ms(lambda *a: pa.paged_decode_attention_ref(*a), copies, iters=10)
-    keys = (plen + t_used).double()
-    nbytes = (2 * W * KV * G * D * 2 + 2 * float(plen.sum()) * KV * D * 2
-              + 2 * W * KV * T * D * 2 + (W * P + 2 * W + W * T) * 4)
-    flops = 4.0 * float(keys.sum()) * KV * G * D
-    b_ms, b_by = bound(nbytes, flops)
+    # ---- K1: paged decode, W=8 rows, KV=8, G=2, D=128, page=16, T=24 (6
+    # pools of 17 MB: timed launches do not run from L2)
+    copies, P = _decode_copies(rnd, dev, gen_seed, 8, 2, 128, PLEN, T_USED, n=6)
     results["paged_decode_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
-        replaces="src/repro/kernels/paged_attention.py:405", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        replaces="src/repro/kernels/paged_attention.py:405",
+        **decode_row("K1 paged_decode", copies, P, PLEN, T_USED),
     )
-    long_context_decode_check(dev, rnd, gen_seed)
+    # K1 at a long-context shape: 8 sequences of 2048 prefix keys (a
+    # 1024-page pool of 67 MB of K/V per copy, 3 copies), the same tails
+    copies, P = _decode_copies(rnd, dev, gen_seed + 2, 8, 2, 128, [2048] * 8, T_USED, n=3)
+    decode_row("K1 long context (8 x 2048 keys + tail)", copies, P, [2048] * 8, T_USED,
+               variants=[dict(window=0, softcap=0.0), dict(window=1000, softcap=30.0)])
 
-    # ---- K2: chunked prefill, B=4, C=32, same heads
-    B, C = 4, 32
-    plen2 = torch.tensor([0, 32, 96, 224], dtype=torch.int32)
-    P2 = 4 * math.ceil(math.ceil((int(plen2.max()) + C) / page) / 4)
-    bt2 = perm[: B * P2].reshape(B, P2).to(torch.int32)
-    copies2 = []
-    for _ in range(6):
-        copies2.append((
-            rnd(B, KV, G, C, D), rnd(KV, N, page, D), rnd(KV, N, page, D), bt2.to(dev),
-            plen2.to(dev), rnd(B, KV, C, D), rnd(B, KV, C, D),
-        ))
-    errs = []
-    for window in (0, 128):
-        for softcap in (0.0, 30.0):
-            args = copies2[0]
-            got = pa.paged_prefill_attention(*args, softcap=softcap, window=window)
-            want = pa.paged_prefill_attention_ref(*args, softcap=softcap, window=window)
-            torch.cuda.synchronize()
-            e = max_err(got, want)
-            errs.append(e)
-            print(f"K2 paged_prefill window={window} softcap={softcap}: max|d|={e:.3e}")
-            check(within(got, want, bf), f"K2 disagrees with its plain version ({e})")
-    ms = time_ms(lambda *a: pa.paged_prefill_attention(*a), copies2, breakdown=True)
-    plain_ms = time_ms(lambda *a: pa.paged_prefill_attention_ref(*a), copies2, iters=10)
-    keys2 = sum(float(p) * C + C * (C + 1) / 2 for p in plen2)  # per (kv, g)
-    nbytes = (2 * B * KV * G * C * D * 2 + 2 * float(plen2.sum()) * KV * D * 2
-              + 2 * B * KV * C * D * 2 + (B * P2 + B) * 4)
-    flops = 4.0 * keys2 * KV * G * D
-    b_ms, b_by = bound(nbytes, flops)
+    # ---- K2: chunked prefill, B=4 chunks of C=32, same heads
+    copies, P = _prefill_copies(rnd, dev, gen_seed, 8, 2, 32, 128, PLEN2, n=6)
     results["paged_prefill_attention"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:317", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        replaces="src/repro/kernels/paged_attention.py:317",
+        **prefill_row("K2 paged_prefill", copies, P, PLEN2),
     )
     long_prefix_prefill_check(dev, rnd, gen_seed)
 
@@ -260,49 +220,18 @@ def kernel_phase(gen_seed: int = 0):
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
     )
     results["flash_attention"] = flash_kernel_check(dev, g, rnd)
-    results["paged_attention"] = paged_attention_kernel_check(dev, rnd, perm)
+    # ---- K4: decode over pages only, lengths ragged from 1 to 512
+    copies, P = _paged_copies(rnd, dev, gen_seed, 8, 2, 128, K4_LENGTHS, n=6)
+    results["paged_attention"] = dict(
+        route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
+        replaces="src/repro/kernels/paged_attention.py:87",
+        **paged_row("K4 paged_attention", copies, P, K4_LENGTHS),
+    )
+    wide_kernel_rows(dev, rnd, gen_seed)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}, library {r['library_ms']})")
     return results
-
-
-def long_context_decode_check(dev, rnd, gen_seed):
-    """K1 at a long-context shape: W=8 sequences of 2048 prefix keys each
-    (KV=8, G=2, D=128, page=16, a 1024-page pool of 67 MB of bf16 K/V per
-    copy), tails of 1-24 slots; timed over 3 copies so no launch runs from
-    L2."""
-    from repro_torch.kernels import paged_attention as pa
-
-    W, KV, G, D, page, T, L = 8, 8, 2, 128, 16, 24, 2048
-    P = L // page
-    N = W * P
-    plen = torch.full((W,), L, dtype=torch.int32)
-    t_used = torch.tensor([1, 24, 5, 17, 9, 24, 2, 13], dtype=torch.int32)
-    bt = torch.randperm(N, generator=torch.Generator().manual_seed(gen_seed + 2)).reshape(W, P)
-    tail_pos = torch.full((W, T), -1, dtype=torch.int32)
-    for b in range(W):
-        tail_pos[b, : t_used[b]] = L + torch.arange(int(t_used[b]), dtype=torch.int32)
-    copies = [(rnd(W, KV, G, D), rnd(KV, N, page, D), rnd(KV, N, page, D), bt.to(torch.int32).to(dev),
-               plen.to(dev), rnd(W, KV, T, D), rnd(W, KV, T, D), tail_pos.to(dev),
-               (plen + t_used - 1).to(dev)) for _ in range(3)]
-    errs = []
-    for window, softcap in ((0, 0.0), (1000, 30.0)):
-        got = pa.paged_decode_attention(*copies[0], softcap=softcap, window=window)
-        want = pa.paged_decode_attention_ref(*copies[0], softcap=softcap, window=window)
-        torch.cuda.synchronize()
-        errs.append(max_err(got, want))
-        print(f"K1 long context window={window} softcap={softcap}: max|d|={errs[-1]:.3e}")
-        check(within(got, want, torch.bfloat16), f"K1 long context disagrees ({errs[-1]})")
-    ms = time_ms(lambda *a: pa.paged_decode_attention(*a), copies, breakdown=True)
-    plain_ms = time_ms(lambda *a: pa.paged_decode_attention_ref(*a), copies, iters=6)
-    keys = float((plen + t_used).sum())
-    nbytes = (2 * W * KV * G * D * 2 + 2 * float(plen.sum()) * KV * D * 2
-              + 2 * W * KV * T * D * 2 + (W * P + 2 * W + W * T) * 4)
-    b_ms, b_by = bound(nbytes, 4.0 * keys * KV * G * D)
-    print(f"K1 long context (8 x {L} keys + tail): {ms:.4f} ms (plain {plain_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of the bound, "
-          f"{nbytes / ms / 1e6:.0f} GB/s), max|d|={max(errs):.3e}")
 
 
 def long_prefix_prefill_check(dev, rnd, gen_seed):
@@ -316,30 +245,12 @@ def long_prefix_prefill_check(dev, rnd, gen_seed):
     with the same mask."""
     from repro_torch.kernels import paged_attention as pa
 
-    B, C, KV, G, D, page, P = 4, 32, 8, 2, 128, 16, 132
-    N = B * P
-    plen = torch.tensor([2048, 2016, 1024, 32], dtype=torch.int32)
-    bt = torch.randperm(N, generator=torch.Generator().manual_seed(gen_seed + 3)).reshape(B, P)
-    copies = [(rnd(B, KV, G, C, D), rnd(KV, N, page, D), rnd(KV, N, page, D),
-               bt.to(torch.int32).to(dev), plen.to(dev), rnd(B, KV, C, D), rnd(B, KV, C, D))
-              for _ in range(3)]
-    errs = []
-    for window, softcap in ((0, 0.0), (1000, 30.0)):
-        got = pa.paged_prefill_attention(*copies[0], softcap=softcap, window=window)
-        want = pa.paged_prefill_attention_ref(*copies[0], softcap=softcap, window=window)
-        torch.cuda.synchronize()
-        errs.append(max_err(got, want))
-        print(f"K2 long prefix window={window} softcap={softcap}: max|d|={errs[-1]:.3e}")
-        check(within(got, want, torch.bfloat16), f"K2 long prefix disagrees ({errs[-1]})")
-    ms = time_ms(lambda *a: pa.paged_prefill_attention(*a), copies, breakdown=True)
-    plain_ms = time_ms(lambda *a: pa.paged_prefill_attention_ref(*a), copies, iters=6)
-    nbytes = (2 * float(plen.sum()) * KV * D * 2 + 2 * B * KV * G * C * D * 2
-              + 2 * B * KV * C * D * 2 + (B * P + B) * 4)
-    flops = 4.0 * sum(float(p) * C + C * (C + 1) / 2 for p in plen) * KV * G * D
-    b_ms, b_by = bound(nbytes, flops)
-    print(f"K2 long prefix (prefixes 2048/2016/1024/32 + a 32-token chunk): {ms:.4f} ms (plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of the bound, "
-          f"{nbytes / ms / 1e6:.0f} GB/s), max|d|={max(errs):.3e}")
+    B, C, KV, G, D, page = 4, 32, 8, 2, 128, 16
+    plen = [2048, 2016, 1024, 32]
+    copies, P = _prefill_copies(rnd, dev, gen_seed + 3, KV, G, C, D, plen, n=3)
+    ms = prefill_row("K2 long prefix (prefixes 2048/2016/1024/32 + a 32-token chunk)", copies, P,
+                     plen, variants=[dict(window=0, softcap=0.0), dict(window=1000, softcap=30.0)])["ms"]
+    plen = torch.tensor(plen)
 
     # yardstick: the same keys in contiguous [B, KV, P*page + C, D] buffers
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -439,39 +350,161 @@ def flash_kernel_check(dev, g, rnd):
     )
 
 
-def paged_attention_kernel_check(dev, rnd, perm):
-    """K4 at decode widths: 8 sequences, KV=8, G=2, D=128, page=16, lengths
-    ragged from 1 to 512; block-table entries past each length hold -7
-    (never read)."""
+def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None):
+    """One kernel at one shape: checked against its plain version on
+    ``copies[0]`` under each keyword set of ``variants`` (the bf16
+    tolerance), then timed (profiler device time) beside the plain version,
+    the bound of this input (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s) and,
+    where one PyTorch call computes the same function, that call as the
+    yardstick (``library``: (fn, its argument sets))."""
+    errs = []
+    for kw in variants:
+        got = fn(*copies[0], **kw)
+        want = plain(*copies[0], **kw)
+        torch.cuda.synchronize()
+        errs.append(max_err(got, want))
+        check(within(got, want, torch.bfloat16), f"{label} {kw} disagrees with its plain version "
+                                                 f"({errs[-1]})")
+    ms = time_ms(lambda *a: fn(*a), copies, breakdown=True)
+    plain_ms = time_ms(lambda *a: plain(*a), copies, iters=6)
+    lib_ms = None
+    if library is not None:
+        lib_fn, lib_calls = library
+        e = max_err(lib_fn(*lib_calls[0]), fn(*copies[0]))
+        check(e <= 2e-2, f"{label}: the library yardstick computes another function ({e})")
+        lib_ms = time_ms(lib_fn, lib_calls)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"{label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+          f"{100 * b_ms / ms:.1f}% of the bound, {nbytes / ms / 1e6:.0f} GB/s, library "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}), max|d|={max(errs):.3e} over "
+          f"{len(variants)} variants")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                max_abs_err=max(errs))
+
+
+# The paged shapes of phase 2: prefixes of 8 decode rows (K1) with the tail
+# slots each uses of T = 24, lengths of 8 rows (K4), prefixes of 4 chunks (K2)
+PLEN = [0, 37, 64, 100, 256, 300, 411, 512]
+T_USED = [1, 24, 5, 17, 9, 24, 2, 13]
+K4_LENGTHS = [1, 37, 64, 100, 256, 300, 411, 512]
+PLEN2 = [0, 32, 96, 224]
+BOTH = [dict(window=w, softcap=c) for w in (0, 128) for c in (0.0, 30.0)]
+
+
+def _decode_copies(rnd, dev, seed, KV, G, D, plen, t_used, T=24, n=4, page=16):
+    """Paged-decode operands (block tables of distinct pages over a pool of
+    exactly those pages, tails of ``t_used`` slots after each prefix) in
+    ``n`` copies; also the block table's width."""
+    W, P = len(plen), max(1, math.ceil(max(plen) / page))
+    bt = torch.randperm(W * P, generator=torch.Generator().manual_seed(seed)).reshape(W, P)
+    tail_pos = torch.full((W, T), -1, dtype=torch.int32)
+    for b in range(W):
+        tail_pos[b, : t_used[b]] = plen[b] + torch.arange(t_used[b], dtype=torch.int32)
+    pl = torch.tensor(plen, dtype=torch.int32)
+    cur = pl + torch.tensor(t_used, dtype=torch.int32) - 1
+    return [(rnd(W, KV, G, D), rnd(KV, W * P, page, D), rnd(KV, W * P, page, D),
+             bt.to(torch.int32).to(dev), pl.to(dev), rnd(W, KV, T, D), rnd(W, KV, T, D),
+             tail_pos.to(dev), cur.to(dev)) for _ in range(n)], P
+
+
+def _paged_copies(rnd, dev, seed, KV, G, D, lengths, n=4, page=16):
+    """K4's operands: the decode operands without a tail, block-table
+    entries past each length set to -7 (never read)."""
+    copies, P = _decode_copies(rnd, dev, seed, KV, G, D, lengths, [0] * len(lengths), T=1, n=n)
+    out = []
+    for q, kp, vp, bt, ln, *_ in copies:
+        bt = bt.clone()
+        for b, L in enumerate(lengths):
+            bt[b, -(-L // page):] = -7
+        out.append((q, kp, vp, bt, ln))
+    return out, P
+
+
+def _prefill_copies(rnd, dev, seed, KV, G, C, D, plen, n=4, page=16):
+    """Chunked-prefill operands: chunks of C queries after ``plen``, block
+    tables 4-column aligned over a pool of exactly their pages."""
+    B, P = len(plen), 4 * math.ceil(math.ceil((max(plen) + C) / page) / 4)
+    bt = torch.randperm(B * P, generator=torch.Generator().manual_seed(seed)).reshape(B, P)
+    return [(rnd(B, KV, G, C, D), rnd(KV, B * P, page, D), rnd(KV, B * P, page, D),
+             bt.to(torch.int32).to(dev), torch.tensor(plen, dtype=torch.int32, device=dev),
+             rnd(B, KV, C, D), rnd(B, KV, C, D)) for _ in range(n)], P
+
+
+def decode_row(label, copies, P, plen, t_used, variants=BOTH):
+    """K1 at one shape.  Its bound counts q and the output once, the K/V
+    rows of the keys the timed call (window 0) attends (every prefix key
+    and each used tail slot: the kernel never loads an empty slot), the
+    block table, the lengths, the positions and the tail slots."""
     from repro_torch.kernels import paged_attention as pa
 
-    W, KV, G, D, page, N = 8, 8, 2, 128, 16, 320
-    lengths = torch.tensor([1, 37, 64, 100, 256, 300, 411, 512], dtype=torch.int32)
-    P = 512 // page
-    bt = perm[: W * P].reshape(W, P).to(torch.int32)
-    for b in range(W):
-        bt[b, -(-int(lengths[b]) // page):] = -7
-    copies = [(rnd(W, KV, G, D), rnd(KV, N, page, D), rnd(KV, N, page, D), bt.to(dev), lengths.to(dev))
-              for _ in range(6)]
-    errs = []
-    for softcap in (0.0, 30.0):
-        got = pa.paged_attention(*copies[0], softcap=softcap)
-        want = pa.paged_attention_ref(*copies[0], softcap=softcap)
-        torch.cuda.synchronize()
-        e = max_err(got, want)
-        errs.append(e)
-        print(f"K4 paged_attention softcap={softcap}: max|d|={e:.3e}")
-        check(within(got, want, torch.bfloat16), f"K4 disagrees with its plain version ({e})")
-    ms = time_ms(lambda *a: pa.paged_attention(*a), copies)
-    plain_ms = time_ms(lambda *a: pa.paged_attention_ref(*a), copies, iters=10)
-    keys = float(lengths.sum())
-    nbytes = 2 * W * KV * G * D * 2 + 2 * keys * KV * D * 2 + (W * P + W) * 4
-    b_ms, b_by = bound(nbytes, 4.0 * keys * KV * G * D)
-    return dict(
-        route="cuda", source="src/repro_torch/kernels/csrc/paged_decode.cu",
-        replaces="src/repro/kernels/paged_attention.py:87", max_abs_err=max(errs),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-    )
+    W, KV, G, D = copies[0][0].shape
+    T, es = copies[0][5].shape[2], copies[0][0].element_size()
+    keys = sum(plen) + sum(t_used)
+    nbytes = (2 * W * KV * G * D + 2 * keys * KV * D) * es + (W * P + 2 * W + W * T) * 4
+    return kernel_row(label, pa.paged_decode_attention, pa.paged_decode_attention_ref, copies,
+                      variants, nbytes, 4.0 * keys * KV * G * D)
+
+
+def paged_row(label, copies, P, lengths):
+    """K4 at one shape, its bound counted as K1's over ``lengths`` keys."""
+    from repro_torch.kernels import paged_attention as pa
+
+    W, KV, G, D = copies[0][0].shape
+    keys, es = sum(lengths), copies[0][0].element_size()
+    nbytes = (2 * W * KV * G * D + 2 * keys * KV * D) * es + (W * P + W) * 4
+    return kernel_row(label, pa.paged_attention, pa.paged_attention_ref, copies,
+                      [dict(softcap=0.0), dict(softcap=30.0)], nbytes, 4.0 * keys * KV * G * D)
+
+
+def prefill_row(label, copies, P, plen, variants=BOTH):
+    """K2 at one shape: the bound counts q, the output and the chunk's own
+    K/V once, each prefix key's K/V row once, the block table and lengths;
+    the operations are the causal (query, key) pairs of the chunk."""
+    from repro_torch.kernels import paged_attention as pa
+
+    B, KV, G, C, D = copies[0][0].shape
+    es = copies[0][0].element_size()
+    keys = sum(p * C + C * (C + 1) / 2 for p in plen)  # per (kv head, query head)
+    nbytes = (2 * B * KV * G * C * D + 2 * sum(plen) * KV * D + 2 * B * KV * C * D) * es
+    nbytes += (B * P + B) * 4
+    return kernel_row(label, pa.paged_prefill_attention, pa.paged_prefill_attention_ref, copies,
+                      variants, nbytes, 4.0 * keys * KV * G * D)
+
+
+def wide_kernel_rows(dev, rnd, gen_seed):
+    """K1, K4, K2 and K5 at stablelm-12b's serving shapes (head_dim 160, 4
+    query heads per kv head), K1 and K2 at 16 query heads per kv head
+    (head_dim 128 over 2 kv heads), K2 and K5 at head_dim 256 (the widest
+    tiles, one K/V stage per warpgroup), and K5 at a bf16 head_dim of 24
+    (tiles zero-padded to 32 columns), each against its plain version."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = {}
+    for label, KV, G, D in (("K1 D=160 G=4 (stablelm-12b decode)", 8, 4, 160),
+                            ("K1 D=128 G=16", 2, 16, 128)):
+        copies, P = _decode_copies(rnd, dev, gen_seed + 5, KV, G, D, PLEN, T_USED)
+        rows[label] = decode_row(label, copies, P, PLEN, T_USED)
+    label = "K4 D=160 G=4 (stablelm-12b widths)"
+    copies, P = _paged_copies(rnd, dev, gen_seed + 6, 8, 4, 160, K4_LENGTHS)
+    rows[label] = paged_row(label, copies, P, K4_LENGTHS)
+    for label, KV, G, D in (("K2 D=160 G=4 (stablelm-12b prefill chunk)", 8, 4, 160),
+                            ("K2 D=128 G=16", 2, 16, 128), ("K2 D=256 G=2", 8, 2, 256)):
+        copies, P = _prefill_copies(rnd, dev, gen_seed + 7, KV, G, 32, D, PLEN2)
+        rows[label] = prefill_row(label, copies, P, PLEN2)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    act = lambda B, S, H, D: rnd(B, S, H, D).transpose(1, 2)
+    for label, H, KV, S, D in (("K5 D=160 32/8 heads (stablelm-12b prefill)", 32, 8, 512, 160),
+                               ("K5 D=256 16/8 heads", 16, 8, 512, 256),
+                               ("K5 bf16 D=24 16/8 heads", 16, 8, 512, 24)):
+        copies = [(act(1, S, H, D), act(1, S, KV, D), act(1, S, KV, D)) for _ in range(8)]
+        variants = [dict(causal=True, window=w, softcap=c) for w in (0, 128) for c in (0.0, 30.0)]
+        nbytes = 2.0 * (2 * H * S * D + 2 * KV * S * D)
+        lib = (lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), copies)
+        rows[label] = kernel_row(label, fa.flash_attention, fa.flash_attention_ref, copies, variants,
+                                 nbytes, 4.0 * H * D * S * (S + 1) / 2, library=lib)
+    print("wide kernel rows: " + json.dumps(rows))
+    return rows
 
 
 def reduced_parity_phase():
@@ -514,16 +547,40 @@ def _to(tree, dev):
 
 
 # ----------------------------------------------------------------- phases 3-4
-def serving_phase(bundle, params, cfg):
-    from repro_torch.serving.engine import ServingEngine
-
+def qwen3_traffic(V):
+    """Phase 3's 8 requests: 4 fresh prompts of 64-512 tokens, one of them
+    opening with a shared 256-token prefix, then 3 more on that prefix and
+    a fresh 100-token prompt."""
     rng = np.random.default_rng(0)
-    V = cfg.vocab_size
     shared = tuple(int(t) for t in rng.integers(0, V, 256))
     fresh = lambda n: tuple(int(t) for t in rng.integers(0, V, n))
     first = [shared + fresh(64), fresh(64), fresh(150), fresh(512)]
-    second = [shared + fresh(128), shared + fresh(200), shared + fresh(37), fresh(100)]
-    eng = ServingEngine(bundle, params, block_size=16, device_blocks=192, device=bundle.device)
+    return first, [shared + fresh(128), shared + fresh(200), shared + fresh(37), fresh(100)]
+
+
+def wide_traffic(V):
+    """Phases 8-9's 6 requests: fresh prompts of 512, 300, 150 and 64
+    tokens, then two that share the first prompt's 256-token prefix plus 8
+    fresh tokens."""
+    rng = np.random.default_rng(6)
+    fresh = lambda n: tuple(int(t) for t in rng.integers(0, V, n))
+    first = [fresh(512), fresh(300), fresh(150), fresh(64)]
+    return first, [first[0][:256] + fresh(8), first[0][:256] + fresh(8)]
+
+
+def serving_phase(bundle, params, cfg, traffic, device_blocks):
+    """The paged mode at full width: the two batches of ``traffic`` in two
+    ``run_batch`` calls, 16 new tokens per request, block_size 16; every
+    request finished, the second call reused a cached prefix, nothing
+    failed closed.  Then one more request under the profiler for the
+    device busy share.  Returns the event log, the metrics and the first
+    batch's prompts."""
+    from repro_torch.serving.engine import ServingEngine
+
+    V = cfg.vocab_size
+    batches = traffic(V)
+    eng = ServingEngine(bundle, params, block_size=16, device_blocks=device_blocks,
+                        device=bundle.device)
     # time the page-store mirror uploads (the engine re-uploads the whole
     # host page store to the card after any page write)
     uploads = {"s": 0.0, "n": 0}
@@ -543,38 +600,40 @@ def serving_phase(bundle, params, cfg):
     eng._device_pages = timed_mirror
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    reqs, ttft = [], []
-    for batch in (first, second):
+    reqs, ttft, hits = [], [], [eng.prefix_reuse_hits.value()]
+    for batch in batches:
         rs = [eng.submit(p, max_new_tokens=16) for p in batch]
         tb = time.monotonic()
         eng.run_batch(rs)
         torch.cuda.synchronize()
         ttft += [r.first_token_ts - tb for r in rs if r.first_token_ts is not None]
         reqs += rs
+        hits.append(eng.prefix_reuse_hits.value())
     wall = time.monotonic() - t0
+    name = cfg.name
     for r in reqs:
-        check(r.status == "finished", f"{r.request_id}: {r.status} ({r.error})")
-        check(len(r.output_tokens) == 16, f"{r.request_id}: {len(r.output_tokens)} tokens")
-        check(all(0 <= t < V for t in r.output_tokens), f"{r.request_id}: token out of range")
-    hits = eng.prefix_reuse_hits.value()
-    check(hits > 0, "no radix prefix reuse")
-    check(not eng.fail_closed_total(), f"fail-closed outcomes: {eng.fail_closed_total()}")
+        check(r.status == "finished", f"{name} {r.request_id}: {r.status} ({r.error})")
+        check(len(r.output_tokens) == 16, f"{name} {r.request_id}: {len(r.output_tokens)} tokens")
+        check(all(0 <= t < V for t in r.output_tokens), f"{name} {r.request_id}: token out of range")
+    check(hits[2] > hits[1], f"{name}: the second call had no prefix reuse hit ({hits})")
+    check(not eng.fail_closed_total(), f"{name} fail-closed outcomes: {eng.fail_closed_total()}")
     n_out = sum(len(r.output_tokens) for r in reqs)
     ttft = sorted(ttft)
-    print(f"serving qwen3-1.7b full width: {len(reqs)} requests finished, {n_out} tokens in "
+    print(f"serving {name} full width: {len(reqs)} requests finished, {n_out} tokens in "
           f"{wall:.3f} s ({n_out / wall:.1f} tok/s incl. prefill), TTFT median "
           f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, prefix reuse hits "
-          f"{hits:.0f}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"on {torch.cuda.get_device_name(0)}")
+          f"{hits[2] - hits[0]:.0f} ({hits[2] - hits[1]:.0f} in the second call), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {torch.cuda.get_device_name(0)}")
     stage = {k: sum(eng.stage_seconds.samples(stage=k)) for k in ("prefill_chunk", "decode_step")}
     n_steps = len(eng.events.named("step_scheduled"))
-    print(f"serving time: wall {wall:.3f} s over {n_steps} steps = decode/feed launches "
+    print(f"{name} serving time: wall {wall:.3f} s over {n_steps} steps = decode/feed launches "
           f"{stage['decode_step']:.3f} s + prefill chunks {stage['prefill_chunk']:.3f} s + "
           f"page-store uploads {uploads['s']:.3f} s ({uploads['n']} x "
           f"{eng.pool.k_pages.numel() * 2 * eng.pool.k_pages.element_size() / 2**20:.0f} MiB) + "
           f"other host work {wall - sum(stage.values()) - uploads['s']:.3f} s")
     # one more request under the profiler: how busy the card is on this path
-    extra = eng.submit(fresh(64), max_new_tokens=8)
+    extra = eng.submit(tuple(int(t) for t in np.random.default_rng(5).integers(0, V, 64)),
+                       max_new_tokens=8)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t = time.monotonic()
@@ -584,10 +643,10 @@ def serving_phase(bundle, params, cfg):
     check(extra.status == "finished", f"profiled request {extra.status}")
     avg = prof.key_averages()
     busy = sum(getattr(e, "self_device_time_total", 0.0) for e in avg) / 1e6
-    print(f"profiled request (64-token prompt, 8 new tokens): wall {w:.3f} s, device busy "
+    print(f"{name} profiled request (64-token prompt, 8 new tokens): wall {w:.3f} s, device busy "
           f"{busy:.3f} s ({100 * busy / w:.1f}%), {sum(e.count for e in avg)} device ops")
     eng.close()
-    return eng.events, eng.metrics
+    return eng.events, eng.metrics, batches[0]
 
 
 def dense_phase(bundle, params, cfg):
@@ -669,8 +728,6 @@ def dense_checks(bundle, params, cfg, served_prompt):
     over a served request's dense cache against ``attention_decode``."""
     from repro_torch.core.claims import ClaimMode, ClaimState
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.models.layers import attention_decode
     from repro_torch.serving.engine import ServingEngine
 
     rng = np.random.default_rng(3)
@@ -680,22 +737,15 @@ def dense_checks(bundle, params, cfg, served_prompt):
     engine = lambda **kw: ServingEngine(bundle, params, block_size=16, device_blocks=64,
                                         cache_len=DENSE_CACHE_LEN, device=dev, **kw)
 
-    def compare(label, la, lb):
-        e = float(np.abs(la - lb).max())
-        print(f"{label}: max|d|={e:.3e}, argmax {la.argmax()} vs {lb.argmax()}")
-        check(np.isfinite(la).all() and la.shape == (V,), f"{label}: bad logits")
-        check(e <= 0.25, f"{label}: disagree ({e})")
-        check(la.argmax() == lb.argmax(), f"{label}: different tokens")
-
     prompt = fresh(150)
     n0 = fa.flash_attention.launches
     with engine(decode_mode="dense") as d, engine() as pg:
-        compare("dense (K5) vs paged (K2) prefill logits, 150 tokens",
-                d.prefill_logits(prompt), pg.prefill_logits(prompt))
+        compare_logits("dense (K5) vs paged (K2) prefill logits, 150 tokens",
+                       d.prefill_logits(prompt), pg.prefill_logits(prompt), V)
     n1 = fa.flash_attention.launches
     with engine() as a, engine(prefill_chunk=0) as b:
-        compare("chunked (K2) vs monolithic (K5) prefill logits, 150 tokens",
-                a.prefill_logits(prompt), b.prefill_logits(prompt))
+        compare_logits("chunked (K2) vs monolithic (K5) prefill logits, 150 tokens",
+                       a.prefill_logits(prompt), b.prefill_logits(prompt), V)
     check(n1 > n0, "the dense prefill never launched K5")
     check(fa.flash_attention.launches > n1, "the monolithic prefill never launched K5")
 
@@ -713,11 +763,19 @@ def dense_checks(bundle, params, cfg, served_prompt):
             restored[mode] = eng.prefill_logits(reuse)
             check(claim.state == ClaimState.RESTORED, f"{mode} path A: claim {claim.state}")
             check(not eng.fail_closed_total(), f"{mode} path A: {eng.fail_closed_total()}")
-    compare("witness path A restored prefill logits, dense vs paged",
-            restored["dense"], restored["paged"])
+    compare_logits("witness path A restored prefill logits, dense vs paged",
+                   restored["dense"], restored["paged"], V)
 
-    # K4 over layer 0 of the dense cache of a prompt the dense phase served,
-    # paged out in shuffled page order, against attention_decode
+    k4_over_dense_cache(bundle, params, cfg, served_prompt)
+
+
+def k4_over_dense_cache(bundle, params, cfg, served_prompt):
+    """K4 over layer 0 of the dense cache of a served prompt, paged out in
+    shuffled page order, against the dense mode's ``attention_decode``."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.layers import attention_decode
+
+    dev = bundle.device
     _, cache = bundle.prefill_fn(
         params, {"tokens": torch.tensor([served_prompt], dtype=torch.int32, device=dev)},
         DENSE_CACHE_LEN)
@@ -737,13 +795,17 @@ def dense_checks(bundle, params, cfg, served_prompt):
                             kv_positions=pos.expand(W, -1), cur_pos=lengths - 1)
     torch.cuda.synchronize()
     e = max_err(got.reshape(W, 1, H, D), want)
-    print(f"K4 over a served request's dense cache (layer 0, lengths 512/300/150/64) vs "
-          f"attention_decode: max|d|={e:.3e}")
+    print(f"K4 over a served request's dense cache ({cfg.name}, layer 0, lengths 512/300/150/64, "
+          f"head_dim {D}) vs attention_decode: max|d|={e:.3e}")
     check(within(got.reshape(W, 1, H, D), want, torch.bfloat16),
           f"K4 disagrees with attention_decode ({e})")
 
 
-def witness_phase(bundle, params, cfg):
+def witness_phase(bundle, params, cfg, paths=("A", "B")):
+    """The claim witness paths at full width: a 256-token claim prefix is
+    materialized and offloaded; A restores it through the page copy (the
+    reuse request's 16 tokens equal a never-offloaded engine's), B fails
+    the same claim's restore and must be refused fail-closed, in order."""
     from repro_torch.core.analyzer import (
         check_failure_outcome_path,
         check_observation_path,
@@ -762,8 +824,9 @@ def witness_phase(bundle, params, cfg):
         r_plain = plain.run(plain.submit(reuse, max_new_tokens=16))
         check(r_plain.status == "finished", "never-offloaded run did not finish")
 
+    t0 = time.monotonic()
     outcomes = {}
-    for path in ("A", "B"):
+    for path in paths:
         with ServingEngine(bundle, params, block_size=16, device_blocks=64, device=bundle.device) as eng:
             claim = eng.accept_claim(prefix, ClaimMode.OFFLOADABLE)
             cid = claim.claim_id
@@ -809,10 +872,63 @@ def witness_phase(bundle, params, cfg):
             check(verdict.passed, f"path {path}: {verdict.reasons}")
             print(f"witness path {path} analyzer: {verdict.reasons[0]}")
             outcomes[path] = (r2.status, claim.state.value)
-    print(f"witness path A: restored 256 tokens, output equals the never-offloaded run "
+    print(f"{cfg.name} witness path A: restored 256 tokens, output equals the never-offloaded run "
           f"({len(r_plain.output_tokens)} tokens), claim {outcomes['A'][1]}")
-    print(f"witness path B: request {outcomes['B'][0]}, claim {outcomes['B'][1]}, "
-          f"ordered E11 -> E12 -> E13 -> E14 -> FINISHED_ERROR")
+    if "B" in paths:
+        print(f"{cfg.name} witness path B: request {outcomes['B'][0]}, claim {outcomes['B'][1]}, "
+              f"ordered E11 -> E12 -> E13 -> E14 -> FINISHED_ERROR")
+    print(f"{cfg.name} witness paths {'/'.join(paths)}: {time.monotonic() - t0:.3f} s")
+
+
+# ----------------------------------------------------------------- phases 8-9
+WIDE_DEVICE_BLOCKS = 128  # 400 MiB of stablelm-12b pages, 960 MiB of deepseek-7b's
+
+
+def compare_logits(label, la, lb, V):
+    """Two prefill logit vectors of one prompt: finite, within 0.25 (bf16
+    activations through other kernels and graphs), and the same argmax."""
+    e = float(np.abs(la - lb).max())
+    print(f"{label}: max|d|={e:.3e} (limit 0.25), argmax {la.argmax()} vs {lb.argmax()}")
+    check(np.isfinite(la).all() and la.shape == (V,), f"{label}: bad logits")
+    check(e <= 0.25, f"{label}: disagree ({e})")
+    check(la.argmax() == lb.argmax(), f"{label}: different tokens")
+
+
+def load_model(name):
+    """Full-width, full-depth ``name`` on the card, weights from seed 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(name)
+    bundle = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = bundle.init_params(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"{name} params: {n / 1e9:.3f} B bf16 ({cfg.num_layers} layers, head_dim "
+          f"{cfg.resolved_head_dim}, {cfg.num_heads} heads over {cfg.num_kv_heads}) on the card in "
+          f"{time.monotonic() - t0:.1f} s, init peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB, resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    return cfg, bundle, params
+
+
+def wide_dense_checks(bundle, params, cfg, prompts):
+    """The dense mode at full width: flash-attention prefills of the 512-
+    and 150-token prompts against the paged (chunked-prefill) logits of the
+    same prompts, then K4 over layer 0 of the 512-token prompt's dense
+    cache."""
+    from repro_torch.serving.engine import ServingEngine
+
+    engine = lambda **kw: ServingEngine(bundle, params, block_size=16, device_blocks=64,
+                                        cache_len=DENSE_CACHE_LEN, device=bundle.device, **kw)
+    t0 = time.monotonic()
+    with engine(decode_mode="dense") as d, engine() as pg:
+        for prompt in prompts:
+            compare_logits(f"{cfg.name} dense (K5) vs paged (K2) prefill logits, {len(prompt)} tokens",
+                           d.prefill_logits(prompt), pg.prefill_logits(prompt), cfg.vocab_size)
+    k4_over_dense_cache(bundle, params, cfg, prompts[0])
+    print(f"{cfg.name} dense checks: {time.monotonic() - t0:.3f} s")
 
 
 # --------------------------------------------------------------------- phase 7
@@ -918,6 +1034,7 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t_start = time.monotonic()
 
     t0 = time.monotonic()
     secs = build.build_all()
@@ -964,16 +1081,36 @@ def main() -> None:
 
     counts = {}
     plain_before = kbc.gather_payloads.plain_copies
-    serving_log, serving_metrics = drive("paged serving", serving_phase, bundle, params, cfg)
+    serving_log, serving_metrics, _ = drive("paged serving", serving_phase, bundle, params, cfg,
+                                            qwen3_traffic, 192)
     drive("witness paths", witness_phase, bundle, params, cfg)
     served_prompt = drive("dense serving", dense_phase, bundle, params, cfg)
     drive("dense checks", dense_checks, bundle, params, cfg, served_prompt)
     drive("conformance", conformance_phase, bundle, params, serving_log, serving_metrics, card)
-    check(counts["paged serving"]["paged_decode_attention"] > 0,
-          "serving never launched the paged decode kernel")
-    check(counts["paged serving"]["paged_prefill_attention"] > 0,
-          "serving never launched the prefill kernel")
-    check(counts["witness paths"]["kv_block_copy"] > 0, "offload/restore never launched K3")
+    del bundle, params, serving_log, serving_metrics
+    for name in ("stablelm-12b", "deepseek-7b"):
+        gc.collect()
+        torch.cuda.empty_cache()  # the previous model's weights go before the next is drawn
+        cfg, bundle, params = load_model(name)
+        *_, prompts = drive(f"{name} paged serving", serving_phase, bundle, params, cfg,
+                            wide_traffic, WIDE_DEVICE_BLOCKS)
+        if name == "stablelm-12b":
+            drive(f"{name} witness paths", witness_phase, bundle, params, cfg, ("A",))
+            drive(f"{name} dense checks", wide_dense_checks, bundle, params, cfg,
+                  [prompts[0], prompts[2]])
+            check(counts[f"{name} dense checks"]["flash_attention"] > 0,
+                  f"{name} dense prefills never launched K5")
+            check(counts[f"{name} dense checks"]["paged_attention"] > 0,
+                  f"{name} dense checks never launched K4")
+        del bundle, params
+    for name in ("", "stablelm-12b ", "deepseek-7b "):
+        check(counts[f"{name}paged serving"]["paged_decode_attention"] > 0,
+              f"{name}serving never launched the paged decode kernel")
+        check(counts[f"{name}paged serving"]["paged_prefill_attention"] > 0,
+              f"{name}serving never launched the prefill kernel")
+    for name in ("", "stablelm-12b "):
+        check(counts[f"{name}witness paths"]["kv_block_copy"] > 0,
+              f"{name}offload/restore never launched K3")
     check(counts["dense serving"]["flash_attention"] > 0, "dense serving never launched K5")
     check(counts["dense checks"]["flash_attention"] > 0, "the dense checks never launched K5")
     check(counts["dense checks"]["paged_attention"] > 0, "the dense checks never launched K4")
@@ -982,6 +1119,7 @@ def main() -> None:
     check(kbc.gather_payloads.plain_copies == plain_before, "a payload gather took the plain copy")
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
 
+    print(f"smoke wall {time.monotonic() - t_start:.1f} s (kernel build included)")
     print("kernels: " + json.dumps([{"name": k, "launches": v} for k, v in launches.items()]))
     record = []
     for name in wrappers:

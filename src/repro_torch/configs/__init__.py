@@ -1,7 +1,9 @@
 """Model configs the port serves: the dense transformer family.
 
-qwen3-1.7b is the served model; h2o-danube-1.8b carries the sliding-window
-attention path.  ``get_config`` raises for every other name.
+qwen3-1.7b is the first served model; h2o-danube-1.8b carries the
+sliding-window attention path; stablelm-12b carries head_dim 160 (G = 4)
+and deepseek-7b multi-head attention (G = 1).  ``get_config`` raises for
+every other name.
 """
 from __future__ import annotations
 
@@ -12,10 +14,12 @@ from repro_torch.configs.base import (
     XLSTMConfig,
     reduced,
 )
+from repro_torch.configs.deepseek_7b import CONFIG as DEEPSEEK_7B
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
 from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN3_1_7B
+from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
 
-ARCHITECTURES = {c.name: c for c in (QWEN3_1_7B, H2O_DANUBE_1_8B)}
+ARCHITECTURES = {c.name: c for c in (QWEN3_1_7B, H2O_DANUBE_1_8B, STABLELM_12B, DEEPSEEK_7B)}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -1,9 +1,12 @@
-// Element conversions shared by the attention kernels of this directory.
+// Element conversions shared by the attention kernels of this directory, and
+// the per-device opt-in to more than 48 KB of dynamic shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace repro_kernels {
 
@@ -31,6 +34,23 @@ __device__ __forceinline__ void unpack16(float* dst, const uint4& u) {
   const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
   for (int i = 0; i < int(16 / sizeof(T)); ++i) dst[i] = to_f<T>(e[i]);
+}
+
+constexpr int kMaxDevices = 64;
+
+// Raises the dynamic shared-memory limit of one kernel (Tag names it) once
+// per device rather than before every launch.
+template <typename Tag>
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && known) done[dev].store(true, std::memory_order_release);
+  return err;
 }
 
 }  // namespace repro_kernels

@@ -39,9 +39,17 @@
 //   flight while the current one is computed.  The q tiles of a causal call
 //   are scheduled heaviest first; key tiles wholly outside the causal/window
 //   range of every row of the CTA are never loaded, and the per-element mask
-//   runs only on the diagonal, window-edge and ragged tiles.  D is any multiple of 16 up to
-//   128; the shared tiles are padded to 16, 32, 64 or 128 columns with
-//   zeros (80 runs as 128).  Left for later: wgmma with TMA tile loads and
+//   runs only on the diagonal, window-edge and ragged tiles.  D is any
+//   multiple of 8 up to 256; the shared tiles are padded with zeros to 16,
+//   32, 64, 128, 160 or 256 columns (24 runs as 32, 80 as 128, 136-160 as
+//   160, 168-256 as 256), and zero columns in Q, K and V add nothing to a
+//   score and are never written.  Registers bound the wide tiles: a thread
+//   holds DP / 2 f32 accumulators (80 at 160, 128 at 256) besides its 32
+//   scores, so past DP = 128 the Q fragments stay in shared memory and are
+//   re-read by ldmatrix at each k-step (one more ldmatrix per four of K),
+//   and V's fragments are loaded 5 or 2 at a time; shared memory bounds DP
+//   = 256 to one K/V stage per warpgroup (160 KiB with Q), where 160 keeps
+//   two (180 KiB).  Left for later: wgmma with TMA tile loads and
 //   warp specialisation (this kernel uses the Ampere-style mma.sync path).
 //
 // * float32 (the card tests' 1e-5 checks, which no bf16 or TF32 tensor-core
@@ -50,13 +58,16 @@
 //   tiles with the online-softmax state in registers; 256 threads form a
 //   16 x 16 grid; thread (ty, tx) owns query rows ty + 16 i (i < 4), for the
 //   scores keys tx + 16 j (j < 4) of the tile, and for the output columns
-//   tx + 16 c (c < 8) of its rows.  Q, K and V tiles live in shared memory as
-//   f32 with an odd row stride (D + 1); both products are f32 FMAs.
+//   tx + 16 c (c < 8, or 16 in the instantiation for D above 128) of its
+//   rows.  Q, K and V tiles live in shared memory as f32 with an odd row
+//   stride (D + 1; 209 KiB at D = 256); both products are f32 FMAs.  D is
+//   any multiple of 4 up to 256.
 //
 // A query row with no valid key at all (only possible with Sq > Sk under a
-// causal window, or Sk = 0) yields zeros in both kernels; the dense
-// reference spreads uniform weights over such a row instead.  The model
-// never builds one.
+// causal window, or Sk = 0) yields zeros in both kernels.  The dense
+// reference spreads uniform weights over the Sk keys of such a row, and the
+// Pallas kernel over the keys of its key blocks, zero padding included, so
+// its value depends on the block size; the model never builds such a row.
 //
 // The kernels allocate nothing and do not synchronise; the caller passes
 // the stream and checks the returned cudaGetLastError().
@@ -73,10 +84,9 @@ using namespace repro_kernels;  // common.cuh, tensor_core.cuh
 constexpr int kThreads = 256;
 constexpr int kSide = 16;              // the 16 x 16 thread grid
 constexpr int kTile = 64;              // query rows per CTA, keys per tile
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 constexpr int kRows = kTile / kSide;   // query rows per thread
 constexpr int kKeys = kTile / kSide;   // keys per thread in the score tile
-constexpr int kCols = kMaxD / kSide;   // output columns per thread
 constexpr int kPs = kTile + 1;         // row stride of the weight tile
 
 struct Params {
@@ -112,8 +122,10 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base, lon
   }
 }
 
-template <typename T>
+// DM: the widest head dim of the instantiation (128 or 256)
+template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
+  constexpr int kCols = DM / kSide;  // output columns per thread
   extern __shared__ float smem[];
   const int D = p.D;
   const int ld = D + 1;
@@ -252,13 +264,12 @@ constexpr int kGroupThreads = 32 * kTcWarps;        // one warpgroup
 constexpr int kTcGroups = 2;                        // warpgroups, alternate key tiles
 constexpr int kTcThreads = kTcGroups * kGroupThreads;
 constexpr int kTcKeys = 64;                         // keys per K/V tile
-constexpr int kStages = 2;                          // K/V tiles in flight per warpgroup
 
 using bf16 = __nv_bfloat16;
 
 template <int DP>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(bf16) * (size_t)(kTcRows + 2 * kTcGroups * kStages * kTcKeys) * DP;
+  return sizeof(bf16) * (size_t)(kTcRows + 2 * kTcGroups * TcShape<DP>::kStages * kTcKeys) * DP;
 }
 
 // keys [k0, k0 + kTcKeys) of one kv head -> a swizzled [kTcKeys][DP] tile;
@@ -280,6 +291,9 @@ __device__ __forceinline__ void load_kv_tile(bf16* dst, const bf16* base, long l
 template <int DP, bool kSoftcap>
 __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
+  constexpr int kStages = TcShape<DP>::kStages;
+  constexpr bool kQRegs = TcShape<DP>::kQRegs;
+  constexpr int kVChunk = TcShape<DP>::kVChunk;
   constexpr int kChunks = DP / 8;
   constexpr int kKSteps = DP / 16;      // k-steps of QK^T
   constexpr int kDBlocks = DP / 8;      // 8-column blocks of the output
@@ -323,7 +337,7 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
 #pragma unroll
   for (int n = 0; n < kDBlocks; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // m in log2 units
-  uint32_t qf[kKSteps][4];
+  uint32_t qf[kQRegs ? kKSteps : 1][4];
 
   if (n_tiles > 0) {
     // commit group u holds this thread's copies of the group's tile u (group
@@ -349,11 +363,26 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
     }
     cp_async_wait<kStages - 1>();
     __syncthreads();  // Q and each warpgroup's first tile are in shared memory
+    if constexpr (kQRegs) {
 #pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk)
-      ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), qf[kk][0],
-              qf[kk][1], qf[kk][2], qf[kk][3]);
+      for (int kk = 0; kk < kKSteps; ++kk)
+        ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), qf[kk][0],
+                qf[kk][1], qf[kk][2], qf[kk][3]);
+    }
   }
+
+  // the A fragment of k-step kk: from registers, or re-read from shared memory
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
+    if constexpr (kQRegs) {
+      a[0] = qf[kk][0];
+      a[1] = qf[kk][1];
+      a[2] = qf[kk][2];
+      a[3] = qf[kk][3];
+    } else {
+      ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), a[0], a[1],
+              a[2], a[3]);
+    }
+  };
 
   for (int u = 0; u < my_tiles; ++u) {
     const int k0 = tile_k0(u);
@@ -372,7 +401,8 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
     for (int j = 0; j < kNB; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
-      uint32_t kf[kNB / 2][4];
+      uint32_t qa[4], kf[kNB / 2][4];
+      q_frag(kk, qa);
 #pragma unroll
       for (int jp = 0; jp < kNB / 2; ++jp) {
         const int key = 16 * jp + (lane & 7) + ((lane >> 4) << 3);
@@ -381,8 +411,8 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
       }
 #pragma unroll
       for (int jp = 0; jp < kNB / 2; ++jp) {
-        mma_bf16(sc[2 * jp], qf[kk], kf[jp][0], kf[jp][1]);
-        mma_bf16(sc[2 * jp + 1], qf[kk], kf[jp][2], kf[jp][3]);
+        mma_bf16(sc[2 * jp], qa, kf[jp][0], kf[jp][1]);
+        mma_bf16(sc[2 * jp + 1], qa, kf[jp][2], kf[jp][3]);
       }
     }
 
@@ -447,7 +477,8 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
     }
 
     // O += P V, P rounded to bf16 straight from the score accumulators; the
-    // V fragments of a 16-key step are loaded before its mma chains
+    // V fragments of a 16-key step are loaded kVChunk at a time before
+    // their mma chains
 #pragma unroll
     for (int kt16 = 0; kt16 < kTcKeys / 16; ++kt16) {
       uint32_t a[4];
@@ -456,15 +487,18 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
       a[2] = pack_bf16(sc[2 * kt16 + 1][0], sc[2 * kt16 + 1][1]);
       a[3] = pack_bf16(sc[2 * kt16 + 1][2], sc[2 * kt16 + 1][3]);
       const int key = 16 * kt16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-      uint32_t vf[kDBlocks / 2][4];
 #pragma unroll
-      for (int dp = 0; dp < kDBlocks / 2; ++dp)
-        ldsm_x4_t(smem_u32(vt + swz<DP>(key, 2 * dp + (lane >> 4))), vf[dp][0], vf[dp][1],
-                  vf[dp][2], vf[dp][3]);
+      for (int d0 = 0; d0 < kDBlocks / 2; d0 += kVChunk) {
+        uint32_t vf[kVChunk][4];
 #pragma unroll
-      for (int dp = 0; dp < kDBlocks / 2; ++dp) {
-        mma_bf16(acc[2 * dp], a, vf[dp][0], vf[dp][1]);
-        mma_bf16(acc[2 * dp + 1], a, vf[dp][2], vf[dp][3]);
+        for (int dp = 0; dp < kVChunk; ++dp)
+          ldsm_x4_t(smem_u32(vt + swz<DP>(key, 2 * (d0 + dp) + (lane >> 4))), vf[dp][0], vf[dp][1],
+                    vf[dp][2], vf[dp][3]);
+#pragma unroll
+        for (int dp = 0; dp < kVChunk; ++dp) {
+          mma_bf16(acc[2 * (d0 + dp)], a, vf[dp][0], vf[dp][1]);
+          mma_bf16(acc[2 * (d0 + dp) + 1], a, vf[dp][2], vf[dp][3]);
+        }
       }
     }
     group_sync<kGroupThreads>(grp);  // this stage is read: refill it with tile u + kStages
@@ -538,11 +572,16 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
 template <int DP, bool kSoftcap>
 struct TcTag {};
 
+template <int DM>
+struct SimtTag {};
+
+template <int DM>
 int launch_f32(const Params& p, int B, cudaStream_t s) {
-  cudaError_t err = allow_smem<float>((const void*)flash_attention_kernel<float>, smem_bytes(kMaxD));
+  cudaError_t err =
+      allow_smem<SimtTag<DM>>((const void*)flash_attention_kernel<float, DM>, smem_bytes(DM));
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.Sq + kTile - 1) / kTile, p.H, B);
-  flash_attention_kernel<float><<<grid, kThreads, smem_bytes(p.D), s>>>(p);
+  flash_attention_kernel<float, DM><<<grid, kThreads, smem_bytes(p.D), s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -564,19 +603,21 @@ int launch_tc(const Params& p, int B, cudaStream_t s) {
 }
 
 int launch_bf16(const Params& p, int B, cudaStream_t s) {
-  if (p.D % 16) return (int)cudaErrorInvalidValue;
+  if (p.D % 8) return (int)cudaErrorInvalidValue;
   if (p.D <= 16) return launch_tc<16>(p, B, s);
   if (p.D <= 32) return launch_tc<32>(p, B, s);
   if (p.D <= 64) return launch_tc<64>(p, B, s);
-  return launch_tc<128>(p, B, s);
+  if (p.D <= 128) return launch_tc<128>(p, B, s);
+  if (p.D <= 160) return launch_tc<160>(p, B, s);
+  return launch_tc<256>(p, B, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (SIMT kernel), 1 = bfloat16 (tensor-core kernel; D a
-// multiple of 16).  Strides are in elements.  Returns cudaGetLastError()
+// dtype: 0 = float32 (SIMT kernel; D a multiple of 4), 1 = bfloat16
+// (tensor-core kernel; D a multiple of 8); D <= 256.  Strides are in elements.  Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for shapes the kernels do not take).
 int flash_attention_forward(int dtype, const void* q, const void* k, const void* v, void* out,
                             long long q_sb, long long q_sh, long long q_ss, long long k_sb,
@@ -584,8 +625,8 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
                             long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
                             int H, int KV, int Sq, int Sk, int D, int causal, int window,
                             float softcap, void* stream) {
-  if (D <= 0 || D > kMaxD || B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Sk < 0 ||
-      B > 65535 || H > 65535)
+  if (D <= 0 || D > kMaxD || D % (dtype == 0 ? 4 : 8) || B <= 0 || H <= 0 || KV <= 0 ||
+      H % KV != 0 || Sq <= 0 || Sk < 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -614,7 +655,7 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
   p.sm_scale = 1.0f / sqrtf((float)D);
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(p, B, s);
+  if (dtype == 0) return D <= 128 ? launch_f32<128>(p, B, s) : launch_f32<256>(p, B, s);
   if (dtype == 1) return launch_bf16(p, B, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -56,8 +56,16 @@
 //   rows into scratch, and split_merge.cuh's kernel, launched by the same C
 //   call, merges the splits in split order: a row's result does not depend
 //   on the batch width, its place in the batch or the table width.  Head
-//   dims are multiples of 16 up to 128, tiles zero-padded to 16, 32, 64 or
-//   128 columns.  Left for later: wgmma with TMA page loads (mma.sync's A
+//   dims are multiples of 8 up to 256, tiles zero-padded to 16, 32, 64,
+//   128, 160 or 256 columns (24 runs as 32, 80 as 128, 136-160 as 160,
+//   168-256 as 256); the padded columns are zeros in Q, K and V, so they add
+//   nothing to a score and are never written.  Registers bound the wide
+//   tiles: a thread holds DP / 2 f32 accumulators (80 at 160, 128 at 256)
+//   besides its 32 scores, so past DP = 128 the Q fragments stay in shared
+//   memory and are re-read by ldmatrix at each k-step (one more ldmatrix
+//   per four of K), and V's fragments are loaded 5 or 2 at a time; shared
+//   memory bounds DP = 256 to one K/V stage per warpgroup (160 KiB with
+//   Q), where 160 keeps two (180 KiB).  Left for later: wgmma with TMA page loads (mma.sync's A
 //   operand is 16 rows, so each of a warpgroup's 4 warps reads the whole K
 //   and V tile from shared memory through ldmatrix, where wgmma reads its B
 //   operand once per warpgroup), and fusing the merge into the last CTA of
@@ -67,7 +75,9 @@
 //   meets; no serving path runs it): simt_prefill_kernel, the first port's
 //   kernel.  One CTA per (sequence, kv head, 16 rows) walks 32-key tiles
 //   prefetched into registers one tile ahead; the q.k products and the
-//   weighted values are f32 FMAs on the CUDA cores.
+//   weighted values are f32 FMAs on the CUDA cores.  Head dims are
+//   multiples of 4 up to 256, in two instantiations (up to 128 and up to
+//   256 columns of accumulators and loads per thread).
 //
 // The kernels allocate nothing and do not synchronise; the caller passes
 // the stream and the scratch and checks the returned cudaGetLastError().
@@ -99,19 +109,21 @@ struct Params {
   int window;
 };
 
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;
 
 // ----------------------------------------------------------------- float32
 
 constexpr int kThreads = 256;
 constexpr int kRowTile = 16;  // query rows per CTA
 constexpr int kKeyTile = 32;  // keys per shared-memory tile
-constexpr int kAccPerThread = kRowTile * kMaxD / kThreads;  // output rows per thread
 constexpr int kLanesPerRow = kThreads / kRowTile;  // softmax lanes per row
 
+// DM: the widest head dim of the instantiation (128 or 256)
+template <int DM>
 __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
-  constexpr int kVec = 4;                                      // floats per 16-byte load
-  constexpr int kLoads = kKeyTile * (kMaxD / kVec) / kThreads;  // max loads per thread per side
+  constexpr int kAccPerThread = kRowTile * DM / kThreads;   // output rows per thread
+  constexpr int kVec = 4;                                    // floats per 16-byte load
+  constexpr int kLoads = kKeyTile * (DM / kVec) / kThreads;  // max loads per thread per side
   extern __shared__ float smem[];
   const int D = p.D;
   const int ld = D + 1;  // padded row stride: a column read hits 32 banks
@@ -152,7 +164,7 @@ __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
   }
   // output layout: each thread owns one column of a power-of-two padded
   // width Dp >= D and the rows row0, row0 + rstride, ...
-  const int Dp = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128;
+  const int Dp = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
   const int col = tid % Dp;
   const int row0 = tid / Dp;
   const int rstride = kThreads / Dp;
@@ -362,7 +374,6 @@ constexpr int kGroupThreads = 32 * kTcWarps;  // one warpgroup
 constexpr int kTcGroups = 2;                  // warpgroups, alternate key tiles
 constexpr int kTcThreads = kTcGroups * kGroupThreads;
 constexpr int kTcKeys = 64;                   // keys per K/V tile
-constexpr int kStages = 2;                    // K/V tiles in flight per warpgroup
 constexpr int kSplitKeys = 128;               // prefix keys per split: 1 tile per warpgroup
 constexpr int kMaxSplitPages = kSplitKeys;    // page ids one split can touch (page >= 1)
 constexpr int kMergeParts = 1;                // threads per output element in the merge
@@ -374,13 +385,16 @@ using bf16 = __nv_bfloat16;
 
 template <int DP>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(bf16) * (size_t)(kTcRows + 2 * kTcGroups * kStages * kTcKeys) * DP;
+  return sizeof(bf16) * (size_t)(kTcRows + 2 * kTcGroups * TcShape<DP>::kStages * kTcKeys) * DP;
 }
 
 template <int DP, bool kSoftcap>
 __global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
   __shared__ int pid_s[kMaxSplitPages];  // page ids of the split's pages, from base / page
+  constexpr int kStages = TcShape<DP>::kStages;
+  constexpr bool kQRegs = TcShape<DP>::kQRegs;
+  constexpr int kVChunk = TcShape<DP>::kVChunk;
   constexpr int kChunks = DP / 8;
   constexpr int kKSteps = DP / 16;      // k-steps of QK^T
   constexpr int kDBlocks = DP / 8;      // 8-column blocks of the output
@@ -495,7 +509,7 @@ __global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
 #pragma unroll
   for (int n = 0; n < kDBlocks; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // m in log2 units
-  uint32_t qf[kKSteps][4];
+  uint32_t qf[kQRegs ? kKSteps : 1][4];
 
   // commit group u holds this thread's copies of its warpgroup's tile u
   // (group 0 also its share of Q); one group is committed per tile, empty
@@ -506,10 +520,25 @@ __global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
   }
   cp_async_wait<kStages - 1>();
   __syncthreads();  // Q and each warpgroup's first tile are in shared memory
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk)
-    ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), qf[kk][0],
-            qf[kk][1], qf[kk][2], qf[kk][3]);
+    for (int kk = 0; kk < kKSteps; ++kk)
+      ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), qf[kk][0],
+              qf[kk][1], qf[kk][2], qf[kk][3]);
+  }
+
+  // the A fragment of k-step kk: from registers, or re-read from shared memory
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
+    if constexpr (kQRegs) {
+      a[0] = qf[kk][0];
+      a[1] = qf[kk][1];
+      a[2] = qf[kk][2];
+      a[3] = qf[kk][3];
+    } else {
+      ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), a[0], a[1],
+              a[2], a[3]);
+    }
+  };
 
   for (int u = 0; u < my_tiles; ++u) {
     const int k0 = tile_k0(u);
@@ -528,7 +557,8 @@ __global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
     for (int j = 0; j < kNB; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < kKSteps; ++kk) {
-      uint32_t kf[kNB / 2][4];
+      uint32_t qa[4], kf[kNB / 2][4];
+      q_frag(kk, qa);
 #pragma unroll
       for (int jp = 0; jp < kNB / 2; ++jp) {
         const int key = 16 * jp + (lane & 7) + ((lane >> 4) << 3);
@@ -537,8 +567,8 @@ __global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
       }
 #pragma unroll
       for (int jp = 0; jp < kNB / 2; ++jp) {
-        mma_bf16(sc[2 * jp], qf[kk], kf[jp][0], kf[jp][1]);
-        mma_bf16(sc[2 * jp + 1], qf[kk], kf[jp][2], kf[jp][3]);
+        mma_bf16(sc[2 * jp], qa, kf[jp][0], kf[jp][1]);
+        mma_bf16(sc[2 * jp + 1], qa, kf[jp][2], kf[jp][3]);
       }
     }
 
@@ -610,7 +640,8 @@ __global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
     }
 
     // O += P V, P rounded to bf16 straight from the score accumulators; the
-    // V fragments of a 16-key step are loaded before its mma chains
+    // V fragments of a 16-key step are loaded kVChunk at a time before
+    // their mma chains
 #pragma unroll
     for (int kt16 = 0; kt16 < kTcKeys / 16; ++kt16) {
       uint32_t a[4];
@@ -619,15 +650,18 @@ __global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
       a[2] = pack_bf16(sc[2 * kt16 + 1][0], sc[2 * kt16 + 1][1]);
       a[3] = pack_bf16(sc[2 * kt16 + 1][2], sc[2 * kt16 + 1][3]);
       const int key = 16 * kt16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-      uint32_t vf[kDBlocks / 2][4];
 #pragma unroll
-      for (int dp = 0; dp < kDBlocks / 2; ++dp)
-        ldsm_x4_t(smem_u32(vt + swz<DP>(key, 2 * dp + (lane >> 4))), vf[dp][0], vf[dp][1],
-                  vf[dp][2], vf[dp][3]);
+      for (int d0 = 0; d0 < kDBlocks / 2; d0 += kVChunk) {
+        uint32_t vf[kVChunk][4];
 #pragma unroll
-      for (int dp = 0; dp < kDBlocks / 2; ++dp) {
-        mma_bf16(acc[2 * dp], a, vf[dp][0], vf[dp][1]);
-        mma_bf16(acc[2 * dp + 1], a, vf[dp][2], vf[dp][3]);
+        for (int dp = 0; dp < kVChunk; ++dp)
+          ldsm_x4_t(smem_u32(vt + swz<DP>(key, 2 * (d0 + dp) + (lane >> 4))), vf[dp][0], vf[dp][1],
+                    vf[dp][2], vf[dp][3]);
+#pragma unroll
+        for (int dp = 0; dp < kVChunk; ++dp) {
+          mma_bf16(acc[2 * (d0 + dp)], a, vf[dp][0], vf[dp][1]);
+          mma_bf16(acc[2 * (d0 + dp) + 1], a, vf[dp][2], vf[dp][3]);
+        }
       }
     }
     group_sync<kGroupThreads>(grp);  // this stage is read: refill it with tile u + kStages
@@ -700,9 +734,17 @@ __global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
 template <int DP, bool kSoftcap>
 struct TcTag {};
 
+template <int DM>
+struct SimtTag {};
+
+template <int DM>
 int launch_f32(const Params& p, cudaStream_t s) {
+  // past D = 144 the tiles need more than 48 KB (84,672 bytes at 256)
+  cudaError_t err = allow_smem<SimtTag<DM>>((const void*)simt_prefill_kernel<DM>,
+                                            simt_smem_bytes(DM));
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.B * p.KV, (p.G * p.C + kRowTile - 1) / kRowTile);
-  simt_prefill_kernel<<<grid, kThreads, simt_smem_bytes(p.D), s>>>(p);  // < 48 KB
+  simt_prefill_kernel<DM><<<grid, kThreads, simt_smem_bytes(p.D), s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -727,20 +769,22 @@ int launch_tc(const Params& p, cudaStream_t s) {
 }
 
 int launch_bf16(const Params& p, cudaStream_t s) {
-  if (p.D % 16) return (int)cudaErrorInvalidValue;
+  if (p.D % 8) return (int)cudaErrorInvalidValue;
   if (p.D <= 16) return launch_tc<16>(p, s);
   if (p.D <= 32) return launch_tc<32>(p, s);
   if (p.D <= 64) return launch_tc<64>(p, s);
-  return launch_tc<128>(p, s);
+  if (p.D <= 128) return launch_tc<128>(p, s);
+  if (p.D <= 160) return launch_tc<160>(p, s);
+  return launch_tc<256>(p, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (SIMT kernel; part, split_keys, n_pre and n_split are
-// not used), 1 = bfloat16 (tensor-core split kernel and merge; D a multiple
-// of 16; split_keys must equal the kernel's split size (128), n_pre =
+// dtype: 0 = float32 (SIMT kernel, D a multiple of 4; part, split_keys,
+// n_pre and n_split are not used), 1 = bfloat16 (tensor-core split kernel
+// and merge; D a multiple of 8); D <= 256.  For bfloat16, split_keys must equal the kernel's split size (128), n_pre =
 // ceil(P * page / split_keys), n_split = n_pre + 1 (the chunk), and part
 // holds B * KV * n_split * G * C * (D + 2) floats).  Strides are in
 // elements.  Returns cudaGetLastError() after the launches
@@ -752,8 +796,8 @@ int paged_attention_forward(int dtype, const void* q, const void* k_pages, const
                             long long e_skv, long long e_st, int B, int KV, int G, int C, int D,
                             int N, int page, int P, int split_keys, int n_pre, int n_split,
                             float softcap, int window, void* stream) {
-  if (D <= 0 || D > kMaxD || B <= 0 || KV <= 0 || G <= 0 || C <= 0 || page <= 0 || P < 0 ||
-      (G * C + kRowTile - 1) / kRowTile > 65535)
+  if (D <= 0 || D > kMaxD || D % (dtype == 0 ? 4 : 8) || B <= 0 || KV <= 0 || G <= 0 || C <= 0 ||
+      page <= 0 || P < 0 || (G * C + kRowTile - 1) / kRowTile > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -786,7 +830,7 @@ int paged_attention_forward(int dtype, const void* q, const void* k_pages, const
   p.softcap = softcap;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(p, s);
+  if (dtype == 0) return D <= 128 ? launch_f32<128>(p, s) : launch_f32<256>(p, s);
   if (dtype != 1 || part == nullptr || split_keys != kSplitKeys ||
       (long long)n_pre != ((long long)P * page + kSplitKeys - 1) / kSplitKeys ||
       n_split != n_pre + 1 || n_split > 65535)

@@ -107,13 +107,16 @@ __global__ void __launch_bounds__(kMergeThreads) split_merge_kernel(SplitMerge p
   out[3] = from_f<T>(O.w / L);
 }
 
-// Launches the merge (D a multiple of 4, at most 128; 1 <= parts <= 4):
-// parts threads per 4 output columns, as many rows per CTA as fill
-// kMergeThreads.
+// Launches the merge: parts threads per 4 output columns, as many rows per
+// CTA as fill kMergeThreads.  A row needs D / 4 * parts <= kMergeThreads
+// threads: D a multiple of 4 up to 256 at parts = 4 (the decode kernel; at
+// D = 256 one row fills a CTA), up to 1024 at parts = 1 (the prefill
+// kernel); anything else is refused.
 template <typename T>
 cudaError_t launch_split_merge(SplitMerge p, cudaStream_t s) {
-  if (p.parts < 1 || p.parts > kMergeMaxParts) return cudaErrorInvalidValue;
   const int per_row = p.D / 4 * p.parts;
+  if (p.parts < 1 || p.parts > kMergeMaxParts || p.D <= 0 || p.D % 4 || per_row > kMergeThreads)
+    return cudaErrorInvalidValue;
   p.rows_per_cta = min(p.R, kMergeThreads / per_row);
   const dim3 grid(p.BKV, (p.R + p.rows_per_cta - 1) / p.rows_per_cta);
   split_merge_kernel<T><<<grid, p.rows_per_cta * per_row, 0, s>>>(p);

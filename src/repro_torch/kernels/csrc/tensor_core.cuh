@@ -1,16 +1,14 @@
 // Tensor-core and asynchronous-copy primitives shared by the bf16 attention
 // kernels of this directory (flash_attention.cu, paged_attention.cu):
 // mma.sync.m16n8k16 bf16 products with f32 sums, ldmatrix fragment loads
-// from XOR-swizzled shared tiles, 16-byte cp.async copies, and the
-// per-device opt-in to more than 48 KB of dynamic shared memory.
+// from XOR-swizzled shared tiles, 16-byte cp.async copies, and what each
+// padded tile width sets.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-#include <atomic>
 
 namespace repro_kernels {
 
@@ -21,14 +19,35 @@ __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
 }
 
 // Element offset of 16-byte chunk c of row r in a [rows][DP] bf16 tile.
-// Chunks are XOR-swizzled by row, so the 8 rows one ldmatrix reads at the
-// same logical chunk land in different banks.
+// Chunks are XOR-swizzled by row inside groups of 8 (the last group of a
+// row of 20 chunks, DP = 160, is 4 wide), so the 8 rows one ldmatrix reads
+// at the same logical chunk land in different banks: no conflict in a
+// group of 8, two-way in the 4-wide group of DP = 160 (a 320-byte row puts
+// rows r and r + 4 on the same banks there).
 template <int DP>
 __device__ __forceinline__ int swz(int r, int c) {
   constexpr int kChunks = DP / 8;
-  constexpr int kMask = (kChunks < 8 ? kChunks : 8) - 1;
-  return r * DP + ((c ^ (r & kMask)) << 3);
+  constexpr int kFull = kChunks / 8 * 8;  // chunks in whole groups of 8
+  constexpr int kRest = kChunks - kFull;  // width of the last, partial group
+  static_assert(DP % 16 == 0 && (kRest == 0 || kRest == 2 || kRest == 4),
+                "padded widths 16, 32, 64, 128, 160 and 256");
+  const int mask = c < kFull ? 7 : kRest - 1;
+  return r * DP + ((c ^ (r & mask)) << 3);
 }
+
+// What the padded width DP sets in the tensor-core kernels (64 stacked
+// rows and two warpgroups of 64-key tiles per CTA): K/V tiles in flight
+// per warpgroup (shared memory holds one at DP = 256), whether the Q
+// fragments live in registers (up to 128) or are re-read from shared
+// memory at each k-step, and how many 16-column V fragments are loaded
+// before their mma chains.
+template <int DP>
+struct TcShape {
+  static constexpr int kStages = DP <= 160 ? 2 : 1;
+  static constexpr bool kQRegs = DP <= 128;
+  static constexpr int kVChunk = DP <= 128 ? DP / 16 : DP == 160 ? 5 : 2;
+  static_assert((DP / 16) % kVChunk == 0, "V fragments in whole chunks");
+};
 
 // 16 bytes global -> shared, asynchronously; zeros when !valid
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
@@ -83,23 +102,6 @@ __device__ __forceinline__ void group_sync(int group) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-constexpr int kMaxDevices = 64;
-
-// Raises the dynamic shared-memory limit of one kernel (Tag names it) once
-// per device rather than before every launch.
-template <typename Tag>
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  static std::atomic<bool> done[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const bool known = dev >= 0 && dev < kMaxDevices;
-  if (known && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess && known) done[dev].store(true, std::memory_order_release);
-  return err;
 }
 
 }  // namespace repro_kernels

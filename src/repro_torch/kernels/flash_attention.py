@@ -13,8 +13,11 @@ What bounds it on the card: at the serving shapes its roofline bound is
 bytes (about 170 FLOPs per byte, under the bf16 ridge).  A bfloat16 call
 runs the tensor-core kernel (mma.sync bf16 products, cp.async K/V rings,
 one K/V tile shared by the G query heads of its kv head, two warpgroups on
-alternate key tiles; head_dim a multiple of 16 up to 128); a float32 call runs the SIMT kernel of f32 FMAs, which the
-1e-5 checks need.  Both live in ``csrc/flash_attention.cu``, which says why.
+alternate key tiles); a float32 call runs the SIMT kernel of f32 FMAs,
+which the 1e-5 checks need.  Both take head dims up to 256, multiples of 8
+in bfloat16 (16-byte vector loads; tiles zero-padded to 16, 32, 64, 128,
+160 or 256 columns) and of 4 in float32, and any GQA group size.  Both
+live in ``csrc/flash_attention.cu``, which says why.
 
 Dispatch: a CPU tensor goes to the plain version (a port of the JAX
 package's naive oracle, ``kernels/ref.py:flash_attention_ref``); a CUDA
@@ -133,10 +136,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     KV, Sk = k.shape[1], k.shape[2]
     if tuple(k.shape) != (B, KV, Sk, D) or v.shape != k.shape or KV == 0 or H % KV:
         raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    vec = 16 // q.element_size()
-    mult = 16 if q.dtype == torch.bfloat16 else vec  # bf16: the tensor cores' k-step
-    if D > 128 or D % mult:
-        raise ValueError(f"{name}: head_dim {D} must be <= 128 and a multiple of {mult} "
+    vec = 16 // q.element_size()  # elements per 16-byte vector load
+    if D > 256 or D % vec:
+        raise ValueError(f"{name}: head_dim {D} must be <= 256 and a multiple of {vec} "
                          f"for {q.dtype}")
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:

@@ -31,6 +31,13 @@ Three entry points over two CUDA sources:
   path calls it; it is held against the dense decode mode's
   ``attention_decode``.
 
+All three take head dims up to 256 (multiples of 8 in bfloat16, of 4 in
+float32) and any number G of query heads per kv head; the sources say how
+(padded tile widths 160 and 256; at decode a CTA per 8 heads, and in
+bfloat16 up to D = 160 and G = 4 a key over 10 lanes of 16 elements).  A decode
+row with no valid key gets what the JAX reference's dense softmax gives
+it: the plain mean of every gathered value row.
+
 What bounds all three on the card is bytes: every key/value element is used
 for 4*G FLOPs at decode (G = 2 on qwen3-1.7b) and 4*G*C at prefill (256 at
 G*C = 64), below the ~295 FLOPs per byte where the H100's bf16 tensor cores
@@ -80,6 +87,14 @@ SPLIT_KEYS = 64  # keys per split of the split-KV decode kernel (csrc/paged_deco
 PREFILL_SPLIT_KEYS = 128  # prefix keys per split of the bf16 prefill kernel (csrc/paged_attention.cu)
 
 
+def _gather_ids(block_tables, n_pages):
+    """Block-table entries as the JAX reference's gather reads them: a
+    negative entry wraps once (numpy indexing), then every entry is clamped
+    into [0, n_pages)."""
+    bt = block_tables.long()
+    return torch.where(bt < 0, bt + n_pages, bt).clamp(0, n_pages - 1)
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("paged_attention")
     fn = lib.paged_attention_forward
@@ -109,12 +124,15 @@ def paged_decode_attention_ref(
 
     q: [B, KV, G, D]; k/v_pages: [KV, N, page, D]; block_tables: [B, P];
     prefix_len, cur_pos: [B]; k/v_tail: [B, KV, T, D]; tail_pos: [B, T]
-    -> [B, KV, G, D].
+    -> [B, KV, G, D].  Block-table entries are wrapped and clamped as the
+    JAX package's gather does.  A row with no valid key gets the plain mean
+    of all ``P * page + T`` value rows (the reference's dense softmax over a
+    fully masked row).
     """
     B, KV, G, D = q.shape
     page = k_pages.shape[2]
     P = block_tables.shape[1]
-    bt = block_tables.long()
+    bt = _gather_ids(block_tables, k_pages.shape[1])
     kd = k_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
     vd = v_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
     k_all = torch.cat([kd, k_tail], dim=2).float()
@@ -146,11 +164,13 @@ def paged_prefill_attention_ref(
 
     q: [B, KV, G, C, D]; k/v_pages: [KV, N, page, D]; block_tables: [B, P];
     prefix_len: [B]; k/v_chunk: [B, KV, C, D] -> [B, KV, G, C, D].
+    Block-table entries are wrapped and clamped as in
+    ``paged_decode_attention_ref``.
     """
     B, KV, G, C, D = q.shape
     page = k_pages.shape[2]
     P = block_tables.shape[1]
-    bt = block_tables.long()
+    bt = _gather_ids(block_tables, k_pages.shape[1])
     kd = k_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
     vd = v_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
     k_all = torch.cat([kd, k_chunk], dim=2).float()
@@ -180,13 +200,12 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *, softcap: 
     clamped into [0, N) as the JAX package's gather does, so entries past
     ``lengths`` may hold anything.  A ``lengths[b] == 0`` row returns the
     plain mean of all P * page gathered value rows (the reference's dense
-    softmax over a fully masked row); the kernel returns zeros there.
+    softmax over a fully masked row), as the kernel does.
     """
     B, KV, G, D = q.shape
-    N, page = k_pages.shape[1], k_pages.shape[2]
+    page = k_pages.shape[2]
     P = block_tables.shape[1]
-    bt = block_tables.long()
-    bt = torch.where(bt < 0, bt + N, bt).clamp(0, N - 1)
+    bt = _gather_ids(block_tables, k_pages.shape[1])
     kd = k_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D).float()
     vd = v_pages[:, bt].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D).float()
     s = torch.einsum("bkgd,bksd->bkgs", q.float(), kd) / math.sqrt(D)
@@ -217,10 +236,16 @@ def paged_decode_split_partials(
     the same way after the ``ceil(P*page / split)`` prefix splits (at least
     one split in all).  A key is attended as in ``paged_decode_attention_ref``,
     except that a block-table entry outside [0, N) is no key (the kernel's
-    rule).  ``cur_pos=None`` puts the query at ``prefix_len`` (the T = 0 entry
-    of ``paged_attention``).  Returns f32 (m, l, acc) of shapes
-    [B, KV, n_split, G], [B, KV, n_split, G] and [B, KV, n_split, G, D]; an
-    empty split has m = -inf, l = 0, acc = 0.
+    rule).  A row with no valid key by index (no prefix key under
+    ``prefix_len``, ``cur_pos`` and the window, no valid tail position)
+    weights every key of every split equally, page ids wrapped and clamped
+    as the reference's gather does: each split gives m = 0, l = its key
+    count, acc = the sum of its value rows, and the merge gives their mean.
+    ``cur_pos=None`` puts the query at ``prefix_len`` (the T = 0 entry of
+    ``paged_attention``).  Heads are independent, so the kernel's CTAs of
+    at most 8 heads (G > 8) change nothing here.  Returns f32 (m, l, acc)
+    of shapes [B, KV, n_split, G], [B, KV, n_split, G] and
+    [B, KV, n_split, G, D]; an empty split has m = -inf, l = 0, acc = 0.
     """
     B, KV, G, D = q.shape
     N, page = k_pages.shape[1], k_pages.shape[2]
@@ -228,18 +253,20 @@ def paged_decode_split_partials(
     n_pre, n_tail = -(-P * page // split), -(-T // split)
     n = max(1, n_pre + n_tail)
     bt = block_tables.long()
-    safe = bt.clamp(0, N - 1)
-    kd = k_pages[:, safe].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
-    vd = v_pages[:, safe].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
+    ids = _gather_ids(bt, N)
+    kd = k_pages[:, ids].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
+    vd = v_pages[:, ids].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
     cur = (prefix_len if cur_pos is None else cur_pos).long()[:, None]
     kidx = torch.arange(P * page, device=q.device)[None]
-    pre_ok = ((bt >= 0) & (bt < N)).repeat_interleave(page, dim=1)
-    pre_ok &= (kidx < prefix_len.long()[:, None]) & (kidx <= cur)
+    pre_ok = (kidx < prefix_len.long()[:, None]) & (kidx <= cur)
     tpos = tail_pos.long()
     tail_ok = (tpos >= 0) & (tpos <= cur)
     if window:
         pre_ok &= cur - kidx < window
         tail_ok &= cur - tpos < window
+    none = ~(pre_ok.any(dim=1) | tail_ok.any(dim=1))  # [B]: no valid key by index
+    pre_ok = (pre_ok & ((bt >= 0) & (bt < N)).repeat_interleave(page, dim=1)) | none[:, None]
+    tail_ok = tail_ok | none[:, None]
     fill_pre, fill_tail = n_pre * split - P * page, n_tail * split - T
     fill_end = (n - n_pre - n_tail) * split
     keys = lambda a, b, d, v=0: _pad_keys(
@@ -250,6 +277,7 @@ def paged_decode_split_partials(
     s = torch.einsum("bkgd,bknsd->bkngs", q.float(), k_all) / math.sqrt(D)
     if softcap:
         s = softcap * torch.tanh(s / softcap)
+    s = torch.where(none[:, None, None, None, None], 0.0, s)
     s = s.masked_fill(~valid, -math.inf)
     m = s.amax(dim=-1)
     w = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
@@ -355,8 +383,7 @@ def merge_split_partials(m, l, acc):
 
 def paged_decode_attention_split_ref(*args, softcap: float = 0.0, window: int = 0,
                                      split: int = SPLIT_KEYS):
-    """``paged_decode_attention`` as the split-KV kernel computes it (a row
-    with no valid key gives zeros)."""
+    """``paged_decode_attention`` as the split-KV kernel computes it."""
     out = merge_split_partials(*paged_decode_split_partials(
         *args, softcap=softcap, window=window, split=split))
     return out.to(args[0].dtype)
@@ -384,10 +411,11 @@ def _check_operands(name, q, k_pages, v_pages, extras, ints):
         raise ValueError(f"{name}: unsupported device {dev}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
-    vec = 16 // q.element_size()
+    vec = 16 // q.element_size()  # elements per 16-byte vector load
     D = q.shape[-1]
-    if D > 128 or D % vec:
-        raise ValueError(f"{name}: head_dim {D} must be <= 128 and a multiple of {vec}")
+    if D > 256 or D % vec:
+        raise ValueError(f"{name}: head_dim {D} must be <= 256 and a multiple of {vec} "
+                         f"for {q.dtype}")
     for t in (k_pages, v_pages, *extras):
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"{name}: every operand must be {q.dtype} on {dev}")
@@ -412,9 +440,8 @@ def _split_decode(name, q, k_pages, v_pages, block_tables, prefix_len, k_tail, v
     N, page = k_pages.shape[1], k_pages.shape[2]
     P = block_tables.shape[1]
     T = 0 if k_tail is None else k_tail.shape[2]
-    if D % 8 or G > 8 or block_tables.shape[0] != B or tuple(prefix_len.shape) != (B,):
-        raise ValueError(f"{name}: head_dim {D} must be a multiple of 8, G {G} <= 8, "
-                         "one block-table row and one length per sequence")
+    if block_tables.shape[0] != B or tuple(prefix_len.shape) != (B,):
+        raise ValueError(f"{name}: one block-table row and one length per sequence")
     out = torch.empty((B, KV, G, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
@@ -497,9 +524,6 @@ def paged_prefill_attention(
     KVp, N, page, Dp = k_pages.shape
     P = block_tables.shape[1]
     _check_operands(name, q, k_pages, v_pages, (k_chunk, v_chunk), (block_tables, prefix_len))
-    if q.dtype == torch.bfloat16 and D % 16:
-        raise ValueError(f"{name}: bfloat16 head_dim {D} must be a multiple of 16 (the tensor "
-                         "cores' k-step)")
     if (KVp, Dp) != (KV, D) or tuple(k_chunk.shape) != (B, KV, C, D):
         raise ValueError(f"{name}: shape mismatch")
     if block_tables.shape[0] != B or tuple(prefix_len.shape) != (B,):

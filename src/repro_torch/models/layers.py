@@ -30,14 +30,16 @@ NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, *, lead=(), dtype=DEFAULT_DTYPE):
-    """N(0, 1/in_dim) weights [*lead, in_dim, out_dim], drawn in f32."""
+    """N(0, 1/in_dim) weights [*lead, in_dim, out_dim], drawn in f32 and
+    scaled in place (one f32 copy at a time: 11.3 GB for stablelm-12b's
+    stacked MLP matrices)."""
     w = torch.randn((*lead, in_dim, out_dim), generator=gen, device=gen.device)
-    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+    return w.mul_(1.0 / math.sqrt(in_dim)).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=DEFAULT_DTYPE):
     w = torch.randn((vocab, dim), generator=gen, device=gen.device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

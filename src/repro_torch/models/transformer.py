@@ -1,8 +1,8 @@
 """Dense decoder-only transformer LM on the serving paths (PyTorch).
 
 Counterpart of the JAX package's ``models/transformer.py`` for the dense
-family (qwen3-1.7b, h2o-danube-1.8b): the paged entry points
-(``prefill_collect``, ``prefill_chunk``, ``paged_decode_step``) and the
+family (qwen3-1.7b, h2o-danube-1.8b, stablelm-12b, deepseek-7b): the paged
+entry points (``prefill_collect``, ``prefill_chunk``, ``paged_decode_step``) and the
 dense-cache ones (``make_cache``, ``prefill``, ``decode_step``).  The layer stack keeps a leading ``L``
 axis on every parameter and runs as a Python loop over layers (the JAX
 package's ``lax.scan``).  A batch runs as one batched computation per layer:
@@ -78,7 +78,7 @@ def init_params(cfg, generator: torch.Generator, device: DeviceLike = None) -> D
     }
     if not cfg.tie_embeddings:
         w = torch.randn((d, cfg.vocab_size), generator=gen, device=dev)
-        params["lm_head"] = (w * 0.02).to(DEFAULT_DTYPE)
+        params["lm_head"] = w.mul_(0.02).to(DEFAULT_DTYPE)
     return params
 
 

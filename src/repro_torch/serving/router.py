@@ -6,8 +6,10 @@ later reuse attribution.  This router supplies exactly those: every route
 decision, placement and later reuse hit/miss is attributed to the accepted
 claim id and its materialization predicate in the ordered event log.
 
-In the port every replica is an engine on the same explicit device (one
-card); the router itself is host-side bookkeeping over their pools.
+In the port each replica is an engine with its own pool on its own explicit
+device (replicas may share a card or sit on different ones, as the JAX
+package's router accepts any replicas); the router itself is host-side
+bookkeeping over their pools and never moves a tensor between them.
 """
 from __future__ import annotations
 
@@ -32,8 +34,6 @@ class KVAwareRouter:
     """Routes requests across engine replicas with claim attribution."""
 
     def __init__(self, engines: List[ServingEngine], event_log: Optional[EventLog] = None):
-        if len({e.device for e in engines}) > 1:
-            raise ValueError("router replicas must share one device")
         self.engines = engines
         self.events = event_log or EventLog()
         self._claim_worker: Dict[str, int] = {}

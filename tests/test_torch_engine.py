@@ -2,7 +2,10 @@
 
 The JAX ``ServingEngine`` and the port's ``ServingEngine(device="cpu")`` get
 the same bridged parameters (``params_from_jax``), prompts and claim
-scenarios at the reduced configs (block_size 4).  Checked here:
+scenarios at the reduced configs (block_size 4; stablelm-12b keeps its
+head_dim 160 at G = 4 and deepseek-7b its G = 1: ``small`` in
+tests/test_torch_params.py).  Checked
+here:
 
 * greedy tokens are equal (float32 weights: the comparison is about the
   algorithm, and bf16 rounding at other places in the two frameworks could
@@ -35,18 +38,18 @@ from repro_torch.core.claims import ClaimMode, ClaimState
 from repro_torch.models.registry import build_model
 from repro_torch.params import params_from_jax
 from repro_torch.serving.engine import ServingEngine
+from test_torch_params import ARCHS, small
 
 PREFIX = tuple(range(10, 26))  # 16 tokens = 4 blocks of 4
 TIMED = {"stage_latency"}  # payloads carry wall-clock seconds
 
-
-@pytest.fixture(scope="module", params=["qwen3-1.7b", "h2o-danube-1.8b"])
+@pytest.fixture(scope="module", params=ARCHS)
 def pair(request):
     """(cfg name, {dtype: (jax bundle, jax params, port bundle, port params)})."""
-    cfg = reduced(get_config(request.param))
+    cfg = small(reduced, get_config(request.param))
     jb = jax_build_model(cfg)
     jp = jb.init_params(jax.random.PRNGKey(0))
-    tb = build_model(t_reduced(t_get_config(request.param)), device="cpu")
+    tb = build_model(small(t_reduced, t_get_config(request.param)), device="cpu")
     out = {}
     for dtype in ("bfloat16", "float32"):
         p = jp if dtype == "bfloat16" else jax.tree.map(lambda a: a.astype(jnp.float32), jp)

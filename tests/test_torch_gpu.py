@@ -6,11 +6,12 @@ Run on a machine with an NVIDIA GPU and nvcc:
 
 Without a card every test here skips (the check happens inside the
 fixture, never at import).  Tolerances are those of tests/test_kernels.py:
-1e-5 in float32, 2e-2 in bfloat16; the page copy is exact.  Only
-``test_fully_masked_row_kernel_returns_zeros`` and
-``test_paged_attention_zero_length_kernel_returns_zeros`` hold a query row
-with no valid key (the kernels return zeros there, the dense plain versions
-uniform weights; the serving path never builds one).
+1e-5 in float32, 2e-2 in bfloat16; the page copy is exact.  Head dims run
+from 16 to 256 (stablelm-12b's 160 and the padded widths' edges), G from 1
+(deepseek-7b) to 16, and bf16 head dims that are multiples of 8 but not of
+16 (24, 40).  ``test_fully_masked_row_kernel_matches_plain`` and
+``test_paged_attention_zero_length_kernel_matches_plain`` hold a decode row
+with no valid key to the reference's mean of every gathered value row.
 """
 import numpy as np
 import pytest
@@ -55,6 +56,16 @@ def _close(got, want, dtype):
         (2, 2, 2, 16, 4, 4, 16, 8, 0, 20.0),
         (8, 8, 2, 128, 16, 32, 320, 24, 0, 0.0),  # qwen3-1.7b decode step
         (8, 8, 2, 128, 16, 32, 320, 24, 128, 30.0),
+        (8, 8, 4, 160, 16, 32, 320, 24, 0, 0.0),  # stablelm-12b decode step
+        (8, 8, 4, 160, 16, 32, 320, 24, 128, 30.0),
+        (3, 2, 2, 256, 8, 6, 32, 8, 0, 0.0),
+        (4, 32, 1, 128, 16, 8, 64, 8, 0, 0.0),  # deepseek-7b: G = 1
+        (4, 2, 16, 128, 8, 6, 48, 8, 12, 0.0),  # G = 16: two head groups
+        (3, 1, 12, 160, 4, 5, 32, 8, 0, 20.0),  # G = 12: groups of 8 and 4
+        (2, 2, 3, 136, 4, 4, 16, 8, 0, 20.0),  # bf16: 10 lanes x 2 slices, 17 of 20 slices
+        (3, 1, 1, 152, 8, 3, 16, 8, 12, 0.0),
+        (2, 2, 2, 24, 4, 4, 16, 8, 0, 0.0),
+        (2, 2, 2, 40, 4, 4, 16, 8, 0, 20.0),
     ],
 )
 def test_paged_decode_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, T, window, softcap):
@@ -91,6 +102,13 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, 
         (1, 2, 2, 16, 4, 3, 8, 8, 0, 20.0),
         (4, 8, 2, 128, 16, 16, 320, 32, 0, 0.0),  # qwen3-1.7b prefill chunk
         (4, 8, 2, 128, 16, 16, 320, 32, 128, 30.0),
+        (4, 8, 4, 160, 16, 16, 320, 32, 0, 0.0),  # stablelm-12b prefill chunk
+        (4, 8, 4, 160, 16, 16, 320, 32, 128, 30.0),
+        (2, 2, 2, 256, 8, 6, 32, 16, 0, 0.0),
+        (2, 32, 1, 128, 16, 8, 64, 32, 0, 0.0),  # deepseek-7b: G = 1
+        (2, 2, 16, 64, 8, 4, 16, 8, 0, 0.0),  # G = 16
+        (2, 2, 2, 24, 4, 4, 16, 8, 0, 0.0),
+        (2, 2, 2, 40, 4, 4, 16, 8, 6, 20.0),
     ],
 )
 def test_paged_prefill_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, C, window, softcap):
@@ -163,13 +181,15 @@ def test_reduced_engine_on_card_matches_cpu(dev):
     np.testing.assert_allclose(logits[str(dev)], logits["cpu"], rtol=3e-2, atol=3e-2)
 
 
-def test_fully_masked_row_kernel_returns_zeros(dev):
-    """The kernel feeds only valid keys to its softmax: a row with none
-    yields acc / max(l, 1e-30) = 0, where the plain version (like the JAX
-    reference) averages every masked value row."""
-    B, KV, G, D, page, P, N, T = 2, 2, 2, 16, 4, 2, 8, 4
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 16), (torch.bfloat16, 160)], ids=["f32", "D160"])
+def test_fully_masked_row_kernel_matches_plain(dev, dtype, D):
+    """A row with no valid key (row 0: empty prefix, every tail slot empty)
+    gets the reference's plain mean of every gathered value row, both table
+    columns and all four tail slots, as the plain version gives it (f32,
+    1e-5; bf16 at its tolerance)."""
+    B, KV, G, page, P, N, T = 2, 2, 2, 4, 2, 8, 4
     g = torch.Generator(device=dev).manual_seed(0)
-    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
     tail_pos = torch.full((B, T), -1, dtype=torch.int32, device=dev)
     tail_pos[1, 0] = 3  # row 1 attends its prefix and one tail slot
     args = (
@@ -181,9 +201,9 @@ def test_fully_masked_row_kernel_returns_zeros(dev):
     )
     got = pa.paged_decode_attention(*args)
     want = pa.paged_decode_attention_ref(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
-    _close(got[1], want[1], torch.float32)
+    _close(got, want, dtype)
+    v_all = torch.cat([args[2][:, [0, 0]].reshape(KV, P * page, D), args[6][0]], dim=1).float()
+    _close(got[0], v_all.mean(dim=1)[:, None].expand(KV, G, D), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -199,6 +219,14 @@ def test_fully_masked_row_kernel_returns_zeros(dev):
         (1, 4, 2, 150, 150, 80, True, 0, 0.0),  # h2o-danube head_dim
         (1, 16, 8, 512, 512, 128, True, 0, 0.0),  # qwen3-1.7b prefill
         (1, 16, 8, 512, 512, 128, True, 128, 30.0),
+        (1, 32, 8, 512, 512, 160, True, 0, 0.0),  # stablelm-12b prefill
+        (1, 32, 8, 200, 200, 160, True, 64, 30.0),
+        (1, 4, 2, 100, 100, 256, True, 0, 0.0),
+        (1, 4, 1, 60, 90, 256, False, 0, 0.0),
+        (1, 32, 32, 130, 130, 128, True, 0, 0.0),  # deepseek-7b: G = 1
+        (1, 16, 1, 64, 64, 64, True, 0, 0.0),  # G = 16
+        (2, 4, 2, 70, 70, 24, True, 0, 0.0),
+        (1, 4, 2, 50, 90, 40, False, 0, 20.0),
     ],
 )
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, KV, Sq, Sk, D, causal, window, softcap):
@@ -223,10 +251,16 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, KV, Sq, Sk, D, c
         (2, 32, 8, 130, 130, 80, True, 64, 30.0),
         (1, 4, 2, 41, 41, 16, True, 0, 0.0),  # reduced qwen3
         (2, 4, 2, 70, 100, 16, False, 0, 0.0),
+        (1, 32, 8, 150, 150, 160, True, 0, 0.0),  # stablelm-12b heads (160 columns)
+        (1, 8, 2, 130, 130, 144, True, 64, 30.0),  # 144 runs as 160
+        (1, 4, 2, 100, 100, 192, True, 0, 0.0),  # 192 runs as 256 (one stage)
+        (1, 4, 2, 130, 70, 256, False, 0, 0.0),
+        (2, 4, 2, 41, 41, 24, True, 0, 0.0),  # 24 runs as 32
     ],
 )
 def test_flash_attention_tensor_core_head_dims(dev, B, H, KV, Sq, Sk, D, causal, window, softcap):
-    """bf16 at head_dim 80 (tiles padded to 128 columns) and 16 through the
+    """bf16 at head_dims 80 (tiles padded to 128 columns), 16, 160, 144 and
+    24, and 192 and 256 (one K/V stage per warpgroup) through the
     tensor-core kernel: within 2e-2 of the plain version, and of the plain
     model of its own arithmetic (weights rounded to bf16 before PV)."""
     rng = np.random.default_rng(3)
@@ -242,16 +276,21 @@ def test_flash_attention_tensor_core_head_dims(dev, B, H, KV, Sq, Sk, D, causal,
     _close(got, fa.flash_attention_tiled_ref(q, k, v, **kw), bf)
 
 
-def test_flash_attention_bf16_head_dim_must_be_multiple_of_16(dev):
-    """The tensor cores take bf16 head dims in steps of 16: 24 raises for
-    bf16 (no other kernel is tried) and runs for float32."""
+def test_flash_attention_bf16_head_dim_24_matches_plain(dev):
+    """bf16 head dims step by 8 (16-byte loads): 24 runs on the tensor
+    cores (tiles zero-padded to 32 columns) and matches the plain version;
+    20 raises for bf16 (no other kernel is tried) and runs for float32,
+    whose loads step by 4."""
     rng = np.random.default_rng(4)
-    draw = lambda dtype: [_t(rng.normal(size=(1, 2, 32, 24)), dtype, dev) for _ in range(3)]
+    draw = lambda dtype, D: [_t(rng.normal(size=(1, 2, 32, D)), dtype, dev) for _ in range(3)]
+    args = draw(torch.bfloat16, 24)
     n0 = fa.flash_attention.launches
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fa.flash_attention(*draw(torch.bfloat16))
-    assert fa.flash_attention.launches == n0
-    args = draw(torch.float32)
+    _close(fa.flash_attention(*args), fa.flash_attention_ref(*args), torch.bfloat16)
+    assert fa.flash_attention.launches == n0 + 1
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_attention(*draw(torch.bfloat16, 20))
+    assert fa.flash_attention.launches == n0 + 1
+    args = draw(torch.float32, 20)
     _close(fa.flash_attention(*args), fa.flash_attention_ref(*args), torch.float32)
 
 
@@ -290,25 +329,27 @@ def test_paged_decode_kernel_long_context(dev, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window", [0, 70])
-def test_paged_decode_kernel_split_boundaries(dev, dtype, window):
+@pytest.mark.parametrize("G,D", [(2, 128), (4, 160)], ids=["D128", "D160"])
+def test_paged_decode_kernel_split_boundaries(dev, dtype, window, G, D):
     """Prefixes on, just before and just past the 64-key split boundaries,
     and a prefix of 0 with the tail only."""
     rng = np.random.default_rng(9)
     plen = [63, 64, 65, 128, 0, 127, 1, 192]
     t_used = [1, 3, 24, 2, 5, 1, 7, 24]
-    args = _decode_args(rng, dtype, dev, plen, t_used, P=16)
+    args = _decode_args(rng, dtype, dev, plen, t_used, P=16, G=G, D=D)
     got = pa.paged_decode_attention(*args, window=window)
     _close(got, pa.paged_decode_attention_ref(*args, window=window), dtype)
     _close(got, pa.paged_decode_attention_split_ref(*args, window=window), dtype)
 
 
-def test_paged_decode_kernel_batch_position_invariant(dev):
+@pytest.mark.parametrize("G,D", [(2, 128), (4, 160), (16, 64)], ids=["D128", "D160", "G16"])
+def test_paged_decode_kernel_batch_position_invariant(dev, G, D):
     """A row alone (with a block table only as wide as it needs) and the
     same row at every place of a batch of 8 give bitwise-equal outputs."""
     rng = np.random.default_rng(10)
     plen = [300, 37, 512, 0, 100, 256, 411, 64]
     t_used = [5, 24, 1, 3, 9, 17, 2, 13]
-    args = _decode_args(rng, torch.bfloat16, dev, plen, t_used, N=320)
+    args = _decode_args(rng, torch.bfloat16, dev, plen, t_used, N=320, G=G, D=D)
     batch = pa.paged_decode_attention(*args, window=128)
     for b in range(8):
         P_b = max(1, -(-plen[b] // 16))
@@ -341,6 +382,11 @@ def test_flash_attention_kernel_contiguous_operands(dev):
         (3, 1, 8, 64, 8, 5, 32, 0.0),
         (8, 8, 2, 128, 16, 32, 320, 0.0),  # qwen3-1.7b decode widths
         (8, 8, 2, 128, 16, 32, 320, 30.0),
+        (8, 8, 4, 160, 16, 32, 320, 0.0),  # stablelm-12b decode widths
+        (2, 2, 2, 256, 8, 4, 16, 30.0),
+        (4, 32, 1, 128, 16, 8, 64, 0.0),  # deepseek-7b: G = 1
+        (3, 2, 16, 64, 8, 5, 32, 0.0),  # G = 16
+        (2, 2, 2, 24, 8, 4, 16, 0.0),
     ],
 )
 def test_paged_attention_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, softcap):
@@ -362,10 +408,10 @@ def test_paged_attention_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, 
     _close(got, pa.paged_attention_ref(*args, softcap=softcap), dtype)
 
 
-def test_paged_attention_zero_length_kernel_returns_zeros(dev):
-    """A ``lengths[b] == 0`` row: the kernel feeds no key to its softmax and
-    returns zeros; the plain version (like the JAX reference) returns the
-    mean of every gathered value row."""
+def test_paged_attention_zero_length_kernel_matches_plain(dev):
+    """A ``lengths[b] == 0`` row gets the reference's mean of every
+    gathered value row (all three table columns), as the plain version
+    gives it (f32, 1e-5)."""
     B, KV, G, D, page, P, N = 2, 2, 2, 16, 4, 3, 8
     g = torch.Generator(device=dev).manual_seed(0)
     rnd = lambda *s: torch.randn(s, generator=g, device=dev)
@@ -376,11 +422,9 @@ def test_paged_attention_zero_length_kernel_returns_zeros(dev):
     )
     got = pa.paged_attention(*args)
     want = pa.paged_attention_ref(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
     mean = args[2][:, [1, 2, 3]].reshape(KV, P * page, D).mean(dim=1)  # [KV, D]
     torch.testing.assert_close(want[0], mean[:, None].expand(KV, G, D), rtol=1e-5, atol=1e-5)
-    _close(got[1], want[1], torch.float32)
+    _close(got, want, torch.float32)
 
 
 def test_dense_engine_on_card_matches_cpu(dev):
@@ -500,13 +544,14 @@ def test_paged_prefill_kernel_invalid_page_is_no_key(dev, dtype):
     _close(got, pa.paged_prefill_attention_split_ref(*args, window=200), dtype)
 
 
-def test_paged_prefill_kernel_bitwise_invariant(dev):
+@pytest.mark.parametrize("G,D", [(2, 128), (4, 160)], ids=["D128", "D160"])
+def test_paged_prefill_kernel_bitwise_invariant(dev, G, D):
     """bf16: two calls give the same bits, and each row alone (with a block
     table just as wide as it needs, or 24 columns wider) equals the same row
     inside a batch of 4 and at another place of it."""
     rng = np.random.default_rng(18)
     plen = [300, 37, 512, 0]
-    args = _prefill_args(rng, torch.bfloat16, dev, plen, 36, N=160)
+    args = _prefill_args(rng, torch.bfloat16, dev, plen, 36, N=160, G=G, D=D)
     kw = dict(window=128, softcap=30.0)
     batch = pa.paged_prefill_attention(*args, **kw)
     again = pa.paged_prefill_attention(*args, **kw)
@@ -528,16 +573,24 @@ def test_paged_prefill_kernel_bitwise_invariant(dev):
         assert torch.equal(out[0], batch[b]), f"row {b} differs at place 0"
 
 
-def test_paged_prefill_bf16_head_dim_must_be_multiple_of_16(dev):
-    """The tensor cores take bf16 head dims in steps of 16: 24 raises for
-    bf16 (no other kernel is tried) and runs for float32 (SIMT kernel)."""
+def test_paged_prefill_bf16_head_dim_24_matches_plain(dev):
+    """bf16 head dims step by 8: 24 runs on the tensor cores (tiles
+    zero-padded to 32 columns) and matches the plain version and the model
+    of its arithmetic; 20 raises for bf16 (no other kernel is tried) and
+    runs for float32 (SIMT kernel)."""
     rng = np.random.default_rng(19)
-    draw = lambda dtype: _prefill_args(rng, dtype, dev, [5, 16], 2, KV=2, C=8, D=24, page=8)
+    draw = lambda dtype, D: _prefill_args(rng, dtype, dev, [5, 16], 2, KV=2, C=8, D=D, page=8)
+    args = draw(torch.bfloat16, 24)
     n0 = pa.paged_prefill_attention.launches
-    with pytest.raises(ValueError, match="multiple of 16"):
-        pa.paged_prefill_attention(*draw(torch.bfloat16))
-    assert pa.paged_prefill_attention.launches == n0
-    args = draw(torch.float32)
+    got = pa.paged_prefill_attention(*args)
+    assert pa.paged_prefill_attention.launches == n0 + 1
+    _close(got, pa.paged_prefill_attention_ref(*args), torch.bfloat16)
+    _close(got, pa.paged_prefill_attention_split_ref(*args, block_k=64, p_dtype=torch.bfloat16),
+           torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        pa.paged_prefill_attention(*draw(torch.bfloat16, 20))
+    assert pa.paged_prefill_attention.launches == n0 + 1
+    args = draw(torch.float32, 20)
     _close(pa.paged_prefill_attention(*args), pa.paged_prefill_attention_ref(*args), torch.float32)
 
 
@@ -564,3 +617,53 @@ def test_conformance_scenarios_on_card(dev, tmp_path):
                 mode, gate, v)
     path = nd.generate_native_descriptor(results, tmp_path / "desc.json")
     assert [r.label for r in judge_descriptor(load_descriptor(path))] == [LABEL_NATIVE] * 7
+
+
+def test_float32_head_dim_20_matches_plain(dev):
+    """float32 head dims step by 4 (16-byte loads of 4 floats): D = 20, a
+    half 8-element slice per lane at decode, through K1, K2, K4 and K5."""
+    rng = np.random.default_rng(20)
+    f32 = torch.float32
+    args = _decode_args(rng, f32, dev, [37, 0, 64], [3, 2, 24], KV=2, G=4, D=20, page=8)
+    _close(pa.paged_decode_attention(*args, window=40), pa.paged_decode_attention_ref(*args, window=40), f32)
+    k4 = args[:4] + [_t(np.array([9, 0, 64]), f32, dev)]
+    _close(pa.paged_attention(*k4), pa.paged_attention_ref(*k4), f32)
+    args = _prefill_args(rng, f32, dev, [5, 16], 4, KV=2, C=8, D=20, page=8)
+    _close(pa.paged_prefill_attention(*args), pa.paged_prefill_attention_ref(*args), f32)
+    q, k, v = (_t(rng.normal(size=(1, n, 40, 20)), f32, dev) for n in (4, 2, 2))
+    _close(fa.flash_attention(q, k, v), fa.flash_attention_ref(q, k, v), f32)
+
+
+def test_wide_head_engine_on_card_matches_cpu(dev):
+    """A reduced stablelm-12b with its own head shape (4 query heads over 1
+    kv head, head_dim 160) served on the card through the kernels against
+    the same weights on the CPU: prefill logits within 3e-2 (bf16, the
+    cross-graph tolerance) with the same argmax, in the paged and the dense
+    mode."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = reduced(get_config("stablelm-12b")).replace(num_heads=4, num_kv_heads=1, head_dim=160)
+    params = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+
+    def to(tree, d):
+        return {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(d)
+
+    prompt = tuple(range(300, 341))
+    before = [w.launches for w in (pa.paged_decode_attention, pa.paged_prefill_attention,
+                                   fa.flash_attention)]
+    for mode in ("paged", "dense"):
+        logits, status = {}, {}
+        for d in ("cpu", dev):
+            with ServingEngine(build_model(cfg, device=d), to(params, d), block_size=4,
+                               device_blocks=64, cache_len=64, decode_mode=mode, device=d) as eng:
+                logits[str(d)] = eng.prefill_logits(prompt)
+                r = eng.run(eng.submit(prompt[:20], max_new_tokens=4))
+                status[str(d)] = (r.status, len(r.output_tokens))
+        assert status[str(dev)] == status["cpu"] == ("finished", 4), mode
+        np.testing.assert_allclose(logits[str(dev)], logits["cpu"], rtol=3e-2, atol=3e-2)
+        assert logits[str(dev)].argmax() == logits["cpu"].argmax(), mode
+    after = [w.launches for w in (pa.paged_decode_attention, pa.paged_prefill_attention,
+                                  fa.flash_attention)]
+    assert all(a > b for a, b in zip(after, before)), (before, after)

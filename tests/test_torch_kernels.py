@@ -189,9 +189,9 @@ def test_fully_masked_row_reproduces_reference_quirk():
     """A decode row with no valid key (empty prefix, empty tail): the JAX
     reference's dense softmax gives every masked position the same weight,
     so the row is the plain mean of all value rows; the port's plain version
-    reproduces that (f32, 1e-5).  The CUDA kernel returns zeros there
-    instead (tests/test_torch_gpu.py); the serving path never builds such
-    a row."""
+    and the plain model of the split kernel reproduce that (f32, 1e-5), and
+    the CUDA kernel is held to the same on the card
+    (tests/test_torch_gpu.py).  The serving path never builds such a row."""
     rng = np.random.default_rng(11)
     B, KV, G, D, page, P, N, T = 1, 2, 2, 16, 4, 2, 8, 4
     draws = [
@@ -215,6 +215,7 @@ def test_fully_masked_row_reproduces_reference_quirk():
     np.testing.assert_allclose(
         got[0].numpy(), np.broadcast_to(v_all.mean(axis=1)[:, None], (KV, G, D)), rtol=1e-5, atol=1e-5
     )
+    _close(pa.paged_decode_attention_split_ref(*[p[1] for p in pairs]), want, "float32")
 
 
 FLASH_CASES = [
@@ -308,8 +309,9 @@ def test_paged_attention_matches_dense_decode():
 def test_paged_attention_zero_length_reproduces_reference_quirk():
     """``lengths[b] == 0``: the reference's dense softmax over a fully
     masked row returns the plain mean of all P * page gathered value rows;
-    the plain version reproduces it (f32, 1e-5).  The CUDA kernel returns
-    zeros (tests/test_torch_gpu.py)."""
+    the plain version and the plain model of the split kernel reproduce it
+    (f32, 1e-5), and the CUDA kernel is held to the same on the card
+    (tests/test_torch_gpu.py)."""
     rng = np.random.default_rng(12)
     B, KV, G, D, page, P, N = 2, 2, 2, 16, 4, 3, 8
     draws = [
@@ -326,6 +328,7 @@ def test_paged_attention_zero_length_reproduces_reference_quirk():
     np.testing.assert_allclose(
         got[0].numpy(), np.broadcast_to(mean[:, None], (KV, G, D)), rtol=1e-5, atol=1e-5
     )
+    _close(pa.paged_attention_split_ref(*[p[1] for p in pairs]), got.numpy(), "float32")
 
 
 def test_new_wrappers_raise_on_unsupported_devices():
@@ -406,11 +409,9 @@ def test_paged_attention_split_plain_matches_jax(split_pages):
     _close(got, ops.paged_attention(*jargs, softcap=20.0, interpret=True), "float32")
 
 
-def test_paged_decode_split_plain_empty_row_gives_zeros():
-    """A row with no valid key (empty prefix, empty tail) has only empty
-    splits (m = -inf, l = 0): the merge gives zeros, as the kernel does,
-    where the reference gives the mean of every value row; the other row
-    matches the reference (f32, 1e-5)."""
+def _empty_row_partials():
+    """Split partials (split 8) of three decode rows, the first with no
+    valid key (empty prefix, empty tail)."""
     draws = _split_case(8, 0, 0.0)
     draws[4] = np.array([0, 7, 9])
     draws[7][0] = -1
@@ -419,12 +420,30 @@ def test_paged_decode_split_plain_empty_row_gives_zeros():
     draws[7][2, :] = -1
     draws[7][2, :4] = 9 + np.arange(4)
     pairs = [_pair(a, "float32") for a in draws]
-    m, l, acc = pa.paged_decode_split_partials(*[p[1] for p in pairs], split=8)
-    assert bool(torch.isinf(m[0]).all()) and bool((l[0] == 0).all())
+    return pairs, pa.paged_decode_split_partials(*[p[1] for p in pairs], split=8)
+
+
+def test_paged_decode_split_plain_empty_row_gives_mean():
+    """A row with no valid key: each of its splits weights every key
+    equally (m = 0, l = the split's key count, 28 = P * page + T keys in
+    all), so the merge gives the reference's plain mean of every value row,
+    as the kernel does; the other rows match the reference too (f32,
+    1e-5)."""
+    pairs, (m, l, acc) = _empty_row_partials()
+    assert bool((m[0] == 0).all()) and bool((l[0].sum(dim=1) == 5 * 4 + 8).all())
+    assert [float(x) for x in l[0, 0, :, 0]] == [8.0, 8.0, 4.0, 8.0]
     got = pa.merge_split_partials(m, l, acc)
-    assert torch.equal(got[0], torch.zeros_like(got[0]))
     want = ref.paged_decode_attention_ref(*[p[0] for p in pairs])
-    _close(got[1:], np.asarray(want)[1:], "float32")
+    _close(got, want, "float32")
+
+
+def test_paged_decode_split_plain_empty_row_gives_zeros():
+    """The merge of a row whose splits are all empty (m = -inf, l = 0)
+    gives zeros, whatever the accumulators hold: empty splits add
+    nothing."""
+    _, (m, l, acc) = _empty_row_partials()
+    empty = pa.merge_split_partials(torch.full_like(m, -np.inf), torch.zeros_like(l), acc)
+    assert torch.equal(empty, torch.zeros_like(empty))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -540,3 +559,115 @@ def test_library_digest_covers_shared_headers(tmp_path, monkeypatch, header, use
     (csrc / header).write_text((csrc / header).read_text() + "\n// edited\n")
     after = {n: build.library_path(n) for n in build.SOURCES}
     assert {n for n in build.SOURCES if before[n] != after[n]} == users
+
+
+# Head dims past 128 (stablelm-12b's 160 and the catalogue's widest, 256),
+# 16 query heads per kv head, and a bf16 head dim that is a multiple of 8
+# but not of 16: the shapes the kernels' padded widths 160/256, head groups
+# of 8 and zero-padded 16-column k-steps take on the card.
+WIDE_CASES = [(160, 4), (256, 2), (16, 16), (24, 2)]
+WIDE_IDS = ["D160-G4", "D256-G2", "D16-G16", "D24-G2"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,G", WIDE_CASES, ids=WIDE_IDS)
+def test_paged_decode_plain_wide_heads_match_jax(dtype, D, G):
+    """The plain version and the split kernel's model against the reference
+    (1e-5 in f32, 2e-2 in bf16), with a 20-key window."""
+    rng = np.random.default_rng(31)
+    B, KV, page, P, N, T = 3, 2, 4, 6, 24, 5
+    prefix_len = np.array([0, 13, 24])
+    t_used = np.array([2, 5, 1])
+    tail_pos = np.full((B, T), -1, np.int32)
+    for b in range(B):
+        tail_pos[b, : t_used[b]] = prefix_len[b] + np.arange(t_used[b])
+    draws = [
+        rng.normal(size=(B, KV, G, D)), rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)), rng.permutation(N)[: B * P].reshape(B, P), prefix_len,
+        rng.normal(size=(B, KV, T, D)), rng.normal(size=(B, KV, T, D)), tail_pos,
+        prefix_len + t_used - 1,
+    ]
+    pairs = [_pair(a, dtype) for a in draws]
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    want = ref.paged_decode_attention_ref(*jargs, window=20)
+    _close(pa.paged_decode_attention(*targs, window=20), want, dtype)
+    _close(pa.paged_decode_attention_split_ref(*targs, window=20, split=8), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,G", WIDE_CASES, ids=WIDE_IDS)
+def test_paged_prefill_plain_wide_heads_match_jax(dtype, D, G):
+    """The plain version, the split arithmetic and (bf16) the model of the
+    tensor-core arithmetic (weights rounded to bf16 before PV, 2e-2)
+    against the reference."""
+    rng = np.random.default_rng(32)
+    B, KV, page, P, N, C = 3, 2, 4, 5, 16, 8
+    draws = [
+        rng.normal(size=(B, KV, G, C, D)), rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)), rng.permutation(N)[: B * P].reshape(B, P),
+        np.array([0, 7, 12]), rng.normal(size=(B, KV, C, D)), rng.normal(size=(B, KV, C, D)),
+    ]
+    pairs = [_pair(a, dtype) for a in draws]
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    kw = dict(softcap=20.0, window=10)
+    want = ref.paged_prefill_attention_ref(*jargs, **kw)
+    _close(pa.paged_prefill_attention(*targs, **kw), want, dtype)
+    _close(pa.paged_prefill_attention_split_ref(*targs, **kw, split=8), want, dtype)
+    model = pa.paged_prefill_attention_split_ref(*targs, **kw, split=8, block_k=4, p_dtype=torch.bfloat16)
+    _close(model, want, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,G", WIDE_CASES, ids=WIDE_IDS)
+def test_paged_attention_plain_wide_heads_match_jax(dtype, D, G):
+    """K4's plain version and its split model (T = 0), a zero length
+    included, against the reference."""
+    rng = np.random.default_rng(33)
+    B, KV, page, P, N = 3, 2, 4, 4, 16
+    draws = [
+        rng.normal(size=(B, KV, G, D)), rng.normal(size=(KV, N, page, D)),
+        rng.normal(size=(KV, N, page, D)), rng.integers(0, N, (B, P)), np.array([0, 9, 16]),
+    ]
+    pairs = [_pair(a, dtype) for a in draws]
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    want = ref.paged_attention_ref(*jargs, softcap=20.0)
+    _close(pa.paged_attention(*targs, softcap=20.0), want, dtype)
+    _close(pa.paged_attention_split_ref(*targs, softcap=20.0, split=8), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,G", WIDE_CASES, ids=WIDE_IDS)
+def test_flash_attention_plain_wide_heads_match_jax(dtype, D, G):
+    """K5's plain version and the tiled model of its tensor-core arithmetic
+    (weights rounded to bf16 before PV, 2e-2) against the reference, causal
+    with a 24-key window over a ragged 40-key tile edge."""
+    B, KV, S = 1, 2, 40
+    pairs = _flash_draws(B, KV * G, KV, S, S, D, dtype)
+    kw = dict(causal=True, window=24)
+    want = ref.flash_attention_ref(*[p[0] for p in pairs], **kw)
+    targs = [p[1] for p in pairs]
+    _close(fa.flash_attention(*targs, **kw), want, dtype)
+    _close(fa.flash_attention_tiled_ref(*targs, **kw, block_k=16), want, "bfloat16")
+
+
+def test_flash_attention_empty_row_values():
+    """K5's only row with no valid key: Sq > Sk under a causal window (rows
+    5-7 here; the model never builds one).  The reference spreads uniform
+    weights over the Sk keys (the mean of V), and the port's plain version
+    reproduces it (f32, 1e-5).  The Pallas kernel in interpret mode counts
+    the zero-padded keys of its last key block too, so its value depends on
+    the block size: half the mean at block_k 8 (4 real keys of 8), the mean
+    at block_k 4.  The tensor-core kernel (its tiled model here) gives
+    zeros.  ROADMAP Queue 3 records the three values."""
+    pairs = _flash_draws(1, 1, 1, 8, 4, 16, "float32")
+    kw = dict(causal=True, window=2)
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    mean = np.asarray(jargs[2])[0, 0].mean(axis=0)
+    want = np.asarray(ref.flash_attention_ref(*jargs, **kw))
+    np.testing.assert_allclose(want[0, 0, 5:], np.broadcast_to(mean, (3, 16)), rtol=1e-5, atol=1e-5)
+    _close(fa.flash_attention(*targs, **kw)[:, :, 5:], want[:, :, 5:], "float32")
+    for block_k, share in ((8, 0.5), (4, 1.0)):
+        got = np.asarray(ops.flash_attention(*jargs, **kw, block_q=8, block_k=block_k, interpret=True))
+        np.testing.assert_allclose(got[0, 0, 5:], np.broadcast_to(share * mean, (3, 16)), rtol=1e-5, atol=1e-5)
+    tiled = fa.flash_attention_tiled_ref(*targs, **kw, p_dtype=torch.float32)
+    assert torch.equal(tiled[0, 0, 5:], torch.zeros_like(tiled[0, 0, 5:]))

@@ -1,7 +1,9 @@
 """The port's model layers against ``repro.models.layers``.
 
 Same numpy draws through both frameworks at the reduced configs (qwen3 for
-qk-norm, h2o-danube for the sliding window).  Tolerances: 1e-5 in float32
+qk-norm, h2o-danube for the sliding window, stablelm-12b for head_dim 160 at
+G = 4, deepseek-7b for G = 1; the last two keep their head shapes:
+``small`` in tests/test_torch_params.py).  Tolerances: 1e-5 in float32
 (different summation orders only); for bf16 activations 2e-2, the bf16
 tolerance of tests/test_kernels.py (one bf16 ulp at these magnitudes).
 """
@@ -18,9 +20,11 @@ from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.models import layers as tl
 from repro_torch.params import params_from_jax
+from test_torch_params import ARCHS, small
 
 F32 = dict(rtol=1e-5, atol=1e-5)
 BF16 = dict(rtol=2e-2, atol=2e-2)
+
 
 
 def _np(t):
@@ -49,12 +53,12 @@ def test_apply_rope_matches(theta):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
-@pytest.fixture(scope="module", params=["qwen3-1.7b", "h2o-danube-1.8b"])
+@pytest.fixture(scope="module", params=ARCHS)
 def layer_setup(request):
-    cfg = reduced(get_config(request.param))
+    cfg = small(reduced, get_config(request.param))
     params = jax_build_model(cfg).init_params(jax.random.PRNGKey(0))
     p0 = jax.tree.map(lambda a: np.asarray(a[0], np.float32), params["layers"]["attn"])
-    return cfg, t_reduced(t_get_config(request.param)), p0
+    return cfg, small(t_reduced, t_get_config(request.param)), p0
 
 
 def test_attn_qkv_matches(layer_setup):

@@ -15,7 +15,8 @@ Checked, as exact equality (gates are booleans and trial counts):
   ``native_sound`` (generation is fail-closed);
 * the committed descriptor and its results, written by the full-width run
   on the card, are ``native_sound`` in both checkers with every gate true;
-* the router refuses replicas on different devices.
+* the router accepts replicas on different devices and routes between
+  them, as the JAX package's router does.
 """
 import copy
 import json
@@ -162,10 +163,42 @@ def test_engine_factory_defaults_and_device():
         assert eng.pool.capacity == 8
 
 
-def test_router_refuses_replicas_on_different_devices():
-    """Every replica of the port's router sits on one device (one card)."""
-    one = [SimpleNamespace(device=torch.device("cpu")), SimpleNamespace(device=torch.device("cpu"))]
-    assert KVAwareRouter(one).engines == one
-    with pytest.raises(ValueError, match="share one device"):
-        KVAwareRouter([SimpleNamespace(device=torch.device("cpu")),
-                       SimpleNamespace(device=torch.device("cuda", 0))])
+class _Replica:
+    """A stand-in engine on ``device`` whose pool reports ``cached`` tokens
+    of prefix overlap for any prompt."""
+
+    def __init__(self, device, cached):
+        self.device = torch.device(device)
+        self.block_size = 4
+        self.submitted = []
+        hit = lambda toks, bs: [SimpleNamespace(tokens=toks[:cached])] if cached else []
+        self.pool = SimpleNamespace(used=0, lookup_prefix=hit)
+        self.connector = SimpleNamespace(offloaded_lookup_prefix=lambda toks, bs: [])
+        self.cached = cached
+
+    def submit(self, tokens, max_new_tokens):
+        req = SimpleNamespace(request_id=f"{self.device}-{len(self.submitted)}", tokens=tokens,
+                              cached_tokens=self.cached, restored_tokens=0, status="waiting")
+        self.submitted.append(req)
+        return req
+
+    def run(self, req):
+        req.status = "finished"
+
+
+def test_router_accepts_replicas_on_different_devices():
+    """Replicas on two devices (each its own pool) are accepted, and a
+    request goes to the one with the larger overlap, as in the JAX
+    package's router, which has no device rule."""
+    replicas = [_Replica("cpu", 0), _Replica(torch.device("cuda", 0), 8)]
+    router = KVAwareRouter(replicas)
+    assert router.engines == replicas
+    req, rec = router.submit_and_run(tuple(range(12)), max_new_tokens=2)
+    assert (rec.worker, rec.route_cost_tokens, rec.overlap_scores) == (1, 4, {0: 0, 1: 8})
+    assert req.status == "finished" and replicas[1].submitted == [req] and not replicas[0].submitted
+    names = [e.name for e in router.events.events]
+    assert names == ["route_decision", "route_placement", "route_reuse_attributed"]
+    replicas[1].cached = 0
+    replicas[1].pool.lookup_prefix = lambda toks, bs: []
+    _, rec = router.submit_and_run(tuple(range(12)), max_new_tokens=2)
+    assert rec.worker == 0 and len(replicas[0].submitted) == 1

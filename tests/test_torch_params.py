@@ -1,6 +1,7 @@
 """The port's parameter trees and device rule against the JAX package.
 
-Every leaf of the reduced configs round-trips bitwise through
+Every leaf of the reduced configs (stablelm-12b and deepseek-7b with their
+own head shapes) round-trips bitwise through
 ``params_from_jax`` (bf16 included, without ml_dtypes on the torch side);
 the port's own ``init_params`` builds the same tree, shapes, dtypes and
 init scales; and with no card every entry point called without
@@ -20,7 +21,20 @@ from repro_torch.models.registry import build_model
 from repro_torch.params import params_from_jax
 from repro_torch.serving.engine import ServingEngine
 
-ARCHS = ["qwen3-1.7b", "h2o-danube-1.8b"]
+ARCHS = ["qwen3-1.7b", "h2o-danube-1.8b", "stablelm-12b", "deepseek-7b"]
+
+# Shape-faithful small configs, built the same way on both sides: reduced()
+# sets head_dim 16 and 2 kv heads, which would erase what these two models
+# bring (stablelm-12b: head_dim 160 at G = 4; deepseek-7b: G = 1).
+SHAPES = {
+    "stablelm-12b": dict(num_heads=4, num_kv_heads=1, head_dim=160),
+    "deepseek-7b": dict(num_heads=4, num_kv_heads=4),
+}
+
+
+def small(reduce, cfg):
+    """``reduce(cfg)`` with the model's own head shape kept (SHAPES)."""
+    return reduce(cfg).replace(**SHAPES.get(cfg.name, {}))
 
 
 def tensor_to_numpy(t):
@@ -39,7 +53,7 @@ def _flat(tree, prefix=()):
 
 @pytest.fixture(scope="module", params=ARCHS)
 def jax_tree(request):
-    cfg = reduced(get_config(request.param))
+    cfg = small(reduced, get_config(request.param))
     params = jax_build_model(cfg).init_params(jax.random.PRNGKey(0))
     return request.param, jax.tree.map(np.asarray, params)
 
@@ -63,7 +77,7 @@ def test_params_from_jax_roundtrips_bitwise(jax_tree):
 def test_init_params_matches_jax_tree(jax_tree):
     """Same tree, shapes and dtypes; init scales within 10% (numbers differ)."""
     name, tree = jax_tree
-    cfg = t_reduced(t_get_config(name))
+    cfg = small(t_reduced, t_get_config(name))
     ported = t_tf.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     want = dict(_flat(tree))
     got = dict(_flat(ported))

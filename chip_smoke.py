@@ -44,9 +44,10 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      checker (no public runtime's row is), the port's analyzer over phase 3's
      event log and metrics, and that log exported as a Perfetto trace to
      ``chiprun_out/paged_serving_trace.json``.
-Then two more models:
-  8. full-width, full-depth stablelm-12b (head_dim 160, 32 query heads over
-     8 kv heads; random weights from seed 0, qwen3's freed first): six
+Then two more models, at full width but cut depth (the cut keeps the
+smoke's time with phases 10-11 added; both models also serve at full depth):
+  8. stablelm-12b (head_dim 160, 32 query heads over 8 kv heads; 10 of its
+     40 layers; random weights from seed 0, qwen3's freed first): six
      requests in two paged ``run_batch`` calls (fresh prompts of 512, 300,
      150 and 64 tokens, then two that share the first prompt's 256-token
      prefix), witness path A (a 256-token claim offloaded and restored
@@ -54,13 +55,29 @@ Then two more models:
      dense mode (flash-attention prefills of the 512- and 150-token prompts
      against the paged prefill logits, and the paged-attention kernel over
      layer 0 of a served dense cache against the dense decode attention);
-  9. full-width, full-depth deepseek-7b (multi-head: 32 kv heads, G = 1),
+  9. deepseek-7b (multi-head: 32 kv heads, G = 1; 8 of its 30 layers),
      stablelm's weights freed first: the same six-request paged traffic.
+Then the recurrent families through ``SnapshotEngine``, at full width and
+full depth, each model freed before the next:
+ 10. hymba-1.5b (32 layers of windowed attention beside a selective SSM):
+     an OFFLOADABLE claim over an 1100-token prefix (past the 1024-token
+     window) materialized (the flash-attention kernel, 32 launches) and
+     offloaded through the page copy (a 49,243,140-byte snapshot: the byte
+     loop), then 4 prompts of the prefix plus 2 fresh tokens served in one
+     ``serve_batch`` (16 new tokens each): restored once, reused by all,
+     tokens equal to an engine that never offloaded it, path A judged by
+     the port's analyzer; one profiled request; then path B (an injected
+     same-claim restore failure) refused in order;
+ 11. xlstm-350m (3 groups of 7 mLSTM + 1 sLSTM): the same with a 512-token
+     prefix (a 22,356,816-byte snapshot: the page copy's vector path).
 Phase 2 also holds K1, K2, K4 and K5 at stablelm-12b's head_dim 160, K1 and
-K2 at 16 query heads per kv head, K2 and K5 at head_dim 256 and K5 at a
-bf16 head_dim of 24 against their plain versions.  Every launch count is
-zeroed just before each path of phases 3-9 and read just after it, so the
-counts show each path itself went through its kernels.
+K2 at 16 query heads per kv head, K2 and K5 at head_dim 256, K5 at a bf16
+head_dim of 24, K1, K2, K4 and K5 at a bf16 head_dim of 100 (zero-padded
+to 104 by the wrappers), K5 at hymba-1.5b's prefill shape and K3 on one
+hymba snapshot page against their plain versions.  Every launch count is zeroed
+just before each path of phases 3-11 and read just after it, so the counts
+show each path itself went through its kernels.  The line before the
+kernels' JSON record gives the smoke's wall and each path's.
 The last two lines are the kernels' JSON record and the device JSON line.
 """
 from __future__ import annotations
@@ -145,17 +162,25 @@ def within(got, want, dtype) -> bool:
     return bool(torch.allclose(got.float(), want.float(), **TOLS[dtype]))
 
 
-def tensor_core_sass(label: str, lib) -> None:
-    """Count the tensor-core instructions (HGMMA for wgmma, HMMA for
-    mma.sync) in a library's SASS; fail if there is none."""
+def tensor_core_sass(label: str, lib):
+    """Start dumping a library's SASS (cuobjdump runs beside the kernel
+    phase); the returned function waits for it, counts the tensor-core
+    instructions (HGMMA for wgmma, HMMA for mma.sync) and fails if there is
+    none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        print(f"{label} SASS: cuobjdump not found, tensor-core instructions could not be checked")
-        return
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120).stdout
-    hgmma, hmma = sass.count("HGMMA"), sass.count("HMMA")
-    print(f"{label} SASS ({lib.name}): {hgmma} HGMMA, {hmma} HMMA instructions")
-    check(hgmma + hmma > 0, f"the {label} library has no tensor-core instruction")
+        return lambda: print(f"{label} SASS: cuobjdump not found, tensor-core instructions "
+                             "could not be checked")
+    proc = subprocess.Popen([tool, "-sass", str(lib)], stdout=subprocess.PIPE,
+                            stderr=subprocess.DEVNULL, text=True)
+
+    def finish():
+        sass = proc.communicate(timeout=300)[0]
+        hgmma, hmma = sass.count("HGMMA"), sass.count("HMMA")
+        print(f"{label} SASS ({lib.name}): {hgmma} HGMMA, {hmma} HMMA instructions")
+        check(hgmma + hmma > 0, f"the {label} library has no tensor-core instruction")
+
+    return finish
 
 
 # --------------------------------------------------------------------- phase 2
@@ -228,6 +253,7 @@ def kernel_phase(gen_seed: int = 0):
         **paged_row("K4 paged_attention", copies, P, K4_LENGTHS),
     )
     wide_kernel_rows(dev, rnd, gen_seed)
+    snapshot_kernel_rows(dev, rnd)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}, library {r['library_ms']})")
@@ -475,8 +501,10 @@ def wide_kernel_rows(dev, rnd, gen_seed):
     """K1, K4, K2 and K5 at stablelm-12b's serving shapes (head_dim 160, 4
     query heads per kv head), K1 and K2 at 16 query heads per kv head
     (head_dim 128 over 2 kv heads), K2 and K5 at head_dim 256 (the widest
-    tiles, one K/V stage per warpgroup), and K5 at a bf16 head_dim of 24
-    (tiles zero-padded to 32 columns), each against its plain version."""
+    tiles, one K/V stage per warpgroup), K5 at a bf16 head_dim of 24
+    (tiles zero-padded to 32 columns), and K1, K4, K2 and K5 at a bf16
+    head_dim of 100 (operands zero-padded to 104 by the wrappers; the time
+    includes the padding copies), each against its plain version."""
     from repro_torch.kernels import flash_attention as fa
 
     rows = {}
@@ -492,11 +520,24 @@ def wide_kernel_rows(dev, rnd, gen_seed):
         copies, P = _prefill_copies(rnd, dev, gen_seed + 7, KV, G, 32, D, PLEN2)
         rows[label] = prefill_row(label, copies, P, PLEN2)
 
+    # bf16 D = 100 is not a multiple of the 8-element vector: the wrappers
+    # zero-pad q, k, v (K1, K2 and K4: the whole page pool) to 104 per call
+    label = "K1 bf16 D=100 G=2 (padded to 104)"
+    copies, P = _decode_copies(rnd, dev, gen_seed + 8, 8, 2, 100, PLEN, T_USED)
+    rows[label] = decode_row(label, copies, P, PLEN, T_USED)
+    label = "K4 bf16 D=100 G=2 (padded to 104)"
+    copies, P = _paged_copies(rnd, dev, gen_seed + 8, 8, 2, 100, K4_LENGTHS)
+    rows[label] = paged_row(label, copies, P, K4_LENGTHS)
+    label = "K2 bf16 D=100 G=2 (padded to 104)"
+    copies, P = _prefill_copies(rnd, dev, gen_seed + 8, 8, 2, 32, 100, PLEN2)
+    rows[label] = prefill_row(label, copies, P, PLEN2)
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
     act = lambda B, S, H, D: rnd(B, S, H, D).transpose(1, 2)
     for label, H, KV, S, D in (("K5 D=160 32/8 heads (stablelm-12b prefill)", 32, 8, 512, 160),
                                ("K5 D=256 16/8 heads", 16, 8, 512, 256),
-                               ("K5 bf16 D=24 16/8 heads", 16, 8, 512, 24)):
+                               ("K5 bf16 D=24 16/8 heads", 16, 8, 512, 24),
+                               ("K5 bf16 D=100 16/8 heads (padded to 104)", 16, 8, 512, 100)):
         copies = [(act(1, S, H, D), act(1, S, KV, D), act(1, S, KV, D)) for _ in range(8)]
         variants = [dict(causal=True, window=w, softcap=c) for w in (0, 128) for c in (0.0, 30.0)]
         nbytes = 2.0 * (2 * H * S * D + 2 * KV * S * D)
@@ -504,6 +545,62 @@ def wide_kernel_rows(dev, rnd, gen_seed):
         rows[label] = kernel_row(label, fa.flash_attention, fa.flash_attention_ref, copies, variants,
                                  nbytes, 4.0 * H * D * S * (S + 1) / 2, library=lib)
     print("wide kernel rows: " + json.dumps(rows))
+    return rows
+
+
+# hymba-1.5b's full-width snapshot after an 1100-token prefix: ring k and v
+# (2 x 32 x 1024 x 5 x 64 bf16), SSM h (32 x 3200 x 16 f32), conv (32 x 3 x
+# 3200 bf16), pos (1024 int32) and the logits (32001 f32): 4 mod 16 bytes
+HYMBA_SNAPSHOT_BYTES = 49_243_140
+
+
+def snapshot_kernel_rows(dev, rnd):
+    """The two kernels of the snapshot path at their served shapes: K5 at
+    hymba-1.5b's prefill (B 1, 25 query heads over 5 kv heads, S 1100,
+    D 64, causal, window 1024: keys past the window masked), beside
+    scaled_dot_product_attention with the same causal+window mask given
+    explicitly (a boolean mask, which SDPA serves with a non-flash
+    kernel); and K3 on one hymba snapshot page of 49,243,140 uint8 bytes
+    (not a multiple of 16: the byte loop), beside ``index_select``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import kv_block_copy as kbc
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, KV, S, D, W = 25, 5, 1100, 64, 1024
+    act = lambda n: rnd(1, S, n, D).transpose(1, 2)
+    copies = [(act(H), act(KV), act(KV)) for _ in range(8)]
+    pos = torch.arange(S, device=dev)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    pairs = int(mask.sum())  # the (query, key) pairs this input attends
+    lib = (lambda q, k, v: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), copies)
+    label = "K5 hymba-1.5b prefill (25/5 heads, S 1100, D 64, window 1024)"
+    kw = dict(causal=True, window=W)
+    row = kernel_row(label, lambda *a: fa.flash_attention(*a, **kw),
+                     lambda *a: fa.flash_attention_ref(*a, **kw), copies, [{}],
+                     2.0 * (2 * H * S * D + 2 * KV * S * D), 4.0 * H * D * pairs, library=lib)
+    print(f"{label}: library_ms is scaled_dot_product_attention with an explicit boolean "
+          f"causal+window mask (a non-flash SDPA kernel); {pairs} attended pairs")
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    pages = [torch.randint(0, 256, (1, HYMBA_SNAPSHOT_BYTES, 1, 1), generator=g, device=dev,
+                           dtype=torch.uint8) for _ in range(3)]
+    idx = torch.zeros(1, dtype=torch.int32)
+    d_idx = idx.to(dev)
+    got = kbc.kv_block_copy(pages[0], idx)
+    torch.cuda.synchronize()
+    check(torch.equal(got, pages[0]), "K3 is not an exact copy of a snapshot page")
+    calls = [(pg, idx) for pg in pages]
+    ms = time_ms(lambda s, i: kbc.kv_block_copy(s, i), calls)
+    plain_ms = time_ms(lambda s, i: kbc.kv_block_copy_ref(s, i), calls)
+    lib_ms = time_ms(lambda s, i: torch.index_select(s, 0, d_idx), calls)
+    b_ms, b_by = bound(2.0 * HYMBA_SNAPSHOT_BYTES + 4, 0.0)
+    rows = {label: row, "K3 hymba-1.5b snapshot page (49,243,140 B, byte loop)": dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, max_abs_err=0.0)}
+    print(f"K3 one hymba-1.5b snapshot page ({HYMBA_SNAPSHOT_BYTES} B, 4 mod 16: byte loop): "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+          f"{100 * b_ms / ms:.1f}% of the bound, {2 * HYMBA_SNAPSHOT_BYTES / ms / 1e6:.0f} GB/s, "
+          f"library index_select {lib_ms:.4f} ms), exact")
+    print("snapshot kernel rows: " + json.dumps(rows))
     return rows
 
 
@@ -881,7 +978,10 @@ def witness_phase(bundle, params, cfg, paths=("A", "B")):
 
 
 # ----------------------------------------------------------------- phases 8-9
-WIDE_DEVICE_BLOCKS = 128  # 400 MiB of stablelm-12b pages, 960 MiB of deepseek-7b's
+WIDE_DEVICE_BLOCKS = 128  # per layer: 10 MiB of stablelm-12b pages, 32 MiB of deepseek-7b's
+# Phases 8-9 run at full width but cut depth, so the snapshot phases 10-11
+# fit in the smoke's time (the models serve at full depth too; the cut saves time only).
+WIDE_DEPTH = {"stablelm-12b": 10, "deepseek-7b": 8}
 
 
 def compare_logits(label, la, lb, V):
@@ -894,19 +994,24 @@ def compare_logits(label, la, lb, V):
     check(la.argmax() == lb.argmax(), f"{label}: different tokens")
 
 
-def load_model(name):
-    """Full-width, full-depth ``name`` on the card, weights from seed 0."""
+def load_model(name, layers=None):
+    """Full-width ``name`` on the card, weights from seed 0; full depth
+    unless ``layers`` cuts it (the cut is printed)."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
 
     cfg = get_config(name)
+    if layers is not None:
+        print(f"{name}: depth cut to {layers} of {cfg.num_layers} layers (full width) to keep "
+              "the smoke's time")
+        cfg = cfg.replace(num_layers=layers)
     bundle = build_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     params = bundle.init_params(torch.Generator().manual_seed(0))
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
-    print(f"{name} params: {n / 1e9:.3f} B bf16 ({cfg.num_layers} layers, head_dim "
+    print(f"{name} params: {n / 1e9:.3f} B ({cfg.num_layers} layers, head_dim "
           f"{cfg.resolved_head_dim}, {cfg.num_heads} heads over {cfg.num_kv_heads}) on the card in "
           f"{time.monotonic() - t0:.1f} s, init peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB, resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -929,6 +1034,116 @@ def wide_dense_checks(bundle, params, cfg, prompts):
                            d.prefill_logits(prompt), pg.prefill_logits(prompt), cfg.vocab_size)
     k4_over_dense_cache(bundle, params, cfg, prompts[0])
     print(f"{cfg.name} dense checks: {time.monotonic() - t0:.3f} s")
+
+
+# --------------------------------------------------------------- phases 10-11
+def snapshot_phase(bundle, params, cfg, prefix_len):
+    """A recurrent model at full width through ``SnapshotEngine``: an
+    OFFLOADABLE claim over a ``prefix_len``-token prefix is materialized
+    (one prefill; hymba's attention half on K5) and offloaded (the page
+    copy K3 moves the packed snapshot), then ``serve_batch`` runs 4
+    prompts of the prefix plus 2 fresh tokens, 16 new tokens each: the
+    first restores the snapshot (K3 again), every request reuses it, and
+    the tokens equal those of an engine that kept the snapshot on the card
+    (path A, judged by the port's analyzer).  One more request runs under
+    the profiler for the device busy share.  Then a second engine fails
+    the same claim's restore: refused fail-closed, in order (path B)."""
+    from repro_torch.core.analyzer import (
+        check_failure_outcome_path,
+        check_observation_path,
+        validate_event_sequence,
+    )
+    from repro_torch.core.claims import ClaimMode, ClaimState
+    from repro_torch.serving.snapshot_engine import SnapshotEngine
+
+    rng = np.random.default_rng(8)
+    V, name, dev = cfg.vocab_size, cfg.name, bundle.device
+    fresh = lambda n: tuple(int(t) for t in rng.integers(0, V, n))
+    prefix = fresh(prefix_len)
+    prompts = [prefix + fresh(2) for _ in range(4)]
+
+    with SnapshotEngine(bundle, params, device=dev) as keep:  # never offloaded
+        c = keep.accept_claim(prefix, ClaimMode.OFFLOADABLE)
+        keep.materialize_claim(c.claim_id)
+        kept = keep.serve_batch(prompts, max_new_tokens=16)
+    check([r.status for r in kept] == ["finished"] * 4, f"{name} never-offloaded run did not finish")
+
+    with SnapshotEngine(bundle, params, device=dev) as eng:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        claim = eng.accept_claim(prefix, ClaimMode.OFFLOADABLE)
+        cid = claim.claim_id
+        payload = eng.materialize_claim(cid).nbytes
+        check(claim.state == ClaimState.MATERIALIZED, f"{name}: claim {claim.state}")
+        check(eng.offload_claim(cid), f"{name}: offload failed")
+        check(claim.state == ClaimState.OFFLOADED, f"{name}: claim {claim.state}")
+        reqs = eng.serve_batch(prompts, max_new_tokens=16)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for r in reqs:
+            check(r.status == "finished", f"{name} {r.request_id}: {r.status} ({r.error})")
+            check(len(r.output_tokens) == 16 and all(0 <= t < V for t in r.output_tokens),
+                  f"{name} {r.request_id}: tokens {r.output_tokens}")
+        check(reqs[0].restored_tokens == prefix_len,
+              f"{name}: restored {reqs[0].restored_tokens} tokens")
+        check([r.cached_tokens for r in reqs] == [prefix_len] * 4, f"{name}: a request missed the snapshot")
+        check([r.output_tokens for r in reqs] == [r.output_tokens for r in kept],
+              f"{name} path A: restored tokens differ from the never-offloaded run")
+        check(claim.state == ClaimState.RESTORED, f"{name} path A: claim {claim.state}")
+        check(not eng.fail_closed_total(), f"{name} path A fail-closed: {eng.fail_closed_total()}")
+        order = validate_event_sequence(eng.events)
+        check(order.passed, f"{name} path A: {order.reasons}")
+        verdict = check_observation_path(eng.events, cid, reqs[0].request_id)
+        check(verdict.passed, f"{name} path A: {verdict.reasons}")
+        print(f"{name} snapshot path A analyzer: {verdict.reasons[0]}")
+        stage = {k: eng.stage_seconds.samples(stage=k) for k in ("prefill", "restore", "decode_step")}
+        print(f"{name} snapshot serving full width: claim over {prefix_len} tokens materialized, "
+              f"offloaded and restored ({payload} B = {payload / 2**20:.2f} MiB per snapshot, "
+              f"{'a multiple of 16' if payload % 16 == 0 else f'{payload % 16} mod 16'}), 4 requests "
+              f"x 16 tokens equal to the never-offloaded run; wall {wall:.3f} s = prefill "
+              f"{sum(stage['prefill']):.3f} s ({len(stage['prefill'])}) + restore "
+              f"{sum(stage['restore']):.3f} s ({len(stage['restore'])}) + decode steps "
+              f"{sum(stage['decode_step']):.3f} s ({len(stage['decode_step'])}) + other host work "
+              f"(offload, unpacking, 2 replayed tokens per request) "
+              f"{wall - sum(sum(v) for v in stage.values()):.3f} s; peak device memory {peak:.2f} GiB")
+        extra = prefix + fresh(2)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.monotonic()
+            (r,) = eng.serve_batch([extra], max_new_tokens=8)
+            torch.cuda.synchronize()
+            w = time.monotonic() - t
+        check(r.status == "finished" and r.cached_tokens == prefix_len, f"{name} profiled request {r.status}")
+        avg = prof.key_averages()
+        busy = sum(getattr(e, "self_device_time_total", 0.0) for e in avg) / 1e6
+        print(f"{name} profiled request (snapshot hit + 2 fresh tokens, 8 new tokens): wall {w:.3f} s, "
+              f"device busy {busy:.3f} s ({100 * busy / w:.1f}%), {sum(e.count for e in avg)} device ops")
+
+    with SnapshotEngine(bundle, params, device=dev) as eng:
+        claim = eng.accept_claim(prefix, ClaimMode.OFFLOADABLE)
+        cid = claim.claim_id
+        eng.materialize_claim(cid)
+        check(eng.offload_claim(cid), f"{name} path B: offload failed")
+        eng.connector.injection.resident_claim_load_failure = True
+        eng.connector.injection.fail_claim_id = cid
+        (r,) = eng.serve_batch([prompts[0]], max_new_tokens=16)
+        check(r.status == "refused" and r.output_tokens == [],
+              f"{name} path B: {r.status} with {len(r.output_tokens)} tokens")
+        check(claim.state == ClaimState.RESTORATION_FAILED, f"{name} path B: claim {claim.state}")
+        order = validate_event_sequence(eng.events)
+        check(order.passed, f"{name} path B: {order.reasons}")
+        up_to_load = check_observation_path(eng.events, cid, r.request_id)
+        check(up_to_load.reasons == ["no successful tier->device transfer for the claim"],
+              f"{name} path B: observation order before the restore: {up_to_load.reasons}")
+        check(not any(e.request_id == r.request_id for e in
+                      eng.events.named("offload_request_finished_no_pending_jobs")),
+              f"{name} path B served output")
+        verdict = check_failure_outcome_path(eng.events, cid, r.request_id)
+        check(verdict.passed, f"{name} path B: {verdict.reasons}")
+        print(f"{name} snapshot path B: request {r.status}, claim {claim.state.value}, "
+              f"ordered E11 -> E12 -> E13 -> E14 -> FINISHED_ERROR ({verdict.reasons[0]})")
 
 
 # --------------------------------------------------------------------- phase 7
@@ -1047,11 +1262,18 @@ def main() -> None:
                 print(f"  {name}: {line.split(chr(39))[1] if chr(39) in line else line.strip()}")
             elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    tensor_core_sass("K5", build.library_path("flash_attention"))
-    tensor_core_sass("K2", build.library_path("paged_attention"))
+    sass_checks = [tensor_core_sass("K5", build.library_path("flash_attention")),
+                   tensor_core_sass("K2", build.library_path("paged_attention"))]
 
+    walls = {"build": time.monotonic() - t0}
+    t0 = time.monotonic()
     kernels = kernel_phase()
+    for finish in sass_checks:
+        finish()
+    walls["kernel rows"] = time.monotonic() - t0
+    t0 = time.monotonic()
     reduced_parity_phase()
+    walls["reduced parity"] = time.monotonic() - t0
 
     cfg = get_config("qwen3-1.7b")
     bundle = build_model(cfg)
@@ -1074,9 +1296,11 @@ def main() -> None:
         before it and read just after."""
         for w in wrappers.values():
             w.launches = 0
+        t = time.monotonic()
         out = fn(*args)
+        walls[name] = time.monotonic() - t
         counts[name] = {k: w.launches for k, w in wrappers.items()}
-        print(f"launches in {name}: {counts[name]}")
+        print(f"launches in {name}: {counts[name]} ({walls[name]:.1f} s)")
         return out
 
     counts = {}
@@ -1091,7 +1315,7 @@ def main() -> None:
     for name in ("stablelm-12b", "deepseek-7b"):
         gc.collect()
         torch.cuda.empty_cache()  # the previous model's weights go before the next is drawn
-        cfg, bundle, params = load_model(name)
+        cfg, bundle, params = load_model(name, WIDE_DEPTH[name])
         *_, prompts = drive(f"{name} paged serving", serving_phase, bundle, params, cfg,
                             wide_traffic, WIDE_DEVICE_BLOCKS)
         if name == "stablelm-12b":
@@ -1103,6 +1327,16 @@ def main() -> None:
             check(counts[f"{name} dense checks"]["paged_attention"] > 0,
                   f"{name} dense checks never launched K4")
         del bundle, params
+    for name, prefix_len in (("hymba-1.5b", 1100), ("xlstm-350m", 512)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, bundle, params = load_model(name)
+        drive(f"{name} snapshot serving", snapshot_phase, bundle, params, cfg, prefix_len)
+        check(counts[f"{name} snapshot serving"]["kv_block_copy"] > 0,
+              f"{name} offload/restore never launched K3")
+        del bundle, params
+    check(counts["hymba-1.5b snapshot serving"]["flash_attention"] > 0,
+          "hymba-1.5b prefills never launched K5")
     for name in ("", "stablelm-12b ", "deepseek-7b "):
         check(counts[f"{name}paged serving"]["paged_decode_attention"] > 0,
               f"{name}serving never launched the paged decode kernel")
@@ -1119,7 +1353,8 @@ def main() -> None:
     check(kbc.gather_payloads.plain_copies == plain_before, "a payload gather took the plain copy")
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
 
-    print(f"smoke wall {time.monotonic() - t_start:.1f} s (kernel build included)")
+    print(f"smoke wall {time.monotonic() - t_start:.1f} s (kernel build included): "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     print("kernels: " + json.dumps([{"name": k, "launches": v} for k, v in launches.items()]))
     record = []
     for name in wrappers:

@@ -1,9 +1,12 @@
-"""Model configs the port serves: the dense transformer family.
+"""Model configs the port serves.
 
-qwen3-1.7b is the first served model; h2o-danube-1.8b carries the
-sliding-window attention path; stablelm-12b carries head_dim 160 (G = 4)
-and deepseek-7b multi-head attention (G = 1).  ``get_config`` raises for
-every other name.
+The dense transformer family: qwen3-1.7b is the first served model;
+h2o-danube-1.8b carries the sliding-window attention path; stablelm-12b
+carries head_dim 160 (G = 4) and deepseek-7b multi-head attention (G = 1).
+The recurrent families, served through ``SnapshotEngine``: hymba-1.5b (the
+hybrid: windowed attention beside a selective SSM in every layer) and
+xlstm-350m (mLSTM and sLSTM blocks, no attention).  ``get_config`` raises
+for every other name.
 """
 from __future__ import annotations
 
@@ -16,10 +19,15 @@ from repro_torch.configs.base import (
 )
 from repro_torch.configs.deepseek_7b import CONFIG as DEEPSEEK_7B
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
+from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA_1_5B
 from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN3_1_7B
 from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
+from repro_torch.configs.xlstm_350m import CONFIG as XLSTM_350M
 
-ARCHITECTURES = {c.name: c for c in (QWEN3_1_7B, H2O_DANUBE_1_8B, STABLELM_12B, DEEPSEEK_7B)}
+ARCHITECTURES = {
+    c.name: c
+    for c in (QWEN3_1_7B, H2O_DANUBE_1_8B, STABLELM_12B, DEEPSEEK_7B, HYMBA_1_5B, XLSTM_350M)
+}
 
 
 def get_config(name: str) -> ModelConfig:

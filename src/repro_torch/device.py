@@ -14,9 +14,13 @@ import torch
 DeviceLike = Optional[Union[str, torch.device]]
 
 
-def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises without a card); otherwise the named device."""
+def resolve_device(device: DeviceLike = None, *, allow_meta: bool = False) -> torch.device:
+    """``None`` -> ``cuda`` (raises without a card); otherwise the named
+    device.  ``allow_meta`` lets a function that only makes shapes (a state
+    or cache built to read its shapes) take ``"meta"``, which holds no memory."""
     dev = torch.device("cuda" if device is None else device)
+    if allow_meta and dev.type == "meta":
+        return dev
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the port runs on the GPU unless device='cpu' is passed"

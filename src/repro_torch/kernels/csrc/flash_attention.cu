@@ -64,10 +64,20 @@
 //   any multiple of 4 up to 256.
 //
 // A query row with no valid key at all (only possible with Sq > Sk under a
-// causal window, or Sk = 0) yields zeros in both kernels.  The dense
-// reference spreads uniform weights over the Sk keys of such a row, and the
-// Pallas kernel over the keys of its key blocks, zero padding included, so
-// its value depends on the block size; the model never builds such a row.
+// causal window, or Sk = 0; the model never builds one) gets what the dense
+// reference's uniform softmax over its masked scores gives it: the plain
+// mean of the Sk value rows of its kv head (zeros when Sk = 0).  Both
+// kernels find such a row by its running sum l, still 0 after the last key
+// tile, and only such a row takes the branch that reads the Sk value rows
+// (mean_value), so serving rows pay one comparison.  The Pallas kernel
+// spreads the weights over the keys of its key blocks, zero padding
+// included, so its value depends on the block size.
+//
+// Head dims that are not a multiple of the vector width (bfloat16 D % 8,
+// float32 D % 4) reach the kernels zero-padded to the next multiple by the
+// wrapper, which passes the scale 1 / sqrt(D) of the unpadded D (sm_scale):
+// zero columns add nothing to a score, and the padded output columns are
+// sliced away.
 //
 // The kernels allocate nothing and do not synchronise; the caller passes
 // the stream and checks the returned cudaGetLastError().
@@ -120,6 +130,18 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base, lon
 #pragma unroll
     for (int t = 0; t < kVec; ++t) d[t] = to_f<T>(e[t]);
   }
+}
+
+// The output of a query row with no valid key at column col: the plain
+// mean of all Sk value rows of its kv head (zeros when Sk = 0), as the dense
+// reference's uniform softmax over masked scores gives it.  Only such rows
+// call it, so serving rows pay one comparison; kept out of line so that its
+// loop does not change the register allocation of the kernels' main path.
+template <typename T>
+__device__ __noinline__ float mean_value(const T* vb, long long v_ss, int Sk, int col) {
+  float sum = 0.f;
+  for (int key = 0; key < Sk; ++key) sum += to_f<T>(vb[(long long)key * v_ss + col]);
+  return Sk > 0 ? sum / (float)Sk : 0.f;
 }
 
 // DM: the widest head dim of the instantiation (128 or 256)
@@ -242,12 +264,16 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
     for (int o = kSide / 2; o > 0; o >>= 1) li += __shfl_xor_sync(0xffffffffu, li, o);
     const int qp = q0 + ty + kSide * i;
     const float inv = 1.f / fmaxf(li, 1e-30f);
-    if (qp < p.Sq) {
+    if (qp >= p.Sq) continue;
+    if (li == 0.f) {  // no valid key: the plain mean of the Sk value rows
+      for (int col = tx; col < D; col += kSide)
+        ob[(long long)qp * p.o_ss + col] = from_f<T>(mean_value(vb, p.v_ss, p.Sk, col));
+      continue;
+    }
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        const int col = tx + kSide * c;
-        if (col < D) ob[(long long)qp * p.o_ss + col] = from_f<T>(acc[i][c] * inv);
-      }
+    for (int c = 0; c < kCols; ++c) {
+      const int col = tx + kSide * c;
+      if (col < D) ob[(long long)qp * p.o_ss + col] = from_f<T>(acc[i][c] * inv);
     }
   }
 }
@@ -559,6 +585,12 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
     if (r >= nrows) continue;
     const float inv = half ? inv_b : inv_a;
     bf16* orow = ob + (kvh * G + r % G) * p.o_sh + (long long)(r / G) * p.o_ss;
+    if ((half ? l_b : l_a) == 0.f) {  // no valid key: the plain mean of the Sk value rows
+      for (int d = 2 * (lane & 3); d < p.D; d += 8)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+            mean_value(vb, p.v_ss, p.Sk, d), mean_value(vb, p.v_ss, p.Sk, d + 1));
+      continue;
+    }
 #pragma unroll
     for (int n = 0; n < kDBlocks; ++n) {
       const int d = 8 * n + 2 * (lane & 3);
@@ -617,14 +649,16 @@ int launch_bf16(const Params& p, int B, cudaStream_t s) {
 extern "C" {
 
 // dtype: 0 = float32 (SIMT kernel; D a multiple of 4), 1 = bfloat16
-// (tensor-core kernel; D a multiple of 8); D <= 256.  Strides are in elements.  Returns cudaGetLastError()
+// (tensor-core kernel; D a multiple of 8); D <= 256.  sm_scale multiplies
+// every score: 1 / sqrt(d) of the head dim d before the caller zero-padded
+// it to D.  Strides are in elements.  Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for shapes the kernels do not take).
 int flash_attention_forward(int dtype, const void* q, const void* k, const void* v, void* out,
                             long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                             long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                             long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
                             int H, int KV, int Sq, int Sk, int D, int causal, int window,
-                            float softcap, void* stream) {
+                            float sm_scale, float softcap, void* stream) {
   if (D <= 0 || D > kMaxD || D % (dtype == 0 ? 4 : 8) || B <= 0 || H <= 0 || KV <= 0 ||
       H % KV != 0 || Sq <= 0 || Sk < 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
@@ -652,7 +686,7 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
   p.D = D;
   p.causal = causal;
   p.window = window;
-  p.sm_scale = 1.0f / sqrtf((float)D);
+  p.sm_scale = sm_scale;
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return D <= 128 ? launch_f32<128>(p, B, s) : launch_f32<256>(p, B, s);

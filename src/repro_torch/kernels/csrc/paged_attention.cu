@@ -786,8 +786,9 @@ extern "C" {
 // n_pre and n_split are not used), 1 = bfloat16 (tensor-core split kernel
 // and merge; D a multiple of 8); D <= 256.  For bfloat16, split_keys must equal the kernel's split size (128), n_pre =
 // ceil(P * page / split_keys), n_split = n_pre + 1 (the chunk), and part
-// holds B * KV * n_split * G * C * (D + 2) floats).  Strides are in
-// elements.  Returns cudaGetLastError() after the launches
+// holds B * KV * n_split * G * C * (D + 2) floats).  sm_scale multiplies
+// every score: 1 / sqrt(d) of the head dim d before the caller zero-padded
+// it to D.  Strides are in elements.  Returns cudaGetLastError() after the launches
 // (cudaErrorInvalidValue for shapes the kernels do not take).
 int paged_attention_forward(int dtype, const void* q, const void* k_pages, const void* v_pages,
                             const int* block_tables, const int* prefix_len, const void* k_chunk,
@@ -795,7 +796,7 @@ int paged_attention_forward(int dtype, const void* q, const void* k_pages, const
                             long long q_skv, long long q_sg, long long q_sc, long long e_sb,
                             long long e_skv, long long e_st, int B, int KV, int G, int C, int D,
                             int N, int page, int P, int split_keys, int n_pre, int n_split,
-                            float softcap, int window, void* stream) {
+                            float sm_scale, float softcap, int window, void* stream) {
   if (D <= 0 || D > kMaxD || D % (dtype == 0 ? 4 : 8) || B <= 0 || KV <= 0 || G <= 0 || C <= 0 ||
       page <= 0 || P < 0 || (G * C + kRowTile - 1) / kRowTile > 65535)
     return (int)cudaErrorInvalidValue;
@@ -826,7 +827,7 @@ int paged_attention_forward(int dtype, const void* q, const void* k_pages, const
   p.P = P;
   p.n_pre = n_pre;
   p.n_split = n_split;
-  p.sm_scale = 1.0f / sqrtf((float)D);
+  p.sm_scale = sm_scale;
   p.softcap = softcap;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

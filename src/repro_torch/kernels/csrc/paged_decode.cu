@@ -476,7 +476,8 @@ int dispatch(const Params& p, cudaStream_t s) {
 extern "C" {
 
 // dtype: 0 = float32 (D a multiple of 4), 1 = bfloat16 (D a multiple of
-// 8); D <= 256, any G.  split_keys must equal the kernel's split size
+// 8); D <= 256, any G.  sm_scale multiplies every score: 1 / sqrt(d) of the
+// head dim d before the caller zero-padded it to D.  split_keys must equal the kernel's split size
 // (64); n_pre = ceil(P * page / split_keys) prefix splits and n_split =
 // n_pre + ceil(T / split_keys) (at least 1).  part holds
 // B * KV * n_split * G * (D + 2) floats.  Returns cudaGetLastError() after
@@ -487,7 +488,7 @@ int paged_decode_forward(int dtype, const void* q, const void* k_pages, const vo
                          float* part, long long q_sb, long long q_skv, long long q_sg,
                          long long e_sb, long long e_skv, long long e_st, int B, int KV, int G,
                          int D, int N, int page, int P, int T, int split_keys, int n_pre,
-                         int n_split, float softcap, int window, void* stream) {
+                         int n_split, float sm_scale, float softcap, int window, void* stream) {
   const int vec = dtype == 0 ? 4 : 8;  // elements per 16-byte load
   const long long n_hg = (G + kMaxGM - 1) / kMaxGM;
   if (split_keys != kSplit || D <= 0 || D > kMaxD || D % vec || B <= 0 || KV <= 0 || G <= 0 ||
@@ -524,7 +525,7 @@ int paged_decode_forward(int dtype, const void* q, const void* k_pages, const vo
   p.n_pre = n_pre;
   p.n_split = n_split;
   p.n_hg = (int)n_hg;
-  p.sm_scale = 1.0f / sqrtf((float)D);
+  p.sm_scale = sm_scale;
   p.softcap = softcap;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

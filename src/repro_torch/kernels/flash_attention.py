@@ -14,10 +14,16 @@ bytes (about 170 FLOPs per byte, under the bf16 ridge).  A bfloat16 call
 runs the tensor-core kernel (mma.sync bf16 products, cp.async K/V rings,
 one K/V tile shared by the G query heads of its kv head, two warpgroups on
 alternate key tiles); a float32 call runs the SIMT kernel of f32 FMAs,
-which the 1e-5 checks need.  Both take head dims up to 256, multiples of 8
-in bfloat16 (16-byte vector loads; tiles zero-padded to 16, 32, 64, 128,
-160 or 256 columns) and of 4 in float32, and any GQA group size.  Both
-live in ``csrc/flash_attention.cu``, which says why.
+which the 1e-5 checks need.  Both take head dims up to 256 and any GQA
+group size (tiles zero-padded to 16, 32, 64, 128, 160 or 256 columns in
+bfloat16).  They load 16-byte vectors, so a head dim that is not a
+multiple of the vector width (8 in bfloat16, 4 in float32) is zero-padded
+on the head axis before the launch (``paged_attention.pad_heads``), the
+kernel gets the scale ``1 / sqrt(D)`` of the unpadded D, and the output is
+sliced back.  A query row with no valid key (Sq > Sk under a causal window)
+gets the plain mean of the Sk value rows, as the plain version gives it,
+in a branch that only such rows take.  Both kernels live in
+``csrc/flash_attention.cu``, which says why.
 
 Dispatch: a CPU tensor goes to the plain version (a port of the JAX
 package's naive oracle, ``kernels/ref.py:flash_attention_ref``); a CUDA
@@ -35,6 +41,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention import pad_heads
 
 NEG_INF = -1e30
 
@@ -44,7 +51,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 4
     + [ctypes.c_int64] * 12
     + [ctypes.c_int] * 8
-    + [ctypes.c_float, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 )
 
 
@@ -88,7 +95,8 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
     weights rounded to ``p_dtype`` before they multiply V (f32 sums).  (The
     kernel's two warpgroups take alternate tiles and merge at the end; this
     model walks the tiles in order, which moves only the f32 rounding.)  A
-    row with no valid key gives zeros.  Shapes as ``flash_attention_ref``."""
+    row with no valid key (its sum l still 0) gives the plain mean of the Sk
+    value rows, as the kernel does.  Shapes as ``flash_attention_ref``."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
@@ -118,6 +126,8 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
         acc = acc * corr + torch.einsum("bkgqs,bksd->bkgqd", w.to(p_dtype).float(), vt)
         m = m_new
     out = acc / l.clamp_min(1e-30)
+    if Sk:
+        out = torch.where(l == 0, vf.mean(dim=2)[:, :, None, None], out)
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
@@ -128,18 +138,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     name = "flash_attention"
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if tuple(k.shape) != (B, KV, Sk, D) or v.shape != k.shape or KV == 0 or H % KV:
         raise ValueError(f"{name}: shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    d_true, (q, k, v) = pad_heads(name, q, k, v)
+    D = q.shape[-1]
     vec = 16 // q.element_size()  # elements per 16-byte vector load
-    if D > 256 or D % vec:
-        raise ValueError(f"{name}: head_dim {D} must be <= 256 and a multiple of {vec} "
-                         f"for {q.dtype}")
     for t in (k, v):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError(f"{name}: every operand must be {q.dtype} on {q.device}")
@@ -150,7 +155,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
             raise ValueError(f"{name}: operands must be 16-byte aligned for vector loads")
     out = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     if B == 0 or Sq == 0 or H == 0:
-        return out
+        return _unpad(out, d_true)
     if B > 65535 or H > 65535:
         raise ValueError(f"{name}: batch {B} and heads {H} must be <= 65535")
     qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
@@ -158,12 +163,21 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     rc = _lib().flash_attention_forward(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os_[0], os_[1], os_[2],
-        B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), float(softcap), stream,
+        B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), 1.0 / math.sqrt(d_true),
+        float(softcap), stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
     flash_attention.launches += 1
-    return out
+    return _unpad(out, d_true)
+
+
+def _unpad(out, d):
+    """The first ``d`` head columns of [B, H, Sq, Dp], again a view of a
+    [B, Sq, H, d] buffer (one copy, only for a padded head dim)."""
+    if out.shape[-1] == d:
+        return out
+    return out[..., :d].transpose(1, 2).contiguous().transpose(1, 2)
 
 
 flash_attention.launches = 0

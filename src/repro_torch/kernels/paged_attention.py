@@ -31,10 +31,15 @@ Three entry points over two CUDA sources:
   path calls it; it is held against the dense decode mode's
   ``attention_decode``.
 
-All three take head dims up to 256 (multiples of 8 in bfloat16, of 4 in
-float32) and any number G of query heads per kv head; the sources say how
-(padded tile widths 160 and 256; at decode a CTA per 8 heads, and in
-bfloat16 up to D = 160 and G = 4 a key over 10 lanes of 16 elements).  A decode
+All three take head dims up to 256 and any number G of query heads per kv
+head; the sources say how (padded tile widths 160 and 256; at decode a CTA
+per 8 heads, and in bfloat16 up to D = 160 and G = 4 a key over 10 lanes of
+16 elements).  The kernels load 16-byte vectors, so a head dim that is not
+a multiple of the vector width (8 in bfloat16, 4 in float32) is zero-padded
+on the head axis to the next multiple before the launch (``pad_heads``, a
+choice made from the shape, not a fallback), the kernel is told the scale
+``1 / sqrt(D)`` of the unpadded D, and the output is sliced back to D: zero
+columns add nothing to a score.  A decode
 row with no valid key gets what the JAX reference's dense softmax gives
 it: the plain mean of every gathered value row.
 
@@ -72,7 +77,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 9
     + [ctypes.c_int64] * 7
     + [ctypes.c_int] * 11
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 
 
@@ -81,7 +86,7 @@ _DECODE_ARGTYPES = (
     + [ctypes.c_void_p] * 11
     + [ctypes.c_int64] * 6
     + [ctypes.c_int] * 11
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
 SPLIT_KEYS = 64  # keys per split of the split-KV decode kernel (csrc/paged_decode.cu)
 PREFILL_SPLIT_KEYS = 128  # prefix keys per split of the bf16 prefill kernel (csrc/paged_attention.cu)
@@ -405,6 +410,26 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths, *,
 # ----------------------------------------------------------------- kernel
 
 
+def pad_heads(name, q, *others):
+    """Check that ``q`` is a kernel operand (a CUDA tensor of a kernel's
+    dtype, head dim <= 256), then zero-pad ``q`` and ``others`` (None
+    passes through) on the last axis to the next multiple of the 16-byte
+    vector width.  Returns (unpadded D, the padded tensors)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
+    D = q.shape[-1]
+    if D > 256:
+        raise ValueError(f"{name}: head_dim {D} must be <= 256")
+    vec = 16 // q.element_size()  # elements per 16-byte vector load
+    pad = -D % vec
+    if pad:
+        fix = lambda t: None if t is None else torch.nn.functional.pad(t, (0, pad))
+        return D, (fix(q), *(fix(t) for t in others))
+    return D, (q, *others)
+
+
 def _check_operands(name, q, k_pages, v_pages, extras, ints):
     dev = q.device
     if dev.type != "cuda":
@@ -434,8 +459,9 @@ def _check_operands(name, q, k_pages, v_pages, extras, ints):
 
 
 def _split_decode(name, q, k_pages, v_pages, block_tables, prefix_len, k_tail, v_tail,
-                  tail_pos, cur_pos, softcap, window):
-    """One call of ``paged_decode_forward``: the split kernel and the merge."""
+                  tail_pos, cur_pos, softcap, window, d_true):
+    """One call of ``paged_decode_forward``: the split kernel and the merge
+    (``d_true``: the head dim before padding, which sets the scale)."""
     B, KV, G, D = q.shape
     N, page = k_pages.shape[1], k_pages.shape[2]
     P = block_tables.shape[1]
@@ -458,7 +484,7 @@ def _split_decode(name, q, k_pages, v_pages, block_tables, prefix_len, k_tail, v
         ptr(tail_pos), ptr(cur_pos), out.data_ptr(), part.data_ptr(),
         qs[0], qs[1], qs[2], es[0], es[1], es[2],
         B, KV, G, D, N, page, P, T, SPLIT_KEYS, n_pre, n_split,
-        float(softcap), int(window), stream,
+        1.0 / math.sqrt(d_true), float(softcap), int(window), stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
@@ -484,21 +510,23 @@ def paged_decode_attention(
     B, KV, G, D = q.shape
     KVp, N, page, Dp = k_pages.shape
     T = k_tail.shape[2]
-    _check_operands(
-        "paged_decode_attention", q, k_pages, v_pages, (k_tail, v_tail),
-        (block_tables, prefix_len, tail_pos, cur_pos),
-    )
     if (KVp, Dp) != (KV, D) or tuple(k_tail.shape) != (B, KV, T, D):
         raise ValueError("paged_decode_attention: shape mismatch")
     if k_tail.stride() != v_tail.stride() or tuple(tail_pos.shape) != (B, T):
         raise ValueError("paged_decode_attention: tail layout mismatch")
+    D, (q, k_pages, v_pages, k_tail, v_tail) = pad_heads(
+        "paged_decode_attention", q, k_pages, v_pages, k_tail, v_tail)
+    _check_operands(
+        "paged_decode_attention", q, k_pages, v_pages, (k_tail, v_tail),
+        (block_tables, prefix_len, tail_pos, cur_pos),
+    )
     out = _split_decode(
         "paged_decode_attention", q, k_pages, v_pages, block_tables, prefix_len,
-        k_tail, v_tail, tail_pos, cur_pos, softcap, window,
+        k_tail, v_tail, tail_pos, cur_pos, softcap, window, D,
     )
     if B:
         paged_decode_attention.launches += 1
-    return out
+    return out[..., :D]
 
 
 paged_decode_attention.launches = 0
@@ -523,13 +551,16 @@ def paged_prefill_attention(
     B, KV, G, C, D = q.shape
     KVp, N, page, Dp = k_pages.shape
     P = block_tables.shape[1]
-    _check_operands(name, q, k_pages, v_pages, (k_chunk, v_chunk), (block_tables, prefix_len))
     if (KVp, Dp) != (KV, D) or tuple(k_chunk.shape) != (B, KV, C, D):
         raise ValueError(f"{name}: shape mismatch")
     if block_tables.shape[0] != B or tuple(prefix_len.shape) != (B,):
         raise ValueError(f"{name}: one block-table row and one prefix length per sequence")
     if k_chunk.stride() != v_chunk.stride():
         raise ValueError(f"{name}: chunk layout mismatch")
+    d_true, (q, k_pages, v_pages, k_chunk, v_chunk) = pad_heads(
+        name, q, k_pages, v_pages, k_chunk, v_chunk)
+    _check_operands(name, q, k_pages, v_pages, (k_chunk, v_chunk), (block_tables, prefix_len))
+    D = q.shape[-1]
     out = torch.empty((B, KV, G, C, D), dtype=q.dtype, device=q.device)
     if B == 0 or C == 0:
         return out
@@ -549,12 +580,12 @@ def paged_prefill_attention(
         v_chunk.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
         qs[0], qs[1], qs[2], qs[3], es[0], es[1], es[2],
         B, KV, G, C, D, N, page, P, PREFILL_SPLIT_KEYS, n_pre, n_split,
-        float(softcap), int(window), stream,
+        1.0 / math.sqrt(d_true), float(softcap), int(window), stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
     paged_prefill_attention.launches += 1
-    return out
+    return out[..., :d_true]
 
 
 paged_prefill_attention.launches = 0
@@ -573,20 +604,21 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, softcap: floa
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, softcap=softcap)
     B, KV, G, D = q.shape
     KVp, N, page, Dp = k_pages.shape
+    if (KVp, Dp) != (KV, D) or tuple(lengths.shape) != (B,) or block_tables.shape[0] != B:
+        raise ValueError("paged_attention: shape mismatch")
+    D, (q, k_pages, v_pages) = pad_heads("paged_attention", q, k_pages, v_pages)
     _check_operands(
         "paged_attention", q, k_pages, v_pages, (), (block_tables, lengths),
     )
-    if (KVp, Dp) != (KV, D) or tuple(lengths.shape) != (B,) or block_tables.shape[0] != B:
-        raise ValueError("paged_attention: shape mismatch")
     # no in-flight keys (T = 0, null tail) and no cur_pos: the query sits at
     # position lengths[b], so the kernel's mask is k_pos < lengths[b]
     out = _split_decode(
         "paged_attention", q, k_pages, v_pages, block_tables, lengths, None, None, None, None,
-        softcap, 0,
+        softcap, 0, D,
     )
     if B:
         paged_attention.launches += 1
-    return out
+    return out[..., :D]
 
 
 paged_attention.launches = 0

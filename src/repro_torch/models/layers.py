@@ -97,6 +97,53 @@ def apply_rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
+# recurrent scan (SSM and xLSTM blocks)
+# ---------------------------------------------------------------------------
+
+
+def pick_chunk(S: int, target: int = 128) -> int:
+    """Largest divisor of S that is <= target (for two-level scans)."""
+    if S <= target:
+        return S
+    for c in range(target, 0, -1):
+        if S % c == 0:
+            return c
+    return 1
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts, tuples and lists."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (tuple, list)):
+        return type(first)(tree_map(fn, *nodes) for nodes in zip(*trees))
+    return fn(*trees)
+
+
+def chunked_recurrent_scan(step, init, xs, *, chunk: int = 128):
+    """``lax.scan`` over the token axis: ``step(carry, x_t) -> (carry, y_t)``
+    for t = 0..S-1 in order; returns (carry, ys stacked on a leading S).
+
+    xs is a tuple of tensors with leading dim S; ys may be any tree.  The
+    JAX package walks the tokens in chunks of ``pick_chunk(S, chunk)`` under
+    ``jax.checkpoint`` to bound training memory; for serving (no backward)
+    the same chunks are walked token by token in plain PyTorch, one small
+    launch group per token, which is what the card runs (not a kernel: the
+    JAX package runs this scan outside any Pallas kernel too).
+    """
+    S = xs[0].shape[0]
+    c = pick_chunk(S, chunk)
+    per_token = [a.unbind(0) for a in xs]  # one split each, not S index ops
+    carry, ys = init, []
+    for t0 in range(0, S, c):
+        for t in range(t0, t0 + c):
+            carry, y = step(carry, tuple(a[t] for a in per_token))
+            ys.append(y)
+    return carry, tree_map(lambda *ts: torch.stack(ts), *ys)
+
+
+# ---------------------------------------------------------------------------
 # attention core
 # ---------------------------------------------------------------------------
 

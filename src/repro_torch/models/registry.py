@@ -1,26 +1,36 @@
-"""Model registry for the port: the dense transformer family's serving
-entry points behind one bundle.
+"""Model registry for the port: every served family's entry points behind
+one bundle.
 
 ``build_model(cfg, device=None)`` returns a ``ModelBundle`` exposing:
   - init_params(generator)                         -> params on the device
-  - prefill_fn(params, batch, cache_len)           -> (last logits, dense cache)
-  - decode_fn(params, cache, tokens, cur_pos)      -> (logits, cache)
-  - make_cache(batch, cache_len)                   -> empty dense cache on the device
+  - prefill_fn(params, batch, cache_len)           -> (last logits, cache or state)
+  - decode_fn(params, cache, tokens, cur_pos)      -> (logits, cache or state)
+  - make_cache(batch, cache_len)                   -> empty cache or state on the
+    device (the recurrent families also take ``device="meta"``: shapes only,
+    which ``SnapshotEngine`` reads each leaf's batch axis from)
+and, for the dense transformer family only (``None`` for the recurrent
+families, as in the JAX registry):
   - prefill_collect_fn(params, batch)              -> (last-valid logits, k, v [L,B,S,KV,Dh])
   - paged_decode_fn(params, state, tokens, cur_pos) -> (logits, state)
   - prefill_chunk_fn(params, state, tokens, positions) -> (ck, cv) [L,B,C,KV,Dh]
+
+Families: ``dense`` (``transformer``), ``hybrid`` (hymba-1.5b, ``hymba``)
+and ``ssm`` (xlstm-350m, ``xlstm``).  The recurrent two are served by
+``SnapshotEngine``.  MoE, VLM and audio configs raise.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import partial
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import transformer as tf_lib
+from repro_torch.models import xlstm as xlstm_lib
 
 
 @dataclass(frozen=True)
@@ -30,19 +40,38 @@ class ModelBundle:
     init_params: Callable[[torch.Generator], Any]
     prefill_fn: Callable[..., Any]
     decode_fn: Callable[..., Any]
-    make_cache: Callable[[int, int], Any]
-    prefill_collect_fn: Callable[..., Any]
-    paged_decode_fn: Callable[..., Any]
-    prefill_chunk_fn: Callable[..., Any]
+    make_cache: Callable[..., Any]
+    prefill_collect_fn: Optional[Callable[..., Any]] = None
+    paged_decode_fn: Optional[Callable[..., Any]] = None
+    prefill_chunk_fn: Optional[Callable[..., Any]] = None
 
 
 def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
-    """Bundle for a dense transformer config on ``device`` (CUDA unless the
-    caller passes ``device="cpu"``).  Other families raise."""
+    """Bundle for ``cfg`` on ``device`` (CUDA unless the caller passes
+    ``device="cpu"``).  Families the port does not serve raise."""
     tf_lib.check_supported(cfg)
     if cfg.kv_cache_dtype != "bf16":
         raise NotImplementedError(f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported")
     dev = resolve_device(device)
+    if cfg.family == "ssm":  # xlstm
+        return ModelBundle(
+            cfg=cfg,
+            device=dev,
+            init_params=lambda generator: xlstm_lib.init_params(cfg, generator, dev),
+            prefill_fn=partial(_call, xlstm_lib.prefill, cfg),
+            decode_fn=partial(_call, xlstm_lib.decode_step, cfg),
+            make_cache=lambda batch, cache_len, device=dev: xlstm_lib.init_state(cfg, batch, device),
+        )
+    if cfg.family == "hybrid":  # hymba
+        return ModelBundle(
+            cfg=cfg,
+            device=dev,
+            init_params=lambda generator: hymba_lib.init_params(cfg, generator, dev),
+            prefill_fn=partial(_call, hymba_lib.prefill, cfg),
+            decode_fn=partial(_call, hymba_lib.decode_step, cfg),
+            make_cache=lambda batch, cache_len, device=dev: hymba_lib.make_cache(
+                cfg, batch, cache_len, device),
+        )
     return ModelBundle(
         cfg=cfg,
         device=dev,

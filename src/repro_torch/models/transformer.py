@@ -38,10 +38,12 @@ from repro_torch.models.layers import (
 
 
 def check_supported(cfg) -> None:
-    """The port serves the dense family only (ROADMAP: MoE/VLM/SSM later)."""
-    if cfg.moe.num_experts or cfg.family != "dense" or cfg.frontend != "none":
+    """The port serves the dense transformer family here and the recurrent
+    families (``hybrid``: hymba, ``ssm``: xLSTM) in their own modules;
+    MoE, VLM and audio configs are not ported yet (ROADMAP)."""
+    if cfg.moe.num_experts or cfg.family not in ("dense", "hybrid", "ssm") or cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: only dense transformer configs are ported (family={cfg.family})"
+            f"{cfg.name}: family={cfg.family} is not ported (dense, hybrid and ssm are)"
         )
 
 
@@ -62,6 +64,8 @@ def _device_generator(generator: torch.Generator, device: torch.device) -> torch
 def init_params(cfg, generator: torch.Generator, device: DeviceLike = None) -> Dict[str, Any]:
     """The JAX package's parameter tree (names, shapes, init scales) drawn
     from ``generator`` on ``device``.  The numbers differ from JAX's."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: family={cfg.family} is not a dense transformer")
     check_supported(cfg)
     dev = resolve_device(device)
     gen = _device_generator(generator, dev)

@@ -1,0 +1,281 @@
+"""xLSTM LM — mLSTM (matrix-memory) + sLSTM (scalar-memory) blocks (PyTorch).
+
+Counterpart of the JAX package's ``models/xlstm.py`` (Beck et al.,
+arXiv:2405.04517), with the same names, parameter tree and state layout.
+The 350M config is stacked as xLSTM[7:1]: groups of (7 mLSTM + 1 sLSTM).
+Parameters and states keep the JAX package's ``[G, n_blocks, ...]``
+stacking (G groups, n blocks of a type per group; states ``[G, n, B,
+...]``), and the stack runs as Python loops over groups and blocks.
+
+Both block types are the stabilized-exponential-gating recurrent form
+(log-space max-stabilizer m, which starts at -1e30), walked token by token
+(``chunked_recurrent_scan``).  Decode is O(1) in context length.  A
+ResidentClaim on an xLSTM context covers the (C, n, m) matrix-memory
+snapshot rather than KV blocks: predicate ``state_at_token(k)``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import (
+    DEFAULT_DTYPE,
+    apply_norm,
+    chunked_recurrent_scan,
+    dense_init,
+    embed_init,
+    make_norm,
+    rms_norm,
+    tree_map,
+)
+from repro_torch.models.transformer import _device_generator, embed_tokens
+
+# ---------------------------------------------------------------------------
+# mLSTM block
+# ---------------------------------------------------------------------------
+
+
+def mlstm_init(gen: torch.Generator, cfg, *, lead=()):
+    d, nh = cfg.d_model, cfg.num_heads
+    dev = gen.device
+    return {
+        "ln": make_norm(cfg.norm, d, lead=lead, device=dev),
+        "wq": dense_init(gen, d, d, lead=lead),
+        "wk": dense_init(gen, d, d, lead=lead),
+        "wv": dense_init(gen, d, d, lead=lead),
+        "wi": dense_init(gen, d, nh, lead=lead),
+        "wf": dense_init(gen, d, nh, lead=lead),
+        "wg": dense_init(gen, d, d, lead=lead),
+        "wo": dense_init(gen, d, d, lead=lead),
+        "hnorm": torch.ones((*lead, nh, d // nh), dtype=DEFAULT_DTYPE, device=dev),
+        "fb": torch.full((*lead, nh), 3.0, dtype=torch.float32, device=dev),  # open forget gate
+    }
+
+
+def mlstm_state(cfg, batch: int, *, lead=(), device=None):
+    nh, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "C": torch.zeros((*lead, batch, nh, dh, dh), **f32),
+        "n": torch.zeros((*lead, batch, nh, dh), **f32),
+        "m": torch.full((*lead, batch, nh), -1e30, **f32),
+    }
+
+
+def _mlstm_step(state, q, k, v, log_i, log_f):
+    """One recurrent step.  q, k, v: [B, nh, dh]; gates: [B, nh]."""
+    C, n, m = state["C"], state["n"], state["m"]
+    f_m = log_f + m
+    m_new = torch.maximum(f_m, log_i)
+    decay = torch.exp(f_m - m_new)
+    inp = torch.exp(log_i - m_new)
+    kv = k[..., :, None] * v[..., None, :]  # [B, nh, dh, dh]
+    C = decay[..., None, None] * C + inp[..., None, None] * kv
+    n = decay[..., None] * n + inp[..., None] * k
+    qr = q[..., None, :]  # the two contractions as batched products (einsum's, less host work)
+    num = torch.matmul(qr, C)[..., 0, :]
+    den = torch.maximum(torch.abs(torch.matmul(qr, n[..., :, None])[..., 0, 0]), torch.exp(-m_new))
+    h = num / den[..., None]
+    return {"C": C, "n": n, "m": m_new}, h
+
+
+def _mlstm_qkvif(p, cfg, x):
+    B, S, d = x.shape
+    nh, dh = cfg.num_heads, d // cfg.num_heads
+    xn = apply_norm(cfg.norm, p["ln"], x)
+    q = (xn @ p["wq"]).reshape(B, S, nh, dh).float()
+    k = (xn @ p["wk"]).reshape(B, S, nh, dh).float() / math.sqrt(dh)
+    v = (xn @ p["wv"]).reshape(B, S, nh, dh).float()
+    log_i = (xn @ p["wi"]).float()
+    log_f = F.logsigmoid((xn @ p["wf"]).float() + p["fb"])
+    gate = F.silu(xn @ p["wg"])
+    return q, k, v, log_i, log_f, gate
+
+
+def mlstm_forward(p, cfg, x, state):
+    """Sequence forward (the recurrence token by token).  x: [B, S, d]."""
+    B, S, d = x.shape
+    q, k, v, log_i, log_f, gate = _mlstm_qkvif(p, cfg, x)
+    to_s = lambda a: a.movedim(1, 0)  # [B, S, ...] -> [S, B, ...]
+    state, hs = chunked_recurrent_scan(
+        lambda st, inp: _mlstm_step(st, *inp), state,
+        (to_s(q), to_s(k), to_s(v), to_s(log_i), to_s(log_f)), chunk=cfg.xlstm.chunk_size,
+    )
+    h = hs.transpose(0, 1)  # [B, S, nh, dh]
+    h = rms_norm(h, p["hnorm"]).reshape(B, S, d).to(x.dtype)
+    return x + (h * gate) @ p["wo"], state
+
+
+def mlstm_decode(p, cfg, x, state):
+    """Single-token step.  x: [B, 1, d]."""
+    return mlstm_forward(p, cfg, x, state)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block
+# ---------------------------------------------------------------------------
+
+
+def slstm_init(gen: torch.Generator, cfg, *, lead=()):
+    d, nh = cfg.d_model, cfg.num_heads
+    dh = d // nh
+    dev = gen.device
+
+    def r():
+        w = torch.randn((*lead, nh, dh, dh), generator=gen, device=dev)
+        return w.mul_(1.0 / math.sqrt(dh)).to(DEFAULT_DTYPE)
+
+    return {
+        "ln": make_norm(cfg.norm, d, lead=lead, device=dev),
+        "wi": dense_init(gen, d, d, lead=lead),
+        "wf": dense_init(gen, d, d, lead=lead),
+        "wz": dense_init(gen, d, d, lead=lead),
+        "wo": dense_init(gen, d, d, lead=lead),
+        "ri": r(),
+        "rf": r(),
+        "rz": r(),
+        "ro": r(),
+        "hnorm": torch.ones((*lead, nh, dh), dtype=DEFAULT_DTYPE, device=dev),
+        "wproj": dense_init(gen, d, d, lead=lead),
+        "fb": torch.full((*lead, d), 3.0, dtype=torch.float32, device=dev),
+    }
+
+
+def slstm_state(cfg, batch: int, *, lead=(), device=None):
+    d = cfg.d_model
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "h": torch.zeros((*lead, batch, d), **f32),
+        "c": torch.zeros((*lead, batch, d), **f32),
+        "n": torch.zeros((*lead, batch, d), **f32),
+        "m": torch.full((*lead, batch, d), -1e30, **f32),
+    }
+
+
+def _slstm_step(R, fb, nh, st, xi, xf, xz, xo):
+    """xi/xf/xz/xo: [B, d] pre-activations from the input projections;
+    R: the four recurrent matrices [nh, dh, dh] in float32."""
+    B, d = xi.shape
+    h = st["h"].reshape(B, nh, 1, d // nh)
+    rec = lambda w: torch.matmul(h, w).reshape(B, d)  # einsum("bhd,hde->bhe")
+    i_raw = xi + rec(R["ri"])
+    f_raw = xf + rec(R["rf"]) + fb
+    z = torch.tanh(xz + rec(R["rz"]))
+    o = torch.sigmoid(xo + rec(R["ro"]))
+    log_i, log_f = i_raw, F.logsigmoid(f_raw)
+    f_m = log_f + st["m"]
+    m_new = torch.maximum(f_m, log_i)
+    decay = torch.exp(f_m - m_new)
+    inp = torch.exp(log_i - m_new)
+    c = decay * st["c"] + inp * z
+    n = decay * st["n"] + inp
+    h_new = o * c / torch.clamp(n, min=1e-6)
+    return {"h": h_new, "c": c, "n": n, "m": m_new}, h_new
+
+
+def slstm_forward(p, cfg, x, state):
+    B, S, d = x.shape
+    nh = cfg.num_heads
+    xn = apply_norm(cfg.norm, p["ln"], x)
+    pre = [(xn @ p[w]).float().movedim(1, 0) for w in ("wi", "wf", "wz", "wo")]
+    R = {w: p[w].float() for w in ("ri", "rf", "rz", "ro")}  # the per-step casts, hoisted
+    state, hs = chunked_recurrent_scan(
+        lambda st, inp: _slstm_step(R, p["fb"], nh, st, *inp), state, tuple(pre),
+        chunk=cfg.xlstm.chunk_size,
+    )
+    h = hs.transpose(0, 1).reshape(B, S, nh, d // nh)
+    h = rms_norm(h, p["hnorm"]).reshape(B, S, d).to(x.dtype)
+    return x + h @ p["wproj"], state
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+
+
+def _group_counts(cfg) -> Tuple[int, int, int]:
+    per_group = cfg.xlstm.mlstm_per_group + cfg.xlstm.slstm_per_group
+    assert cfg.num_layers % per_group == 0, "num_layers must tile into xLSTM groups"
+    return cfg.num_layers // per_group, cfg.xlstm.mlstm_per_group, cfg.xlstm.slstm_per_group
+
+
+def init_params(cfg, generator: torch.Generator, device: DeviceLike = None) -> Dict[str, Any]:
+    """The JAX package's parameter tree (names, ``[G, n, ...]`` stacking,
+    shapes, dtypes, init scales) drawn from ``generator`` on ``device``.
+    The numbers differ from JAX's."""
+    G, nm, ns = _group_counts(cfg)
+    dev = resolve_device(device)
+    gen = _device_generator(generator, dev)
+    return {
+        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model),
+        "mlstm": mlstm_init(gen, cfg, lead=(G, nm)),
+        "slstm": slstm_init(gen, cfg, lead=(G, ns)),
+        "final_norm": make_norm(cfg.norm, cfg.d_model, device=dev),
+    }
+
+
+def init_state(cfg, batch: int, device: DeviceLike = None):
+    """Zero recurrent state, ``[G, n, B, ...]`` per leaf (``device="meta"``
+    gives the shapes without memory)."""
+    G, nm, ns = _group_counts(cfg)
+    dev = resolve_device(device, allow_meta=True)
+    return {
+        "mlstm": mlstm_state(cfg, batch, lead=(G, nm), device=dev),
+        "slstm": slstm_state(cfg, batch, lead=(G, ns), device=dev),
+    }
+
+
+def _stack(states: List[List[Dict[str, torch.Tensor]]]):
+    """[G][n] per-block states -> one tree of [G, n, ...] leaves."""
+    return {
+        k: torch.stack([torch.stack([blk[k] for blk in grp]) for grp in states])
+        for k in states[0][0]
+    }
+
+
+def _stack_forward(params, cfg, x, state):
+    """The groups in order; inside each, its mLSTM blocks, then its sLSTM
+    blocks."""
+    G, nm, ns = _group_counts(cfg)
+    new_m, new_s = [], []
+    for g in range(G):
+        row = []
+        for j in range(nm):
+            pick = lambda t: t[g, j]
+            x, nst = mlstm_forward(tree_map(pick, params["mlstm"]), cfg, x,
+                                   tree_map(pick, state["mlstm"]))
+            row.append(nst)
+        new_m.append(row)
+        row = []
+        for j in range(ns):
+            pick = lambda t: t[g, j]
+            x, nst = slstm_forward(tree_map(pick, params["slstm"]), cfg, x,
+                                   tree_map(pick, state["slstm"]))
+            row.append(nst)
+        new_s.append(row)
+    return x, {"mlstm": _stack(new_m), "slstm": _stack(new_s)}
+
+
+def prefill(params, cfg, batch, cache_len: int = 0):
+    """Returns (last-position logits [B, V] f32, recurrent state)."""
+    tokens = batch["tokens"]
+    B = tokens.shape[0]
+    x = embed_tokens(params, cfg, tokens)
+    x, state = _stack_forward(params, cfg, x, init_state(cfg, B, device=tokens.device))
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    logits = (x[:, -1] @ params["embed"].T).float()
+    return logits, state
+
+
+def decode_step(params, cfg, state, tokens, cur_pos):
+    """One token per row.  tokens: [B]; returns (logits [B, V] f32, new
+    state); the input state is unchanged."""
+    x = embed_tokens(params, cfg, tokens)[:, None, :]
+    x, state = _stack_forward(params, cfg, x, state)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    logits = (x[:, 0] @ params["embed"].T).float()
+    return logits, state

@@ -1,13 +1,16 @@
 """CacheObject kinds: the reusable object a ResidentClaim binds to.
 
 The paper's ResidentClaim contract binds to a *reusable cache object* — the
-thing a claim protects, offloads and restores.  The port serves one kind
-so far (recurrent-state snapshots are a later slice):
+thing a claim protects, offloads and restores.  The port serves two kinds:
 
-  - ``KVChainKind`` — paged KV block chains (attention families); the
+  - ``KVChainKind``       — paged KV block chains (attention families); the
     object id is the block-aligned prefix chain hash, the predicate is
     ``leading_prefix_at_least(k)``, and the object materializes at the
     ``prefill_complete`` observation point.
+  - ``StateSnapshotKind`` — recurrent-state snapshots (SSM / hybrid /
+    xLSTM); the object id is the per-token chain over the full prefix, the
+    predicate is ``state_at_token(k)``, and the object materializes at the
+    ``state_snapshot`` observation point.
 
 Everything else — acceptance, materialization events, offload, the
 restore-before-reuse boundary, the fail-closed scheduler outcome — is kind-
@@ -47,3 +50,26 @@ class KVChainKind:
         # a sliding-window cache cannot hold a deeper leading prefix:
         # acceptance fails closed at the registry (core/claims.py)
         return cfg.sliding_window or None
+
+
+class StateSnapshotKind:
+    """Recurrent-state snapshots: one pseudo-block per materialized prefix."""
+
+    name = "state_snapshot"
+    observation_point = "state_snapshot"
+    # a recurrent state summarizes its EXACT prefix — it cannot be sliced
+    # at a block boundary, so snapshots are never shared across requests
+    shareable = False
+
+    def object_id(self, prefix: Tuple[int, ...], block_size: int) -> str:
+        return prefix_object_id(prefix, 1)
+
+    def predicate(
+        self, prefix: Tuple[int, ...], block_size: int, k: Optional[int] = None
+    ) -> MaterializationPredicate:
+        return MaterializationPredicate("state_at_token", k if k is not None else len(prefix))
+
+    def window_limit(self, cfg) -> Optional[int]:
+        # a state snapshot summarizes the whole prefix regardless of any
+        # attention window half (hybrid archs) — no acceptance bound
+        return None

@@ -171,6 +171,8 @@ class ServingEngine(EngineCore):
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine runs on {self.device}"
             )
+        if decode_mode == "paged" and bundle.paged_decode_fn is None:
+            decode_mode = "dense"  # non-transformer bundles have no paged entry points
         self.decode_mode = decode_mode
         self._step_prefill_collect = bundle.prefill_collect_fn
         self._step_paged_decode = bundle.paged_decode_fn

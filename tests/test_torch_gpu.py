@@ -8,10 +8,15 @@ Without a card every test here skips (the check happens inside the
 fixture, never at import).  Tolerances are those of tests/test_kernels.py:
 1e-5 in float32, 2e-2 in bfloat16; the page copy is exact.  Head dims run
 from 16 to 256 (stablelm-12b's 160 and the padded widths' edges), G from 1
-(deepseek-7b) to 16, and bf16 head dims that are multiples of 8 but not of
-16 (24, 40).  ``test_fully_masked_row_kernel_matches_plain`` and
-``test_paged_attention_zero_length_kernel_matches_plain`` hold a decode row
-with no valid key to the reference's mean of every gathered value row.
+(deepseek-7b) to 16, bf16 head dims that are multiples of 8 but not of 16
+(24, 40), and head dims the wrappers zero-pad to the vector width (bf16 20
+and 100, f32 and bf16 18).  ``test_fully_masked_row_kernel_matches_plain``,
+``test_paged_attention_zero_length_kernel_matches_plain`` and
+``test_flash_attention_empty_row_kernel_matches_plain`` hold a row with no
+valid key to the reference's mean of its value rows.  The recurrent
+families (reduced hymba-1.5b and xlstm-350m through ``SnapshotEngine``)
+run on the card against the CPU, and the page copy takes odd-sized
+``uint8`` snapshot payloads.
 """
 import numpy as np
 import pytest
@@ -66,6 +71,9 @@ def _close(got, want, dtype):
         (3, 1, 1, 152, 8, 3, 16, 8, 12, 0.0),
         (2, 2, 2, 24, 4, 4, 16, 8, 0, 0.0),
         (2, 2, 2, 40, 4, 4, 16, 8, 0, 20.0),
+        (2, 2, 2, 20, 4, 4, 16, 8, 0, 0.0),  # padded to 24 in bf16
+        (3, 1, 5, 100, 8, 4, 16, 8, 12, 20.0),  # padded to 104 in bf16
+        (2, 2, 2, 18, 4, 4, 16, 8, 0, 0.0),  # padded to 20 in f32, 24 in bf16
     ],
 )
 def test_paged_decode_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, T, window, softcap):
@@ -109,6 +117,9 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, 
         (2, 2, 16, 64, 8, 4, 16, 8, 0, 0.0),  # G = 16
         (2, 2, 2, 24, 4, 4, 16, 8, 0, 0.0),
         (2, 2, 2, 40, 4, 4, 16, 8, 6, 20.0),
+        (2, 2, 2, 20, 4, 4, 16, 8, 0, 0.0),  # padded to 24 in bf16
+        (2, 1, 5, 100, 8, 4, 16, 16, 6, 20.0),  # padded to 104 in bf16
+        (2, 2, 2, 18, 4, 4, 16, 8, 0, 0.0),  # padded to 20 in f32, 24 in bf16
     ],
 )
 def test_paged_prefill_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, C, window, softcap):
@@ -227,6 +238,11 @@ def test_fully_masked_row_kernel_matches_plain(dev, dtype, D):
         (1, 16, 1, 64, 64, 64, True, 0, 0.0),  # G = 16
         (2, 4, 2, 70, 70, 24, True, 0, 0.0),
         (1, 4, 2, 50, 90, 40, False, 0, 20.0),
+        (2, 4, 2, 70, 70, 20, True, 0, 0.0),  # padded to 24 in bf16
+        (1, 10, 2, 90, 90, 100, True, 16, 20.0),  # padded to 104 in bf16
+        (1, 4, 2, 50, 50, 18, True, 0, 0.0),  # padded to 20 in f32, 24 in bf16
+        (1, 25, 5, 40, 40, 64, True, 16, 0.0),  # hymba-1.5b heads (G = 5), reduced window
+        (1, 25, 5, 1100, 1100, 64, True, 1024, 0.0),  # hymba-1.5b prefill past its window
     ],
 )
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, KV, Sq, Sk, D, causal, window, softcap):
@@ -279,17 +295,19 @@ def test_flash_attention_tensor_core_head_dims(dev, B, H, KV, Sq, Sk, D, causal,
 def test_flash_attention_bf16_head_dim_24_matches_plain(dev):
     """bf16 head dims step by 8 (16-byte loads): 24 runs on the tensor
     cores (tiles zero-padded to 32 columns) and matches the plain version;
-    20 raises for bf16 (no other kernel is tried) and runs for float32,
-    whose loads step by 4."""
+    20 is zero-padded to 24 by the wrapper and still takes one kernel
+    launch (no other route), and float32, whose loads step by 4, runs 20
+    unpadded."""
     rng = np.random.default_rng(4)
     draw = lambda dtype, D: [_t(rng.normal(size=(1, 2, 32, D)), dtype, dev) for _ in range(3)]
     args = draw(torch.bfloat16, 24)
     n0 = fa.flash_attention.launches
     _close(fa.flash_attention(*args), fa.flash_attention_ref(*args), torch.bfloat16)
     assert fa.flash_attention.launches == n0 + 1
-    with pytest.raises(ValueError, match="multiple of 8"):
-        fa.flash_attention(*draw(torch.bfloat16, 20))
-    assert fa.flash_attention.launches == n0 + 1
+    args = draw(torch.bfloat16, 20)
+    got = fa.flash_attention(*args)
+    assert got.shape == (1, 2, 32, 20) and fa.flash_attention.launches == n0 + 2
+    _close(got, fa.flash_attention_ref(*args), torch.bfloat16)
     args = draw(torch.float32, 20)
     _close(fa.flash_attention(*args), fa.flash_attention_ref(*args), torch.float32)
 
@@ -387,6 +405,9 @@ def test_flash_attention_kernel_contiguous_operands(dev):
         (4, 32, 1, 128, 16, 8, 64, 0.0),  # deepseek-7b: G = 1
         (3, 2, 16, 64, 8, 5, 32, 0.0),  # G = 16
         (2, 2, 2, 24, 8, 4, 16, 0.0),
+        (2, 2, 2, 20, 8, 4, 16, 0.0),  # padded to 24 in bf16
+        (3, 1, 5, 100, 8, 4, 16, 30.0),  # padded to 104 in bf16
+        (2, 2, 2, 18, 8, 4, 16, 0.0),  # padded to 20 in f32, 24 in bf16
     ],
 )
 def test_paged_attention_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, softcap):
@@ -576,8 +597,9 @@ def test_paged_prefill_kernel_bitwise_invariant(dev, G, D):
 def test_paged_prefill_bf16_head_dim_24_matches_plain(dev):
     """bf16 head dims step by 8: 24 runs on the tensor cores (tiles
     zero-padded to 32 columns) and matches the plain version and the model
-    of its arithmetic; 20 raises for bf16 (no other kernel is tried) and
-    runs for float32 (SIMT kernel)."""
+    of its arithmetic; 20 is zero-padded to 24 by the wrapper in bf16 and
+    still takes one kernel launch (no other route), and runs unpadded for
+    float32 (SIMT kernel)."""
     rng = np.random.default_rng(19)
     draw = lambda dtype, D: _prefill_args(rng, dtype, dev, [5, 16], 2, KV=2, C=8, D=D, page=8)
     args = draw(torch.bfloat16, 24)
@@ -587,9 +609,10 @@ def test_paged_prefill_bf16_head_dim_24_matches_plain(dev):
     _close(got, pa.paged_prefill_attention_ref(*args), torch.bfloat16)
     _close(got, pa.paged_prefill_attention_split_ref(*args, block_k=64, p_dtype=torch.bfloat16),
            torch.bfloat16)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        pa.paged_prefill_attention(*draw(torch.bfloat16, 20))
-    assert pa.paged_prefill_attention.launches == n0 + 1
+    args = draw(torch.bfloat16, 20)
+    got = pa.paged_prefill_attention(*args)
+    assert got.shape[-1] == 20 and pa.paged_prefill_attention.launches == n0 + 2
+    _close(got, pa.paged_prefill_attention_ref(*args), torch.bfloat16)
     args = draw(torch.float32, 20)
     _close(pa.paged_prefill_attention(*args), pa.paged_prefill_attention_ref(*args), torch.float32)
 
@@ -667,3 +690,85 @@ def test_wide_head_engine_on_card_matches_cpu(dev):
     after = [w.launches for w in (pa.paged_decode_attention, pa.paged_prefill_attention,
                                   fa.flash_attention)]
     assert all(a > b for a, b in zip(after, before)), (before, after)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_empty_row_kernel_matches_plain(dev, dtype):
+    """K5's rows with no valid key (B = H = KV = 1, Sq = 8, Sk = 4, D = 16,
+    causal, window 2, numpy seed 0: rows 5-7 see no key) get the plain
+    mean of the 4 value rows, as the plain version gives it; the rows with
+    keys are unchanged (f32 1e-5, bf16 2e-2)."""
+    rng = np.random.default_rng(0)
+    q, k, v = (_t(rng.normal(size=shape), dtype, dev)
+               for shape in ((1, 1, 8, 16), (1, 1, 4, 16), (1, 1, 4, 16)))
+    got = fa.flash_attention(q, k, v, causal=True, window=2)
+    want = fa.flash_attention_ref(q, k, v, causal=True, window=2)
+    _close(got, want, dtype)
+    _close(got[0, 0, 5:], v[0, 0].float().mean(dim=0).expand(3, 16), dtype)
+
+
+@pytest.mark.parametrize("nbytes", [49_243_140, 1_000_003, 22_356_816])
+def test_kv_block_copy_snapshot_payloads(dev, nbytes):
+    """Snapshot payloads are one flat uint8 page each: 49,243,140 bytes
+    (a full-width hymba-1.5b snapshot, 4 mod 16: the byte loop) and an odd
+    size take the byte loop, a multiple of 16 (an xlstm-350m snapshot,
+    22,356,816 bytes) the vector path; every copy is
+    exact, through gather_payloads as the offload connector calls it."""
+    g = torch.Generator().manual_seed(nbytes)
+    payload = torch.randint(0, 256, (nbytes,), generator=g, dtype=torch.uint8)
+    n0, plain = kbc.kv_block_copy.launches, kbc.gather_payloads.plain_copies
+    (out,) = kbc.gather_payloads([payload], dev)
+    assert kbc.kv_block_copy.launches == n0 + 1 and kbc.gather_payloads.plain_copies == plain
+    assert out.device.type == "cpu" and torch.equal(out, payload)
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "xlstm-350m"])
+def test_snapshot_engine_on_card_matches_cpu(dev, name):
+    """Reduced hymba-1.5b and xlstm-350m through ``SnapshotEngine`` on the
+    card against the same weights on the CPU: prefill logits within 3e-2
+    (bf16, the cross-graph tolerance) with the same argmax; on the card an
+    offloaded claim restores through the page copy and three batched
+    requests decode the tokens of a never-offloaded engine (bitwise within
+    the card); hymba's prefills run the flash-attention kernel."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.claims import ClaimMode, ClaimState
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.snapshot_engine import SnapshotEngine
+
+    cfg = reduced(get_config(name))
+    params = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+
+    def to(tree, d):
+        return {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(d)
+
+    prompt = tuple(range(300, 341))
+    batch = {"tokens": torch.tensor([prompt], dtype=torch.int32)}
+    cache_len = cfg.sliding_window or 1
+    logits = {}
+    for d in ("cpu", dev):
+        bundle = build_model(cfg, device=d)
+        logits[str(d)] = bundle.prefill_fn(to(params, d), {"tokens": batch["tokens"].to(d)},
+                                           cache_len)[0][0].float().cpu().numpy()
+    np.testing.assert_allclose(logits[str(dev)], logits["cpu"], rtol=3e-2, atol=3e-2)
+    assert logits[str(dev)].argmax() == logits["cpu"].argmax()
+
+    bundle, p = build_model(cfg, device=dev), to(params, dev)
+    prefix = tuple(range(10, 22))
+    prompts = [prefix + (30 + i, 31 + i) for i in range(3)]
+    n_copy, n_flash = kbc.kv_block_copy.launches, fa.flash_attention.launches
+    out = {}
+    for offload in (False, True):
+        with SnapshotEngine(bundle, p, device=dev) as eng:
+            claim = eng.accept_claim(prefix, ClaimMode.OFFLOADABLE)
+            eng.materialize_claim(claim.claim_id)
+            if offload:
+                assert eng.offload_claim(claim.claim_id)
+            reqs = eng.serve_batch(prompts, max_new_tokens=3)
+            assert [r.status for r in reqs] == ["finished"] * 3
+            assert [r.cached_tokens for r in reqs] == [len(prefix)] * 3
+            assert reqs[0].restored_tokens == (len(prefix) if offload else 0)
+            assert claim.state == (ClaimState.RESTORED if offload else ClaimState.MATERIALIZED)
+            out[offload] = [r.output_tokens for r in reqs]
+    assert out[True] == out[False]
+    assert kbc.kv_block_copy.launches > n_copy
+    assert (fa.flash_attention.launches > n_flash) == (cfg.family == "hybrid")

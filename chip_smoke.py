@@ -70,12 +70,31 @@ full depth, each model freed before the next:
      same-claim restore failure) refused in order;
  11. xlstm-350m (3 groups of 7 mLSTM + 1 sLSTM): the same with a 512-token
      prefix (a 22,356,816-byte snapshot: the page copy's vector path).
+Then the MoE and VLM families, at full width, weights from seed 0, each
+model freed before the next (the depth cuts are printed):
+ 12. grok-1-314b (8 experts top-2, 48 query heads over 8, soft-cap 30; 4 of
+     its 64 layers, 42.6 GB): the six-request paged traffic of phases 8-9,
+     witness paths A and B, and its dense mode: K5 (one call) against K2
+     (32-query chunks) on layer 0 of the served 512-token prompt, and the
+     dense engine's prefill logits beside the paged engine's (printed, not
+     held to a tolerance: the experts' capacity depends on the tokens per
+     call); K1, K2, K3 and K5 must each launch in the phase;
+ 13. arctic-480b (128 experts top-2 beside a dense residual MLP, 56 query
+     heads over 8; 2 of its 35 layers, 55.4 GB): the same paged traffic;
+ 14. phi-3-vision-4.2b (32 layers, head_dim 96, 32 heads over 32): a dense
+     prefill of 576 seeded patch embeddings plus 64 tokens (K5 at S = 640,
+     once per layer), then the same paged traffic.
+After phase 2, the card tests that make K1's and K2's launch fail (their
+library entry points return a CUDA error) run in a child pytest: both
+must become fail-closed refusals with every pin unwound.
 Phase 2 also holds K1, K2, K4 and K5 at stablelm-12b's head_dim 160, K1 and
 K2 at 16 query heads per kv head, K2 and K5 at head_dim 256, K5 at a bf16
 head_dim of 24, K1, K2, K4 and K5 at a bf16 head_dim of 100 (zero-padded
 to 104 by the wrappers), K5 at hymba-1.5b's prefill shape and K3 on one
-hymba snapshot page against their plain versions.  Every launch count is zeroed
-just before each path of phases 3-11 and read just after it, so the counts
+hymba snapshot page against their plain versions, and K1, K2 and K5 at the
+served shapes of phases 12-14 (G = 6 with soft-cap 30, G = 7, head_dim 96).
+Every launch count is zeroed
+just before each path of phases 3-14 and read just after it, so the counts
 show each path itself went through its kernels.  The line before the
 kernels' JSON record gives the smoke's wall and each path's.
 The last two lines are the kernels' JSON record and the device JSON line.
@@ -85,6 +104,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -254,6 +274,7 @@ def kernel_phase(gen_seed: int = 0):
     )
     wide_kernel_rows(dev, rnd, gen_seed)
     snapshot_kernel_rows(dev, rnd)
+    moe_vlm_kernel_rows(dev, rnd, gen_seed)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}, library {r['library_ms']})")
@@ -376,10 +397,11 @@ def flash_kernel_check(dev, g, rnd):
     )
 
 
-def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None):
+def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None, timed=None):
     """One kernel at one shape: checked against its plain version on
     ``copies[0]`` under each keyword set of ``variants`` (the bf16
-    tolerance), then timed (profiler device time) beside the plain version,
+    tolerance), then timed (profiler device time, under the keywords
+    ``timed``: the served model's soft-cap, for one) beside the plain version,
     the bound of this input (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s) and,
     where one PyTorch call computes the same function, that call as the
     yardstick (``library``: (fn, its argument sets))."""
@@ -391,8 +413,9 @@ def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None):
         errs.append(max_err(got, want))
         check(within(got, want, torch.bfloat16), f"{label} {kw} disagrees with its plain version "
                                                  f"({errs[-1]})")
-    ms = time_ms(lambda *a: fn(*a), copies, breakdown=True)
-    plain_ms = time_ms(lambda *a: plain(*a), copies, iters=6)
+    timed = timed or {}
+    ms = time_ms(lambda *a: fn(*a, **timed), copies, breakdown=True)
+    plain_ms = time_ms(lambda *a: plain(*a, **timed), copies, iters=6)
     lib_ms = None
     if library is not None:
         lib_fn, lib_calls = library
@@ -456,7 +479,7 @@ def _prefill_copies(rnd, dev, seed, KV, G, C, D, plen, n=4, page=16):
              rnd(B, KV, C, D), rnd(B, KV, C, D)) for _ in range(n)], P
 
 
-def decode_row(label, copies, P, plen, t_used, variants=BOTH):
+def decode_row(label, copies, P, plen, t_used, variants=BOTH, timed=None):
     """K1 at one shape.  Its bound counts q and the output once, the K/V
     rows of the keys the timed call (window 0) attends (every prefix key
     and each used tail slot: the kernel never loads an empty slot), the
@@ -468,7 +491,7 @@ def decode_row(label, copies, P, plen, t_used, variants=BOTH):
     keys = sum(plen) + sum(t_used)
     nbytes = (2 * W * KV * G * D + 2 * keys * KV * D) * es + (W * P + 2 * W + W * T) * 4
     return kernel_row(label, pa.paged_decode_attention, pa.paged_decode_attention_ref, copies,
-                      variants, nbytes, 4.0 * keys * KV * G * D)
+                      variants, nbytes, 4.0 * keys * KV * G * D, timed=timed)
 
 
 def paged_row(label, copies, P, lengths):
@@ -482,7 +505,7 @@ def paged_row(label, copies, P, lengths):
                       [dict(softcap=0.0), dict(softcap=30.0)], nbytes, 4.0 * keys * KV * G * D)
 
 
-def prefill_row(label, copies, P, plen, variants=BOTH):
+def prefill_row(label, copies, P, plen, variants=BOTH, timed=None):
     """K2 at one shape: the bound counts q, the output and the chunk's own
     K/V once, each prefix key's K/V row once, the block table and lengths;
     the operations are the causal (query, key) pairs of the chunk."""
@@ -494,7 +517,7 @@ def prefill_row(label, copies, P, plen, variants=BOTH):
     nbytes = (2 * B * KV * G * C * D + 2 * sum(plen) * KV * D + 2 * B * KV * C * D) * es
     nbytes += (B * P + B) * 4
     return kernel_row(label, pa.paged_prefill_attention, pa.paged_prefill_attention_ref, copies,
-                      variants, nbytes, 4.0 * keys * KV * G * D)
+                      variants, nbytes, 4.0 * keys * KV * G * D, timed=timed)
 
 
 def wide_kernel_rows(dev, rnd, gen_seed):
@@ -545,6 +568,56 @@ def wide_kernel_rows(dev, rnd, gen_seed):
         rows[label] = kernel_row(label, fa.flash_attention, fa.flash_attention_ref, copies, variants,
                                  nbytes, 4.0 * H * D * S * (S + 1) / 2, library=lib)
     print("wide kernel rows: " + json.dumps(rows))
+    return rows
+
+
+def moe_vlm_kernel_rows(dev, rnd, gen_seed):
+    """K1, K2 and K5 at the served shapes of phases 12-14, each against its
+    plain version under every window/soft-cap variant and timed as the
+    model runs it: grok-1-314b (48 query heads over 8, G = 6, soft-cap 30:
+    timed with it), arctic-480b (56 over 8, G = 7), and phi-3-vision-4.2b
+    (32 over 32, G = 1, head_dim 96).  D = 96 needs no wrapper padding
+    (96 % 8 == 0): K1 runs it in its 128-column layout (lanes past 96 idle),
+    K2 and K5 on their 128-column tensor-core tiles (``launch_tc<128>``, the
+    columns past 96 zero in shared memory).  K5 with soft-cap 30 has no
+    library yardstick (scaled_dot_product_attention has no soft-cap); the
+    rows of grok's heads without it split the soft-cap's cost from the
+    grouping's, and give K5 at G = 6 its yardstick."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = {}
+    cap = dict(softcap=30.0)
+    for label, G, D, timed in (("K1 grok-1-314b decode (G = 6, D 128, soft-cap 30)", 6, 128, cap),
+                               ("K1 grok-1-314b heads without soft-cap (G = 6, D 128)", 6, 128, None),
+                               ("K1 arctic-480b decode (G = 7, D 128)", 7, 128, None),
+                               ("K1 phi-3-vision-4.2b decode (G = 1, D 96, 128 layout)", 1, 96, None)):
+        KV = 32 if G == 1 else 8
+        copies, P = _decode_copies(rnd, dev, gen_seed + 9, KV, G, D, PLEN, T_USED)
+        rows[label] = decode_row(label, copies, P, PLEN, T_USED, timed=timed)
+    for label, G, D, timed in (("K2 grok-1-314b prefill chunk (G = 6, D 128, soft-cap 30)", 6, 128, cap),
+                               ("K2 arctic-480b prefill chunk (G = 7, D 128)", 7, 128, None),
+                               ("K2 phi-3-vision-4.2b prefill chunk (G = 1, D 96, 128-column tiles)",
+                                1, 96, None)):
+        KV = 32 if G == 1 else 8
+        copies, P = _prefill_copies(rnd, dev, gen_seed + 10, KV, G, 32, D, PLEN2)
+        rows[label] = prefill_row(label, copies, P, PLEN2, timed=timed)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    act = lambda S, H, D: rnd(1, S, H, D).transpose(1, 2)
+    variants = [dict(causal=True, window=w, softcap=c) for w in (0, 128) for c in (0.0, 30.0)]
+    for label, H, KV, S, D, softcap in (
+            ("K5 grok-1-314b prefill (48/8 heads, S 512, soft-cap 30)", 48, 8, 512, 128, 30.0),
+            ("K5 grok-1-314b heads without soft-cap (48/8 heads, S 512)", 48, 8, 512, 128, 0.0),
+            ("K5 phi-3-vision-4.2b prefix prefill (32/32 heads, S 576 + 64, D 96, 128-column tiles)",
+             32, 32, 640, 96, 0.0)):
+        copies = [(act(S, H, D), act(S, KV, D), act(S, KV, D)) for _ in range(8)]
+        lib = None
+        if not softcap:
+            lib = (lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), copies)
+        rows[label] = kernel_row(label, fa.flash_attention, fa.flash_attention_ref, copies, variants,
+                                 2.0 * (2 * H * S * D + 2 * KV * S * D), 4.0 * H * D * S * (S + 1) / 2,
+                                 library=lib, timed=dict(causal=True, softcap=softcap))
+    print("moe/vlm kernel rows: " + json.dumps(rows))
     return rows
 
 
@@ -742,6 +815,11 @@ def serving_phase(bundle, params, cfg, traffic, device_blocks):
     busy = sum(getattr(e, "self_device_time_total", 0.0) for e in avg) / 1e6
     print(f"{name} profiled request (64-token prompt, 8 new tokens): wall {w:.3f} s, device busy "
           f"{busy:.3f} s ({100 * busy / w:.1f}%), {sum(e.count for e in avg)} device ops")
+    top = sorted(avg, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
+    for e in top:  # where the device time of the request went, by kernel
+        us = getattr(e, "self_device_time_total", 0.0)
+        print(f"    {us / 1e3:.3f} ms ({100 * us / 1e6 / max(busy, 1e-12):.1f}% of busy) x{e.count} "
+              f"{e.key[:80]}")
     eng.close()
     return eng.events, eng.metrics, batches[0]
 
@@ -1146,6 +1224,121 @@ def snapshot_phase(bundle, params, cfg, prefix_len):
               f"ordered E11 -> E12 -> E13 -> E14 -> FINISHED_ERROR ({verdict.reasons[0]})")
 
 
+# --------------------------------------------------------------- phases 12-14
+# Full width, depth cut to what one card holds beside the serving state
+# (grok-1-314b: 42.6 GB of bf16 weights at 4 layers; arctic-480b: 55.4 GB
+# at 2); phi-3-vision-4.2b runs at full depth.
+MOE_DEPTH = {"grok-1-314b": 4, "arctic-480b": 2}
+
+
+def moe_dense_checks(bundle, params, cfg, prompt):
+    """grok-1-314b's dense mode beside its paged mode.  (a) The two prefill
+    kernels on the served activations: layer 0's q, k and v of the
+    ``prompt`` through K5 (one causal call, soft-cap 30) and through K2 (the
+    same keys in 16-key pages, 32-query chunks after growing prefixes, as
+    the engine's chunked prefill runs them), within the bf16 tolerance.
+    (b) The dense engine's prefill logits (K5, the whole prompt in one MoE
+    call: expert capacity 160 at 512 tokens) beside the paged engine's (K2,
+    chunks of 32: capacity 10), finite; their difference is printed, not held to phase
+    6's 0.25, since the experts drop other tokens at the other capacity, in
+    the JAX package too."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import apply_norm, attn_qkv, paged_attention_prefill
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.models.transformer import embed_tokens, layer_params
+    from repro_torch.serving.engine import ServingEngine
+
+    dev, S, page, C = bundle.device, len(prompt), 16, 32
+    t0 = time.monotonic()
+    lp0 = layer_params(params["layers"], 1)[0]  # layer 0's views
+    tokens = torch.tensor([prompt], dtype=torch.int32, device=dev)
+    pos = torch.arange(S, device=dev)[None]
+    with torch.no_grad():
+        h = apply_norm(cfg.norm, lp0["ln1"], embed_tokens(params, cfg, tokens))
+        q, k, v = attn_qkv(lp0["attn"], cfg, h, pos)  # [1, S, H | KV, D]
+        cap = cfg.attn_logit_softcap
+        dense = fa.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                   causal=True, softcap=cap).transpose(1, 2)
+        KV, D = k.shape[2:]
+        pages = lambda t: t[0].reshape(S // page, page, KV, D).permute(2, 0, 1, 3).contiguous()
+        kp, vp = pages(k), pages(v)
+        bt = torch.arange(S // page, dtype=torch.int32, device=dev)[None]
+        chunks = [paged_attention_prefill(
+            q[:, c0:c0 + C], kp, vp, bt, torch.tensor([c0], dtype=torch.int32, device=dev),
+            k[:, c0:c0 + C], v[:, c0:c0 + C], pos[:, c0:c0 + C], softcap=cap)
+            for c0 in range(0, S, C)]
+        paged = torch.cat(chunks, 1)
+        torch.cuda.synchronize()
+    e = max_err(paged, dense)
+    print(f"{cfg.name} layer 0 on the served {S}-token prompt ({cfg.num_heads} heads over {KV}, "
+          f"soft-cap {cap}): K5 in one call vs K2 in {S // C} chunks of {C}: max|d|={e:.3e}")
+    check(within(paged, dense, torch.bfloat16), f"{cfg.name}: K5 and K2 disagree on the served "
+                                                 f"activations ({e})")
+    engine = lambda **kw: ServingEngine(bundle, params, block_size=page, device_blocks=64,
+                                        cache_len=DENSE_CACHE_LEN, device=dev, **kw)
+    with engine(decode_mode="dense") as d, engine() as pg:
+        ld, lp = d.prefill_logits(prompt), pg.prefill_logits(prompt)
+        check(not d.fail_closed_total() and not pg.fail_closed_total(), f"{cfg.name} dense checks "
+                                                                        "failed closed")
+    V = cfg.vocab_size
+    check(ld.shape == lp.shape == (V,) and np.isfinite(ld).all() and np.isfinite(lp).all(),
+          f"{cfg.name}: bad prefill logits")
+    cap_dense, cap_chunk = capacity_for(cfg, S), capacity_for(cfg, C)
+    print(f"{cfg.name} dense (K5, one MoE call over {S} tokens: capacity {cap_dense}) vs paged (K2, "
+          f"chunks of {C}: capacity {cap_chunk}) prefill logits: max|d|="
+          f"{float(np.abs(ld - lp).max()):.3e}, argmax {ld.argmax()} vs {lp.argmax()} (not held to "
+          "a tolerance: the capacity differs)")
+    print(f"{cfg.name} dense checks: {time.monotonic() - t0:.3f} s")
+
+
+def vlm_prefix_prefill(bundle, params, cfg):
+    """phi-3-vision-4.2b's dense prefill with its stub frontend: 576 seeded
+    normal patch embeddings in front of 64 tokens (K5 at S = 640, D = 96,
+    G = 1, once per layer); finite logits, the cache's last position 639."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dev, P = bundle.device, cfg.frontend_len
+    g = torch.Generator(device=dev).manual_seed(7)
+    patches = torch.randn((1, P, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (1, 64))
+                              .astype(np.int32)).to(dev)
+    n0 = fa.flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, cache = bundle.prefill_fn(params, {"tokens": tokens, "patch_embeds": patches},
+                                      DENSE_CACHE_LEN)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    n = fa.flash_attention.launches - n0
+    check(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"{cfg.name}: patch-prefix prefill logits not finite")
+    check(n == cfg.num_layers, f"{cfg.name}: K5 launched {n} times, not once per layer")
+    check(int(cache["pos"].max()) == P + 63, f"{cfg.name}: cache positions end at "
+                                             f"{int(cache['pos'].max())}")
+    print(f"{cfg.name} patch-prefix prefill ({P} patches + 64 tokens, S {P + 64}, head_dim "
+          f"{cfg.resolved_head_dim}): {n} K5 launches, finite logits, argmax {int(logits.argmax())}, "
+          f"{wall:.3f} s")
+
+
+def launch_failure_phase():
+    """The card tests that make K1's and K2's launch fail (their library
+    entry points stubbed to return a CUDA error): each must become a
+    fail-closed refusal with every pin unwound, after which the engine
+    serves again.  Runs pytest in a child process and waits for it."""
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-p", "no:cacheprovider",
+         "tests/test_torch_gpu.py", "-k", "launch_failure_fails_closed_on_card"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, capture_output=True,
+        text=True, timeout=600,
+    )
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"launch failures on the card (K1 -> decode_launch_failure, K2 -> "
+          f"prefill_launch_failure): {last} ({time.monotonic() - t0:.1f} s)")
+    check(proc.returncode == 0 and "2 passed" in last,
+          f"launch-failure card tests failed:\n{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+
+
 # --------------------------------------------------------------------- phase 7
 SOFT_PRIORITY_COUNTS = {  # the JAX package's results/native/soft_priority.json
     "original_lower_priority_lost_first": "5/5",
@@ -1274,6 +1467,9 @@ def main() -> None:
     t0 = time.monotonic()
     reduced_parity_phase()
     walls["reduced parity"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    launch_failure_phase()
+    walls["launch failures"] = time.monotonic() - t0
 
     cfg = get_config("qwen3-1.7b")
     bundle = build_model(cfg)
@@ -1335,6 +1531,30 @@ def main() -> None:
         check(counts[f"{name} snapshot serving"]["kv_block_copy"] > 0,
               f"{name} offload/restore never launched K3")
         del bundle, params
+    for name in ("grok-1-314b", "arctic-480b", "phi-3-vision-4.2b"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, bundle, params = load_model(name, MOE_DEPTH.get(name))
+        paths = [f"{name} paged serving"]
+        *_, prompts = drive(paths[0], serving_phase, bundle, params, cfg, wide_traffic,
+                            WIDE_DEVICE_BLOCKS)
+        if name == "grok-1-314b":
+            paths += [f"{name} witness paths", f"{name} dense checks"]
+            drive(paths[1], witness_phase, bundle, params, cfg)
+            drive(paths[2], moe_dense_checks, bundle, params, cfg, prompts[0])
+        if name == "phi-3-vision-4.2b":
+            paths.append(f"{name} patch-prefix prefill")
+            drive(paths[1], vlm_prefix_prefill, bundle, params, cfg)
+        phase = {k: sum(counts[p][k] for p in paths) for k in wrappers}
+        print(f"launches in the {name} phase: {phase}")
+        need = ["paged_decode_attention", "paged_prefill_attention"]
+        if name == "grok-1-314b":
+            need += ["kv_block_copy", "flash_attention"]
+        for k in need:
+            check(phase[k] > 0, f"the {name} phase never launched {k}")
+        del bundle, params
+    check(counts["phi-3-vision-4.2b patch-prefix prefill"]["flash_attention"] == 32,
+          "the phi-3-vision-4.2b prefix prefill did not launch K5 once per layer")
     check(counts["hymba-1.5b snapshot serving"]["flash_attention"] > 0,
           "hymba-1.5b prefills never launched K5")
     for name in ("", "stablelm-12b ", "deepseek-7b "):

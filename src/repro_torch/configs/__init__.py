@@ -3,10 +3,13 @@
 The dense transformer family: qwen3-1.7b is the first served model;
 h2o-danube-1.8b carries the sliding-window attention path; stablelm-12b
 carries head_dim 160 (G = 4) and deepseek-7b multi-head attention (G = 1).
-The recurrent families, served through ``SnapshotEngine``: hymba-1.5b (the
-hybrid: windowed attention beside a selective SSM in every layer) and
-xlstm-350m (mLSTM and sLSTM blocks, no attention).  ``get_config`` raises
-for every other name.
+The mixture-of-experts family: grok-1-314b (8 experts, top-2, tanh
+soft-capped attention logits) and arctic-480b (128 experts, top-2, a dense
+residual MLP beside them).  The VLM family: phi-3-vision-4.2b (head_dim 96,
+576 stub patch embeddings prepended at prefill).  The recurrent families,
+served through ``SnapshotEngine``: hymba-1.5b (the hybrid: windowed
+attention beside a selective SSM in every layer) and xlstm-350m (mLSTM and
+sLSTM blocks, no attention).  ``get_config`` raises for every other name.
 """
 from __future__ import annotations
 
@@ -17,16 +20,22 @@ from repro_torch.configs.base import (
     XLSTMConfig,
     reduced,
 )
+from repro_torch.configs.arctic_480b import CONFIG as ARCTIC_480B
 from repro_torch.configs.deepseek_7b import CONFIG as DEEPSEEK_7B
+from repro_torch.configs.grok_1_314b import CONFIG as GROK_1_314B
 from repro_torch.configs.h2o_danube_1_8b import CONFIG as H2O_DANUBE_1_8B
 from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA_1_5B
+from repro_torch.configs.phi_3_vision_4_2b import CONFIG as PHI_3_VISION_4_2B
 from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN3_1_7B
 from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
 from repro_torch.configs.xlstm_350m import CONFIG as XLSTM_350M
 
 ARCHITECTURES = {
     c.name: c
-    for c in (QWEN3_1_7B, H2O_DANUBE_1_8B, STABLELM_12B, DEEPSEEK_7B, HYMBA_1_5B, XLSTM_350M)
+    for c in (
+        QWEN3_1_7B, H2O_DANUBE_1_8B, STABLELM_12B, DEEPSEEK_7B, GROK_1_314B, ARCTIC_480B,
+        PHI_3_VISION_4_2B, HYMBA_1_5B, XLSTM_350M,
+    )
 }
 
 

@@ -8,15 +8,17 @@ one bundle.
   - make_cache(batch, cache_len)                   -> empty cache or state on the
     device (the recurrent families also take ``device="meta"``: shapes only,
     which ``SnapshotEngine`` reads each leaf's batch axis from)
-and, for the dense transformer family only (``None`` for the recurrent
+and, for the transformer families only (``None`` for the recurrent
 families, as in the JAX registry):
   - prefill_collect_fn(params, batch)              -> (last-valid logits, k, v [L,B,S,KV,Dh])
   - paged_decode_fn(params, state, tokens, cur_pos) -> (logits, state)
   - prefill_chunk_fn(params, state, tokens, positions) -> (ck, cv) [L,B,C,KV,Dh]
 
-Families: ``dense`` (``transformer``), ``hybrid`` (hymba-1.5b, ``hymba``)
-and ``ssm`` (xlstm-350m, ``xlstm``).  The recurrent two are served by
-``SnapshotEngine``.  MoE, VLM and audio configs raise.
+Families: ``dense``, ``moe`` (grok-1-314b, arctic-480b) and ``vlm``
+(phi-3-vision-4.2b), all three ``transformer``; ``hybrid`` (hymba-1.5b,
+``hymba``) and ``ssm`` (xlstm-350m, ``xlstm``), served by
+``SnapshotEngine``.  The audio family and the int8 KV cache raise (ROADMAP
+Queue 1, int8 KV with whisper).
 """
 from __future__ import annotations
 
@@ -51,7 +53,10 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
     ``device="cpu"``).  Families the port does not serve raise."""
     tf_lib.check_supported(cfg)
     if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported")
+        raise NotImplementedError(
+            f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported (ROADMAP Queue 1, "
+            "int8 KV with whisper)"
+        )
     dev = resolve_device(device)
     if cfg.family == "ssm":  # xlstm
         return ModelBundle(

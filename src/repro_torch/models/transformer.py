@@ -1,7 +1,10 @@
-"""Dense decoder-only transformer LM on the serving paths (PyTorch).
+"""Decoder-only transformer LM on the serving paths (PyTorch).
 
 Counterpart of the JAX package's ``models/transformer.py`` for the dense
-family (qwen3-1.7b, h2o-danube-1.8b, stablelm-12b, deepseek-7b): the paged
+family (qwen3-1.7b, h2o-danube-1.8b, stablelm-12b, deepseek-7b), the MoE
+family (grok-1-314b, arctic-480b with its dense residual MLP: the MLP is
+``models/moe.py``'s capacity-bounded top-k experts) and the VLM family
+(phi-3-vision-4.2b: stub patch embeddings prepended at prefill): the paged
 entry points (``prefill_collect``, ``prefill_chunk``, ``paged_decode_step``) and the
 dense-cache ones (``make_cache``, ``prefill``, ``decode_step``).  The layer stack keeps a leading ``L``
 axis on every parameter and runs as a Python loop over layers (the JAX
@@ -12,6 +15,13 @@ across different widths agree within a tolerance, not bitwise.
 
 Token ids outside ``[0, vocab)`` are clamped at the embedding, as the JAX
 package's gather clamps them.
+
+An MoE layer's capacity depends on the tokens of its call, so MoE logits
+depend on the batch and chunk a request shares (``models/moe.py``).  The
+paged decode step dispatches each row on its own, as the reference does on
+every backend but the TPU (its ``lax.map`` over rows); a prefill, a prefill
+chunk and a dense decode step dispatch the whole batch together, as the
+reference does everywhere.
 """
 from __future__ import annotations
 
@@ -20,6 +30,7 @@ from typing import Any, Dict, List
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     DEFAULT_DTYPE,
     apply_norm,
@@ -37,13 +48,18 @@ from repro_torch.models.layers import (
 )
 
 
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
+
+
 def check_supported(cfg) -> None:
-    """The port serves the dense transformer family here and the recurrent
-    families (``hybrid``: hymba, ``ssm``: xLSTM) in their own modules;
-    MoE, VLM and audio configs are not ported yet (ROADMAP)."""
-    if cfg.moe.num_experts or cfg.family not in ("dense", "hybrid", "ssm") or cfg.frontend != "none":
+    """The port serves the transformer families here (dense, MoE, and VLM
+    with its ``image_patches`` stub frontend) and the recurrent families (``hybrid``:
+    hymba, ``ssm``: xLSTM) in their own modules; the audio family (whisper)
+    is not ported yet (ROADMAP Queue 1, int8 KV with whisper)."""
+    if cfg.family not in TRANSFORMER_FAMILIES + ("hybrid", "ssm"):
         raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family} is not ported (dense, hybrid and ssm are)"
+            f"{cfg.name}: family={cfg.family} is not ported (dense, moe, vlm, hybrid and ssm "
+            "are; audio waits for ROADMAP Queue 1, int8 KV with whisper)"
         )
 
 
@@ -64,20 +80,24 @@ def _device_generator(generator: torch.Generator, device: torch.device) -> torch
 def init_params(cfg, generator: torch.Generator, device: DeviceLike = None) -> Dict[str, Any]:
     """The JAX package's parameter tree (names, shapes, init scales) drawn
     from ``generator`` on ``device``.  The numbers differ from JAX's."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: family={cfg.family} is not a dense transformer")
+    if cfg.family not in TRANSFORMER_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: family={cfg.family} is not a transformer")
     check_supported(cfg)
     dev = resolve_device(device)
     gen = _device_generator(generator, dev)
     L, d = cfg.num_layers, cfg.d_model
+    layers = {
+        "ln1": make_norm(cfg.norm, d, lead=(L,), device=dev),
+        "attn": attn_init(gen, cfg, lead=(L,)),
+        "ln2": make_norm(cfg.norm, d, lead=(L,), device=dev),
+    }
+    if cfg.moe.num_experts:
+        layers["moe"] = moe_lib.moe_init(gen, cfg, lead=(L,))
+    if not cfg.moe.num_experts or cfg.moe.dense_residual:
+        layers["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.activation, lead=(L,))
     params = {
         "embed": embed_init(gen, cfg.vocab_size, d),
-        "layers": {
-            "ln1": make_norm(cfg.norm, d, lead=(L,), device=dev),
-            "attn": attn_init(gen, cfg, lead=(L,)),
-            "ln2": make_norm(cfg.norm, d, lead=(L,), device=dev),
-            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.activation, lead=(L,)),
-        },
+        "layers": layers,
         "final_norm": make_norm(cfg.norm, d, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -103,9 +123,28 @@ def layer_params(layers: Dict[str, Any], num_layers: int) -> List[Dict[str, Any]
     return [pick(layers, i) for i in range(num_layers)]
 
 
-def embed_tokens(params, cfg, tokens):
-    """Token embedding; ids are clamped to [0, vocab - 1]."""
-    return params["embed"][tokens.long().clamp(0, cfg.vocab_size - 1)]
+def embed_tokens(params, cfg, tokens, extra_embeds=None):
+    """Token embedding; ids are clamped to [0, vocab - 1].  VLM configs
+    prepend the stub frontend's embeddings ``extra_embeds`` [B, P, d]."""
+    x = params["embed"][tokens.long().clamp(0, cfg.vocab_size - 1)]
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
+def _mlp_block(lp, cfg, h, *, per_row: bool = False):
+    """The layer's MLP on h [B, S, d]: the dense MLP, or the MoE over all
+    B * S tokens as one dispatch (``per_row``: one dispatch per row), plus
+    Arctic's dense residual MLP beside the experts."""
+    if not cfg.moe.num_experts:
+        return mlp_apply(lp["mlp"], h, cfg.activation)
+    B, S, d = h.shape
+    groups = h if per_row else h.reshape(1, B * S, d)
+    m, _ = moe_lib.moe_apply_grouped(lp["moe"], groups, cfg)
+    m = m.reshape(B, S, d)
+    if cfg.moe.dense_residual:
+        m = m + mlp_apply(lp["mlp"], h, cfg.activation)
+    return m
 
 
 # ---------------------------------------------------------------------------
@@ -128,7 +167,7 @@ def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
         a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=contiguous)
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        x = x + _mlp_block(lp, cfg, h)
         if collect_cache:
             ks.append(k_)
             vs.append(v_)
@@ -143,7 +182,10 @@ def make_cache(cfg, batch: int, cache_len: int, dtype=DEFAULT_DTYPE, device: Dev
     package; the int8 cache is not ported and raises.  On the card unless
     ``device`` names the CPU."""
     if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported")
+        raise NotImplementedError(
+            f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported (ROADMAP Queue 1, "
+            "int8 KV with whisper)"
+        )
     device = resolve_device(device)
     L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     Sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
@@ -154,24 +196,32 @@ def make_cache(cfg, batch: int, cache_len: int, dtype=DEFAULT_DTYPE, device: Dev
     }
 
 
+def _embed_prompt(params, cfg, batch):
+    """The prompt's embeddings [B, P + S, d] with ``batch["patch_embeds"]``
+    [B, P, d] (VLM) in front, and their positions ``arange(P + S)``."""
+    tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens, batch.get("patch_embeds"))
+    B, St = x.shape[:2]
+    return x, torch.arange(St, device=tokens.device)[None].expand(B, St)
+
+
 def prefill(params, cfg, batch, cache_len: int):
     """Prefill for the dense decode mode; returns (last-position logits
-    [B, V] f32, cache).  The trailing ``min(Sc, S)`` positions of the prefill
-    KV land in cache slots ``0..keep-1`` (for a prompt longer than a
-    sliding-window ring this is not the ring slot ``p % Sc`` that decode
-    later writes; the JAX package does the same)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    [B, V] f32, cache).  ``batch["patch_embeds"]`` [B, P, d], when given,
+    precede the tokens (positions ``0..P-1``).  The trailing ``min(Sc, P + S)``
+    positions of the prefill KV land in cache slots ``0..keep-1`` (for a
+    prompt longer than a sliding-window ring this is not the ring slot
+    ``p % Sc`` that decode later writes; the JAX package does the same)."""
+    x, positions = _embed_prompt(params, cfg, batch)
+    B, St = positions.shape
     x, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = (x[:, -1] @ unembed(cfg, params)).float()
-    cache = make_cache(cfg, B, cache_len, device=tokens.device)
-    keep = min(cache["k"].shape[2], S)
-    cache["k"][:, :, :keep] = ck[:, :, S - keep :]
-    cache["v"][:, :, :keep] = cv[:, :, S - keep :]
-    cache["pos"][:, :keep] = positions[:, S - keep :]
+    cache = make_cache(cfg, B, cache_len, device=x.device)
+    keep = min(cache["k"].shape[2], St)
+    cache["k"][:, :, :keep] = ck[:, :, St - keep :]
+    cache["v"][:, :, :keep] = cv[:, :, St - keep :]
+    cache["pos"][:, :keep] = positions[:, St - keep :]
     return logits, cache
 
 
@@ -190,7 +240,7 @@ def decode_step(params, cfg, cache, tokens, cur_pos):
         )
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        x = x + _mlp_block(lp, cfg, h)
         ks.append(nk)
         vs.append(nv)
     x = apply_norm(cfg.norm, params["final_norm"], x)
@@ -201,21 +251,21 @@ def decode_step(params, cfg, cache, tokens, cur_pos):
 def prefill_collect(params, cfg, batch):
     """Monolithic batched prefill for the paged serving path
     (``prefill_chunk=0``): returns (last-valid logits [B, V] f32, k, v
-    [L, B, S, KV, Dh]).  ``batch["valid_len"]`` [B] marks right-padded
+    [L, B, P + S, KV, Dh]).  ``batch["valid_len"]`` [B] marks right-padded
     prompts; only the logit gather needs it (causal masking keeps padding
-    out of every valid row)."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = embed_tokens(params, cfg, tokens)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    out of every valid row).  ``batch["patch_embeds"]`` [B, P, d] precede
+    the tokens, as in ``prefill``."""
+    x, positions = _embed_prompt(params, cfg, batch)
+    B, St = positions.shape
+    P = St - batch["tokens"].shape[1]
     x, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     valid_len = batch.get("valid_len")
     if valid_len is None:
-        last = torch.full((B,), S - 1, device=tokens.device, dtype=torch.long)
+        last = torch.full((B,), St - 1, device=x.device, dtype=torch.long)
     else:
-        last = valid_len.long() - 1
-    logits = (x[torch.arange(B, device=tokens.device), last] @ unembed(cfg, params)).float()
+        last = valid_len.long() + P - 1
+    logits = (x[torch.arange(B, device=x.device), last] @ unembed(cfg, params)).float()
     return logits, ck, cv
 
 
@@ -242,7 +292,7 @@ def prefill_chunk(params, cfg, state, tokens, positions):
         )
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        x = x + _mlp_block(lp, cfg, h)
         ks.append(k_)
         vs.append(v_)
     return torch.stack(ks), torch.stack(vs)
@@ -276,7 +326,7 @@ def paged_decode_step(params, cfg, state, tokens, cur_pos):
         )
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        x = x + _mlp_block(lp, cfg, h, per_row=True)
         ks.append(ntk)
         vs.append(ntv)
     x = apply_norm(cfg.norm, params["final_norm"], x)

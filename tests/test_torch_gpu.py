@@ -74,6 +74,9 @@ def _close(got, want, dtype):
         (2, 2, 2, 20, 4, 4, 16, 8, 0, 0.0),  # padded to 24 in bf16
         (3, 1, 5, 100, 8, 4, 16, 8, 12, 20.0),  # padded to 104 in bf16
         (2, 2, 2, 18, 4, 4, 16, 8, 0, 0.0),  # padded to 20 in f32, 24 in bf16
+        (4, 8, 6, 128, 16, 16, 160, 24, 0, 30.0),  # grok-1-314b decode step (G = 6)
+        (4, 8, 7, 128, 16, 16, 160, 24, 128, 30.0),  # arctic-480b heads (G = 7)
+        (4, 32, 1, 96, 16, 8, 64, 24, 0, 0.0),  # phi-3-vision-4.2b: D = 96 in the 128 layout
     ],
 )
 def test_paged_decode_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, T, window, softcap):
@@ -120,6 +123,9 @@ def test_paged_decode_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, 
         (2, 2, 2, 20, 4, 4, 16, 8, 0, 0.0),  # padded to 24 in bf16
         (2, 1, 5, 100, 8, 4, 16, 16, 6, 20.0),  # padded to 104 in bf16
         (2, 2, 2, 18, 4, 4, 16, 8, 0, 0.0),  # padded to 20 in f32, 24 in bf16
+        (2, 8, 6, 128, 16, 8, 64, 32, 0, 30.0),  # grok-1-314b prefill chunk (G = 6)
+        (2, 8, 7, 128, 16, 8, 64, 32, 128, 30.0),  # arctic-480b heads (G = 7)
+        (2, 32, 1, 96, 16, 8, 64, 32, 0, 0.0),  # phi-3-vision-4.2b: D = 96 on 128-column tiles
     ],
 )
 def test_paged_prefill_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N, C, window, softcap):
@@ -243,6 +249,9 @@ def test_fully_masked_row_kernel_matches_plain(dev, dtype, D):
         (1, 4, 2, 50, 50, 18, True, 0, 0.0),  # padded to 20 in f32, 24 in bf16
         (1, 25, 5, 40, 40, 64, True, 16, 0.0),  # hymba-1.5b heads (G = 5), reduced window
         (1, 25, 5, 1100, 1100, 64, True, 1024, 0.0),  # hymba-1.5b prefill past its window
+        (1, 48, 8, 512, 512, 128, True, 0, 30.0),  # grok-1-314b prefill (G = 6, soft-cap 30)
+        (1, 56, 8, 300, 300, 128, True, 0, 30.0),  # arctic-480b heads (G = 7)
+        (1, 32, 32, 640, 640, 96, True, 0, 0.0),  # phi-3-vision-4.2b: 576 patches + 64 tokens
     ],
 )
 def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, KV, Sq, Sk, D, causal, window, softcap):
@@ -772,3 +781,102 @@ def test_snapshot_engine_on_card_matches_cpu(dev, name):
     assert out[True] == out[False]
     assert kbc.kv_block_copy.launches > n_copy
     assert (fa.flash_attention.launches > n_flash) == (cfg.family == "hybrid")
+
+
+def _to(tree, d):
+    return {k: _to(v, d) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(d)
+
+
+@pytest.mark.parametrize("name", ["grok-1-314b", "arctic-480b"])
+def test_moe_engine_on_card_matches_cpu(dev, name):
+    """A reduced MoE model (grok: G = 6 and soft-cap 30; arctic: G = 7 and
+    the dense residual MLP) served on the card against the same f32 weights
+    on the CPU: prefill logits within 1e-3 and the same greedy tokens.  f32,
+    because in bf16 the router's logits tie or nearly tie often, and a
+    last-bit difference between the card's and the CPU's products then
+    sends a token to another expert (a different, equally valid dispatch)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    G = {"grok-1-314b": 6, "arctic-480b": 7}[name]
+    cfg = reduced(get_config(name)).replace(num_heads=G, num_kv_heads=1)
+    params = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    f32 = lambda t: {k: f32(v) for k, v in t.items()} if isinstance(t, dict) else t.float()
+    params = f32(params)
+    prompt = tuple(range(300, 341))
+    before = [w.launches for w in (pa.paged_decode_attention, pa.paged_prefill_attention)]
+    logits, toks = {}, {}
+    for d in ("cpu", dev):
+        with ServingEngine(build_model(cfg, device=d), _to(params, d), block_size=4,
+                           device_blocks=64, device=d) as eng:
+            logits[str(d)] = eng.prefill_logits(prompt)
+            reqs = [eng.submit(prompt[:20], max_new_tokens=4), eng.submit(prompt[5:30], max_new_tokens=4)]
+            eng.run_batch(reqs)
+            assert [r.status for r in reqs] == ["finished"] * 2
+            toks[str(d)] = [r.output_tokens for r in reqs]
+    np.testing.assert_allclose(logits[str(dev)], logits["cpu"], rtol=1e-3, atol=1e-3)
+    assert toks[str(dev)] == toks["cpu"]
+    after = [w.launches for w in (pa.paged_decode_attention, pa.paged_prefill_attention)]
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+
+
+def _failing_entry(lib, name, rc):
+    """The loaded library's entry point ``name`` replaced by a stub that
+    launches nothing and returns CUDA status ``rc``; returns an undo."""
+    real = getattr(lib, name)
+
+    def stub(*args):
+        return rc
+
+    stub.argtypes = real.argtypes
+    setattr(lib, name, stub)
+    return lambda: setattr(lib, name, real)
+
+
+@pytest.mark.parametrize("kernel,trigger", [("paged_decode", "decode_launch_failure"),
+                                            ("paged_attention", "prefill_launch_failure")],
+                         ids=["K1", "K2"])
+def test_kernel_launch_failure_fails_closed_on_card(dev, kernel, trigger):
+    """K1's (or K2's) launch itself fails: the library's entry point returns
+    a nonzero CUDA status (98, cudaErrorInvalidDeviceFunction) for the
+    length of one ``run_batch``, so the wrapper's own ``kernel launch failed
+    (CUDA error 98)`` reaches the step loop.  Both rows become
+    ``*_launch_failure`` refusals (FINISHED_ERROR, the fail-closed witness
+    before the terminal), every pin is unwound, and once the entry point is
+    back the same engine serves a fresh request.  A sticky CUDA error (an
+    illegal address) poisons the context and cannot be tested this way."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.analyzer import check_step_interleave_order, validate_event_sequence
+    from repro_torch.kernels import build
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = reduced(get_config("qwen3-1.7b"))
+    bundle = build_model(cfg, device=dev)
+    params = bundle.init_params(torch.Generator().manual_seed(0))
+    lib = build.load(kernel)
+    entry = {"paged_decode": "paged_decode_forward", "paged_attention": "paged_attention_forward"}
+    (pa._decode_lib if kernel == "paged_decode" else pa._lib)()  # argtypes set
+    with ServingEngine(bundle, params, block_size=4, device_blocks=64, device=dev) as eng:
+        r1 = eng.submit(tuple(range(100, 112)), max_new_tokens=2)
+        r2 = eng.submit(tuple(range(200, 212)), max_new_tokens=2)
+        undo = _failing_entry(lib, entry[kernel], 98)
+        try:
+            assert eng.run_batch([r1, r2]) == [r1, r2]
+        finally:
+            undo()
+        for r in (r1, r2):
+            assert r.status == "error" and trigger in r.error, r.error
+            assert "kernel launch failed (CUDA error 98)" in r.error
+            fin = [e for e in eng.events.named("request_finished") if e.request_id == r.request_id]
+            assert fin and fin[0].payload["status"] == "FINISHED_ERROR"
+            wit = [e for e in eng.events.named("fail_closed_refused") if e.request_id == r.request_id]
+            assert wit and wit[0].payload["trigger"] == trigger
+        assert eng.fail_closed_total() == {trigger: 2}
+        assert all(b.ref == 0 for b in eng.pool.blocks.values())
+        assert validate_event_sequence(eng.events).passed
+        assert check_step_interleave_order(eng.events).passed
+        fresh = eng.run(eng.submit(tuple(range(300, 316)), max_new_tokens=3))
+        assert fresh.status == "finished" and len(fresh.output_tokens) == 3
+        assert eng.fail_closed_total() == {trigger: 2}

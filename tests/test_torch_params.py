@@ -130,4 +130,4 @@ def test_unported_modes_raise():
     with pytest.raises(ValueError, match="decode_mode"):
         ServingEngine(bundle, params, decode_mode="ring", device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model(cfg.replace(family="moe"), device="cpu")
+        build_model(cfg.replace(family="audio"), device="cpu")

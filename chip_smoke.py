@@ -84,6 +84,22 @@ model freed before the next (the depth cuts are printed):
  14. phi-3-vision-4.2b (32 layers, head_dim 96, 32 heads over 32): a dense
      prefill of 576 seeded patch embeddings plus 64 tokens (K5 at S = 640,
      once per layer), then the same paged traffic.
+ 15. int8 KV, run right after phase 6 on qwen3-1.7b's parameters
+     (``kv_cache_dtype="int8"``, no weights drawn again): the int8 bundle
+     has no paged entry points, so ``ServingEngine`` lands in the dense
+     mode; phase 3's eight requests beside a bf16 dense engine (greedy
+     tokens' agreement, first logits), witness paths A (int8 pages through
+     K3, tokens equal a never-offloaded int8 engine's that reused the same
+     prefix) and B, the reference's prefix-reuse finding at full width (a
+     reused int8 prefix reads zero scales), and one request's cache bytes;
+ 16. whisper-small at full width and full depth (12 + 12 layers, 0.24 B
+     params), after the other models: ``prefill_fn`` on 4 seeded segments
+     of 1500 frame embeddings (the stub frontend) with 64-token prompts and
+     ``cache_len`` 448 (K5 exactly 36 times: 12 non-causal encoder layers,
+     12 causal decoder layers, 12 non-causal cross attentions over the 1500
+     states), 32 greedy ``decode_fn`` steps, a 65-token prefill against the
+     64-token prefill plus one teacher-forced decode step (3e-2), the stage
+     split and one profiled prefill's device busy share.
 After phase 2, the card tests that make K1's and K2's launch fail (their
 library entry points return a CUDA error) run in a child pytest: both
 must become fail-closed refusals with every pin unwound.
@@ -92,9 +108,13 @@ K2 at 16 query heads per kv head, K2 and K5 at head_dim 256, K5 at a bf16
 head_dim of 24, K1, K2, K4 and K5 at a bf16 head_dim of 100 (zero-padded
 to 104 by the wrappers), K5 at hymba-1.5b's prefill shape and K3 on one
 hymba snapshot page against their plain versions, and K1, K2 and K5 at the
-served shapes of phases 12-14 (G = 6 with soft-cap 30, G = 7, head_dim 96).
+served shapes of phases 12-14 (G = 6 with soft-cap 30, G = 7, head_dim 96),
+and K5 at whisper-small's shapes of phase 16 (the non-causal encoder over
+4 x 1500 frames, the decoder's causal self-attention over 4 x 64 tokens,
+cross attention from 64 and from 448 tokens over 1500 states), beside
+scaled_dot_product_attention.
 Every launch count is zeroed
-just before each path of phases 3-14 and read just after it, so the counts
+just before each path of phases 3-16 and read just after it, so the counts
 show each path itself went through its kernels.  The line before the
 kernels' JSON record gives the smoke's wall and each path's.
 The last two lines are the kernels' JSON record and the device JSON line.
@@ -275,6 +295,7 @@ def kernel_phase(gen_seed: int = 0):
     wide_kernel_rows(dev, rnd, gen_seed)
     snapshot_kernel_rows(dev, rnd)
     moe_vlm_kernel_rows(dev, rnd, gen_seed)
+    whisper_kernel_rows(rnd)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}, library {r['library_ms']})")
@@ -419,7 +440,7 @@ def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None, 
     lib_ms = None
     if library is not None:
         lib_fn, lib_calls = library
-        e = max_err(lib_fn(*lib_calls[0]), fn(*copies[0]))
+        e = max_err(lib_fn(*lib_calls[0]), fn(*copies[0], **timed))
         check(e <= 2e-2, f"{label}: the library yardstick computes another function ({e})")
         lib_ms = time_ms(lib_fn, lib_calls)
     b_ms, b_by = bound(nbytes, flops)
@@ -618,6 +639,44 @@ def moe_vlm_kernel_rows(dev, rnd, gen_seed):
                                  2.0 * (2 * H * S * D + 2 * KV * S * D), 4.0 * H * D * S * (S + 1) / 2,
                                  library=lib, timed=dict(causal=True, softcap=softcap))
     print("moe/vlm kernel rows: " + json.dumps(rows))
+    return rows
+
+
+def whisper_kernel_rows(rnd):
+    """K5 at whisper-small's served shapes (phase 16: 12 heads over 12,
+    G = 1, D 64), each against its plain version with and without a
+    soft-cap and timed as the model runs it, beside
+    scaled_dot_product_attention: the encoder over 4 segments of 1500
+    frames (non-causal; 1500 = 23 full key tiles of 64 and a ragged one of
+    28), the decoder's causal self-attention over its 64 prompt tokens,
+    cross attention from those 64 tokens over the 1500 encoder states
+    (non-causal, Sq != Sk), and from whisper's longest decoder prefix (448
+    tokens).  q arrives as a view of [B, Sq, H, D] activations, k and v as
+    views of the [B, T, H * D] projections, as the model hands them over.
+    A causal row's operations count the S (S + 1) / 2 pairs it attends."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, D, T = 12, 64, 1500
+    rows = {}
+    for label, B, Sq, Sk, causal, n in (
+            ("K5 whisper-small encoder (4 x 1500 frames, 12/12 heads, D 64, non-causal)",
+             4, T, T, False, 4),
+            ("K5 whisper-small decoder self-attention (4 x 64 tokens, 12/12 heads, D 64, causal)",
+             4, 64, 64, True, 8),
+            ("K5 whisper-small cross attention (4 x 64 tokens over 1500 states)", 4, 64, T, False, 6),
+            ("K5 whisper-small cross attention (4 x 448 tokens over 1500 states)",
+             4, 448, T, False, 6)):
+        act = lambda S: rnd(B, S, H * D).reshape(B, S, H, D).transpose(1, 2)
+        copies = [(act(Sq), act(Sk), act(Sk)) for _ in range(n)]
+        variants = [dict(causal=causal, softcap=c) for c in (0.0, 30.0)]
+        lib = (lambda q, k, v, c=causal: sdpa(q, k, v, is_causal=c), copies)
+        pairs = Sq * (Sq + 1) / 2 if causal else Sq * Sk
+        nbytes = 2.0 * (2 * B * H * Sq * D + 2 * B * H * Sk * D)  # q, out, k, v in bf16
+        rows[label] = kernel_row(label, fa.flash_attention, fa.flash_attention_ref, copies, variants,
+                                 nbytes, 4.0 * B * H * pairs * D, library=lib,
+                                 timed=dict(causal=causal))
+    print("whisper kernel rows: " + json.dumps(rows))
     return rows
 
 
@@ -976,11 +1035,16 @@ def k4_over_dense_cache(bundle, params, cfg, served_prompt):
           f"K4 disagrees with attention_decode ({e})")
 
 
-def witness_phase(bundle, params, cfg, paths=("A", "B")):
+def witness_phase(bundle, params, cfg, paths=("A", "B"), engine_kw=None, warm_reference=False):
     """The claim witness paths at full width: a 256-token claim prefix is
     materialized and offloaded; A restores it through the page copy (the
     reuse request's 16 tokens equal a never-offloaded engine's), B fails
-    the same claim's restore and must be refused fail-closed, in order."""
+    the same claim's restore and must be refused fail-closed, in order.
+    ``engine_kw`` goes to every engine; ``warm_reference`` has the
+    never-offloaded engine serve the first request too, so that it reuses
+    the prefix as the restored run does (the int8 dense mode, whose reused
+    prefix differs from a cold prefill).  Returns path A's page-store
+    dtype."""
     from repro_torch.core.analyzer import (
         check_failure_outcome_path,
         check_observation_path,
@@ -995,14 +1059,19 @@ def witness_phase(bundle, params, cfg, paths=("A", "B")):
     first = prefix + tuple(int(t) for t in rng.integers(0, V, 16))
     reuse = prefix + tuple(int(t) for t in rng.integers(0, V, 8))
 
-    with ServingEngine(bundle, params, block_size=16, device_blocks=64, device=bundle.device) as plain:
+    kw = dict(block_size=16, device_blocks=64, device=bundle.device, **(engine_kw or {}))
+    with ServingEngine(bundle, params, **kw) as plain:
+        if warm_reference:
+            check(plain.run(plain.submit(first, max_new_tokens=16)).status == "finished",
+                  "never-offloaded first request did not finish")
         r_plain = plain.run(plain.submit(reuse, max_new_tokens=16))
         check(r_plain.status == "finished", "never-offloaded run did not finish")
 
     t0 = time.monotonic()
     outcomes = {}
+    page_dtype = None
     for path in paths:
-        with ServingEngine(bundle, params, block_size=16, device_blocks=64, device=bundle.device) as eng:
+        with ServingEngine(bundle, params, **kw) as eng:
             claim = eng.accept_claim(prefix, ClaimMode.OFFLOADABLE)
             cid = claim.claim_id
             r1 = eng.run(eng.submit(first, max_new_tokens=16))
@@ -1025,6 +1094,7 @@ def witness_phase(bundle, params, cfg, paths=("A", "B")):
                       f"{r_plain.output_tokens}")
                 check(not eng.fail_closed_total(), f"path A fail-closed: {eng.fail_closed_total()}")
                 verdict = check_observation_path(eng.events, cid, r2.request_id)
+                page_dtype = eng.pool.k_pages.dtype
             else:
                 check(r2.status == "refused" and r2.output_tokens == [],
                       f"path B: reuse request {r2.status} with {len(r2.output_tokens)} tokens")
@@ -1048,11 +1118,197 @@ def witness_phase(bundle, params, cfg, paths=("A", "B")):
             print(f"witness path {path} analyzer: {verdict.reasons[0]}")
             outcomes[path] = (r2.status, claim.state.value)
     print(f"{cfg.name} witness path A: restored 256 tokens, output equals the never-offloaded run "
-          f"({len(r_plain.output_tokens)} tokens), claim {outcomes['A'][1]}")
+          f"({len(r_plain.output_tokens)} tokens), claim {outcomes['A'][1]}, pages {page_dtype}")
     if "B" in paths:
         print(f"{cfg.name} witness path B: request {outcomes['B'][0]}, claim {outcomes['B'][1]}, "
               f"ordered E11 -> E12 -> E13 -> E14 -> FINISHED_ERROR")
     print(f"{cfg.name} witness paths {'/'.join(paths)}: {time.monotonic() - t0:.3f} s")
+    return page_dtype
+
+
+# ---------------------------------------------------------------- phase 15
+def int8_phase(params, cfg):
+    """int8 KV at full width on qwen3-1.7b's parameters
+    (``cfg.replace(kv_cache_dtype="int8")``: no weights drawn again).  The
+    int8 bundle has no paged entry points, so ``ServingEngine`` lands in the
+    dense mode: phase 3's eight requests beside a bf16 dense engine on the
+    same traffic (greedy tokens' agreement, the first prefill and decode
+    logits' max |d|), witness paths A (restored tokens equal a
+    never-offloaded int8 engine's that reused the same prefix; int8 pages
+    through K3) and B; the reference's int8 prefix-reuse finding at full
+    width (a reused prefix comes back with zero scales: reuse-versus-cold
+    max |d| for int8 and for bf16); and one request's dense cache bytes."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg8 = cfg.replace(kv_cache_dtype="int8")
+    bundles = {"int8": build_model(cfg8), "bf16": build_model(cfg)}
+    check(bundles["int8"].paged_decode_fn is None, "the int8 bundle has paged entry points")
+    V = cfg.vocab_size
+    kw = dict(block_size=16, device_blocks=192, cache_len=DENSE_CACHE_LEN,
+              device=bundles["int8"].device)
+    batches = qwen3_traffic(V)
+    served = {}
+    for label, b in bundles.items():
+        mode = {} if label == "int8" else dict(decode_mode="dense")  # int8: the default, paged
+        with ServingEngine(b, params, **mode, **kw) as eng:
+            check(eng.decode_mode == "dense", f"{label} engine in {eng.decode_mode} mode")
+            t0 = time.monotonic()
+            reqs = []
+            for batch in batches:
+                rs = [eng.submit(p, max_new_tokens=16) for p in batch]
+                eng.run_batch(rs)
+                reqs += rs
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            for r in reqs:
+                check(r.status == "finished", f"{label} dense {r.request_id}: {r.status} ({r.error})")
+                check(len(r.output_tokens) == 16, f"{label} dense {r.request_id}: "
+                                                  f"{len(r.output_tokens)} tokens")
+                check(all(0 <= t < V for t in r.output_tokens), f"{label} dense: token out of range")
+            check(not eng.fail_closed_total(), f"{label} dense fail-closed: {eng.fail_closed_total()}")
+            n_out = sum(len(r.output_tokens) for r in reqs)
+            print(f"{label} dense serving qwen3-1.7b full width: {len(reqs)} requests finished, "
+                  f"{n_out} tokens in {wall:.3f} s ({n_out / wall:.1f} tok/s incl. prefill), cached "
+                  f"tokens {[r.cached_tokens for r in reqs]}, page store {eng.pool.k_pages.dtype}")
+            served[label] = reqs
+    pairs = [(a, b) for ra, rb in zip(served["int8"], served["bf16"])
+             for a, b in zip(ra.output_tokens, rb.output_tokens)]
+    same = sum(a == b for a, b in pairs)
+    first_equal = sum(ra.output_tokens[0] == rb.output_tokens[0]
+                      for ra, rb in zip(served["int8"], served["bf16"]))
+    print(f"int8 vs bf16 dense greedy tokens: {same}/{len(pairs)} equal position by position, first "
+          f"token equal in {first_equal}/{len(served['int8'])} requests")
+
+    prompt = torch.tensor([batches[0][1]], dtype=torch.int32, device=kw["device"])
+    first = {}
+    for label, b in bundles.items():
+        lg, cache = b.prefill_fn(params, {"tokens": prompt}, DENSE_CACHE_LEN)
+        tok = torch.tensor([int(batches[0][1][-1])], dtype=torch.int32, device=kw["device"])
+        lg2, _ = b.decode_fn(params, cache, tok, torch.tensor([prompt.shape[1]], dtype=torch.int32,
+                                                              device=kw["device"]))
+        first[label] = (lg.float().cpu(), lg2.float().cpu())
+        check(bool(torch.isfinite(lg2).all()), f"{label} decode logits not finite")
+    e_pre = max_err(first["int8"][0], first["bf16"][0])
+    e_dec = max_err(first["int8"][1], first["bf16"][1])
+    print(f"int8 vs bf16 first logits ({prompt.shape[1]}-token prompt): prefill max|d|={e_pre:.3e} "
+          f"(the cache is not read yet), first decode step max|d|={e_dec:.3e}, argmax "
+          f"{int(first['int8'][1].argmax())} vs {int(first['bf16'][1].argmax())}")
+    check(bool(torch.allclose(first["int8"][1], first["bf16"][1], atol=0.35, rtol=0.1)),
+          f"int8 decode logits stray from bf16's past tests/test_int8_kv.py's bounds ({e_dec})")
+
+    page_dtype = witness_phase(bundles["int8"], params, cfg8,
+                               engine_kw=dict(cache_len=DENSE_CACHE_LEN), warm_reference=True)
+    check(page_dtype == torch.int8, f"int8 witness path A stored {page_dtype} pages")
+
+    rng = np.random.default_rng(8)
+    prefix = tuple(int(t) for t in rng.integers(0, V, 256))
+    first_req = prefix + tuple(int(t) for t in rng.integers(0, V, 16))
+    reuse = prefix + tuple(int(t) for t in rng.integers(0, V, 8))
+    for label, b in bundles.items():
+        with ServingEngine(b, params, decode_mode="dense", **kw) as eng:
+            eng.run(eng.submit(first_req, max_new_tokens=1))
+            reused = eng.prefill_logits(reuse)
+        with ServingEngine(b, params, decode_mode="dense", **kw) as eng:
+            cold = eng.prefill_logits(reuse)
+        check(np.isfinite(reused).all() and np.isfinite(cold).all(), f"{label} logits not finite")
+        print(f"prefix reuse vs cold prefill ({label} dense, 256-token prefix + 8): max|d|="
+              f"{float(np.abs(reused - cold).max()):.3e}, argmax {reused.argmax()} vs {cold.argmax()}"
+              + (" (the reused int8 prefix reads zero scales, as in the reference)"
+                 if label == "int8" else ""))
+    nbytes = {label: sum(t.nbytes for t in b.make_cache(1, DENSE_CACHE_LEN).values())
+              for label, b in bundles.items()}
+    print(f"dense cache of one request ({DENSE_CACHE_LEN} slots, {cfg.num_layers} layers): int8 {nbytes['int8']:,} "
+          f"bytes (values and scales) vs bf16 {nbytes['bf16']:,} bytes "
+          f"({nbytes['int8'] / nbytes['bf16']:.3f}x)")
+
+
+# ---------------------------------------------------------------- phase 16
+def whisper_phase(bundle, params, cfg):
+    """whisper-small at full width and depth through its bundle's entry
+    points: ``prefill_fn`` on 4 segments of 1500 seeded frame embeddings
+    (the stub frontend) with 64-token seeded prompts and ``cache_len`` 448
+    (K5 exactly encoder_layers + 2 * num_layers = 36 times: encoder,
+    decoder self-attention, cross attention), then 32 greedy ``decode_fn``
+    steps; a 65-token prefill against the 64-token prefill plus one
+    teacher-forced decode step; the stage split (encode, decoder prefill,
+    decode) and one profiled prefill's device busy share."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import whisper as wl
+
+    dev = bundle.device
+    # as many frames as cross-cache rows (1500): decode attends every row
+    B, T, S, steps = 4, cfg.cross_attend_len, 64, 32
+    g = torch.Generator(device=dev).manual_seed(7)
+    frames = torch.randn((B, T, cfg.d_model), generator=g, device=dev).to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + 1), generator=g, device=dev, dtype=torch.int32)
+    batch = {"frames": frames, "tokens": tokens[:, :S]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = fa.flash_attention.launches
+    t0 = time.monotonic()
+    logits, cache0 = bundle.prefill_fn(params, batch, wl.DEC_LEN)
+    torch.cuda.synchronize()
+    t_prefill = time.monotonic() - t0
+    n_k5 = fa.flash_attention.launches - n0
+    want = cfg.encoder_layers + 2 * cfg.num_layers
+    check(n_k5 == want, f"whisper prefill launched K5 {n_k5} times, not {want}")
+    check(tuple(logits.shape) == (B, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          f"whisper prefill logits {tuple(logits.shape)} not finite")
+    t0 = time.monotonic()
+    cache, tok, out = cache0, logits.argmax(-1).int(), []
+    for i in range(steps):
+        out.append(tok)
+        pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+        logits, cache = bundle.decode_fn(params, cache, tok, pos)
+        tok = logits.argmax(-1).int()
+    torch.cuda.synchronize()
+    t_decode = time.monotonic() - t0
+    check(bool(torch.isfinite(logits).all()), "whisper decode logits not finite")
+    gen = torch.stack(out, 1).cpu()
+    check(bool(((gen >= 0) & (gen < cfg.vocab_size)).all()), "whisper token out of range")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"whisper-small full width and depth: {B} segments x {T} frames + {S} tokens, prefill "
+          f"{t_prefill:.3f} s (K5 {n_k5} launches), {steps} greedy decode steps {t_decode:.3f} s "
+          f"({B * steps / t_decode:.1f} tok/s), peak device memory {peak:.2f} GiB; first tokens "
+          f"{gen[:, :6].tolist()}")
+
+    l65, _ = bundle.prefill_fn(params, {"frames": frames, "tokens": tokens}, wl.DEC_LEN)
+    l_tf, _ = bundle.decode_fn(params, cache0, tokens[:, S].contiguous(),
+                               torch.full((B,), S, dtype=torch.int32, device=dev))
+    e = max_err(l_tf, l65)
+    agree = int((l_tf.argmax(-1) == l65.argmax(-1)).sum())
+    print(f"whisper teacher-forced check: 65-token prefill vs 64-token prefill + one decode step, "
+          f"max|d|={e:.3e} (limit 3e-2 + 3e-2 relative, the CPU tests' cross-graph tolerance), "
+          f"argmax equal in {agree}/{B} rows")
+    check(bool(torch.allclose(l_tf.float(), l65.float(), rtol=3e-2, atol=3e-2)),
+          f"whisper decode disagrees with its prefill ({e})")
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        enc = wl.encode(params, cfg, frames)
+        torch.cuda.synchronize()
+        t_enc = time.monotonic() - t0
+        t0 = time.monotonic()
+        wl.decode_prefill(params, cfg, tokens[:, :S], enc, collect_cache=True)
+        torch.cuda.synchronize()
+        t_dec = time.monotonic() - t0
+    print(f"whisper stage seconds: encode {t_enc:.4f} s, decoder prefill {t_dec:.4f} s, "
+          f"{steps} decode steps {t_decode:.4f} s ({1e3 * t_decode / steps:.2f} ms per step)")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        bundle.prefill_fn(params, batch, wl.DEC_LEN)
+        torch.cuda.synchronize()
+        w = time.monotonic() - t0
+    avg = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in avg) / 1e6
+    print(f"whisper profiled prefill: wall {w:.3f} s, device busy {busy:.3f} s "
+          f"({100 * busy / w:.1f}%), {sum(e.count for e in avg)} device ops")
+    for e in sorted(avg, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:5]:
+        us = getattr(e, "self_device_time_total", 0.0)
+        print(f"    {us / 1e3:.3f} ms ({100 * us / 1e6 / max(busy, 1e-12):.1f}% of busy) x{e.count} "
+              f"{e.key[:80]}")
 
 
 # ----------------------------------------------------------------- phases 8-9
@@ -1506,6 +1762,7 @@ def main() -> None:
     drive("witness paths", witness_phase, bundle, params, cfg)
     served_prompt = drive("dense serving", dense_phase, bundle, params, cfg)
     drive("dense checks", dense_checks, bundle, params, cfg, served_prompt)
+    drive("int8 dense serving", int8_phase, params, cfg)
     drive("conformance", conformance_phase, bundle, params, serving_log, serving_metrics, card)
     del bundle, params, serving_log, serving_metrics
     for name in ("stablelm-12b", "deepseek-7b"):
@@ -1553,6 +1810,15 @@ def main() -> None:
         for k in need:
             check(phase[k] > 0, f"the {name} phase never launched {k}")
         del bundle, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, bundle, params = load_model("whisper-small")
+    drive("whisper-small prefill and decode", whisper_phase, bundle, params, cfg)
+    del bundle, params
+    check(counts["whisper-small prefill and decode"]["flash_attention"] > 0,
+          "the whisper-small phase never launched K5")
+    for k in ("flash_attention", "kv_block_copy"):
+        check(counts["int8 dense serving"][k] > 0, f"the int8 phase never launched {k}")
     check(counts["phi-3-vision-4.2b patch-prefix prefill"]["flash_attention"] == 32,
           "the phi-3-vision-4.2b prefix prefill did not launch K5 once per layer")
     check(counts["hymba-1.5b snapshot serving"]["flash_attention"] > 0,

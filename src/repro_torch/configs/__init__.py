@@ -9,7 +9,10 @@ residual MLP beside them).  The VLM family: phi-3-vision-4.2b (head_dim 96,
 576 stub patch embeddings prepended at prefill).  The recurrent families,
 served through ``SnapshotEngine``: hymba-1.5b (the hybrid: windowed
 attention beside a selective SSM in every layer) and xlstm-350m (mLSTM and
-sLSTM blocks, no attention).  ``get_config`` raises for every other name.
+sLSTM blocks, no attention).  The audio family: whisper-small (an encoder-
+decoder over 1500 stub frame embeddings, cross attention, sinusoidal
+positions), driven through its bundle's ``prefill_fn``/``decode_fn``.
+``get_config`` raises for every other name.
 """
 from __future__ import annotations
 
@@ -28,13 +31,14 @@ from repro_torch.configs.hymba_1_5b import CONFIG as HYMBA_1_5B
 from repro_torch.configs.phi_3_vision_4_2b import CONFIG as PHI_3_VISION_4_2B
 from repro_torch.configs.qwen3_1_7b import CONFIG as QWEN3_1_7B
 from repro_torch.configs.stablelm_12b import CONFIG as STABLELM_12B
+from repro_torch.configs.whisper_small import CONFIG as WHISPER_SMALL
 from repro_torch.configs.xlstm_350m import CONFIG as XLSTM_350M
 
 ARCHITECTURES = {
     c.name: c
     for c in (
         QWEN3_1_7B, H2O_DANUBE_1_8B, STABLELM_12B, DEEPSEEK_7B, GROK_1_314B, ARCTIC_480B,
-        PHI_3_VISION_4_2B, HYMBA_1_5B, XLSTM_350M,
+        PHI_3_VISION_4_2B, HYMBA_1_5B, XLSTM_350M, WHISPER_SMALL,
     )
 }
 

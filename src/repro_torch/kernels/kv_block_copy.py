@@ -48,8 +48,8 @@ def kv_block_copy(src_pages: torch.Tensor, indices) -> torch.Tensor:
     """Gather pages: dst[m] = src[indices[m]].
 
     src_pages: [N, page, KV, D] (any trailing shape; f32, bf16, int32 — the
-    kernel copies bytes); indices: [M] ints, validated against N on the host
-    before the launch -> [M, page, KV, D].
+    kernel copies bytes); indices: [M] host ints (a CUDA tensor raises),
+    validated against N on the host before the launch -> [M, page, KV, D].
     """
     if src_pages.device.type == "cpu":
         return kv_block_copy_ref(src_pages, torch.as_tensor(indices))
@@ -57,10 +57,14 @@ def kv_block_copy(src_pages: torch.Tensor, indices) -> torch.Tensor:
         raise ValueError(f"kv_block_copy: unsupported device {src_pages.device}")
     if not src_pages.is_contiguous():
         raise ValueError("kv_block_copy: source pages must be contiguous")
-    idx = torch.as_tensor(indices).cpu().to(torch.int32).contiguous()
+    idx = torch.as_tensor(indices)
+    if idx.device.type != "cpu":  # reading device indices back would wait for the card
+        raise ValueError("kv_block_copy: indices must be host ints (a CPU tensor or a sequence)")
+    idx = idx.to(torch.int32).contiguous()
     if idx.dim() != 1:
         raise ValueError("kv_block_copy: indices must be one-dimensional")
     N = src_pages.shape[0]
+    # lint: allow[device-path-purity] idx is a host tensor (a CUDA one raised above): no device read
     if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= N):
         raise IndexError(f"kv_block_copy: index out of range for {N} pages")
     M = idx.numel()

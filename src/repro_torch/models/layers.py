@@ -5,7 +5,8 @@ same names, argument orders and tensor layouts.  Parameters are nested
 dicts of tensors; activations are bf16 with f32 normalisation and softmax
 statistics.  The paged attention functions hand their operands to the
 kernel wrappers in ``repro_torch.kernels.paged_attention``, and a full-length
-prefill on the card hands its attention to ``kernels.flash_attention``: a
+prefill on the card (causal self-attention, or whisper's non-causal encoder
+and cross attention) hands its attention to ``kernels.flash_attention``: a
 CUDA tensor launches the hand-written kernel, a CPU tensor takes the plain
 version.  Dense-cache decode attention (``attention_decode``) is plain
 PyTorch on either device, as the JAX package leaves it outside any kernel.
@@ -94,6 +95,17 @@ def apply_rope(x, positions, theta: float):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None):
+    """Absolute sinusoidal positions [length, dim] (whisper): f32 angles,
+    ``[sin, cos]`` concatenated on the last axis, cast to bf16."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(
+        -math.log(10000.0) * torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    )
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(DEFAULT_DTYPE)
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +206,30 @@ def attention_prefill(
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     out = torch.cat(outs, dim=3)  # [B, KV, G, Sq, D]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_contiguous(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
+    """Attention whose query positions are ``arange(Sq)`` and key positions
+    ``arange(Sk)`` in every row (top-left causal alignment): a full-length
+    prefill's self-attention, whisper's encoder, and cross attention over
+    encoder states.  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D] -> [B, Sq, H, D].
+
+    A CUDA tensor runs in the flash-attention kernel, which takes exactly
+    these positions, with the [B, S, H, D] operands handed over as
+    [B, H, S, D] views (no copies); a CPU tensor runs the plain
+    ``attention_prefill`` over the same positions."""
+    if q.device.type == "cpu":
+        B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
+        return attention_prefill(
+            q, k, v,
+            q_positions=torch.arange(Sq).expand(B, Sq),
+            kv_positions=torch.arange(Sk).expand(B, Sk),
+            causal=causal, window=window, softcap=softcap,
+        )
+    return fa.flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window, softcap=softcap,
+    ).transpose(1, 2)
 
 
 def attention_decode(q, k_cache, v_cache, *, kv_positions, cur_pos, window: int = 0, softcap: float = 0.0):
@@ -319,35 +355,32 @@ def attn_qkv(p, cfg, x, positions, *, use_rope: bool = True):
     return q, k, v
 
 
-def attn_prefill_layer(p, cfg, x, positions, *, use_rope=True, contiguous=False):
+def attn_prefill_layer(p, cfg, x, positions, *, causal=True, use_rope=True, contiguous=False):
     """Full attention layer at prefill; returns (out, (k, v)).
 
+    ``causal=False`` lets every query see every key (whisper's encoder).
     ``contiguous=True`` is the caller's statement that every row's
     positions are ``arange(S)`` for queries and keys alike, as both
-    full-length prefills (``prefill``, ``prefill_collect``) build them.
-    On the card the attention runs in the flash-attention kernel, which
-    assumes exactly that, so a CUDA tensor needs ``contiguous=True`` and is
-    not checked (reading the positions back would wait for the device).  A
-    CPU tensor runs the plain ``attention_prefill`` over ``positions``, and
-    raises if it was told they are contiguous and they are not.
+    full-length prefills (``prefill``, ``prefill_collect``) and whisper
+    build them.  On the card the attention runs in the flash-attention
+    kernel, which assumes exactly that, so a CUDA tensor needs
+    ``contiguous=True`` and is not checked (reading the positions back
+    would wait for the device).  A CPU tensor runs the plain
+    ``attention_prefill`` over ``positions``, and raises if it was told
+    they are contiguous and they are not.
     """
     q, k, v = attn_qkv(p, cfg, x, positions, use_rope=use_rope)
+    kwargs = dict(causal=causal, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
     if q.device.type == "cpu":
         if contiguous and not torch.equal(
             positions, torch.arange(x.shape[1]).expand_as(positions).to(positions.dtype)
         ):
             raise ValueError("contiguous=True, but the positions are not arange(S)")
-        out = attention_prefill(
-            q, k, v, q_positions=positions, kv_positions=positions,
-            causal=True, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
-        )
+        out = attention_prefill(q, k, v, q_positions=positions, kv_positions=positions, **kwargs)
     elif not contiguous:
         raise ValueError("the flash-attention kernel takes positions arange(S) only")
-    else:  # [B, S, H, D] handed over as [B, H, S, D] views, no copies
-        out = fa.flash_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
-        ).transpose(1, 2)
+    else:
+        out = attention_contiguous(q, k, v, **kwargs)
     out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
     return out, (k, v)
 

@@ -8,8 +8,10 @@ one bundle.
   - make_cache(batch, cache_len)                   -> empty cache or state on the
     device (the recurrent families also take ``device="meta"``: shapes only,
     which ``SnapshotEngine`` reads each leaf's batch axis from)
-and, for the transformer families only (``None`` for the recurrent
-families, as in the JAX registry):
+and, for the transformer families with a bf16 KV cache only (``None`` for
+the recurrent and audio families and for ``kv_cache_dtype="int8"``, as in
+the JAX registry: int8 blocks carry no scale sidecar, so an int8 engine
+stays on the dense decode path):
   - prefill_collect_fn(params, batch)              -> (last-valid logits, k, v [L,B,S,KV,Dh])
   - paged_decode_fn(params, state, tokens, cur_pos) -> (logits, state)
   - prefill_chunk_fn(params, state, tokens, positions) -> (ck, cv) [L,B,C,KV,Dh]
@@ -17,8 +19,10 @@ families, as in the JAX registry):
 Families: ``dense``, ``moe`` (grok-1-314b, arctic-480b) and ``vlm``
 (phi-3-vision-4.2b), all three ``transformer``; ``hybrid`` (hymba-1.5b,
 ``hymba``) and ``ssm`` (xlstm-350m, ``xlstm``), served by
-``SnapshotEngine``.  The audio family and the int8 KV cache raise (ROADMAP
-Queue 1, int8 KV with whisper).
+``SnapshotEngine``; ``audio`` (whisper-small, ``whisper``), whose
+``prefill_fn`` takes ``{"frames", "tokens"}`` and which no engine serves,
+as in the JAX package.  Families other than the transformer ignore
+``kv_cache_dtype``.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import transformer as tf_lib
+from repro_torch.models import whisper as whisper_lib
 from repro_torch.models import xlstm as xlstm_lib
 
 
@@ -52,11 +57,6 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
     """Bundle for ``cfg`` on ``device`` (CUDA unless the caller passes
     ``device="cpu"``).  Families the port does not serve raise."""
     tf_lib.check_supported(cfg)
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported (ROADMAP Queue 1, "
-            "int8 KV with whisper)"
-        )
     dev = resolve_device(device)
     if cfg.family == "ssm":  # xlstm
         return ModelBundle(
@@ -77,6 +77,22 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
             make_cache=lambda batch, cache_len, device=dev: hymba_lib.make_cache(
                 cfg, batch, cache_len, device),
         )
+    if cfg.family == "audio":  # whisper
+        return ModelBundle(
+            cfg=cfg,
+            device=dev,
+            init_params=lambda generator: whisper_lib.init_params(cfg, generator, dev),
+            prefill_fn=partial(_call, whisper_lib.prefill, cfg),
+            decode_fn=partial(_call, whisper_lib.decode_step, cfg),
+            make_cache=lambda batch, cache_len: whisper_lib.make_cache(cfg, batch, cache_len, dev),
+        )
+    paged = {}
+    if cfg.kv_cache_dtype != "int8":
+        paged = dict(
+            prefill_collect_fn=partial(_call, tf_lib.prefill_collect, cfg),
+            paged_decode_fn=partial(_call, tf_lib.paged_decode_step, cfg),
+            prefill_chunk_fn=partial(_call, tf_lib.prefill_chunk, cfg),
+        )
     return ModelBundle(
         cfg=cfg,
         device=dev,
@@ -84,9 +100,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
         prefill_fn=partial(_call, tf_lib.prefill, cfg),
         decode_fn=partial(_call, tf_lib.decode_step, cfg),
         make_cache=lambda batch, cache_len: tf_lib.make_cache(cfg, batch, cache_len, device=dev),
-        prefill_collect_fn=partial(_call, tf_lib.prefill_collect, cfg),
-        paged_decode_fn=partial(_call, tf_lib.paged_decode_step, cfg),
-        prefill_chunk_fn=partial(_call, tf_lib.prefill_chunk, cfg),
+        **paged,
     )
 
 

@@ -16,6 +16,13 @@ across different widths agree within a tolerance, not bitwise.
 Token ids outside ``[0, vocab)`` are clamped at the embedding, as the JAX
 package's gather clamps them.
 
+``kv_cache_dtype="int8"`` keeps the dense cache as int8 values with a bf16
+per-token scale per kv head (``quantize_kv``); a decode step dequantizes
+each layer's slice, runs the layer, and requantizes the slice with the new
+token written.  Dequantization is plain PyTorch on either device, as it is
+plain XLA in the JAX package: an int8 bundle has no paged entry points
+(``models/registry.py``), so no kernel reads int8 pages.
+
 An MoE layer's capacity depends on the tokens of its call, so MoE logits
 depend on the batch and chunk a request shares (``models/moe.py``).  The
 paged decode step dispatches each row on its own, as the reference does on
@@ -53,14 +60,14 @@ TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 def check_supported(cfg) -> None:
     """The port serves the transformer families here (dense, MoE, and VLM
-    with its ``image_patches`` stub frontend) and the recurrent families (``hybrid``:
-    hymba, ``ssm``: xLSTM) in their own modules; the audio family (whisper)
-    is not ported yet (ROADMAP Queue 1, int8 KV with whisper)."""
-    if cfg.family not in TRANSFORMER_FAMILIES + ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family} is not ported (dense, moe, vlm, hybrid and ssm "
-            "are; audio waits for ROADMAP Queue 1, int8 KV with whisper)"
-        )
+    with its ``image_patches`` stub frontend), the recurrent families
+    (``hybrid``: hymba, ``ssm``: xLSTM) and the audio family (``audio``:
+    whisper, with its ``audio_frames`` stub frontend) in their own modules.
+    The other families ignore ``kv_cache_dtype``, as in the JAX package."""
+    if cfg.family not in TRANSFORMER_FAMILIES + ("hybrid", "ssm", "audio"):
+        raise NotImplementedError(f"{cfg.name}: family={cfg.family} is not ported")
+    if cfg.family in TRANSFORMER_FAMILIES and cfg.kv_cache_dtype not in ("bf16", "int8"):
+        raise NotImplementedError(f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported")
 
 
 # ---------------------------------------------------------------------------
@@ -73,6 +80,7 @@ def _device_generator(generator: torch.Generator, device: torch.device) -> torch
     generator on the device seeded from one draw of the caller's."""
     if generator.device.type == device.type:
         return generator
+    # lint: allow[device-path-purity] one seed draw when the parameters are made, before any step
     seed = int(torch.randint(0, 2**62, (1,), generator=generator))
     return torch.Generator(device=device).manual_seed(seed)
 
@@ -175,25 +183,41 @@ def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
     return x, cache
 
 
+def quantize_kv(x):
+    """Per-token absmax int8 over head_dim.  x: [..., Dh] -> (int8 values
+    [..., Dh], bf16 scales [...]): f32 absmax / 127, values rounded half to
+    even, as the JAX package's ``quantize_kv``."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    q = torch.round(xf / torch.clamp(scale, min=1e-8)[..., None])
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q, scale, dtype=DEFAULT_DTYPE):
+    """int8 values times their scale, one multiply in ``dtype``."""
+    return (q.to(dtype) * scale.to(dtype)[..., None]).to(dtype)
+
+
 def make_cache(cfg, batch: int, cache_len: int, dtype=DEFAULT_DTYPE, device: DeviceLike = None):
     """Dense decode cache: ``k``/``v`` [L, B, Sc, KV, Dh] and ``pos`` [B, Sc]
     (-1 = unwritten), with ``Sc = min(cache_len, window)`` for sliding-window
     configs (a ring).  bf16 whatever the parameters' type, as in the JAX
-    package; the int8 cache is not ported and raises.  On the card unless
+    package; ``kv_cache_dtype="int8"`` makes ``k``/``v`` int8 and adds
+    ``k_scale``/``v_scale`` [L, B, Sc, KV] in bf16.  On the card unless
     ``device`` names the CPU."""
-    if cfg.kv_cache_dtype != "bf16":
-        raise NotImplementedError(
-            f"{cfg.name}: kv_cache_dtype={cfg.kv_cache_dtype} is not ported (ROADMAP Queue 1, "
-            "int8 KV with whisper)"
-        )
     device = resolve_device(device)
     L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     Sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
-    return {
-        "pos": torch.full((batch, Sc), -1, dtype=torch.int32, device=device),
-        "k": torch.zeros((L, batch, Sc, KV, Dh), dtype=dtype, device=device),
-        "v": torch.zeros((L, batch, Sc, KV, Dh), dtype=dtype, device=device),
-    }
+    cache = {"pos": torch.full((batch, Sc), -1, dtype=torch.int32, device=device)}
+    if cfg.kv_cache_dtype == "int8":
+        for key in ("k", "v"):
+            cache[key] = torch.zeros((L, batch, Sc, KV, Dh), dtype=torch.int8, device=device)
+        for key in ("k_scale", "v_scale"):
+            cache[key] = torch.zeros((L, batch, Sc, KV), dtype=torch.bfloat16, device=device)
+    else:
+        for key in ("k", "v"):
+            cache[key] = torch.zeros((L, batch, Sc, KV, Dh), dtype=dtype, device=device)
+    return cache
 
 
 def _embed_prompt(params, cfg, batch):
@@ -219,33 +243,52 @@ def prefill(params, cfg, batch, cache_len: int):
     logits = (x[:, -1] @ unembed(cfg, params)).float()
     cache = make_cache(cfg, B, cache_len, device=x.device)
     keep = min(cache["k"].shape[2], St)
-    cache["k"][:, :, :keep] = ck[:, :, St - keep :]
-    cache["v"][:, :, :keep] = cv[:, :, St - keep :]
+    # write the trailing `keep` positions of the prefill KV into the cache
+    if cfg.kv_cache_dtype == "int8":
+        for key, kv in (("k", ck), ("v", cv)):
+            qv, sc = quantize_kv(kv[:, :, St - keep :])
+            cache[key][:, :, :keep] = qv
+            cache[f"{key}_scale"][:, :, :keep] = sc
+    else:
+        cache["k"][:, :, :keep] = ck[:, :, St - keep :]
+        cache["v"][:, :, :keep] = cv[:, :, St - keep :]
     cache["pos"][:, :keep] = positions[:, St - keep :]
     return logits, cache
 
 
 def decode_step(params, cfg, cache, tokens, cur_pos):
     """One dense-cache decode step.  tokens, cur_pos: [B] int.  Returns
-    (logits [B, V] f32, new cache); the input cache is unchanged."""
+    (logits [B, V] f32, new cache); the input cache is unchanged.  An int8
+    cache is dequantized one layer at a time, and the layer's slice with
+    the new token written is requantized, as in the JAX package."""
     x = embed_tokens(params, cfg, tokens)[:, None, :]  # [B, 1, d]
     Sc = cache["k"].shape[2]
     slot = decode_slot(cfg, Sc, cur_pos)
     new_pos = slot_update(cache["pos"][..., None], cur_pos[:, None, None], slot)[..., 0]
-    ks, vs = [], []
+    int8_kv = cfg.kv_cache_dtype == "int8"
+    out = {key: [] for key in cache if key != "pos"}
     for i, lp in enumerate(layer_params(params["layers"], cfg.num_layers)):
+        if int8_kv:
+            ck = dequantize_kv(cache["k"][i], cache["k_scale"][i])
+            cv = dequantize_kv(cache["v"][i], cache["v_scale"][i])
+        else:
+            ck, cv = cache["k"][i], cache["v"][i]
         h = apply_norm(cfg.norm, lp["ln1"], x)
-        a, nk, nv = attn_decode_layer(
-            lp["attn"], cfg, h, cache["k"][i], cache["v"][i], new_pos, cur_pos, slot
-        )
+        a, nk, nv = attn_decode_layer(lp["attn"], cfg, h, ck, cv, new_pos, cur_pos, slot)
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
         x = x + _mlp_block(lp, cfg, h)
-        ks.append(nk)
-        vs.append(nv)
+        if int8_kv:
+            (nk, nks), (nv, nvs) = quantize_kv(nk), quantize_kv(nv)
+            out["k_scale"].append(nks)
+            out["v_scale"].append(nvs)
+        out["k"].append(nk)
+        out["v"].append(nv)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = (x[:, 0] @ unembed(cfg, params)).float()
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "pos": new_pos}
+    new_cache = {key: torch.stack(ts) for key, ts in out.items()}
+    new_cache["pos"] = new_pos
+    return logits, new_cache
 
 
 def prefill_collect(params, cfg, batch):

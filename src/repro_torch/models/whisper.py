@@ -1,0 +1,225 @@
+"""Whisper-small — encoder-decoder transformer backbone (PyTorch).
+
+Counterpart of the JAX package's ``models/whisper.py`` (arXiv:2212.04356),
+with the same names, parameter tree (``enc_layers`` and ``dec_layers``
+stacked on a leading axis) and cache layout.  The conv audio frontend is a
+STUB: the caller supplies precomputed frame embeddings [B, frames, d].
+Absolute sinusoidal positions (no RoPE), LayerNorm, tanh-approximated GELU
+MLPs, the token embedding tied as the output projection.
+
+On the card every attention of a prefill runs the flash-attention kernel:
+the encoder non-causal over the frames, the decoder causal over the
+tokens, and cross attention non-causal from the tokens over the encoder
+states (Sq != Sk) — one launch each per layer, so a prefill launches it
+``encoder_layers + 2 * num_layers`` times.  Decode attends its self cache
+and its cross cache with the plain ``attention_decode``, as the port's
+dense mode does.
+
+Kept from the reference as it is: the decode position table has
+``Sc + 1`` rows and is read at ``min(cur_pos, Sc)``; decode writes slot
+``min(cur_pos, Sc - 1)``; the cross cache has ``cross_attend_len`` rows, of
+which a prefill fills ``min(cross_attend_len, frames)``; and decode attends
+all ``cross_attend_len`` rows, zero-filled ones included (with fewer
+frames than ``cross_attend_len`` a decode step therefore differs from a
+prefill of the same tokens: ROADMAP Queue 3).  No engine serves whisper;
+the bundle's ``prefill_fn``/``decode_fn`` are its entry points.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.layers import (
+    apply_norm,
+    attention_contiguous,
+    attention_decode,
+    attn_decode_layer,
+    attn_init,
+    attn_prefill_layer,
+    decode_slot,
+    dense_init,
+    embed_init,
+    make_norm,
+    mlp_apply,
+    mlp_init,
+    sinusoidal_positions,
+    slot_update,
+)
+from repro_torch.models.transformer import _device_generator, embed_tokens, layer_params
+
+DEC_LEN = 448  # whisper's longest decoder sequence
+
+
+def _xattn_init(gen: torch.Generator, cfg, *, lead=()):
+    d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    return {
+        "wq": dense_init(gen, d, H * Dh, lead=lead),
+        "wk": dense_init(gen, d, KV * Dh, lead=lead),
+        "wv": dense_init(gen, d, KV * Dh, lead=lead),
+        "wo": dense_init(gen, H * Dh, d, lead=lead),
+    }
+
+
+def init_params(cfg, generator: torch.Generator, device: DeviceLike = None) -> Dict[str, Any]:
+    """The JAX package's parameter tree (names, shapes, dtypes, init scales)
+    drawn from ``generator`` on ``device``.  The numbers differ from JAX's."""
+    dev = resolve_device(device)
+    gen = _device_generator(generator, dev)
+    d, Le, Ld = cfg.d_model, cfg.encoder_layers, cfg.num_layers
+    return {
+        "embed": embed_init(gen, cfg.vocab_size, d),
+        "enc_layers": {
+            "ln1": make_norm(cfg.norm, d, lead=(Le,), device=dev),
+            "attn": attn_init(gen, cfg, lead=(Le,)),
+            "ln2": make_norm(cfg.norm, d, lead=(Le,), device=dev),
+            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.activation, lead=(Le,)),
+        },
+        "enc_norm": make_norm(cfg.norm, d, device=dev),
+        "dec_layers": {
+            "ln1": make_norm(cfg.norm, d, lead=(Ld,), device=dev),
+            "attn": attn_init(gen, cfg, lead=(Ld,)),
+            "lnx": make_norm(cfg.norm, d, lead=(Ld,), device=dev),
+            "xattn": _xattn_init(gen, cfg, lead=(Ld,)),
+            "ln2": make_norm(cfg.norm, d, lead=(Ld,), device=dev),
+            "mlp": mlp_init(gen, d, cfg.d_ff, cfg.activation, lead=(Ld,)),
+        },
+        "final_norm": make_norm(cfg.norm, d, device=dev),
+    }
+
+
+def _arange_rows(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def encode(params, cfg, frames):
+    """frames: [B, S, d] stub embeddings -> encoder states [B, S, d]."""
+    B, S, d = frames.shape
+    x = frames + sinusoidal_positions(S, d, device=frames.device)[None]
+    positions = _arange_rows(B, S, frames.device)
+    for lp in layer_params(params["enc_layers"], cfg.encoder_layers):
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        a, _ = attn_prefill_layer(
+            lp["attn"], cfg, h, positions, causal=False, use_rope=False, contiguous=True
+        )
+        x = x + a
+        h = apply_norm(cfg.norm, lp["ln2"], x)
+        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+    return apply_norm(cfg.norm, params["enc_norm"], x)
+
+
+def _cross_kv(lp, cfg, enc_states):
+    """The layer's cross keys and values [B, T, KV, Dh] over the encoder
+    states (views of the projections, no copies)."""
+    B, T, _ = enc_states.shape
+    KV, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = (enc_states @ lp["xattn"]["wk"]).reshape(B, T, KV, Dh)
+    v = (enc_states @ lp["xattn"]["wv"]).reshape(B, T, KV, Dh)
+    return k, v
+
+
+def _cross_attend(lp, cfg, x, xk, xv):
+    """Non-causal attention from x [B, S, d] over xk, xv [B, T, KV, Dh]."""
+    B, S, _ = x.shape
+    H, Dh = cfg.num_heads, cfg.resolved_head_dim
+    q = (x @ lp["xattn"]["wq"]).reshape(B, S, H, Dh)
+    out = attention_contiguous(q, xk, xv, causal=False)
+    return out.reshape(B, S, -1) @ lp["xattn"]["wo"]
+
+
+def decode_prefill(params, cfg, tokens, enc_states, *, collect_cache: bool = False):
+    """Decoder forward over a token prefix.  Returns (hidden [B, S, d],
+    (k, v, xk, xv) stacked on a leading L, or None)."""
+    B, S = tokens.shape
+    d = cfg.d_model
+    x = embed_tokens(params, cfg, tokens) + sinusoidal_positions(S, d, device=tokens.device)[None]
+    positions = _arange_rows(B, S, tokens.device)
+    ys = []
+    for lp in layer_params(params["dec_layers"], cfg.num_layers):
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions, use_rope=False,
+                                         contiguous=True)
+        x = x + a
+        h = apply_norm(cfg.norm, lp["lnx"], x)
+        xk, xv = _cross_kv(lp, cfg, enc_states)
+        x = x + _cross_attend(lp, cfg, h, xk, xv)
+        h = apply_norm(cfg.norm, lp["ln2"], x)
+        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        if collect_cache:
+            ys.append((k_, v_, xk, xv))
+    cache = tuple(torch.stack(t) for t in zip(*ys)) if collect_cache else None
+    return apply_norm(cfg.norm, params["final_norm"], x), cache
+
+
+def make_cache(cfg, batch: int, cache_len: int, device: DeviceLike = None):
+    """Self cache ``k``/``v`` [L, B, cache_len, KV, Dh] bf16 with ``pos``
+    [B, cache_len] (-1 = unwritten), and the cross cache ``xk``/``xv``
+    [L, B, cross_attend_len, KV, Dh] bf16.  On the card unless ``device``
+    names the CPU."""
+    dev = resolve_device(device)
+    L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    zeros = lambda n: torch.zeros((L, batch, n, KV, Dh), dtype=torch.bfloat16, device=dev)
+    return {
+        "k": zeros(cache_len),
+        "v": zeros(cache_len),
+        "pos": torch.full((batch, cache_len), -1, dtype=torch.int32, device=dev),
+        "xk": zeros(cfg.cross_attend_len),
+        "xv": zeros(cfg.cross_attend_len),
+    }
+
+
+def prefill(params, cfg, batch, cache_len: int):
+    """batch: ``frames`` [B, T, d], ``tokens`` [B, S].  Returns (last-position
+    logits [B, V] f32, cache)."""
+    frames, tokens = batch["frames"], batch["tokens"]
+    B, S = tokens.shape
+    enc_states = encode(params, cfg, frames)
+    x, (ck, cv, xk, xv) = decode_prefill(params, cfg, tokens, enc_states, collect_cache=True)
+    logits = (x[:, -1] @ params["embed"].T).float()
+    cache = make_cache(cfg, B, cache_len, device=x.device)
+    keep = min(cache_len, S)
+    cache["k"][:, :, :keep] = ck[:, :, S - keep :]
+    cache["v"][:, :, :keep] = cv[:, :, S - keep :]
+    cache["pos"][:, :keep] = _arange_rows(B, S, x.device)[:, S - keep :]
+    Tc = min(cfg.cross_attend_len, xk.shape[2])
+    cache["xk"][:, :, :Tc] = xk[:, :, :Tc]
+    cache["xv"][:, :, :Tc] = xv[:, :, :Tc]
+    return logits, cache
+
+
+def decode_step(params, cfg, cache, tokens, cur_pos):
+    """One decode step.  tokens, cur_pos: [B] int.  Returns (logits [B, V]
+    f32, new cache); the input cache is unchanged."""
+    B = tokens.shape[0]
+    d = cfg.d_model
+    H, Dh = cfg.num_heads, cfg.resolved_head_dim
+    Sc = cache["k"].shape[2]
+    pos_table = sinusoidal_positions(Sc + 1, d, device=tokens.device)
+    row = torch.clamp(cur_pos.long(), max=Sc)
+    x = embed_tokens(params, cfg, tokens)[:, None, :] + pos_table[row][:, None, :]
+    slot = decode_slot(cfg, Sc, cur_pos)
+    new_pos = slot_update(cache["pos"][..., None], cur_pos[:, None, None], slot)[..., 0]
+    Tc = cache["xk"].shape[2]
+    xpos = _arange_rows(B, Tc, tokens.device)
+    x_cur = torch.full((B,), Tc, dtype=torch.int32, device=tokens.device)
+    ks, vs = [], []
+    for i, lp in enumerate(layer_params(params["dec_layers"], cfg.num_layers)):
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        a, nk, nv = attn_decode_layer(
+            lp["attn"], cfg, h, cache["k"][i], cache["v"][i], new_pos, cur_pos, slot, use_rope=False
+        )
+        x = x + a
+        h = apply_norm(cfg.norm, lp["lnx"], x)
+        q = (h @ lp["xattn"]["wq"]).reshape(B, 1, H, Dh)
+        xa = attention_decode(q, cache["xk"][i], cache["xv"][i], kv_positions=xpos, cur_pos=x_cur)
+        x = x + xa.reshape(B, 1, -1) @ lp["xattn"]["wo"]
+        h = apply_norm(cfg.norm, lp["ln2"], x)
+        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        ks.append(nk)
+        vs.append(nv)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    logits = (x[:, 0] @ params["embed"].T).float()
+    new_cache = dict(cache)
+    new_cache.update(k=torch.stack(ks), v=torch.stack(vs), pos=new_pos)
+    return logits, new_cache

@@ -172,7 +172,7 @@ class ServingEngine(EngineCore):
                 f"params live on {params['embed'].device}, the engine runs on {self.device}"
             )
         if decode_mode == "paged" and bundle.paged_decode_fn is None:
-            decode_mode = "dense"  # non-transformer bundles have no paged entry points
+            decode_mode = "dense"  # int8 / non-transformer bundles have no paged entry points
         self.decode_mode = decode_mode
         self._step_prefill_collect = bundle.prefill_collect_fn
         self._step_paged_decode = bundle.paged_decode_fn
@@ -274,7 +274,10 @@ class ServingEngine(EngineCore):
         block payload from the host page store into row 0 of a fresh cache
         on the engine's device.  A prefix longer than the cache (possible
         only on a sliding-window ring) raises ValueError, as the JAX
-        package's scatter does; nothing is truncated."""
+        package's scatter does; nothing is truncated.  Under an int8 cache
+        the blocks hold the int8 values only, so the reused prefix's
+        ``k_scale``/``v_scale`` stay zero and it dequantizes to zeros: the
+        JAX package does the same (ROADMAP Queue 3), and the port keeps it."""
         cache = self.bundle.make_cache(batch, self.cache_len)
         if not blocks:
             return cache, 0
@@ -977,8 +980,8 @@ class ServingEngine(EngineCore):
     @staticmethod
     def _stack_caches(caches: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
         """Stack B single-request dense caches into one [B]-batched cache:
-        ``pos`` is [B, Sc] (batch axis 0); ``k``/``v`` carry the batch on
-        axis 1."""
+        ``pos`` is [B, Sc] (batch axis 0); ``k``/``v`` (and an int8 cache's
+        ``k_scale``/``v_scale``) carry the batch on axis 1."""
         return {
             key: torch.cat([c[key] for c in caches], dim=0 if key == "pos" else 1)
             for key in caches[0]

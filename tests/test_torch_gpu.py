@@ -16,7 +16,11 @@ and 100, f32 and bf16 18).  ``test_fully_masked_row_kernel_matches_plain``,
 valid key to the reference's mean of its value rows.  The recurrent
 families (reduced hymba-1.5b and xlstm-350m through ``SnapshotEngine``)
 run on the card against the CPU, and the page copy takes odd-sized
-``uint8`` snapshot payloads.
+``uint8`` snapshot payloads.  K5 runs whisper-small's shapes (non-causal
+encoder over 1500 frames, cross attention Sq != Sk over 1500 states, a
+ragged 1499); reduced whisper and reduced int8 qwen3 run on the card
+against the CPU, and an int8 engine's offload and restore move int8 pages
+through K3.
 """
 import numpy as np
 import pytest
@@ -162,6 +166,17 @@ def test_kv_block_copy_kernel_is_exact(dev, dtype, shape):
     assert torch.equal(got, kbc.kv_block_copy_ref(src, idx))
     with pytest.raises(IndexError):
         kbc.kv_block_copy(src, torch.tensor([shape[0]]))
+
+
+def test_kv_block_copy_refuses_device_indices(dev):
+    """Indices are host ints: validating a CUDA index tensor would read it
+    back and wait for the card, so the wrapper refuses it before any launch."""
+    src = torch.zeros((4, 16), dtype=torch.bfloat16, device=dev)
+    n0 = kbc.kv_block_copy.launches
+    with pytest.raises(ValueError, match="host ints"):
+        kbc.kv_block_copy(src, torch.tensor([1, 2], device=dev))
+    assert kbc.kv_block_copy.launches == n0
+    assert torch.equal(kbc.kv_block_copy(src, [1, 2]), src[1:3])
 
 
 def test_gather_payloads_through_kernel(dev):
@@ -880,3 +895,125 @@ def test_kernel_launch_failure_fails_closed_on_card(dev, kernel, trigger):
         fresh = eng.run(eng.submit(tuple(range(300, 316)), max_new_tokens=3))
         assert fresh.status == "finished" and len(fresh.output_tokens) == 3
         assert eng.fail_closed_total() == {trigger: 2}
+
+
+@pytest.mark.parametrize(
+    "B,H,Sq,Sk,causal",
+    [
+        (4, 12, 1500, 1500, False),  # whisper-small encoder
+        (4, 12, 64, 1500, False),  # cross attention: 64 prompt tokens over 1500 states
+        (4, 12, 448, 1500, False),  # cross attention at the longest decoder prefix
+        (2, 12, 64, 1499, False),  # a ragged last key tile (1499 = 23 * 64 + 27)
+        (4, 12, 64, 64, True),  # decoder self-attention
+    ],
+    ids=["encoder", "cross64", "cross448", "ragged1499", "decoder"],
+)
+def test_flash_attention_whisper_shapes(dev, B, H, Sq, Sk, causal):
+    """K5 at whisper-small's shapes (12 heads over 12, D 64), bf16, as the
+    model hands the operands over: q from a [B, Sq, H, D] activation, k and v
+    as views of the [B, Sk, H * D] projections of the encoder states."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    q = torch.randn((B, Sq, H, 64), generator=g, device=dev).to(bf).transpose(1, 2)
+    proj = lambda: torch.randn((B, Sk, H * 64), generator=g, device=dev).to(bf)
+    k, v = (proj().reshape(B, Sk, H, 64).transpose(1, 2) for _ in range(2))
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    assert fa.flash_attention.launches == n0 + 1
+    _close(got, fa.flash_attention_ref(q, k, v, causal=causal), bf)
+
+
+def _to(tree, d):
+    return {k: _to(v, d) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(d)
+
+
+def test_whisper_on_card_matches_cpu(dev):
+    """Reduced whisper-small through its bundle's prefill_fn and three
+    decode_fn steps on the card (K5 for every prefill attention) against the
+    same weights on the CPU (bf16, 3e-2)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+
+    cfg = reduced(get_config("whisper-small"))
+    params = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.normal(size=(2, 8, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 6)).astype(np.int32))
+    out = {}
+    for d in ("cpu", dev):
+        b = build_model(cfg, device=d)
+        n0 = fa.flash_attention.launches
+        lg, cache = b.prefill_fn(_to(params, d), {"frames": frames.to(d), "tokens": tokens.to(d)}, 16)
+        if d == dev:
+            assert fa.flash_attention.launches - n0 == cfg.encoder_layers + 2 * cfg.num_layers
+        seq = [lg.cpu()]
+        pos = torch.full((2,), 6, dtype=torch.int32)
+        for i in range(3):
+            lg, cache = b.decode_fn(_to(params, d), cache, seq[-1].argmax(-1).int().to(d), (pos + i).to(d))
+            seq.append(lg.cpu())
+        out[str(d)] = seq
+    for a, c in zip(out[str(dev)], out["cpu"]):
+        np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=3e-2, atol=3e-2)
+        assert (a.argmax(-1) == c.argmax(-1)).all()
+
+
+def test_int8_dense_engine_on_card_matches_cpu(dev):
+    """Reduced int8 qwen3 in its dense mode on the card against the CPU:
+    prefill logits (bf16, 3e-2), the int8 cache's values within one step and
+    its scales within bf16, and tokens of a served request."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = reduced(get_config("qwen3-1.7b")).replace(kv_cache_dtype="int8")
+    params = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    tokens = torch.arange(300, 341, dtype=torch.int32)[None]
+    caches, logits, status = {}, {}, {}
+    for d in ("cpu", dev):
+        b = build_model(cfg, device=d)
+        lg, cache = b.prefill_fn(_to(params, d), {"tokens": tokens.to(d)}, 64)
+        tok, pos = torch.tensor([7], dtype=torch.int32, device=d), torch.tensor([41], dtype=torch.int32, device=d)
+        lg, cache = b.decode_fn(_to(params, d), cache, tok, pos)
+        caches[str(d)] = _to(cache, "cpu")
+        with ServingEngine(b, _to(params, d), block_size=4, device_blocks=64, cache_len=64, device=d) as eng:
+            assert eng.decode_mode == "dense"
+            logits[str(d)] = eng.prefill_logits(tuple(range(300, 341)))
+            r = eng.run(eng.submit(tuple(range(300, 320)), max_new_tokens=4))
+            status[str(d)] = (r.status, len(r.output_tokens))
+    assert status[str(dev)] == status["cpu"] == ("finished", 4)
+    np.testing.assert_allclose(logits[str(dev)], logits["cpu"], rtol=3e-2, atol=3e-2)
+    g, c = caches[str(dev)], caches["cpu"]
+    assert g["k"].dtype == torch.int8
+    assert (g["k"].int() - c["k"].int()).abs().max() <= 2
+    torch.testing.assert_close(g["k_scale"].float(), c["k_scale"].float(), rtol=2e-2, atol=1e-3)
+
+
+def test_int8_offload_and_restore_launch_k3(dev):
+    """An int8 engine's claim offload and restore move int8 pages through
+    K3 (``gather_payloads``), never the plain copy, and path A's restored
+    tokens equal a never-offloaded engine's that reused the same prefix."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.claims import ClaimMode, ClaimState
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = reduced(get_config("qwen3-1.7b")).replace(kv_cache_dtype="int8")
+    b = build_model(cfg, device=dev)
+    params = b.init_params(torch.Generator().manual_seed(0))
+    prefix = tuple(range(10, 26))
+    kw = dict(block_size=4, device_blocks=64, cache_len=64, device=dev)
+    with ServingEngine(b, params, **kw) as ref:
+        ref.run(ref.submit(prefix + (30, 31), max_new_tokens=2))
+        want = ref.run(ref.submit(prefix + (40, 41), max_new_tokens=3)).output_tokens
+    plain0, k3 = kbc.gather_payloads.plain_copies, kbc.kv_block_copy.launches
+    with ServingEngine(b, params, **kw) as eng:
+        claim = eng.accept_claim(prefix, ClaimMode.OFFLOADABLE)
+        r1 = eng.run(eng.submit(prefix + (30, 31), max_new_tokens=2))
+        assert eng.pool.k_pages.dtype == torch.int8
+        assert eng.offload_claim(claim.claim_id, request_id=r1.request_id)
+        r2 = eng.run(eng.submit(prefix + (40, 41), max_new_tokens=3))
+        assert r2.status == "finished" and claim.state == ClaimState.RESTORED
+        assert r2.restored_tokens == len(prefix) and r2.output_tokens == want
+        assert not eng.fail_closed_total()
+    assert kbc.kv_block_copy.launches >= k3 + 4  # k and v, offload and restore
+    assert kbc.gather_payloads.plain_copies == plain0

@@ -100,6 +100,23 @@ model freed before the next (the depth cuts are printed):
      states), 32 greedy ``decode_fn`` steps, a 65-token prefill against the
      64-token prefill plus one teacher-forced decode step (3e-2), the stage
      split and one profiled prefill's device busy share.
+ 17. training, last: (a) qwen3-1.7b at full width and depth through
+     ``Trainer`` (f32 masters and moments, lr 3e-5 with warm-up 2) on 4 x
+     4096-token ``SyntheticLM`` batches for 6 steps (the first loss within
+     0.5 of an untrained model's, ln V + 0.02^2 d / 2, every loss and grad
+     norm finite, the last three below the first), the step time,
+     tokens/s, model-FLOPs utilisation, peak memory
+     and a profiled step split into loss-and-grads and the AdamW update;
+     (c) its trained masters cast to bf16 and served by a paged engine (2
+     requests x 16 tokens, K1 and K2 must launch); (b) the restart drill at
+     full width and 2 of 28 layers (async checkpoints every 2 steps, a
+     fresh trainer resumed at step 4, its losses against the uninterrupted
+     run's; the checkpoint's bytes and save seconds, sync and async); (d)
+     one training step each of whisper-small (full depth, 2 x 1500 frames +
+     448 tokens), hymba-1.5b (4 layers, 2 x 512), xlstm-350m (8 layers,
+     2 x 256) and phi-3-vision-4.2b (4 layers, 576 patches + 64 tokens).
+     The training forward is the reference's (plain chunked attention
+     under rematerialization): no kernel may launch in (a), (b) or (d).
 After phase 2, the card tests that make K1's and K2's launch fail (their
 library entry points return a CUDA error) run in a child pytest: both
 must become fail-closed refusals with every pin unwound.
@@ -114,7 +131,7 @@ and K5 at whisper-small's shapes of phase 16 (the non-causal encoder over
 cross attention from 64 and from 448 tokens over 1500 states), beside
 scaled_dot_product_attention.
 Every launch count is zeroed
-just before each path of phases 3-16 and read just after it, so the counts
+just before each path of phases 3-17 and read just after it, so the counts
 show each path itself went through its kernels.  The line before the
 kernels' JSON record gives the smoke's wall and each path's.
 The last two lines are the kernels' JSON record and the device JSON line.
@@ -1311,6 +1328,249 @@ def whisper_phase(bundle, params, cfg):
               f"{e.key[:80]}")
 
 
+# ---------------------------------------------------------------- phase 17
+# Training: the reference's training forward runs no Pallas kernel (plain
+# chunked attention under jax.checkpoint), so none of K1-K5 may launch in a
+# training step; the trained weights are then served through K1 and K2.
+TRAIN_STEPS = 6
+# lr 3e-4 with warm-up 2 diverged at full width and depth on the card
+# (losses 12.50, 11.99, 15.45, 9.64, 18.25, 15.71; PERF.md), as the first
+# steps of a deep model from random weights may without a long warm-up;
+# 3e-5 falls in these 6 steps
+TRAIN_LR = 3e-5
+TRAIN_BATCH = 4  # TRAIN_4K's global batch of 256, cut to what one card takes without accumulation
+TRAIN_SEQ = 4096  # TRAIN_4K's length
+OTHER_FAMILIES = {  # (d): name -> (layers or None for full depth, batch, tokens, frontend rows)
+    "whisper-small": (None, 2, 448, 1500),
+    "hymba-1.5b": (4, 2, 512, 0),
+    "xlstm-350m": (8, 2, 256, 0),
+    "phi-3-vision-4.2b": (4, 2, 64, 576),
+}
+
+
+def _finite(t) -> bool:
+    return bool(torch.isfinite(t).all())
+
+
+def _device_time(prof):
+    """(busy seconds, the top device ops by time) of a CUDA-only profile."""
+    avg = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in avg) / 1e6
+    top = sorted(avg, key=lambda e: -getattr(e, "self_device_time_total", 0.0))
+    return busy, top, sum(e.count for e in avg)
+
+
+def train_full_width():
+    """(a) qwen3-1.7b at full width and depth: ``Trainer`` (f32 masters and
+    moments, lr 3e-5, warm-up 2) on ``SyntheticLM`` batches of 4 x 4096
+    tokens for 6 steps; the first loss within 0.5 of an untrained model's,
+    every loss and grad norm finite, the mean of the last 3 losses below
+    the first; then
+    one more step under the profiler, its two halves timed apart.  Returns
+    the trainer (its masters are served in (c))."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import Trainer
+
+    cfg = get_config("qwen3-1.7b")
+    print(f"training qwen3-1.7b full width and depth ({cfg.num_layers} layers, "
+          f"{cfg.param_count() / 1e9:.3f} B params): batch {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"(TRAIN_4K's global batch 256 cut to {TRAIN_BATCH}: one card, no accumulation)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tr = Trainer(build_model(cfg), data_cfg=DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
+                 opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=2), seed=0)
+    torch.cuda.synchronize()
+    print(f"trainer state on the card in {time.monotonic() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB (f32 masters, m, v)")
+    metrics = tr.run(TRAIN_STEPS, log_every=1)
+    losses = [m["loss"] for m in metrics]
+    norms = [m["grad_norm"] for m in metrics]
+    ln_v = math.log(cfg.vocab_size)
+    # an untrained model's loss: ln V + sigma^2 / 2 for logits of std sigma,
+    # here 0.02 * sqrt(d) (the tied embedding's N(0, 0.02^2) init against the
+    # RMS-normed final state), 0.41 above ln V at qwen3-1.7b's width
+    untrained = ln_v + 0.02 ** 2 * cfg.d_model / 2
+    check(all(math.isfinite(x) for x in losses + norms), f"non-finite loss or grad norm: {metrics}")
+    check(abs(losses[0] - untrained) <= 0.5,
+          f"first loss {losses[0]:.4f} not within 0.5 of ln V + sigma^2/2 = {untrained:.4f}")
+    check(np.mean(losses[-3:]) < losses[0], f"loss did not fall: {losses}")
+    dts = sorted(m["dt_s"] for m in metrics[1:])
+    step_s = dts[len(dts) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * cfg.param_count() * tokens / step_s / H100_BF16_FLOPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training losses {[round(x, 4) for x in losses]} (ln V = {ln_v:.4f}, untrained "
+          f"{untrained:.4f}), grad norms "
+          f"{[round(x, 3) for x in norms]}")
+    print(f"training qwen3-1.7b: median step {step_s:.3f} s over steps 2-{TRAIN_STEPS} "
+          f"(first {metrics[0]['dt_s']:.3f} s), {tokens / step_s:.0f} tokens/s, MFU "
+          f"{100 * mfu:.2f}% (6 x {cfg.param_count() / 1e9:.3f} B x {tokens} tokens per step over "
+          f"989 TFLOP/s), peak device memory {peak:.2f} GiB on {torch.cuda.get_device_name(0)}")
+
+    batch = tr.batch_at(tr.step)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        loss, grads = tr.loss_and_grads(batch)
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        m = tr.apply_grads(grads)
+        torch.cuda.synchronize()
+        t2 = time.monotonic()
+    del grads
+    check(_finite(loss) and _finite(m["grad_norm"]), "the profiled step is not finite")
+    busy, top, n_ops = _device_time(prof)
+    print(f"training profiled step: wall {t2 - t0:.3f} s = loss and grads {t1 - t0:.3f} s + "
+          f"AdamW update {t2 - t1:.3f} s; device busy {busy:.3f} s ({100 * busy / (t2 - t0):.1f}%), "
+          f"{n_ops} device ops")
+    gemm = sum(getattr(e, "self_device_time_total", 0.0) for e in top
+               if any(w in e.key.lower() for w in ("nvjet", "gemm", "cutlass", "xmma"))) / 1e6
+    print(f"training profiled step by kind: matrix products (cuBLAS kernels) {gemm:.3f} s "
+          f"({100 * gemm / max(busy, 1e-12):.1f}% of busy), everything else (elementwise, casts, "
+          f"reductions, copies) {busy - gemm:.3f} s")
+    for e in top[:8]:  # where the step's device time went, by kernel
+        us = getattr(e, "self_device_time_total", 0.0)
+        print(f"    {us / 1e3:.1f} ms ({100 * us / 1e6 / max(busy, 1e-12):.1f}% of busy) x{e.count} "
+              f"{e.key[:80]}")
+    return tr
+
+
+def serve_trained(tr):
+    """(c) The trained masters cast to bf16 and served by a paged engine:
+    2 requests (64-token prompts from the training stream) of 16 tokens,
+    every one finished, nothing failed closed (K1 and K2 must launch)."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.training.tree import map_tree
+
+    params = map_tree(lambda p: p.to(torch.bfloat16), tr.params)
+    bundle, V = tr.bundle, tr.cfg.vocab_size
+    prompts = [tuple(int(t) for t in row[:64]) for row in tr.data.batch_at(100)["tokens"][:2]]
+    with ServingEngine(bundle, params, block_size=16, device_blocks=64, device=bundle.device) as eng:
+        reqs = [eng.submit(p, max_new_tokens=16) for p in prompts]
+        t0 = time.monotonic()
+        eng.run_batch(reqs)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        for r in reqs:
+            check(r.status == "finished" and len(r.output_tokens) == 16,
+                  f"trained-weights request {r.request_id}: {r.status} ({r.error})")
+            check(all(0 <= t < V for t in r.output_tokens), "trained-weights token out of range")
+        check(not eng.fail_closed_total(), f"fail-closed outcomes: {eng.fail_closed_total()}")
+    print(f"train-then-serve: the trained masters as bf16, 2 requests x 16 tokens finished in "
+          f"{wall:.3f} s, no fail-closed outcome; first tokens {[r.output_tokens[:6] for r in reqs]}")
+
+
+def restart_drill():
+    """(b) Full width, 2 of 28 layers (a full-depth checkpoint would write
+    about 20 GB): train 4 steps with async checkpoints every 2, resume a
+    fresh trainer at step 4 and run it to step 7, and hold its losses
+    against an uninterrupted 7-step run's (bitwise, else within 1e-3).
+    Then the checkpoint's bytes and the save seconds, sync and async.
+    Everything is written into a temporary directory that is removed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.checkpoint import latest_checkpoint, save_checkpoint
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import Trainer
+
+    cfg = get_config("qwen3-1.7b")
+    cfg = cfg.replace(num_layers=2)
+    print(f"restart drill: qwen3-1.7b full width, depth cut to 2 of 28 layers "
+          f"({cfg.param_count() / 1e9:.3f} B params), batch 2 x 1024 tokens")
+    bundle = build_model(cfg)
+    tmp = Path(tempfile.mkdtemp(prefix="train-drill-"))
+    try:
+        def trainer(**kw):
+            return Trainer(bundle, data_cfg=DataConfig(cfg.vocab_size, 1024, 2),
+                           opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=2), seed=0, **kw)
+
+        a = trainer(ckpt_dir=tmp / "run", ckpt_every=2, async_ckpt=True)
+        a.run(4, log_every=0)
+        check(latest_checkpoint(tmp / "run").name == "step-00000004", "no step-4 checkpoint")
+        b = trainer(ckpt_dir=tmp / "run")
+        check(b.resume() and b.step == 4, "the fresh trainer did not resume at step 4")
+        b.run(7, log_every=0)
+        c = trainer()
+        c.run(7, log_every=0)
+        lb = [m["loss"] for m in b.metrics]
+        lc = [m["loss"] for m in c.metrics[4:]]
+        d = max(abs(x - y) for x, y in zip(lb, lc))
+        check([m["loss"] for m in a.metrics] == [m["loss"] for m in c.metrics[:4]],
+              "two trainers of one seed disagree before the restart")
+        print(f"restart drill: resumed losses {lb} vs uninterrupted {lc}: "
+              f"{'bitwise equal' if lb == lc else f'max |d| {d:.3e} (limit 1e-3)'}")
+        check(d <= 1e-3, f"resumed run diverged from the uninterrupted run ({d})")
+        state = {"params": a.params, "opt": a.opt_state}
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        path = save_checkpoint(tmp / "sync", a.step, state)
+        t_sync = time.monotonic() - t0
+        nbytes = (path / "state.npz").stat().st_size
+        shutil.rmtree(tmp / "sync")
+        t0 = time.monotonic()
+        a.ckpt.save(tmp / "async", a.step, state)
+        t_snap = time.monotonic() - t0
+        a.ckpt.wait()
+        t_async = time.monotonic() - t0
+        print(f"restart drill checkpoint: {nbytes} bytes (f32 masters, m and v); save sync "
+              f"{t_sync:.3f} s; async {t_snap:.3f} s blocking (the host snapshot) + "
+              f"{t_async - t_snap:.3f} s on the writer thread")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def train_other_families():
+    """(d) One ``Trainer`` step of every other family the card holds, at
+    full width (depth cuts printed), seeded frontend embeddings beside the
+    tokens where the family takes them: losses and grad norms finite.  The
+    MoE configs train on the CPU only: the training state of one
+    full-width layer exceeds the card (printed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import Trainer
+
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    for name in ("grok-1-314b", "arctic-480b"):
+        cfg = get_config(name)
+        per_layer = cfg.replace(num_layers=1).param_count() - cfg.replace(num_layers=0).param_count()
+        print(f"{name} trains on the CPU only: one full-width layer holds {per_layer / 1e9:.3f} B "
+              f"params, {20 * per_layer / 1e9:.1f} GB of training state at 20 bytes each (f32 "
+              f"masters, m and v, bf16 casts and grads, f32 grads), over the card's {card_gb:.1f} GB")
+    for name, (layers, B, S, n_front) in OTHER_FAMILIES.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(name)
+        cut = "full depth" if layers is None else f"{layers} of {cfg.num_layers} layers"
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        torch.cuda.reset_peak_memory_stats()
+        tr = Trainer(build_model(cfg), data_cfg=DataConfig(cfg.vocab_size, S, B),
+                     opt_cfg=AdamWConfig(lr=TRAIN_LR, warmup_steps=2), seed=0)
+        batch = tr.batch_at(0)
+        if n_front:
+            key = "frames" if cfg.frontend == "audio_frames" else "patch_embeds"
+            g = torch.Generator(device=tr.device).manual_seed(11)
+            batch[key] = torch.randn((B, n_front, cfg.d_model), generator=g,
+                                     device=tr.device).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        m = tr.train_step(batch)
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        dt = time.monotonic() - t0
+        check(math.isfinite(loss) and math.isfinite(gn), f"{name}: loss {loss} grad norm {gn}")
+        front = f" + {n_front} frontend rows" if n_front else ""
+        print(f"training {name} full width, {cut}: one step of {B} x {S} tokens{front} in "
+              f"{dt:.3f} s, loss {loss:.4f} (ln V {math.log(cfg.vocab_size):.4f}), grad norm "
+              f"{gn:.3f}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del tr, batch, m
+
+
 # ----------------------------------------------------------------- phases 8-9
 WIDE_DEVICE_BLOCKS = 128  # per layer: 10 MiB of stablelm-12b pages, 32 MiB of deepseek-7b's
 # Phases 8-9 run at full width but cut depth, so the snapshot phases 10-11
@@ -1817,6 +2077,19 @@ def main() -> None:
     del bundle, params
     check(counts["whisper-small prefill and decode"]["flash_attention"] > 0,
           "the whisper-small phase never launched K5")
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = drive("training qwen3-1.7b", train_full_width)
+    drive("train-then-serve", serve_trained, trainer)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    drive("restart drill", restart_drill)
+    drive("training other families", train_other_families)
+    for name in ("training qwen3-1.7b", "restart drill", "training other families"):
+        check(not any(counts[name].values()), f"{name} launched a kernel: {counts[name]}")
+    for k in ("paged_decode_attention", "paged_prefill_attention"):
+        check(counts["train-then-serve"][k] > 0, f"train-then-serve never launched {k}")
     for k in ("flash_attention", "kv_block_copy"):
         check(counts["int8 dense serving"][k] > 0, f"the int8 phase never launched {k}")
     check(counts["phi-3-vision-4.2b patch-prefix prefill"]["flash_attention"] == 32,

@@ -17,11 +17,19 @@ positions), driven through its bundle's ``prefill_fn``/``decode_fn``.
 from __future__ import annotations
 
 from repro_torch.configs.base import (
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES_BY_NAME,
+    TRAIN_4K,
     ModelConfig,
     MoEConfig,
+    ShapeSpec,
     SSMConfig,
     XLSTMConfig,
     reduced,
+    shape_applicable,
 )
 from repro_torch.configs.arctic_480b import CONFIG as ARCTIC_480B
 from repro_torch.configs.deepseek_7b import CONFIG as DEEPSEEK_7B
@@ -50,11 +58,19 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = [
+    "ALL_SHAPES",
     "ARCHITECTURES",
+    "DECODE_32K",
+    "LONG_500K",
+    "PREFILL_32K",
+    "SHAPES_BY_NAME",
+    "TRAIN_4K",
     "ModelConfig",
     "MoEConfig",
+    "ShapeSpec",
     "SSMConfig",
     "XLSTMConfig",
     "get_config",
     "reduced",
+    "shape_applicable",
 ]

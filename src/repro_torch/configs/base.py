@@ -1,12 +1,16 @@
-"""Model configuration for the port: ``ModelConfig`` and ``reduced()``.
+"""Model configuration for the port: ``ModelConfig``, the input shapes
+(``ShapeSpec``) and ``reduced()``.
 
-The same dataclass and field names as the JAX package's ``configs/base.py``,
-so a config built on either side describes the same model.
+The same dataclasses and field names as the JAX package's
+``configs/base.py``, so a config built on either side describes the same
+model, and the same analytic parameter counts (``param_count``,
+``active_param_count``: ``models/registry.analytic_param_count``).
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Tuple
 
 # ---------------------------------------------------------------------------
 # Model configuration
@@ -124,8 +128,55 @@ class ModelConfig:
     def has_decoder(self) -> bool:
         return True  # every assigned arch has an autoregressive decoder
 
+    def param_count(self) -> int:
+        """Analytic parameter count (used for MODEL_FLOPS = 6*N*D)."""
+        from repro_torch.models.registry import analytic_param_count
+
+        return analytic_param_count(self)
+
+    def active_param_count(self) -> int:
+        """Parameters active per token (MoE: top-k experts only)."""
+        from repro_torch.models.registry import analytic_param_count
+
+        return analytic_param_count(self, active_only=True)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Input-shape configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = ShapeSpec("train_4k", seq_len=4096, global_batch=256, kind="train")
+PREFILL_32K = ShapeSpec("prefill_32k", seq_len=32768, global_batch=32, kind="prefill")
+DECODE_32K = ShapeSpec("decode_32k", seq_len=32768, global_batch=128, kind="decode")
+LONG_500K = ShapeSpec("long_500k", seq_len=524288, global_batch=1, kind="decode")
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a (arch x shape) cell is runnable, and why not if skipped."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, "pure full-attention arch: 500k dense KV decode skipped (DESIGN.md)"
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

@@ -25,10 +25,12 @@ gets the plain mean of the Sk value rows, as the plain version gives it,
 in a branch that only such rows take.  Both kernels live in
 ``csrc/flash_attention.cu``, which says why.
 
-Dispatch: a CPU tensor goes to the plain version (a port of the JAX
-package's naive oracle, ``kernels/ref.py:flash_attention_ref``); a CUDA
-tensor goes to the kernel of its dtype, and anything the kernels do not
-take raises.  ``flash_attention.launches`` counts kernel launches.
+Dispatch: an input that requires grad raises on either device
+(``guard.refuse_grad``: the kernel has no backward; training runs the
+plain attention); a CPU tensor goes to the plain version (a port of the
+JAX package's naive oracle, ``kernels/ref.py:flash_attention_ref``); a
+CUDA tensor goes to the kernel of its dtype, and anything the kernels do
+not take raises.  ``flash_attention.launches`` counts kernel launches.
 ``flash_attention_tiled_ref`` repeats the tensor-core kernel's arithmetic
 (online softmax over 64-key tiles, weights rounded to bf16 before PV) in
 plain PyTorch for the tests; nothing on the card path calls it.
@@ -41,6 +43,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import refuse_grad
 from repro_torch.kernels.paged_attention import pad_heads
 
 NEG_INF = -1e30
@@ -135,6 +138,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     """Forward attention.  q: [B, H, Sq, D]; k, v: [B, KV, Sk, D], any
     strides with D contiguous -> [B, H, Sq, D] (a view of a [B, Sq, H, D]
     buffer on the card, so ``out.transpose(1, 2)`` is contiguous)."""
+    refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     name = "flash_attention"

@@ -8,8 +8,10 @@ through ``gather_payloads``: two launches (k and v) per job.  It is bound by
 bytes — each byte is read once and written once with no arithmetic — so the
 kernel copies 16-byte vectors and spreads every page over a row of CTAs.
 
-Dispatch: a CPU tensor goes to the plain version (``index_select``); a CUDA
-tensor goes to the kernel, and anything the kernel does not take raises.
+Dispatch: a source that requires grad raises on either device
+(``guard.refuse_grad``: the kernel has no backward); a CPU tensor goes to
+the plain version (``index_select``); a CUDA tensor goes to the kernel, and
+anything the kernel does not take raises.
 ``kv_block_copy.launches`` counts kernel launches.  ``gather_payloads``
 takes the per-array copy only for payloads whose shapes cannot form one
 uniform page layout — a choice made from the shapes before any launch and
@@ -25,6 +27,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import refuse_grad
 
 
 def _lib() -> ctypes.CDLL:
@@ -51,6 +54,7 @@ def kv_block_copy(src_pages: torch.Tensor, indices) -> torch.Tensor:
     kernel copies bytes); indices: [M] host ints (a CUDA tensor raises),
     validated against N on the host before the launch -> [M, page, KV, D].
     """
+    refuse_grad("kv_block_copy", src_pages)
     if src_pages.device.type == "cpu":
         return kv_block_copy_ref(src_pages, torch.as_tensor(indices))
     if src_pages.device.type != "cuda":

@@ -52,9 +52,11 @@ prefill work would be bound by operations).  The kernels look page ids up in
 the block table themselves and never load pages past ``prefix_len`` or
 before the window (see the sources for the designs).
 
-Dispatch: a CPU tensor goes to the plain version (a port of the JAX
-package's dense-gather oracle, ``kernels/ref.py``); a CUDA tensor goes to the
-kernel, and anything the kernel does not take raises.  Each wrapper counts
+Dispatch: an input that requires grad raises on either device
+(``guard.refuse_grad``: the kernels have no backward); a CPU tensor goes
+to the plain version (a port of the JAX package's dense-gather oracle,
+``kernels/ref.py``); a CUDA tensor goes to the kernel, and anything the
+kernel does not take raises.  Each wrapper counts
 its launches in ``<wrapper>.launches``.  ``paged_decode_split_partials``,
 ``paged_prefill_split_partials`` and ``merge_split_partials`` repeat the
 split-KV kernels' arithmetic in plain PyTorch for the tests; nothing on the
@@ -68,6 +70,7 @@ import math
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.guard import refuse_grad
 
 NEG_INF = -1e30
 
@@ -502,6 +505,7 @@ def paged_decode_attention(
     strides with D contiguous, the same for k and v); tail_pos: [B, T] int32
     (-1 = empty) -> [B, KV, G, D].
     """
+    refuse_grad("paged_decode_attention", q, k_pages, v_pages, k_tail, v_tail)
     if q.device.type == "cpu":
         return paged_decode_attention_ref(
             q, k_pages, v_pages, block_tables, prefix_len, k_tail, v_tail,
@@ -542,6 +546,7 @@ def paged_prefill_attention(
     [KV, N, page, D]; block_tables: [B, P] int32; prefix_len: [B] int32;
     k/v_chunk: [B, KV, C, D] (same strides for k and v) -> [B, KV, G, C, D].
     """
+    refuse_grad("paged_prefill_attention", q, k_pages, v_pages, k_chunk, v_chunk)
     if q.device.type == "cpu":
         return paged_prefill_attention_ref(
             q, k_pages, v_pages, block_tables, prefix_len, k_chunk, v_chunk,
@@ -600,6 +605,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, softcap: floa
     ``ceil(lengths[b] / page)`` are never read); lengths: [B] int32
     -> [B, KV, G, D].
     """
+    refuse_grad("paged_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, softcap=softcap)
     B, KV, G, D = q.shape

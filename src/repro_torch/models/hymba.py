@@ -14,9 +14,15 @@ under the model's window; decode attends the ring with the plain
 JAX package's layout after a prefill longer than it: the trailing
 ``Sc`` positions land in slots ``0..Sc-1``, where decode then writes
 position p at slot ``p % Sc``.
+
+``loss_fn`` trains it as the reference does: each layer rematerialized,
+the attention half the plain chunked ``attention_prefill``
+(``remat=True``; no kernel), the SSM scan checkpointed per chunk of
+tokens (``layers.chunked_recurrent_scan``).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List
 
 import torch
@@ -29,17 +35,20 @@ from repro_torch.models.layers import (
     attn_decode_layer,
     attn_init,
     attn_prefill_layer,
+    chunked_cross_entropy,
     decode_slot,
     embed_init,
     make_norm,
     mlp_apply,
     mlp_init,
+    remat_call,
     slot_update,
 )
 from repro_torch.models.transformer import (
     _device_generator,
     embed_tokens,
     layer_params,
+    shifted_labels,
     unembed,
 )
 
@@ -92,27 +101,53 @@ def _stack_states(states: List[Dict[str, torch.Tensor]]):
     return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
 
-def forward_hidden(params, cfg, x, positions, ssm_states, *, collect_cache: bool = False):
+def _layer(lp, st, x, cfg, positions, remat: bool = False):
+    """One layer: (x out, (k, v), new SSM state)."""
+    h = apply_norm(cfg.norm, lp["ln1"], x)
+    a, kv = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=True, remat=remat)
+    s, nst = ssm_lib.ssm_forward(lp["ssm"], cfg, h, st)
+    x = x + 0.5 * (a + s)
+    h = apply_norm(cfg.norm, lp["ln2"], x)
+    return x + mlp_apply(lp["mlp"], h, cfg.activation), kv, nst
+
+
+def forward_hidden(params, cfg, x, positions, ssm_states, *, collect_cache: bool = False,
+                   remat: bool = False):
     """The layer stack over a full-length prefill.  x: [B, S, d];
     ``positions`` must be ``arange(S)`` in every row (the flash-attention
-    kernel's contract, ``attn_prefill_layer``).  Returns (hidden, ys) with
-    ys = (k, v [L, B, S, KV, Dh], ssm states) or (ssm states,)."""
+    kernel's contract, ``attn_prefill_layer``).  ``remat`` (training) runs
+    each layer as one ``remat_call`` over the plain attention.  Returns
+    (hidden, ys) with ys = (k, v [L, B, S, KV, Dh], ssm states) or (ssm
+    states,)."""
     ks, vs, states = [], [], []
     for i, lp in enumerate(layer_params(params["layers"], cfg.num_layers)):
-        h = apply_norm(cfg.norm, lp["ln1"], x)
-        a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=True)
-        s, nst = ssm_lib.ssm_forward(lp["ssm"], cfg, h, _layer_state(ssm_states, i))
-        x = x + 0.5 * (a + s)
-        h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
-        if collect_cache:
-            ks.append(k_)
-            vs.append(v_)
+        st = _layer_state(ssm_states, i)
+        if remat:
+            x, _, nst = remat_call(partial(_layer, cfg=cfg, positions=positions, remat=True),
+                                   lp, st, x)
+        else:
+            x, (k_, v_), nst = _layer(lp, st, x, cfg, positions)
+            if collect_cache:
+                ks.append(k_)
+                vs.append(v_)
         states.append(nst)
     nst = _stack_states(states)
     if collect_cache:
         return x, (torch.stack(ks), torch.stack(vs), nst)
     return x, (nst,)
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token LM loss (0-d f32) over ``batch["tokens"]`` [B, S], from
+    zero SSM states."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(params, cfg, tokens)
+    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    states = ssm_lib.ssm_state_init(cfg, B, lead=(cfg.num_layers,), device=tokens.device)
+    x, _ = forward_hidden(params, cfg, x, positions, states, remat=True)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    return chunked_cross_entropy(x, unembed(cfg, params), shifted_labels(tokens))
 
 
 def prefill(params, cfg, batch, cache_len: int):

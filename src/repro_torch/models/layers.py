@@ -1,4 +1,4 @@
-"""Model building blocks on the serving paths (PyTorch).
+"""Model building blocks on the serving and training paths (PyTorch).
 
 Counterparts of the JAX package's ``models/layers.py`` functions, with the
 same names, argument orders and tensor layouts.  Parameters are nested
@@ -10,13 +10,24 @@ and cross attention) hands its attention to ``kernels.flash_attention``: a
 CUDA tensor launches the hand-written kernel, a CPU tensor takes the plain
 version.  Dense-cache decode attention (``attention_decode``) is plain
 PyTorch on either device, as the JAX package leaves it outside any kernel.
+
+Training (``remat=True``) follows the reference's training formulation,
+which runs no Pallas kernel: attention is the plain chunked
+``attention_prefill`` on every device, one checkpointed call per query
+block (the reference's ``jax.checkpoint`` "flash backward: recompute"), the
+loss is ``chunked_cross_entropy`` with each chunk's logits checkpointed,
+and ``chunked_recurrent_scan`` checkpoints each chunk of tokens.  None of
+the kernels has a backward in either package; their wrappers refuse an
+input that requires grad (``kernels/guard.py``).
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
@@ -109,6 +120,21 @@ def sinusoidal_positions(length: int, dim: int, device=None):
 
 
 # ---------------------------------------------------------------------------
+# rematerialization (jax.checkpoint)
+# ---------------------------------------------------------------------------
+
+
+def remat_call(fn, *args):
+    """``fn(*args)``, saving only its inputs for the backward, which runs
+    ``fn`` again (``jax.checkpoint``).  Without grad it is a plain call.
+    Nothing rematerialized here draws random numbers, so no RNG state is
+    stashed."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+# ---------------------------------------------------------------------------
 # recurrent scan (SSM and xLSTM blocks)
 # ---------------------------------------------------------------------------
 
@@ -138,20 +164,32 @@ def chunked_recurrent_scan(step, init, xs, *, chunk: int = 128):
     for t = 0..S-1 in order; returns (carry, ys stacked on a leading S).
 
     xs is a tuple of tensors with leading dim S; ys may be any tree.  The
-    JAX package walks the tokens in chunks of ``pick_chunk(S, chunk)`` under
-    ``jax.checkpoint`` to bound training memory; for serving (no backward)
-    the same chunks are walked token by token in plain PyTorch, one small
-    launch group per token, which is what the card runs (not a kernel: the
-    JAX package runs this scan outside any Pallas kernel too).
+    tokens are walked one by one in plain PyTorch, one small launch group
+    per token, which is what the card runs (not a kernel: the JAX package
+    runs this scan outside any Pallas kernel too).  With grad enabled each
+    chunk of ``pick_chunk(S, chunk)`` tokens is one ``remat_call``, as the
+    JAX package runs each chunk under ``jax.checkpoint`` to bound training
+    memory: the backward keeps the carries at chunk boundaries only.
     """
     S = xs[0].shape[0]
-    c = pick_chunk(S, chunk)
+    if torch.is_grad_enabled():
+        c = pick_chunk(S, chunk)
+        carry, parts = init, []
+        for t0 in range(0, S, c):
+            carry, ys = remat_call(partial(_scan_tokens, step), carry,
+                                   *(a[t0 : t0 + c] for a in xs))
+            parts.append(ys)
+        return carry, tree_map(lambda *ts: torch.cat(ts), *parts)
+    return _scan_tokens(step, init, *xs)
+
+
+def _scan_tokens(step, carry, *xs):
+    """``step`` over every token of xs in order; ys stacked on a leading S."""
     per_token = [a.unbind(0) for a in xs]  # one split each, not S index ops
-    carry, ys = init, []
-    for t0 in range(0, S, c):
-        for t in range(t0, t0 + c):
-            carry, y = step(carry, tuple(a[t] for a in per_token))
-            ys.append(y)
+    ys = []
+    for t in range(xs[0].shape[0]):
+        carry, y = step(carry, tuple(a[t] for a in per_token))
+        ys.append(y)
     return carry, tree_map(lambda *ts: torch.stack(ts), *ys)
 
 
@@ -162,50 +200,60 @@ def chunked_recurrent_scan(step, init, xs, *, chunk: int = 128):
 
 def attention_prefill(
     q, k, v, *, q_positions, kv_positions, causal: bool = True, window: int = 0,
-    softcap: float = 0.0, q_chunk: int = 512, kv_chunk: int = 1024,
+    softcap: float = 0.0, q_chunk: int = 512, kv_chunk: int = 1024, remat: bool = False,
 ):
     """Chunked online-softmax attention (plain PyTorch).
 
     q: [B, Sq, H, D]; k, v: [B, Sk, KV, D]; positions: [B, S*] (kv position
     -1 = padding).  GQA without repeating KV.  Returns [B, Sq, H, D].
+    ``remat`` runs each query block as one ``remat_call``: the backward
+    recomputes the block's scores and never holds [Sq, Sk] of them.
     """
     B, Sq, H, D = q.shape
-    Skv, KV = k.shape[1], k.shape[2]
+    KV = k.shape[2]
     G = H // KV
-    scale = 1.0 / math.sqrt(D)
     qg = q.reshape(B, Sq, KV, G, D).permute(0, 2, 3, 1, 4)  # [B, KV, G, Sq, D]
     kb = k.permute(0, 2, 1, 3)  # [B, KV, Sk, D]
     vb = v.permute(0, 2, 1, 3)
+    block = partial(_attend_q_block, causal=causal, window=window, softcap=softcap,
+                    kv_chunk=kv_chunk)
     outs = []
     for q0 in range(0, Sq, q_chunk):
-        qb = qg[:, :, :, q0 : q0 + q_chunk]
-        qp = q_positions[:, q0 : q0 + q_chunk]
-        cq = qb.shape[3]
-        m = torch.full((B, KV, G, cq), NEG_INF, dtype=torch.float32, device=q.device)
-        l = torch.zeros_like(m)
-        acc = torch.zeros((B, KV, G, cq, D), dtype=torch.float32, device=q.device)
-        for k0 in range(0, Skv, kv_chunk):
-            kc, vc = kb[:, :, k0 : k0 + kv_chunk], vb[:, :, k0 : k0 + kv_chunk]
-            kp = kv_positions[:, k0 : k0 + kv_chunk]
-            s = torch.einsum("bkgqd,bksd->bkgqs", qb, kc).float() * scale
-            if softcap:
-                s = softcap * torch.tanh(s / softcap)
-            mask = (kp >= 0)[:, None, None, None, :]
-            if causal:
-                mask = mask & (qp[:, None, None, :, None] >= kp[:, None, None, None, :])
-            if window:
-                mask = mask & (qp[:, None, None, :, None] - kp[:, None, None, None, :] < window)
-            s = torch.where(mask, s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            pv = torch.einsum("bkgqs,bksd->bkgqd", p.to(vc.dtype), vc)
-            acc = acc * corr[..., None] + pv.float()
-            m = m_new
-        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+        args = (qg[:, :, :, q0 : q0 + q_chunk], q_positions[:, q0 : q0 + q_chunk],
+                kb, vb, kv_positions)
+        outs.append(remat_call(block, *args) if remat else block(*args))
     out = torch.cat(outs, dim=3)  # [B, KV, G, Sq, D]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _attend_q_block(qb, qp, kb, vb, kv_positions, *, causal, window, softcap, kv_chunk):
+    """One query block qb [B, KV, G, cq, D] at positions qp [B, cq] over
+    every key chunk of kb, vb [B, KV, Sk, D]: f32 [B, KV, G, cq, D]."""
+    B, KV, G, cq, D = qb.shape
+    scale = 1.0 / math.sqrt(D)
+    m = torch.full((B, KV, G, cq), NEG_INF, dtype=torch.float32, device=qb.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, G, cq, D), dtype=torch.float32, device=qb.device)
+    for k0 in range(0, kb.shape[2], kv_chunk):
+        kc, vc = kb[:, :, k0 : k0 + kv_chunk], vb[:, :, k0 : k0 + kv_chunk]
+        kp = kv_positions[:, k0 : k0 + kv_chunk]
+        s = torch.einsum("bkgqd,bksd->bkgqs", qb, kc).float() * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        mask = (kp >= 0)[:, None, None, None, :]
+        if causal:
+            mask = mask & (qp[:, None, None, :, None] >= kp[:, None, None, None, :])
+        if window:
+            mask = mask & (qp[:, None, None, :, None] - kp[:, None, None, None, :] < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bksd->bkgqd", p.to(vc.dtype), vc)
+        acc = acc * corr[..., None] + pv.float()
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
 def attention_contiguous(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
@@ -355,7 +403,8 @@ def attn_qkv(p, cfg, x, positions, *, use_rope: bool = True):
     return q, k, v
 
 
-def attn_prefill_layer(p, cfg, x, positions, *, causal=True, use_rope=True, contiguous=False):
+def attn_prefill_layer(p, cfg, x, positions, *, causal=True, use_rope=True, contiguous=False,
+                       remat=False):
     """Full attention layer at prefill; returns (out, (k, v)).
 
     ``causal=False`` lets every query see every key (whisper's encoder).
@@ -368,10 +417,18 @@ def attn_prefill_layer(p, cfg, x, positions, *, causal=True, use_rope=True, cont
     would wait for the device).  A CPU tensor runs the plain
     ``attention_prefill`` over ``positions``, and raises if it was told
     they are contiguous and they are not.
+
+    ``remat=True`` is the training route, on either device: the plain
+    ``attention_prefill`` over ``positions`` with each query block
+    rematerialized, the reference's training attention (the kernel has no
+    backward).
     """
     q, k, v = attn_qkv(p, cfg, x, positions, use_rope=use_rope)
     kwargs = dict(causal=causal, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
-    if q.device.type == "cpu":
+    if remat:
+        out = attention_prefill(q, k, v, q_positions=positions, kv_positions=positions,
+                                remat=True, **kwargs)
+    elif q.device.type == "cpu":
         if contiguous and not torch.equal(
             positions, torch.arange(x.shape[1]).expand_as(positions).to(positions.dtype)
         ):
@@ -481,3 +538,40 @@ def mlp_apply(p, x, activation: str):
     if activation == "silu":
         return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
     return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# losses (seq-chunked)
+# ---------------------------------------------------------------------------
+
+
+def chunked_cross_entropy(x, w_unembed, labels, *, chunk: int = 512):
+    """Mean token cross-entropy without materializing [B, S, V] at once.
+
+    x: [B, S, d] final hidden states; w_unembed: [d, V]; labels: [B, S]
+    (-1 = no label).  Each chunk of ``chunk`` positions is one
+    ``remat_call``, so its f32 logits [B, chunk, V] are never saved for the
+    backward.  A label outside [0, V) picks no logit, as the reference's
+    one-hot does.  Returns a 0-d f32 tensor.
+    """
+    S = x.shape[1]
+    c = min(chunk, S)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, c):
+        t, n = remat_call(_ce_chunk, x[:, s0 : s0 + c], w_unembed, labels[:, s0 : s0 + c])
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _ce_chunk(xc, w_unembed, lc):
+    """Summed cross-entropy of one chunk and its count of labelled positions."""
+    logits = (xc @ w_unembed).float()  # [B, c, V]
+    m = logits.amax(dim=-1)
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    V = logits.shape[-1]
+    hit = (lc >= 0) & (lc < V)
+    picked = logits.gather(-1, lc.long().clamp(0, V - 1)[..., None])[..., 0]
+    correct = torch.where(hit, picked, 0.0)
+    valid = (lc >= 0).float()
+    return ((lse - correct) * valid).sum(), valid.sum()

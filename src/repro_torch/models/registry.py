@@ -3,6 +3,9 @@ one bundle.
 
 ``build_model(cfg, device=None)`` returns a ``ModelBundle`` exposing:
   - init_params(generator)                         -> params on the device
+  - loss_fn(params, batch)                         -> 0-d f32 training loss
+    (the only entry point not run under ``torch.no_grad``: it follows the
+    caller's grad mode)
   - prefill_fn(params, batch, cache_len)           -> (last logits, cache or state)
   - decode_fn(params, cache, tokens, cur_pos)      -> (logits, cache or state)
   - make_cache(batch, cache_len)                   -> empty cache or state on the
@@ -23,9 +26,13 @@ Families: ``dense``, ``moe`` (grok-1-314b, arctic-480b) and ``vlm``
 ``prefill_fn`` takes ``{"frames", "tokens"}`` and which no engine serves,
 as in the JAX package.  Families other than the transformer ignore
 ``kv_cache_dtype``.
+
+``analytic_param_count`` is the reference's count (``MODEL_FLOPS = 6 * N *
+D`` uses it; ``ModelConfig.param_count`` calls it).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from functools import partial
 from typing import Any, Callable, Optional
@@ -40,11 +47,59 @@ from repro_torch.models import whisper as whisper_lib
 from repro_torch.models import xlstm as xlstm_lib
 
 
+# ---------------------------------------------------------------------------
+# analytic parameter counts (MODEL_FLOPS = 6 * N * D uses these)
+# ---------------------------------------------------------------------------
+
+
+def analytic_param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    d, ff, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.num_layers
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    embed = V * d * (1 if cfg.tie_embeddings else 2)
+
+    if cfg.family == "ssm":  # xlstm
+        per_m = 5 * d * d + 2 * d * cfg.num_heads  # q,k,v,g,o + i,f
+        per_s = 5 * d * d + 4 * cfg.num_heads * (d // cfg.num_heads) ** 2
+        G = L // (cfg.xlstm.mlstm_per_group + cfg.xlstm.slstm_per_group)
+        return embed + G * (cfg.xlstm.mlstm_per_group * per_m + cfg.xlstm.slstm_per_group * per_s)
+
+    attn = d * H * Dh + 2 * d * KV * Dh + H * Dh * d
+    mlp_mats = 3 if cfg.activation == "silu" else 2
+    dense_mlp = mlp_mats * d * ff
+
+    if cfg.moe.num_experts:
+        E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+        experts = (k if active_only else E) * mlp_mats * d * ff
+        per_layer = attn + experts + d * E
+        if cfg.moe.dense_residual:
+            per_layer += dense_mlp
+    else:
+        per_layer = attn + dense_mlp
+
+    if cfg.family == "hybrid":
+        di = cfg.ssm.expand * d
+        dt_rank = cfg.ssm.dt_rank or max(1, math.ceil(d / 16))
+        ssm = d * 2 * di + di * (dt_rank + 2 * cfg.ssm.state_dim) + dt_rank * di + di * d
+        per_layer = attn + ssm + dense_mlp
+
+    total = embed + L * per_layer
+    if cfg.is_encoder_decoder:
+        total += cfg.encoder_layers * (attn + dense_mlp)  # encoder stack
+        total += L * (attn)  # decoder cross-attention
+    return total
+
+
+# ---------------------------------------------------------------------------
+# bundle
+# ---------------------------------------------------------------------------
+
+
 @dataclass(frozen=True)
 class ModelBundle:
     cfg: ModelConfig
     device: torch.device
     init_params: Callable[[torch.Generator], Any]
+    loss_fn: Callable[..., torch.Tensor]
     prefill_fn: Callable[..., Any]
     decode_fn: Callable[..., Any]
     make_cache: Callable[..., Any]
@@ -63,6 +118,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
             cfg=cfg,
             device=dev,
             init_params=lambda generator: xlstm_lib.init_params(cfg, generator, dev),
+            loss_fn=lambda params, batch: xlstm_lib.loss_fn(params, cfg, batch),
             prefill_fn=partial(_call, xlstm_lib.prefill, cfg),
             decode_fn=partial(_call, xlstm_lib.decode_step, cfg),
             make_cache=lambda batch, cache_len, device=dev: xlstm_lib.init_state(cfg, batch, device),
@@ -72,6 +128,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
             cfg=cfg,
             device=dev,
             init_params=lambda generator: hymba_lib.init_params(cfg, generator, dev),
+            loss_fn=lambda params, batch: hymba_lib.loss_fn(params, cfg, batch),
             prefill_fn=partial(_call, hymba_lib.prefill, cfg),
             decode_fn=partial(_call, hymba_lib.decode_step, cfg),
             make_cache=lambda batch, cache_len, device=dev: hymba_lib.make_cache(
@@ -82,6 +139,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
             cfg=cfg,
             device=dev,
             init_params=lambda generator: whisper_lib.init_params(cfg, generator, dev),
+            loss_fn=lambda params, batch: whisper_lib.loss_fn(params, cfg, batch),
             prefill_fn=partial(_call, whisper_lib.prefill, cfg),
             decode_fn=partial(_call, whisper_lib.decode_step, cfg),
             make_cache=lambda batch, cache_len: whisper_lib.make_cache(cfg, batch, cache_len, dev),
@@ -97,6 +155,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
         cfg=cfg,
         device=dev,
         init_params=lambda generator: tf_lib.init_params(cfg, generator, dev),
+        loss_fn=lambda params, batch: tf_lib.loss_fn(params, cfg, batch),
         prefill_fn=partial(_call, tf_lib.prefill, cfg),
         decode_fn=partial(_call, tf_lib.decode_step, cfg),
         make_cache=lambda batch, cache_len: tf_lib.make_cache(cfg, batch, cache_len, device=dev),
@@ -107,3 +166,4 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
 def _call(fn, cfg, params, *args):
     with torch.no_grad():
         return fn(params, cfg, *args)
+

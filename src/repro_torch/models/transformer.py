@@ -29,9 +29,16 @@ paged decode step dispatches each row on its own, as the reference does on
 every backend but the TPU (its ``lax.map`` over rows); a prefill, a prefill
 chunk and a dense decode step dispatch the whole batch together, as the
 reference does everywhere.
+
+``loss_fn`` is the training objective, the reference's: the layer stack
+with each layer rematerialized and the plain chunked attention
+(``attn_prefill_layer(..., remat=True)``; no kernel), then
+``chunked_cross_entropy`` plus ``aux_coef`` times the MoE layers' GShard
+aux loss.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List
 
 import torch
@@ -46,11 +53,13 @@ from repro_torch.models.layers import (
     attn_paged_decode_layer,
     attn_paged_prefill_layer,
     attn_prefill_layer,
+    chunked_cross_entropy,
     decode_slot,
     embed_init,
     make_norm,
     mlp_apply,
     mlp_init,
+    remat_call,
     slot_update,
 )
 
@@ -121,14 +130,23 @@ def unembed(cfg, params):
 
 
 def layer_params(layers: Dict[str, Any], num_layers: int) -> List[Dict[str, Any]]:
-    """Per-layer views of a stacked-L parameter dict."""
+    """Per-layer views of a stacked-L parameter dict, the first
+    ``num_layers`` of them.  Each leaf is split by one ``unbind``, whose
+    backward stacks every layer's grad in one op (indexing the leaf once
+    per layer would add a full-size zero grad per layer)."""
+
+    def split(tree):
+        if isinstance(tree, dict):
+            return {k: split(v) for k, v in tree.items()}
+        return tree.unbind(0)
 
     def pick(tree, i):
         if isinstance(tree, dict):
             return {k: pick(v, i) for k, v in tree.items()}
         return tree[i]
 
-    return [pick(layers, i) for i in range(num_layers)]
+    parts = split(layers)
+    return [pick(parts, i) for i in range(num_layers)]
 
 
 def embed_tokens(params, cfg, tokens, extra_embeds=None):
@@ -143,16 +161,18 @@ def embed_tokens(params, cfg, tokens, extra_embeds=None):
 def _mlp_block(lp, cfg, h, *, per_row: bool = False):
     """The layer's MLP on h [B, S, d]: the dense MLP, or the MoE over all
     B * S tokens as one dispatch (``per_row``: one dispatch per row), plus
-    Arctic's dense residual MLP beside the experts."""
+    Arctic's dense residual MLP beside the experts.  Returns (out, aux):
+    the MoE's GShard aux loss summed over its dispatches (one without
+    ``per_row``), None for a dense MLP."""
     if not cfg.moe.num_experts:
-        return mlp_apply(lp["mlp"], h, cfg.activation)
+        return mlp_apply(lp["mlp"], h, cfg.activation), None
     B, S, d = h.shape
     groups = h if per_row else h.reshape(1, B * S, d)
-    m, _ = moe_lib.moe_apply_grouped(lp["moe"], groups, cfg)
+    m, aux = moe_lib.moe_apply_grouped(lp["moe"], groups, cfg)
     m = m.reshape(B, S, d)
     if cfg.moe.dense_residual:
         m = m + mlp_apply(lp["mlp"], h, cfg.activation)
-    return m
+    return m, aux.sum()
 
 
 # ---------------------------------------------------------------------------
@@ -160,27 +180,67 @@ def _mlp_block(lp, cfg, h, *, per_row: bool = False):
 # ---------------------------------------------------------------------------
 
 
+def _layer(lp, x, cfg, positions, *, contiguous: bool = False, remat: bool = False):
+    """One layer: (x out, MoE aux or None, (k, v))."""
+    h = apply_norm(cfg.norm, lp["ln1"], x)
+    a, kv = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=contiguous, remat=remat)
+    x = x + a
+    h = apply_norm(cfg.norm, lp["ln2"], x)
+    m, aux = _mlp_block(lp, cfg, h)
+    return x + m, aux, kv
+
+
 def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
-                   contiguous: bool = False):
+                   contiguous: bool = False, remat: bool = False):
     """Run the layer stack.  x: [B, S, d] embedded inputs.  ``contiguous``
     states that ``positions`` are ``arange(S)`` in every row, which the
     card's flash-attention kernel requires (``attn_prefill_layer``).
+    ``remat`` (training) runs each layer as one ``remat_call`` over the
+    plain attention, as the reference's ``jax.checkpoint``-ed scan body.
 
-    Returns (hidden [B, S, d], cache_kv or None); cache_kv is (k, v)
+    Returns (hidden [B, S, d], aux, cache_kv or None): aux is the MoE
+    layers' aux loss summed (f32 0 for a dense stack); cache_kv is (k, v)
     stacked [L, B, S, KV, Dh].
     """
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
     for lp in layer_params(params["layers"], cfg.num_layers):
-        h = apply_norm(cfg.norm, lp["ln1"], x)
-        a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=contiguous)
-        x = x + a
-        h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + _mlp_block(lp, cfg, h)
-        if collect_cache:
-            ks.append(k_)
-            vs.append(v_)
+        if remat:
+            x, aux_l, _ = remat_call(partial(_layer, cfg=cfg, positions=positions, remat=True),
+                                     lp, x)
+        else:
+            x, aux_l, (k_, v_) = _layer(lp, x, cfg, positions, contiguous=contiguous)
+            if collect_cache:
+                ks.append(k_)
+                vs.append(v_)
+        if aux_l is not None:
+            aux = aux + aux_l
     cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
-    return x, cache
+    return x, aux, cache
+
+
+def loss_fn(params, cfg, batch, *, aux_coef: float = 0.01):
+    """Next-token LM loss (0-d f32).  batch: ``tokens`` [B, S], and for the
+    VLM ``patch_embeds`` [B, P, d] in front of them (positions
+    ``arange(P + S)``; the P frontend positions carry no label)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x, positions = _embed_prompt(params, cfg, batch)
+    P = x.shape[1] - S
+    x, aux, _ = forward_hidden(params, cfg, x, positions, remat=True)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    labels = shifted_labels(tokens, P)
+    return chunked_cross_entropy(x, unembed(cfg, params), labels) + aux_coef * aux
+
+
+def shifted_labels(tokens, n_front: int = 0):
+    """Labels [B, n_front + S]: position t predicts token t + 1; the last
+    position and ``n_front`` frontend positions in front carry -1."""
+    B = tokens.shape[0]
+    labels = torch.cat([tokens[:, 1:], tokens.new_full((B, 1), -1)], dim=1)
+    if n_front:
+        labels = torch.cat([tokens.new_full((B, n_front), -1), labels], dim=1)
+    return labels
 
 
 def quantize_kv(x):
@@ -238,7 +298,7 @@ def prefill(params, cfg, batch, cache_len: int):
     ``p % Sc`` that decode later writes; the JAX package does the same)."""
     x, positions = _embed_prompt(params, cfg, batch)
     B, St = positions.shape
-    x, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True)
+    x, _, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = (x[:, -1] @ unembed(cfg, params)).float()
     cache = make_cache(cfg, B, cache_len, device=x.device)
@@ -277,7 +337,7 @@ def decode_step(params, cfg, cache, tokens, cur_pos):
         a, nk, nv = attn_decode_layer(lp["attn"], cfg, h, ck, cv, new_pos, cur_pos, slot)
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + _mlp_block(lp, cfg, h)
+        x = x + _mlp_block(lp, cfg, h)[0]
         if int8_kv:
             (nk, nks), (nv, nvs) = quantize_kv(nk), quantize_kv(nv)
             out["k_scale"].append(nks)
@@ -301,7 +361,7 @@ def prefill_collect(params, cfg, batch):
     x, positions = _embed_prompt(params, cfg, batch)
     B, St = positions.shape
     P = St - batch["tokens"].shape[1]
-    x, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True)
+    x, _, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     valid_len = batch.get("valid_len")
     if valid_len is None:
@@ -335,7 +395,7 @@ def prefill_chunk(params, cfg, state, tokens, positions):
         )
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + _mlp_block(lp, cfg, h)
+        x = x + _mlp_block(lp, cfg, h)[0]
         ks.append(k_)
         vs.append(v_)
     return torch.stack(ks), torch.stack(vs)
@@ -369,7 +429,7 @@ def paged_decode_step(params, cfg, state, tokens, cur_pos):
         )
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + _mlp_block(lp, cfg, h, per_row=True)
+        x = x + _mlp_block(lp, cfg, h, per_row=True)[0]
         ks.append(ntk)
         vs.append(ntv)
     x = apply_norm(cfg.norm, params["final_norm"], x)

@@ -23,9 +23,15 @@ all ``cross_attend_len`` rows, zero-filled ones included (with fewer
 frames than ``cross_attend_len`` a decode step therefore differs from a
 prefill of the same tokens: ROADMAP Queue 3).  No engine serves whisper;
 the bundle's ``prefill_fn``/``decode_fn`` are its entry points.
+
+``loss_fn`` trains it as the reference does: ``encode(remat=True)`` and
+``decode_prefill(remat=True)`` rematerialize each layer, and every
+attention, cross attention included, runs the plain chunked
+``attention_prefill`` (no kernel: K5 has no backward).
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict
 
 import torch
@@ -35,19 +41,27 @@ from repro_torch.models.layers import (
     apply_norm,
     attention_contiguous,
     attention_decode,
+    attention_prefill,
     attn_decode_layer,
     attn_init,
     attn_prefill_layer,
+    chunked_cross_entropy,
     decode_slot,
     dense_init,
     embed_init,
     make_norm,
     mlp_apply,
     mlp_init,
+    remat_call,
     sinusoidal_positions,
     slot_update,
 )
-from repro_torch.models.transformer import _device_generator, embed_tokens, layer_params
+from repro_torch.models.transformer import (
+    _device_generator,
+    embed_tokens,
+    layer_params,
+    shifted_labels,
+)
 
 DEC_LEN = 448  # whisper's longest decoder sequence
 
@@ -93,19 +107,26 @@ def _arange_rows(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
-def encode(params, cfg, frames):
-    """frames: [B, S, d] stub embeddings -> encoder states [B, S, d]."""
+def _enc_layer(lp, x, cfg, positions, remat: bool = False):
+    h = apply_norm(cfg.norm, lp["ln1"], x)
+    a, _ = attn_prefill_layer(
+        lp["attn"], cfg, h, positions, causal=False, use_rope=False, contiguous=True, remat=remat
+    )
+    x = x + a
+    h = apply_norm(cfg.norm, lp["ln2"], x)
+    return x + mlp_apply(lp["mlp"], h, cfg.activation)
+
+
+def encode(params, cfg, frames, *, remat: bool = False):
+    """frames: [B, S, d] stub embeddings -> encoder states [B, S, d].
+    ``remat`` (training): each layer one ``remat_call`` over the plain
+    attention."""
     B, S, d = frames.shape
     x = frames + sinusoidal_positions(S, d, device=frames.device)[None]
     positions = _arange_rows(B, S, frames.device)
+    layer = partial(_enc_layer, cfg=cfg, positions=positions, remat=remat)
     for lp in layer_params(params["enc_layers"], cfg.encoder_layers):
-        h = apply_norm(cfg.norm, lp["ln1"], x)
-        a, _ = attn_prefill_layer(
-            lp["attn"], cfg, h, positions, causal=False, use_rope=False, contiguous=True
-        )
-        x = x + a
-        h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+        x = remat_call(layer, lp, x) if remat else layer(lp, x)
     return apply_norm(cfg.norm, params["enc_norm"], x)
 
 
@@ -119,37 +140,63 @@ def _cross_kv(lp, cfg, enc_states):
     return k, v
 
 
-def _cross_attend(lp, cfg, x, xk, xv):
-    """Non-causal attention from x [B, S, d] over xk, xv [B, T, KV, Dh]."""
+def _cross_attend(lp, cfg, x, xk, xv, remat: bool = False):
+    """Non-causal attention from x [B, S, d] over xk, xv [B, T, KV, Dh];
+    ``remat``: the plain attention with each query block rematerialized."""
     B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.resolved_head_dim
     q = (x @ lp["xattn"]["wq"]).reshape(B, S, H, Dh)
-    out = attention_contiguous(q, xk, xv, causal=False)
+    if remat:
+        T = xk.shape[1]
+        out = attention_prefill(q, xk, xv, q_positions=_arange_rows(B, S, x.device),
+                                kv_positions=_arange_rows(B, T, x.device), causal=False,
+                                remat=True)
+    else:
+        out = attention_contiguous(q, xk, xv, causal=False)
     return out.reshape(B, S, -1) @ lp["xattn"]["wo"]
 
 
-def decode_prefill(params, cfg, tokens, enc_states, *, collect_cache: bool = False):
+def _dec_layer(lp, x, enc_states, cfg, positions, remat: bool = False):
+    """One decoder layer: (x out, (k, v, xk, xv))."""
+    h = apply_norm(cfg.norm, lp["ln1"], x)
+    a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions, use_rope=False,
+                                     contiguous=True, remat=remat)
+    x = x + a
+    h = apply_norm(cfg.norm, lp["lnx"], x)
+    xk, xv = _cross_kv(lp, cfg, enc_states)
+    x = x + _cross_attend(lp, cfg, h, xk, xv, remat=remat)
+    h = apply_norm(cfg.norm, lp["ln2"], x)
+    return x + mlp_apply(lp["mlp"], h, cfg.activation), (k_, v_, xk, xv)
+
+
+def decode_prefill(params, cfg, tokens, enc_states, *, collect_cache: bool = False,
+                   remat: bool = False):
     """Decoder forward over a token prefix.  Returns (hidden [B, S, d],
-    (k, v, xk, xv) stacked on a leading L, or None)."""
+    (k, v, xk, xv) stacked on a leading L, or None).  ``remat``
+    (training): each layer one ``remat_call`` over the plain attention."""
     B, S = tokens.shape
     d = cfg.d_model
     x = embed_tokens(params, cfg, tokens) + sinusoidal_positions(S, d, device=tokens.device)[None]
     positions = _arange_rows(B, S, tokens.device)
     ys = []
     for lp in layer_params(params["dec_layers"], cfg.num_layers):
-        h = apply_norm(cfg.norm, lp["ln1"], x)
-        a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions, use_rope=False,
-                                         contiguous=True)
-        x = x + a
-        h = apply_norm(cfg.norm, lp["lnx"], x)
-        xk, xv = _cross_kv(lp, cfg, enc_states)
-        x = x + _cross_attend(lp, cfg, h, xk, xv)
-        h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg.activation)
-        if collect_cache:
-            ys.append((k_, v_, xk, xv))
+        if remat:
+            x, _ = remat_call(partial(_dec_layer, cfg=cfg, positions=positions, remat=True),
+                              lp, x, enc_states)
+        else:
+            x, kv = _dec_layer(lp, x, enc_states, cfg, positions)
+            if collect_cache:
+                ys.append(kv)
     cache = tuple(torch.stack(t) for t in zip(*ys)) if collect_cache else None
     return apply_norm(cfg.norm, params["final_norm"], x), cache
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token LM loss (0-d f32).  batch: ``frames`` [B, T, d] (the stub
+    frontend's embeddings) and ``tokens`` [B, S]."""
+    enc_states = encode(params, cfg, batch["frames"], remat=True)
+    x, _ = decode_prefill(params, cfg, batch["tokens"], enc_states, remat=True)
+    return chunked_cross_entropy(x, params["embed"].T, shifted_labels(batch["tokens"]))
 
 
 def make_cache(cfg, batch: int, cache_len: int, device: DeviceLike = None):

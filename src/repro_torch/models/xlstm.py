@@ -12,6 +12,10 @@ Both block types are the stabilized-exponential-gating recurrent form
 (``chunked_recurrent_scan``).  Decode is O(1) in context length.  A
 ResidentClaim on an xLSTM context covers the (C, n, m) matrix-memory
 snapshot rather than KV blocks: predicate ``state_at_token(k)``.
+
+``loss_fn`` trains it as the reference does: no per-layer remat, the
+recurrences checkpointed per chunk of ``xlstm.chunk_size`` tokens
+(``layers.chunked_recurrent_scan``), the embedding as the unembedding.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import (
     DEFAULT_DTYPE,
     apply_norm,
+    chunked_cross_entropy,
     chunked_recurrent_scan,
     dense_init,
     embed_init,
@@ -32,7 +37,7 @@ from repro_torch.models.layers import (
     rms_norm,
     tree_map,
 )
-from repro_torch.models.transformer import _device_generator, embed_tokens
+from repro_torch.models.transformer import _device_generator, embed_tokens, shifted_labels
 
 # ---------------------------------------------------------------------------
 # mLSTM block
@@ -258,6 +263,16 @@ def _stack_forward(params, cfg, x, state):
             row.append(nst)
         new_s.append(row)
     return x, {"mlstm": _stack(new_m), "slstm": _stack(new_s)}
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token LM loss (0-d f32) over ``batch["tokens"]`` [B, S], from
+    zero states."""
+    tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens)
+    x, _ = _stack_forward(params, cfg, x, init_state(cfg, tokens.shape[0], device=tokens.device))
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    return chunked_cross_entropy(x, params["embed"].T, shifted_labels(tokens))
 
 
 def prefill(params, cfg, batch, cache_len: int = 0):

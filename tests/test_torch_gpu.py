@@ -20,7 +20,10 @@ run on the card against the CPU, and the page copy takes odd-sized
 encoder over 1500 frames, cross attention Sq != Sk over 1500 states, a
 ragged 1499); reduced whisper and reduced int8 qwen3 run on the card
 against the CPU, and an int8 engine's offload and restore move int8 pages
-through K3.
+through K3.  Training: a reduced training step on the card against the
+CPU (loss, grads, updated masters), every kernel wrapper refusing a
+grad-requiring CUDA input, and ``Trainer`` on the card by default, none of
+them launching a kernel.
 """
 import numpy as np
 import pytest
@@ -1017,3 +1020,105 @@ def test_int8_offload_and_restore_launch_k3(dev):
         assert not eng.fail_closed_total()
     assert kbc.kv_block_copy.launches >= k3 + 4  # k and v, offload and restore
     assert kbc.gather_payloads.plain_copies == plain0
+
+
+def _launch_counts():
+    return (fa.flash_attention.launches, kbc.kv_block_copy.launches,
+            pa.paged_decode_attention.launches, pa.paged_prefill_attention.launches,
+            pa.paged_attention.launches)
+
+
+def test_training_step_on_card_matches_cpu(dev):
+    """Reduced qwen3-1.7b: the loss and every grad of one training forward
+    and backward on the card against the CPU from the same f32 masters
+    (bf16 compute: loss within 2e-2, each grad leaf within 4e-2 of its
+    largest |g|, the bf16 tolerance of tests/test_torch_train_archs.py),
+    then one ``Trainer`` step on each: the updated masters within two
+    step-1 learning rates (an Adam step moves an element by about lr, so a
+    grad near zero whose sign differs moves it the other way).  No kernel
+    launches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import Trainer
+    from repro_torch.training.tree import leaves, map_tree
+
+    cfg = reduced(get_config("qwen3-1.7b"))
+    opt = AdamWConfig(lr=3e-3, warmup_steps=5)
+    trainers = {}
+    for d in ("cpu", dev):
+        tr = Trainer(build_model(cfg, device="cpu"), data_cfg=DataConfig(cfg.vocab_size, 32, 4),
+                     opt_cfg=opt)
+        if d == dev:
+            tr.remesh(dev)
+        trainers[str(d)] = tr
+    before = _launch_counts()
+    grads, losses = {}, {}
+    for d, tr in trainers.items():
+        compute = map_tree(lambda p: p.to(torch.bfloat16).requires_grad_(), tr.params)
+        loss = tr.bundle.loss_fn(compute, tr.batch_at(0))
+        g = torch.autograd.grad(loss, leaves(compute))
+        grads[d], losses[d] = [x.float().cpu() for x in g], float(loss.detach())
+    assert abs(losses[str(dev)] - losses["cpu"]) <= 2e-2
+    for a, b in zip(grads[str(dev)], grads["cpu"]):
+        assert (a - b).abs().max() <= 4e-2 * b.abs().max()
+    for tr in trainers.values():
+        tr.run(1, log_every=0)
+    assert _launch_counts() == before
+    lr1 = opt.lr / opt.warmup_steps
+    for a, b in zip(leaves(trainers[str(dev)].params), leaves(trainers["cpu"].params)):
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2 * lr1)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5"])
+def test_kernel_wrappers_refuse_grad_on_card(dev, kernel):
+    """A CUDA input that requires grad raises before any launch: the
+    kernels return tensors with no grad_fn, so reaching one in a training
+    forward would silently drop the gradient of what came before it."""
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    q = torch.zeros((1, 1, 2, 16), **bf).requires_grad_()
+    pages = torch.zeros((1, 2, 16, 16), **bf)
+    one = torch.ones((1,), **i32)
+    calls = {
+        "K1": lambda: pa.paged_decode_attention(
+            q, pages, pages, torch.zeros((1, 1), **i32), one, torch.zeros((1, 1, 2, 16), **bf),
+            torch.zeros((1, 1, 2, 16), **bf), torch.full((1, 2), -1, **i32), one),
+        "K2": lambda: pa.paged_prefill_attention(
+            q[:, :, :, None].expand(1, 1, 2, 4, 16), pages, pages, torch.zeros((1, 1), **i32),
+            one, torch.zeros((1, 1, 4, 16), **bf), torch.zeros((1, 1, 4, 16), **bf)),
+        "K3": lambda: kbc.kv_block_copy(pages[0].requires_grad_(), [1, 0]),
+        "K4": lambda: pa.paged_attention(q, pages, pages, torch.zeros((1, 1), **i32), one),
+        "K5": lambda: fa.flash_attention(torch.zeros((1, 2, 4, 16), **bf).requires_grad_(),
+                                         pages, pages),
+    }
+    before = _launch_counts()
+    with pytest.raises(RuntimeError, match="the kernel has no backward"):
+        calls[kernel]()
+    assert _launch_counts() == before
+
+
+def test_trainer_runs_on_card_by_default(dev):
+    """``Trainer`` on a bundle built with no device runs on the card: its
+    masters and moments live there, two steps give finite losses that fall
+    from about ln(V), and no kernel launches."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import Trainer
+    from repro_torch.training.tree import leaves
+
+    cfg = reduced(get_config("qwen3-1.7b"))
+    tr = Trainer(build_model(cfg), data_cfg=DataConfig(cfg.vocab_size, 32, 4),
+                 opt_cfg=AdamWConfig(lr=3e-3, warmup_steps=5))
+    assert tr.device.type == "cuda"
+    before = _launch_counts()
+    metrics = tr.run(3, log_every=0)
+    assert _launch_counts() == before
+    assert all(t.device.type == "cuda" for t in leaves({"p": tr.params, "o": tr.opt_state}))
+    losses = [m["loss"] for m in metrics]
+    assert np.isfinite(losses).all() and abs(losses[0] - np.log(cfg.vocab_size)) < 0.5
+    assert losses[-1] < losses[0]

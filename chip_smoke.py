@@ -117,6 +117,24 @@ model freed before the next (the depth cuts are printed):
      2 x 256) and phi-3-vision-4.2b (4 layers, 576 patches + 64 tokens).
      The training forward is the reference's (plain chunked attention
      under rematerialization): no kernel may launch in (a), (b) or (d).
+ 18. distribution, on a one-rank NCCL group (a 1 x 1 ``data, model``
+     mesh, rank, world size and a localhost port passed explicitly): (a)
+     ``launch.steps.build_cell("qwen3-1.7b", "train_4k")`` at full width
+     and depth, 4 x 4096 tokens, lr 3e-5, three sharded steps on DTensors
+     against ``Trainer.train_step`` from the same seed-0 masters and
+     batches (losses and grad norms within 1e-3 relative), step seconds
+     beside the unsharded ones; (b) a sharded prefill cell at 4 x 2048
+     against ``prefill_fn`` (max |d| 0.25, the same argmax) whose sharded
+     attention body launches K5 once per layer (28); (c) a sharded decode
+     cell, 8 rows over 4096 slots, 4 steps, against ``decode_fn``; (d)
+     ``compressed_psum`` on a 2048 x 151936 f32 leaf, bitwise
+     ``compress_roundtrip``, its bytes against bf16's; (e)
+     ``moe_apply_sharded`` ep, tp and a2a on one full-width grok-1-314b
+     layer against ``moe_apply_local``; (f) three dry-run cells (qwen3
+     train_4k and decode_32k on 256 fake ranks, grok-1-314b train_4k on
+     512), each in a subprocess on the CPU started when the smoke starts
+     (the fake backend cannot share this process's default group with
+     NCCL): status ok, all-gather bytes in the train cells.
 After phase 2, the card tests that make K1's and K2's launch fail (their
 library entry points return a CUDA error) run in a child pytest: both
 must become fail-closed refusals with every pin unwound.
@@ -131,7 +149,7 @@ and K5 at whisper-small's shapes of phase 16 (the non-causal encoder over
 cross attention from 64 and from 448 tokens over 1500 states), beside
 scaled_dot_product_attention.
 Every launch count is zeroed
-just before each path of phases 3-17 and read just after it, so the counts
+just before each path of phases 3-18 and read just after it, so the counts
 show each path itself went through its kernels.  The line before the
 kernels' JSON record gives the smoke's wall and each path's.
 The last two lines are the kernels' JSON record and the device JSON line.
@@ -313,6 +331,7 @@ def kernel_phase(gen_seed: int = 0):
     snapshot_kernel_rows(dev, rnd)
     moe_vlm_kernel_rows(dev, rnd, gen_seed)
     whisper_kernel_rows(rnd)
+    sharded_prefill_kernel_row(rnd)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}, library {r['library_ms']})")
@@ -695,6 +714,29 @@ def whisper_kernel_rows(rnd):
                                  timed=dict(causal=causal))
     print("whisper kernel rows: " + json.dumps(rows))
     return rows
+
+
+def sharded_prefill_kernel_row(rnd):
+    """K5 at the shape phase 18's sharded prefill hands it on the 1 x 1
+    mesh: qwen3-1.7b's 4 x 2048 tokens, 16 query heads over 8 kv heads,
+    D 128, causal, q as a view of the [B, S, H, D] activations and k, v of
+    [B, S, KV, D], against its plain version and beside
+    scaled_dot_product_attention (``enable_gqa``).  The sharded prefill's
+    logits are held only against the unsharded prefill, which runs the
+    same kernel; this row holds the kernel itself at that shape."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, S, H, KV, D = *DIST_PREFILL, 16, 8, 128
+    act = lambda n: rnd(B, S, n, D).transpose(1, 2)
+    copies = [(act(H), act(KV), act(KV)) for _ in range(4)]
+    lib = (lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), copies)
+    label = "K5 qwen3-1.7b sharded prefill (4 x 2048 tokens, 16/8 heads, D 128, causal)"
+    row = kernel_row(label, fa.flash_attention, fa.flash_attention_ref, copies,
+                     [dict(causal=True)], 2.0 * (2 * B * H * S * D + 2 * B * KV * S * D),
+                     4.0 * B * H * D * S * (S + 1) / 2, library=lib, timed=dict(causal=True))
+    print("sharded prefill kernel row: " + json.dumps({label: row}))
+    return row
 
 
 # hymba-1.5b's full-width snapshot after an 1100-token prefix: ring k and v
@@ -1578,6 +1620,314 @@ WIDE_DEVICE_BLOCKS = 128  # per layer: 10 MiB of stablelm-12b pages, 32 MiB of d
 WIDE_DEPTH = {"stablelm-12b": 10, "deepseek-7b": 8}
 
 
+# ---------------------------------------------------------------- phase 18
+# Distribution on a one-rank NCCL group over a 1 x 1 (data, model) mesh:
+# the sharded steps of launch/steps.py on DTensors, at qwen3-1.7b's full
+# width and depth, held against the unsharded paths; the sharded prefill's
+# attention body launches K5; then the dry run's fake-backend cells, which
+# run in subprocesses started at the smoke's beginning (CPU only: the fake
+# backend cannot share this process's default group with NCCL).
+DIST_STEPS = 3
+DIST_PREFILL = (4, 2048)  # PREFILL_32K's 32 x 32768 cut: its cache alone is ~120 GB at 28 layers
+DIST_DECODE = (8, 4096, 4)  # rows, cache slots, steps (DECODE_32K's 128 x 32768 cut)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("qwen3-1.7b", "decode_32k", "single"),
+                ("grok-1-314b", "train_4k", "multi"))
+_CHILDREN = []
+
+
+def _stop_children():
+    for p in _CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def start_dryruns():
+    """(f) The three dry-run cells, each in a subprocess of its own, started
+    now and collected in phase 18.  Returns (out dir, [(cell, process,
+    start time)])."""
+    import atexit
+
+    atexit.register(_stop_children)
+    out = Path(tempfile.mkdtemp(prefix="dryrun_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        log = open(out / f"{arch}__{shape}__{mesh}.log", "w")
+        p = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                              "--shape", shape, "--mesh", mesh, "--out", str(out), "--force"],
+                             stdout=log, stderr=subprocess.STDOUT, env=env, cwd=str(ROOT))
+        _CHILDREN.append(p)
+        procs.append(((arch, shape, mesh), p, time.monotonic()))
+    return out, procs
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def sharded_training(mesh):
+    """(a) ``build_cell("qwen3-1.7b", "train_4k")`` at full width and
+    depth, the batch cut to 4 x 4096, seed-0 masters, lr 3e-5 (warm-up 2):
+    three sharded steps against ``Trainer.train_step`` from the same
+    masters and batches; losses and grad norms within 1e-3 relative.  A
+    spec's one-rank axes place ``Shard`` (``sharding.rules.placements``),
+    so DTensor picks each op's sharded strategy here as on a larger mesh:
+    the check fails where a strategy changes the arithmetic."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import steps as st
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import full
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.training.train_loop import Trainer
+
+    cfg = get_config("qwen3-1.7b")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=2)
+    cell = st.build_cell("qwen3-1.7b", "train_4k", mesh, opt_cfg=opt_cfg,
+                         shape=ShapeSpec("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    masters = {k: v for k, v in cell.bundle.init_params(torch.Generator().manual_seed(0)).items()}
+    masters = _f32_tree(masters)
+    params = st.distribute_argument(cell, "params", masters)
+    opt = st.distribute_argument(cell, "opt_state", init_opt_state(masters, opt_cfg))
+    del masters
+    shards = {k: tuple(params["layers"]["attn"][k].placements) for k in ("wq", "wo")}
+    check(all(p.is_shard() for pl in shards.values() for p in pl),
+          f"the 1 x 1 mesh does not shard the attention weights: {shards}")
+    data = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH))
+    got = []
+    for i in range(DIST_STEPS):
+        batch = st.distribute_argument(
+            cell, "batch", {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()})
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, m = st.run_cell(cell, (params, opt, batch))
+        loss = float(full(m["loss"]))
+        got.append({"loss": loss, "grad_norm": float(full(m["grad_norm"])),
+                    "dt_s": time.monotonic() - t0})
+    del params, opt, cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr = Trainer(build_model(cfg), data_cfg=DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH),
+                 opt_cfg=opt_cfg, seed=0)
+    want = tr.run(DIST_STEPS, log_every=0)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = max(max(_rel(g["loss"], w["loss"]), _rel(g["grad_norm"], w["grad_norm"]))
+              for g, w in zip(got, want))
+    print(f"sharded training qwen3-1.7b full width and depth on the 1 x 1 mesh (wq, wo placed "
+          f"{shards['wq']}, {shards['wo']}): losses "
+          f"{[round(g['loss'], 5) for g in got]} vs Trainer {[round(w['loss'], 5) for w in want]}, "
+          f"grad norms {[round(g['grad_norm'], 4) for g in got]} vs "
+          f"{[round(w['grad_norm'], 4) for w in want]}: max relative difference {rel:.3e} "
+          f"(limit 1e-3)")
+    print(f"sharded training step s {[round(g['dt_s'], 3) for g in got]} vs unsharded Trainer "
+          f"{[round(w['dt_s'], 3) for w in want]} (phase 17's shape: 4 x 4096 tokens)")
+    check(all(math.isfinite(g["loss"]) and math.isfinite(g["grad_norm"]) for g in got),
+          f"sharded training not finite: {got}")
+    check(rel <= 1e-3, f"sharded training differs from the Trainer by {rel:.3e}")
+
+
+def _f32_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def sharded_serving(mesh):
+    """(b) A sharded prefill cell at 4 x 2048 tokens against the unsharded
+    ``prefill_fn`` (phase 5's tolerance: max |d| 0.25, the same argmax per
+    row); its attention body must launch K5 once per layer.  (c) A sharded
+    decode cell of 8 rows over a 4096-slot cache, 4 steps, against the
+    unsharded ``decode_fn`` from the same cache, same tolerance."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps as st
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import full
+
+    cfg = get_config("qwen3-1.7b")
+    V = cfg.vocab_size
+    bundle = build_model(cfg)
+    params = bundle.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(18)
+    B, S = DIST_PREFILL
+    tokens = torch.from_numpy(rng.integers(0, V, (B, S)).astype(np.int32)).cuda()
+    cell = st.build_cell("qwen3-1.7b", "prefill_32k", mesh,
+                         shape=ShapeSpec("prefill_32k", S, B, "prefill"))
+    pd = st.distribute_argument(cell, "params", params)
+    bd = st.distribute_argument(cell, "batch", {"tokens": tokens})
+    n0 = fa.flash_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits_s, cache_s = st.run_cell(cell, (pd, bd))
+    logits_s = full(logits_s)
+    torch.cuda.synchronize()
+    t_sharded = time.monotonic() - t0
+    k5 = fa.flash_attention.launches - n0
+    t0 = time.monotonic()
+    logits_u, cache_u = bundle.prefill_fn(params, {"tokens": tokens}, S)
+    torch.cuda.synchronize()
+    t_plain = time.monotonic() - t0
+    e = max_err(logits_s, logits_u)
+    same = bool((logits_s.argmax(-1) == logits_u.argmax(-1)).all())
+    ek = max_err(full(cache_s["k"]), cache_u["k"])
+    print(f"sharded prefill {B} x {S} tokens: logits max|d| {e:.3e} vs the unsharded prefill_fn "
+          f"(limit 0.25), argmax equal {same}, cache k max|d| {ek:.3e}; K5 launches {k5} "
+          f"({cfg.num_layers} per call); {t_sharded:.3f} s sharded, {t_plain:.3f} s unsharded")
+    check(bool(torch.isfinite(logits_s).all()) and tuple(logits_s.shape) == (B, V),
+          "sharded prefill logits")
+    check(e <= 0.25 and same, f"sharded prefill disagrees ({e})")
+    check(k5 == cfg.num_layers, f"the sharded prefill launched K5 {k5} times, not {cfg.num_layers}")
+    del cell, pd, bd, cache_s, cache_u, logits_s, logits_u
+
+    rows, slots, steps = DIST_DECODE
+    prompt = torch.from_numpy(rng.integers(0, V, (rows, 64)).astype(np.int32)).cuda()
+    logits, cache = bundle.prefill_fn(params, {"tokens": prompt}, slots)
+    cell = st.build_cell("qwen3-1.7b", "decode_32k", mesh,
+                         shape=ShapeSpec("decode_32k", slots, rows, "decode"))
+    pd = st.distribute_argument(cell, "params", params)
+    cd = st.distribute_argument(cell, "cache", cache)
+    worst, ts, tu = 0.0, [], []
+    for i in range(steps):
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = torch.full((rows,), 64 + i, dtype=torch.int32, device=tok.device)
+        args = (pd, cd, st.distribute_argument(cell, "tokens", tok),
+                st.distribute_argument(cell, "cur_pos", pos))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        ls, cd = st.run_cell(cell, args)
+        ls = full(ls)
+        torch.cuda.synchronize()
+        ts.append(time.monotonic() - t0)
+        t0 = time.monotonic()
+        logits, cache = bundle.decode_fn(params, cache, tok, pos)
+        torch.cuda.synchronize()
+        tu.append(time.monotonic() - t0)
+        worst = max(worst, max_err(ls, logits))
+        check(bool((ls.argmax(-1) == logits.argmax(-1)).all()), f"sharded decode step {i}: argmax")
+    print(f"sharded decode {rows} rows over {slots} slots, {steps} steps: logits max|d| "
+          f"{worst:.3e} vs decode_fn (limit 0.25); step s sharded "
+          f"{[round(t, 4) for t in ts]}, unsharded {[round(t, 4) for t in tu]}")
+    check(worst <= 0.25, f"sharded decode disagrees ({worst})")
+
+
+def compressed_psum_check(mesh):
+    """(d) ``compressed_psum`` over the one-rank group on a full-width f32
+    gradient leaf (lm_head's 2048 x 151936): bitwise ``compress_roundtrip``;
+    the bytes its two all-gathers move against a bf16 all-reduce's."""
+    from repro_torch.roofline.analysis import CollectiveCounter
+    from repro_torch.training.compression import compress_roundtrip, compressed_psum
+
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((2048, 151936), generator=g, device="cuda")
+    group = mesh.get_group("data")
+    compressed_psum(x, group)  # warm
+    torch.cuda.synchronize()
+    with CollectiveCounter() as c:
+        t0 = time.monotonic()
+        y = compressed_psum(x, group)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+    want = compress_roundtrip(x)
+    bf16 = x.numel() * 2
+    sent = c.bytes["all-gather"]
+    print(f"compressed psum of a 2048 x 151936 f32 leaf over the one-rank group: bitwise equal to "
+          f"compress_roundtrip {torch.equal(y, want)}; {c.counts['all-gather']} all-gathers, "
+          f"{sent} bytes against bf16's {bf16} ({sent / bf16:.3f}x); {dt:.4f} s")
+    check(torch.equal(y, want), "compressed_psum differs from compress_roundtrip")
+
+
+def sharded_moe(mesh):
+    """(e) ``moe_apply_sharded`` with ep, tp and a2a on one grok-1-314b
+    layer at full width (8 experts of 6144 x 32768) against
+    ``moe_apply_local``, 512 bf16 tokens."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.sharding.rules import distribute
+    from repro_torch.models.moe import moe_apply_local, moe_apply_sharded, moe_init
+
+    cfg = get_config("grok-1-314b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe_init(gen, cfg)
+    x = (torch.randn((512, cfg.d_model), generator=gen, device="cuda")).to(torch.bfloat16)
+    with torch.no_grad():
+        want, aux = moe_apply_local(p, x, cfg)
+        rep = lambda t: distribute(t, (None,) * t.ndim, mesh)
+        pd = {k: rep(v) for k, v in p.items()}
+        for strategy in ("ep", "tp", "a2a"):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            with implicit_replication():
+                out, a = moe_apply_sharded(pd, rep(x), cfg, mesh, strategy=strategy)
+                out, a = out.full_tensor(), a.full_tensor()
+            torch.cuda.synchronize()
+            e, ea = max_err(out, want), abs(float(a) - float(aux))
+            print(f"sharded MoE grok-1-314b layer, {strategy}: max|d| {e:.3e} vs moe_apply_local "
+                  f"(aux |d| {ea:.3e}), {time.monotonic() - t0:.3f} s")
+            check(within(out, want, torch.bfloat16) and ea <= 1e-5,
+                  f"sharded MoE {strategy} disagrees ({e}, {ea})")
+    del p, pd
+
+
+def collect_dryruns(dryruns):
+    """(f) Wait for the dry-run subprocesses; each cell ``ok``, a train
+    cell with all-gather bytes."""
+    out, procs = dryruns
+    for (arch, shape, mesh), p, t0 in procs:
+        t_wait = time.monotonic()
+        try:
+            rc = p.wait(timeout=max(1.0, 1050 - (time.monotonic() - T_START)))
+        except subprocess.TimeoutExpired:
+            fail(f"dry run {arch} {shape} {mesh} did not finish in time")
+        waited = time.monotonic() - t_wait
+        if rc != 0:
+            print((out / f"{arch}__{shape}__{mesh}.log").read_text()[-3000:])
+            fail(f"dry run {arch} {shape} {mesh} exited {rc}")
+        rec = json.loads((out / mesh / f"{arch}__{shape}.json").read_text())
+        coll = rec["collectives"]
+        kinds = {k: (v["count"], v["bytes"]) for k, v in coll.items() if isinstance(v, dict)}
+        print(f"dry run {arch} x {shape} x {mesh} ({rec['chips']} fake ranks): {rec['status']}, "
+              f"build {rec['timing']['build_s']:.1f} s + run {rec['timing']['run_s']:.1f} s (started "
+              f"with the smoke; phase 18 waited {waited:.1f} s for it); per device "
+              f"(count, bytes) {kinds}; args {rec['memory']['argument_bytes_per_device']} B")
+        check(rec["status"] == "ok", f"dry run {arch} {shape} {mesh}: {rec['status']}")
+        if shape == "train_4k":
+            check(coll["all-gather"]["bytes"] > 0, f"dry run {arch} {shape}: no all-gather bytes")
+    shutil.rmtree(out, ignore_errors=True)
+
+
+def distribution_phase(dryruns):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_group, make_debug_mesh
+
+    init_group("nccl", rank=0, world_size=1, port=_free_port())
+    try:
+        mesh = make_debug_mesh(1, 1)
+        print(f"distribution: one-rank NCCL group, mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} on {mesh.device_type}; torch "
+              f"{torch.__version__} (the dry run's FakeStore and local_map were written against "
+              f"torch 2.13.0, requirements.txt)")
+        sharded_training(mesh)
+        sharded_serving(mesh)
+        compressed_psum_check(mesh)
+        sharded_moe(mesh)
+    finally:
+        dist.destroy_process_group()
+    collect_dryruns(dryruns)
+
+
 def compare_logits(label, la, lb, V):
     """Two prefill logit vectors of one prompt: finite, within 0.25 (bf16
     activations through other kernels and graphs), and the same argmax."""
@@ -1937,6 +2287,9 @@ def conformance_phase(bundle, params, serving_log, serving_metrics, card):
     print(f"conformance phase wall {time.monotonic() - t0:.3f} s (scenarios {t_scen:.3f} s)")
 
 
+T_START = time.monotonic()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1959,6 +2312,7 @@ def main() -> None:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t_start = time.monotonic()
+    dryruns = start_dryruns()  # phase 18 (f), on the CPU beside the card's phases
 
     t0 = time.monotonic()
     secs = build.build_all()
@@ -2086,6 +2440,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     drive("restart drill", restart_drill)
     drive("training other families", train_other_families)
+    gc.collect()
+    torch.cuda.empty_cache()
+    drive("distribution", distribution_phase, dryruns)
+    check(counts["distribution"]["flash_attention"] > 0, "the distribution phase never launched K5")
     for name in ("training qwen3-1.7b", "restart drill", "training other families"):
         check(not any(counts[name].values()), f"{name} launched a kernel: {counts[name]}")
     for k in ("paged_decode_attention", "paged_prefill_attention"):

@@ -19,6 +19,11 @@ position p at slot ``p % Sc``.
 the attention half the plain chunked ``attention_prefill``
 (``remat=True``; no kernel), the SSM scan checkpointed per chunk of
 tokens (``layers.chunked_recurrent_scan``).
+
+``mesh=`` threads the reference's layouts through ``loss_fn``, ``prefill``
+and ``decode_step``: activations constrained at each layer's boundaries,
+the attention half in ``layers.attention_prefill_sharded``'s body, the SSM
+half channel-sharded (``ssm.ssm_forward``).
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from repro_torch.models.layers import (
     attn_init,
     attn_prefill_layer,
     chunked_cross_entropy,
+    constrain_activations,
     decode_slot,
     embed_init,
     make_norm,
@@ -44,6 +50,7 @@ from repro_torch.models.layers import (
     remat_call,
     slot_update,
 )
+from repro_torch.models.transformer import _sharded_prefill_cache as tf_sharded_prefill_cache
 from repro_torch.models.transformer import (
     _device_generator,
     embed_tokens,
@@ -101,18 +108,20 @@ def _stack_states(states: List[Dict[str, torch.Tensor]]):
     return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
 
-def _layer(lp, st, x, cfg, positions, remat: bool = False):
+def _layer(lp, st, x, cfg, positions, remat: bool = False, mesh=None):
     """One layer: (x out, (k, v), new SSM state)."""
+    x = constrain_activations(x, mesh)
     h = apply_norm(cfg.norm, lp["ln1"], x)
-    a, kv = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=True, remat=remat)
-    s, nst = ssm_lib.ssm_forward(lp["ssm"], cfg, h, st)
+    a, kv = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=True, remat=remat,
+                               mesh=mesh)
+    s, nst = ssm_lib.ssm_forward(lp["ssm"], cfg, h, st, mesh=mesh)
     x = x + 0.5 * (a + s)
     h = apply_norm(cfg.norm, lp["ln2"], x)
-    return x + mlp_apply(lp["mlp"], h, cfg.activation), kv, nst
+    return constrain_activations(x + mlp_apply(lp["mlp"], h, cfg.activation), mesh), kv, nst
 
 
 def forward_hidden(params, cfg, x, positions, ssm_states, *, collect_cache: bool = False,
-                   remat: bool = False):
+                   remat: bool = False, mesh=None):
     """The layer stack over a full-length prefill.  x: [B, S, d];
     ``positions`` must be ``arange(S)`` in every row (the flash-attention
     kernel's contract, ``attn_prefill_layer``).  ``remat`` (training) runs
@@ -123,10 +132,10 @@ def forward_hidden(params, cfg, x, positions, ssm_states, *, collect_cache: bool
     for i, lp in enumerate(layer_params(params["layers"], cfg.num_layers)):
         st = _layer_state(ssm_states, i)
         if remat:
-            x, _, nst = remat_call(partial(_layer, cfg=cfg, positions=positions, remat=True),
-                                   lp, st, x)
+            x, _, nst = remat_call(partial(_layer, cfg=cfg, positions=positions, remat=True,
+                                           mesh=mesh), lp, st, x)
         else:
-            x, (k_, v_), nst = _layer(lp, st, x, cfg, positions)
+            x, (k_, v_), nst = _layer(lp, st, x, cfg, positions, mesh=mesh)
             if collect_cache:
                 ks.append(k_)
                 vs.append(v_)
@@ -137,7 +146,7 @@ def forward_hidden(params, cfg, x, positions, ssm_states, *, collect_cache: bool
     return x, (nst,)
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, mesh=None):
     """Next-token LM loss (0-d f32) over ``batch["tokens"]`` [B, S], from
     zero SSM states."""
     tokens = batch["tokens"]
@@ -145,21 +154,26 @@ def loss_fn(params, cfg, batch):
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     states = ssm_lib.ssm_state_init(cfg, B, lead=(cfg.num_layers,), device=tokens.device)
-    x, _ = forward_hidden(params, cfg, x, positions, states, remat=True)
+    x, _ = forward_hidden(params, cfg, x, positions, states, remat=True, mesh=mesh)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return chunked_cross_entropy(x, unembed(cfg, params), shifted_labels(tokens))
 
 
-def prefill(params, cfg, batch, cache_len: int):
+def prefill(params, cfg, batch, cache_len: int, mesh=None):
     """Returns (last-position logits [B, V] f32, cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(params, cfg, tokens)
     positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     cache = make_cache(cfg, B, cache_len, device=tokens.device)
-    x, (ck, cv, nst) = forward_hidden(params, cfg, x, positions, cache["ssm"], collect_cache=True)
+    x, (ck, cv, nst) = forward_hidden(params, cfg, x, positions, cache["ssm"], collect_cache=True,
+                                      mesh=mesh)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = (x[:, -1] @ unembed(cfg, params)).float()
+    if mesh is not None:
+        cache = tf_sharded_prefill_cache(cfg, ck, cv, positions, cache_len)
+        cache["ssm"] = nst
+        return logits, cache
     keep = min(cache["k"].shape[2], S)
     cache["k"][:, :, :keep] = ck[:, :, S - keep :]
     cache["v"][:, :, :keep] = cv[:, :, S - keep :]
@@ -168,7 +182,7 @@ def prefill(params, cfg, batch, cache_len: int):
     return logits, cache
 
 
-def decode_step(params, cfg, cache, tokens, cur_pos):
+def decode_step(params, cfg, cache, tokens, cur_pos, mesh=None):
     """One token per row.  tokens, cur_pos: [B] int.  Returns (logits
     [B, V] f32, new cache); the input cache is unchanged."""
     x = embed_tokens(params, cfg, tokens)[:, None, :]
@@ -177,11 +191,14 @@ def decode_step(params, cfg, cache, tokens, cur_pos):
     new_pos = slot_update(cache["pos"][..., None], cur_pos[:, None, None], slot)[..., 0]
     ks, vs, states = [], [], []
     for i, lp in enumerate(layer_params(params["layers"], cfg.num_layers)):
+        x = constrain_activations(x, mesh, seq_dim=None)
         h = apply_norm(cfg.norm, lp["ln1"], x)
         a, nk, nv = attn_decode_layer(
             lp["attn"], cfg, h, cache["k"][i], cache["v"][i], new_pos, cur_pos, slot
         )
-        s, nst = ssm_lib.ssm_decode(lp["ssm"], cfg, h, _layer_state(cache["ssm"], i))
+        if mesh is not None:
+            nk, nv = constrain_activations(nk, mesh), constrain_activations(nv, mesh)
+        s, nst = ssm_lib.ssm_decode(lp["ssm"], cfg, h, _layer_state(cache["ssm"], i), mesh=mesh)
         x = x + 0.5 * (a + s)
         h = apply_norm(cfg.norm, lp["ln2"], x)
         x = x + mlp_apply(lp["mlp"], h, cfg.activation)

@@ -19,6 +19,15 @@ loss is ``chunked_cross_entropy`` with each chunk's logits checkpointed,
 and ``chunked_recurrent_scan`` checkpoints each chunk of tokens.  None of
 the kernels has a backward in either package; their wrappers refuse an
 input that requires grad (``kernels/guard.py``).
+
+Distribution (``mesh=``, a ``DeviceMesh``; the tensors are DTensors): the
+reference's ``with_sharding_constraint`` calls become ``DTensor.redistribute``
+(``constrain_activations``, ``constrain_attention_qkv``), and its
+``shard_map`` attention body becomes a ``local_map`` body
+(``attention_prefill_sharded``): K/V gathered once per layer, each rank
+attending its own query slice.  Without a mesh every function here is what
+it was.  Meta tensors (the dry run's shapes-only step) take the plain
+routes, as CPU tensors do; they never reach a kernel.
 """
 from __future__ import annotations
 
@@ -31,9 +40,199 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.sharding.rules import as_replicated, placements, split_dim
 
 DEFAULT_DTYPE = torch.bfloat16
 NEG_INF = -1e30  # large-negative instead of -inf: keeps masked softmax NaN-free
+
+
+def plain_route(t) -> bool:
+    """True where the plain PyTorch versions run: CPU tensors, and meta
+    tensors (shapes only).  A CUDA tensor takes the kernels."""
+    return t.device.type in ("cpu", "meta")
+
+
+# ---------------------------------------------------------------------------
+# activation sharding (SP: sequence over 'model' between layers)
+# ---------------------------------------------------------------------------
+
+
+# Attention sharding mode, as in the reference:
+#   "chunked_seq" — activations stay sequence-sharded through attention;
+#       DTensor gathers what each op needs;
+#   "gather_kv"   — K/V gathered ONCE per layer; q stays sequence-sharded
+#       and each rank attends its slice in a local body (the default);
+#   "heads"       — Q/K/V head-sharded over 'model' (requires
+#       num_kv_heads % model == 0, else gather_kv).
+# Only "gather_kv" runs on the card (its body hands the rank's slice to the
+# flash-attention kernel); the others run the plain attention on DTensors.
+_ATTN_SHARDING = "gather_kv"
+
+
+def set_attn_sharding(mode: str) -> None:
+    global _ATTN_SHARDING
+    if mode not in ("chunked_seq", "gather_kv", "heads"):
+        raise ValueError(f"attention sharding mode {mode!r}")
+    _ATTN_SHARDING = mode
+
+
+def get_attn_sharding() -> str:
+    return _ATTN_SHARDING
+
+
+def mesh_axes(mesh):
+    """(data axes, model axis or None) of a mesh, in the mesh's order."""
+    names = mesh.mesh_dim_names
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    return dp, ("model" if "model" in names else None)
+
+
+def _axes_size(mesh, axes) -> int:
+    n = 1
+    for a in axes:
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
+
+
+def constrain(x, mesh, spec):
+    """``with_sharding_constraint``: ``x`` (a DTensor, or a plain tensor
+    every rank holds whole) redistributed to the layout of ``spec`` (one
+    entry per dim: None, an axis or a tuple of axes)."""
+    return as_replicated(x, mesh).redistribute(mesh, placements(spec, mesh))
+
+
+def constrain_attention_qkv(q, k, v, mesh):
+    """Apply the selected attention sharding layout (no-op without mesh).
+
+    q: [B, Sq, H, D]; k, v: [B, Skv, KV, D].
+    """
+    if mesh is None or _ATTN_SHARDING == "chunked_seq":
+        return q, k, v
+    dp, tp = mesh_axes(mesh)
+    if tp is None:
+        return q, k, v
+    tp_n = _axes_size(mesh, (tp,))
+    bspec = dp if q.shape[0] % _axes_size(mesh, dp) == 0 else None
+    mode = _ATTN_SHARDING
+    if mode == "heads" and k.shape[2] % tp_n != 0:
+        mode = "gather_kv"
+    if mode == "heads":
+        spec = (bspec, None, tp, None)
+        return constrain(q, mesh, spec), constrain(k, mesh, spec), constrain(v, mesh, spec)
+    # gather_kv: one K/V gather per layer, q stays seq-sharded
+    seq_ok = q.shape[1] % tp_n == 0 and q.shape[1] > 1
+    kv = (bspec, None, None, None)
+    return (constrain(q, mesh, (bspec, tp if seq_ok else None, None, None)),
+            constrain(k, mesh, kv), constrain(v, mesh, kv))
+
+
+def constrain_activations(x, mesh, *, seq_dim=1):
+    """Layer-boundary layout for [B, S, d]-like activations: batch over
+    the data axes, sequence over 'model' (Megatron-style sequence
+    parallelism).  Dims that do not divide stay replicated.  No-op without
+    a mesh."""
+    if mesh is None:
+        return x
+    dp, tp = mesh_axes(mesh)
+    spec = [None] * x.ndim
+    if dp and x.shape[0] % _axes_size(mesh, dp) == 0:
+        spec[0] = dp
+    if (seq_dim is not None and seq_dim < x.ndim and tp
+            and x.shape[seq_dim] % _axes_size(mesh, (tp,)) == 0 and x.shape[seq_dim] > 1):
+        spec[seq_dim] = tp
+    return constrain(x, mesh, tuple(spec))
+
+
+def is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def unshard_dims(t, dims):
+    """A DTensor with the mesh axes that shard any of ``dims`` replicated
+    (a plain tensor as it is).  DTensor before torch 2.13 flattens dims
+    only where no dim but the first of them is sharded."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    hit = [p.is_shard() and p.dim % t.ndim in dims for p in t.placements]
+    if not any(hit):
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if h else p
+                                          for h, p in zip(hit, t.placements)])
+
+
+def hold_grad_layout(t):
+    """``t`` as it is, but its grad is laid out like ``t`` before it flows
+    back (a DTensor's identity redistribution): the backward of the op that
+    made ``t`` then sees the layout its forward saw."""
+    return t.redistribute(t.device_mesh, t.placements) if is_dtensor(t) else t
+
+
+def proj(x, w):
+    """``x @ w``.  A DTensor ``x`` sharded on a dim between its first and
+    its last (the sequence of sequence-parallel activations) is gathered on
+    that dim first, as a sequence-parallel layer gathers the sequence
+    before its projections (Megatron's SP -> TP transition), and the
+    product's grad is held to the product's layout: the product flattens
+    [B, S], which DTensor before torch 2.13 refuses with S sharded.  A
+    plain tensor is multiplied as it is."""
+    if not is_dtensor(x) or x.ndim <= 2:
+        return x @ w
+    return hold_grad_layout(unshard_dims(x, range(1, x.ndim - 1)) @ w)
+
+
+def merge_heads(t, keep: int):
+    """``t`` with every dim after the first ``keep`` merged into one (the
+    heads and head dims of an attention output).  On a DTensor the grad is
+    held to the merged output's layout before the backward splits it into
+    heads again: DTensor has no rule for splitting a dim that is sharded
+    over more ranks than there are heads (56 heads over 16)."""
+    if not is_dtensor(t):
+        return t.reshape(*t.shape[:keep], -1)
+    t = unshard_dims(t, range(keep + 1, t.ndim))  # only the first merged dim may stay sharded
+    return hold_grad_layout(t.reshape(*t.shape[:keep], -1))
+
+
+def pad_to(t, size: int, dim: int, value):
+    """``t`` extended along ``dim`` to ``size`` with ``value`` (a cache's
+    unwritten slots), by concatenation: a sharded step builds its cache
+    this way, not by writes into slices of a fresh one."""
+    n = size - t.shape[dim]
+    if not n:
+        return t
+    shape = list(t.shape)
+    shape[dim] = n
+    return torch.cat([t, torch.full(shape, value, dtype=t.dtype, device=t.device)], dim=dim)
+
+
+def grad_placements(in_placements, split):
+    """A local body's input-grad placements (``local_map``'s
+    ``in_grad_placements``), JAX ``shard_map``'s transpose: an input
+    replicated over a mesh axis across which the body splits its work
+    (``split[i]`` for mesh dim i) gets a partial grad there, summed over
+    that axis; over an axis where every rank repeats the same work the grad
+    stays replicated."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    return tuple(
+        None if pl is None else tuple(
+            Partial() if isinstance(p, Replicate) and sp else p for p, sp in zip(pl, split))
+        for pl in in_placements)
+
+
+def full_local(t, mesh, split):
+    """A DTensor's full value as every rank's local tensor, for use inside a
+    local body (a recurrence's weights); the grad comes back partial over
+    the mesh dims in ``split`` (where the body's work is split), replicated
+    elsewhere (``grad_placements``)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    rep = [Replicate()] * mesh.ndim
+    return as_replicated(t, mesh).redistribute(mesh, rep).to_local(
+        grad_placements=[Partial() if sp else Replicate() for sp in split])
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +382,68 @@ def chunked_recurrent_scan(step, init, xs, *, chunk: int = 128):
     return _scan_tokens(step, init, *xs)
 
 
+def sharded_recurrent_scan(step, init, xs, *, mesh, init_specs, xs_specs, ys_spec,
+                           chunk: int = 128):
+    """``chunked_recurrent_scan`` over DTensors, in a ``local_map`` body.
+
+    A recurrence is sequential over tokens, so the reference keeps the
+    token axis replicated and shards batch and channel dims (its
+    ``_constrain_channels`` / ``_seq_replicated``); every token's step is
+    then local to a rank.  Here ``init`` (a dict of DTensors or plain
+    tensors), each of ``xs`` and the stacked ys are laid out by
+    ``init_specs`` (a dict of specs), ``xs_specs`` and ``ys_spec``, and the
+    scan runs on the local shards: no per-token collective, and no
+    DTensor dispatch per token.  ``step`` must act elementwise along every
+    sharded dim.  An input replicated over an axis the others split the
+    work over gets a partial grad there (``grad_placements``); weights the
+    step closes over come in through ``full_local``.  On meta shards (the
+    dry run) one step stands for the loop: the shapes are the loop's, and
+    the body issues no collective either way."""
+    from torch.distributed.tensor.experimental import local_map
+
+    keys = sorted(init)
+    n_x = len(xs)
+    in_specs = tuple(xs_specs) + tuple(init_specs[k] for k in keys)
+    # the work splits over every axis some input or ys shards a dim on
+    used = {a for sp in in_specs + (ys_spec,) for e in sp if e
+            for a in ((e,) if isinstance(e, str) else e)}
+    split = [a in used for a in mesh.mesh_dim_names]
+
+    def body(*flat):
+        carry = dict(zip(keys, flat[n_x:]))
+        if flat[0].device.type == "meta":
+            # shapes only (the dry run): one token's step gives the carry's
+            # and ys' shapes; the loop holds no collective to count
+            carry, y = step(carry, tuple(a[0] for a in flat[:n_x]))
+            ys = y.unsqueeze(0).expand(flat[0].shape[0], *y.shape)
+        else:
+            carry, ys = chunked_recurrent_scan(step, carry, flat[:n_x], chunk=chunk)
+        return tuple(carry[k] for k in keys) + (ys,)
+
+    pl = lambda spec: placements(spec, mesh)
+    in_pl = tuple(pl(sp) for sp in in_specs)
+    fn = local_map(
+        body,
+        out_placements=tuple(pl(init_specs[k]) for k in keys) + (pl(ys_spec),),
+        in_placements=in_pl,
+        in_grad_placements=grad_placements(in_pl, split),
+        device_mesh=mesh,
+        redistribute_inputs=True,
+    )
+    out = fn(*(as_replicated(t, mesh) for t in xs),
+             *(as_replicated(init[k], mesh) for k in keys))
+    return dict(zip(keys, out[:-1])), out[-1]
+
+
+def shard_if(mesh, size: int, axes):
+    """``axes`` (an axis name or a tuple of them; None or () for none) when
+    ``size`` divides over them, else None."""
+    if not axes:
+        return None
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    return axes if size % _axes_size(mesh, names) == 0 else None
+
+
 def _scan_tokens(step, carry, *xs):
     """``step`` over every token of xs in order; ys stacked on a leading S."""
     per_token = [a.unbind(0) for a in xs]  # one split each, not S index ops
@@ -266,12 +527,12 @@ def attention_contiguous(q, k, v, *, causal: bool = True, window: int = 0, softc
     these positions, with the [B, S, H, D] operands handed over as
     [B, H, S, D] views (no copies); a CPU tensor runs the plain
     ``attention_prefill`` over the same positions."""
-    if q.device.type == "cpu":
+    if plain_route(q):
         B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
         return attention_prefill(
             q, k, v,
-            q_positions=torch.arange(Sq).expand(B, Sq),
-            kv_positions=torch.arange(Sk).expand(B, Sk),
+            q_positions=torch.arange(Sq, device=q.device).expand(B, Sq),
+            kv_positions=torch.arange(Sk, device=q.device).expand(B, Sk),
             causal=causal, window=window, softcap=softcap,
         )
     return fa.flash_attention(
@@ -295,7 +556,9 @@ def attention_decode(q, k_cache, v_cache, *, kv_positions, cur_pos, window: int 
     G = H // KV
     scale = 1.0 / math.sqrt(D)
     dt = torch.promote_types(q.dtype, k_cache.dtype)
-    qg = q.reshape(B, 1, KV, G, D).permute(0, 2, 3, 1, 4)  # [B, KV, G, 1, D]
+    # the einsums flatten (b, k): keep the heads whole
+    q, k_cache, v_cache = (unshard_dims(t, (2,)) for t in (q, k_cache, v_cache))
+    qg = split_dim(q, 2, (KV, G)).permute(0, 2, 3, 1, 4)  # [B, KV, G, 1, D]
     kb = k_cache.permute(0, 2, 1, 3)  # [B, KV, S, D]
     vb = v_cache.permute(0, 2, 1, 3)
     s = torch.einsum("bkgqd,bksd->bkgqs", qg.to(dt), kb.to(dt)).float() * scale
@@ -391,9 +654,9 @@ def attn_qkv(p, cfg, x, positions, *, use_rope: bool = True):
     """Projections, then qk-norm, then RoPE.  x: [B, S, d]."""
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, Dh)
-    k = (x @ p["wk"]).reshape(B, S, KV, Dh)
-    v = (x @ p["wv"]).reshape(B, S, KV, Dh)
+    q = split_dim(proj(x, p["wq"]), 2, (H, Dh))
+    k = split_dim(proj(x, p["wk"]), 2, (KV, Dh))
+    v = split_dim(proj(x, p["wv"]), 2, (KV, Dh))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -403,8 +666,77 @@ def attn_qkv(p, cfg, x, positions, *, use_rope: bool = True):
     return q, k, v
 
 
+def kernel_slice_check(q0: int, *, causal: bool, window: int, contiguous: bool) -> None:
+    """Raise unless the flash-attention kernel computes a rank's query slice
+    starting at position ``q0`` right: it takes positions ``arange`` only,
+    and aligns causal (or windowed) queries with keys top-left, so a slice
+    past 0 needs a query offset the kernel does not take yet (ROADMAP
+    Queue 2, K5).  Nothing falls back to the plain route."""
+    if not contiguous:
+        raise ValueError("the flash-attention kernel takes positions arange(S) only")
+    if q0 and (causal or window):
+        raise NotImplementedError(
+            f"query slice starting at position {q0}: the flash-attention kernel aligns causal "
+            "queries top-left only (a query offset is open kernel work, ROADMAP Queue 2 K5)")
+
+
+def attention_prefill_sharded(q, k, v, *, q_positions, kv_positions, mesh, causal=True,
+                              window: int = 0, softcap: float = 0.0, contiguous: bool = False,
+                              remat: bool = False):
+    """Sequence-parallel attention in a ``local_map`` body (the reference's
+    ``shard_map``).
+
+    q stays sequence-sharded over 'model'; k/v are gathered ONCE per layer
+    (the in-placements force exactly one gather); the body attends the
+    rank's query slice over the whole K/V on local tensors.  On the CPU
+    (and on meta tensors) the body is the plain ``attention_prefill`` over
+    the rank's positions, as in the reference.  On the card, with
+    ``contiguous=True`` (every row's positions ``arange(S)``), the body
+    hands the slice to the flash-attention kernel, which aligns causal
+    queries and keys top-left: that is right when the rank's slice starts
+    at position 0, which holds on a one-rank 'model' axis (the whole
+    sequence) and on model rank 0.  A CUDA rank whose slice starts past 0
+    raises ``NotImplementedError`` where causality or a window makes the
+    offset matter: a query offset in the kernel is later kernel work
+    (ROADMAP).  ``remat`` (training) runs the plain attention with each
+    query block rematerialized, on either device.
+    """
+    from torch.distributed.tensor.experimental import local_map
+
+    dp, tp = mesh_axes(mesh)
+    tp_n = _axes_size(mesh, (tp,))
+    bspec = dp if q.shape[0] % _axes_size(mesh, dp) == 0 else None
+    sspec = tp if q.shape[1] % tp_n == 0 and q.shape[1] > 1 else None
+    q0 = mesh.get_local_rank(tp) * (q.shape[1] // tp_n) if sspec else 0
+    kw = dict(causal=causal, window=window, softcap=softcap)
+
+    def body(q_loc, k_rep, v_rep, qp_loc, kp_rep):
+        if remat or plain_route(q_loc):
+            return attention_prefill(q_loc, k_rep, v_rep, q_positions=qp_loc,
+                                     kv_positions=kp_rep, remat=remat, **kw)
+        kernel_slice_check(q0, causal=causal, window=window, contiguous=contiguous)
+        return attention_contiguous(q_loc, k_rep, v_rep, **kw)
+
+    q_pl = placements((bspec, sspec, None, None), mesh)
+    kv_pl = placements((bspec, None, None, None), mesh)
+    in_pl = (q_pl, kv_pl, kv_pl, placements((bspec, sspec), mesh), placements((bspec, None), mesh))
+    # the work splits over the batch's axes and, with q sequence-sharded, over
+    # 'model': K/V's grads are partial there (each rank's query slice)
+    split = [bool(bspec) and a in bspec or (a == tp and sspec is not None)
+             for a in mesh.mesh_dim_names]
+    fn = local_map(
+        body,
+        out_placements=list(q_pl),
+        in_placements=in_pl,
+        in_grad_placements=grad_placements(in_pl, split),
+        device_mesh=mesh,
+        redistribute_inputs=True,
+    )
+    return fn(q, k, v, as_replicated(q_positions, mesh), as_replicated(kv_positions, mesh))
+
+
 def attn_prefill_layer(p, cfg, x, positions, *, causal=True, use_rope=True, contiguous=False,
-                       remat=False):
+                       remat=False, mesh=None):
     """Full attention layer at prefill; returns (out, (k, v)).
 
     ``causal=False`` lets every query see every key (whisper's encoder).
@@ -422,23 +754,35 @@ def attn_prefill_layer(p, cfg, x, positions, *, causal=True, use_rope=True, cont
     ``attention_prefill`` over ``positions`` with each query block
     rematerialized, the reference's training attention (the kernel has no
     backward).
+
+    ``mesh``: q, k, v take the attention sharding layout, and in the
+    default "gather_kv" mode the attention runs in
+    ``attention_prefill_sharded``'s body.
     """
     q, k, v = attn_qkv(p, cfg, x, positions, use_rope=use_rope)
+    q, k, v = constrain_attention_qkv(q, k, v, mesh)
     kwargs = dict(causal=causal, window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
-    if remat:
+    if mesh is not None and get_attn_sharding() == "gather_kv" and "model" in mesh.mesh_dim_names:
+        out = attention_prefill_sharded(q, k, v, q_positions=positions, kv_positions=positions,
+                                        mesh=mesh, contiguous=contiguous, remat=remat, **kwargs)
+    elif remat:
         out = attention_prefill(q, k, v, q_positions=positions, kv_positions=positions,
                                 remat=True, **kwargs)
-    elif q.device.type == "cpu":
-        if contiguous and not torch.equal(
+    elif plain_route(q):
+        if contiguous and q.device.type == "cpu" and mesh is None and not torch.equal(
             positions, torch.arange(x.shape[1]).expand_as(positions).to(positions.dtype)
         ):
             raise ValueError("contiguous=True, but the positions are not arange(S)")
         out = attention_prefill(q, k, v, q_positions=positions, kv_positions=positions, **kwargs)
+    elif mesh is not None:
+        raise NotImplementedError(
+            f"attention sharding {get_attn_sharding()!r} on the card: only 'gather_kv' "
+            "hands the kernel local tensors")
     elif not contiguous:
         raise ValueError("the flash-attention kernel takes positions arange(S) only")
     else:
         out = attention_contiguous(q, k, v, **kwargs)
-    out = out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"]
+    out = proj(merge_heads(out, 2), p["wo"])
     return out, (k, v)
 
 
@@ -473,7 +817,7 @@ def attn_decode_layer(p, cfg, x, cache_k, cache_v, kv_positions, cur_pos, slot, 
         q, new_k, new_v, kv_positions=kv_positions, cur_pos=cur_pos,
         window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
     )
-    out = out.reshape(B, 1, -1) @ p["wo"]
+    out = proj(merge_heads(out, 2), p["wo"])
     return out, new_k, new_v
 
 
@@ -536,8 +880,8 @@ def mlp_init(gen: torch.Generator, d: int, ff: int, activation: str, *, lead=())
 
 def mlp_apply(p, x, activation: str):
     if activation == "silu":
-        return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
-    return F.gelu(x @ p["w_up"], approximate="tanh") @ p["w_down"]
+        return proj(F.silu(proj(x, p["w_gate"])) * proj(x, p["w_up"]), p["w_down"])
+    return proj(F.gelu(proj(x, p["w_up"]), approximate="tanh"), p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -566,12 +910,19 @@ def chunked_cross_entropy(x, w_unembed, labels, *, chunk: int = 512):
 
 def _ce_chunk(xc, w_unembed, lc):
     """Summed cross-entropy of one chunk and its count of labelled positions."""
-    logits = (xc @ w_unembed).float()  # [B, c, V]
+    logits = proj(xc, w_unembed).float()  # [B, c, V]
     m = logits.amax(dim=-1)
     lse = m + torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
     V = logits.shape[-1]
     hit = (lc >= 0) & (lc < V)
-    picked = logits.gather(-1, lc.long().clamp(0, V - 1)[..., None])[..., 0]
+    if is_dtensor(logits):
+        # DTensor's rule for gather over a vocab-sharded dim fails (its
+        # masked-partial buffer assumes a 2-D index): pick by a one-hot
+        # product over the sharded vocab instead, the reference's form
+        onehot = lc.long()[..., None] == torch.arange(V, device=lc.device)
+        picked = (logits * onehot).sum(dim=-1)
+    else:
+        picked = logits.gather(-1, lc.long().clamp(0, V - 1)[..., None])[..., 0]
     correct = torch.where(hit, picked, 0.0)
     valid = (lc >= 0).float()
     return ((lse - correct) * valid).sum(), valid.sum()

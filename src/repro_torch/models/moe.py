@@ -1,8 +1,7 @@
 """Mixture-of-Experts MLP with capacity-bounded top-k dispatch (PyTorch).
 
-Counterpart of the JAX package's ``models/moe.py``, local path only (the
-sharded variants wait for the port's sharding module).  Dispatch, as in the
-reference:
+Counterpart of the JAX package's ``models/moe.py``: the local path and the
+sharded variants (``moe_apply_sharded``).  Dispatch, as in the reference:
 
   1. top-k gating over E experts, the router's dot in the activation dtype
      and only then upcast to f32;
@@ -25,6 +24,10 @@ separate ``moe_apply_local`` calls would, while the expert products run
 once over every group's slots: the paged decode step uses it with one
 group per row, as the reference does on every backend but the TPU (its
 ``lax.map`` over rows).
+
+``moe_apply_sharded`` runs the reference's ``shard_map`` bodies as
+``local_map`` bodies over a ``DeviceMesh`` (strategies ``ep``, ``tp`` and
+``a2a``; see its docstring).
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import DEFAULT_DTYPE, dense_init
+from repro_torch.models.layers import DEFAULT_DTYPE, dense_init, grad_placements
 
 
 def _expert_stack(gen: torch.Generator, lead: Tuple[int, ...], n_experts: int, din: int,
@@ -165,3 +168,137 @@ def moe_apply_local(p, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     ([T, d], aux scalar)."""
     out, aux = moe_apply_grouped(p, x[None], cfg)
     return out[0], aux[0]
+
+
+# ---------------------------------------------------------------------------
+# sharded variants
+# ---------------------------------------------------------------------------
+
+
+def moe_apply_sharded(p, x, cfg, mesh, *, dp_axes: Tuple[str, ...] = ("data",),
+                      tp_axis: str = "model", fsdp_axis: str = "data", strategy: str = "auto"):
+    """Distributed MoE.  x: [T_global, d] DTensor; ``mesh`` a DeviceMesh.
+    Returns (out [T_global, d], aux) as DTensors.
+
+    strategy: "auto" -> EP when E % model == 0 else TP-MoE; "a2a" -> EP with
+    explicit all-to-all dispatch (E % model == 0 only).
+
+      - **EP**: experts sharded over 'model'; tokens data-sharded and
+        replicated over 'model'; each model rank dispatches with its local
+        T's capacity, keeps its expert slice (by its rank on 'model') and
+        combines.  The reference ``psum``s the partial outputs over
+        'model' in the body; here the body returns them as a
+        ``Partial(sum)`` placement on 'model', which DTensor reduces where
+        the next layout needs it (a reduce-scatter into the
+        sequence-sharded residual instead of an all-reduce; the same sum).
+      - **TP-MoE**: every rank computes all experts on its 1/model slice of
+        d_ff; the down-projection partials are ``Partial(sum)`` likewise.
+      - **a2a**: tokens enter split over (data x model); two all-to-alls
+        over 'model' carry each rank's slots to the experts' owners and
+        back.
+
+    Expert weights enter the body still FSDP-sharded over ``fsdp_axis`` and
+    are all-gathered inside it, one layer at a time (autograd
+    all-gathers: their backward is a reduce-scatter).  The aux loss is the
+    reference's mean over the data axes (for a2a over every axis), a
+    ``Partial(sum)`` over every axis of each rank's aux divided by the rank
+    count (the model ranks of ep/tp hold equal values; gloo has no average
+    reduction), so its grad reaches the router once, not once per model
+    rank.  An input replicated over an axis gets a partial grad there, as
+    ``shard_map``'s transpose gives (``layers.grad_placements``).
+    """
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = mesh.mesh_dim_names
+    size = {a: mesh.size(names.index(a)) for a in names}
+    M = size[tp_axis]
+    E = cfg.moe.num_experts
+    k = cfg.moe.experts_per_token
+    if strategy == "auto":
+        strategy = "ep" if E % M == 0 else "tp"
+    if strategy in ("ep", "a2a") and E % M != 0:
+        raise ValueError(f"EP requires E % model == 0 (E={E}, model={M})")
+    if strategy not in ("ep", "tp", "a2a"):
+        raise ValueError(f"unknown MoE strategy {strategy!r}")
+
+    d = x.shape[-1]
+    fs = fsdp_axis if size.get(fsdp_axis, 1) > 1 else None
+    n_dp = math.prod(size[a] for a in dp_axes)
+    me = mesh.get_local_rank(tp_axis)
+
+    def gather(w, axis):
+        if fs is None:
+            return w
+        return funcol.all_gather_tensor_autograd(w, axis, mesh.get_group(fs))
+
+    def pl(*by_axis):
+        """Placements from {axis: placement}; Replicate elsewhere."""
+        want = dict(by_axis)
+        return tuple(want.get(a, Replicate()) for a in names)
+
+    rep = pl()
+    n_all = n_dp * M
+    w_ep = (pl((tp_axis, Shard(0)), *([(fs, Shard(1))] if fs else [])),) * 2
+    wd_ep = pl((tp_axis, Shard(0)), *([(fs, Shard(2))] if fs else []))
+    aux_all = pl(*[(a, Partial()) for a in names])
+    x_dp = pl(*[(a, Shard(0)) for a in dp_axes])
+
+    def expert_slots(x_loc, router):
+        T = x_loc.shape[0]
+        st, sg, aux = _dispatch(x_loc, router, k, capacity_for(cfg, T))
+        x_pad = torch.cat([x_loc, x_loc.new_zeros((1, d))], dim=0)
+        return T, st, sg, aux, x_pad
+
+    if strategy == "ep":
+        def body(x_loc, router, wg, wu, wd):
+            wg, wu, wd = gather(wg, 1), gather(wu, 1), gather(wd, 2)
+            T, st, sg, aux, x_pad = expert_slots(x_loc, router)
+            e0 = me * (E // M)
+            st, sg = st[e0 : e0 + E // M], sg[e0 : e0 + E // M]
+            y = _expert_ffn(x_pad[st], wg, wu, wd)
+            return _combine(st, sg, y, T, d, x_loc.dtype), aux / n_all
+
+        in_pl = (x_dp, rep) + w_ep + (wd_ep,)
+        out_pl = (pl(*[(a, Shard(0)) for a in dp_axes], (tp_axis, Partial())), aux_all)
+    elif strategy == "tp":
+        w_tp = pl((tp_axis, Shard(2)), *([(fs, Shard(1))] if fs else []))
+        wd_tp = pl((tp_axis, Shard(1)), *([(fs, Shard(2))] if fs else []))
+
+        def body(x_loc, router, wg, wu, wd):
+            wg, wu, wd = gather(wg, 1), gather(wu, 1), gather(wd, 2)
+            T, st, sg, aux, x_pad = expert_slots(x_loc, router)
+            y = _expert_ffn(x_pad[st], wg, wu, wd)  # ff sliced -> partial d out
+            return _combine(st, sg, y, T, d, x_loc.dtype), aux / n_all
+
+        in_pl = (x_dp, rep, w_tp, w_tp, wd_tp)
+        out_pl = (pl(*[(a, Shard(0)) for a in dp_axes], (tp_axis, Partial())), aux_all)
+    else:  # "a2a": explicit all-to-all expert dispatch
+        group = mesh.get_group(tp_axis)
+
+        def a2a(t):
+            return funcol.all_to_all_single_autograd(t.contiguous(), None, None, group)
+
+        def body(x_my, router, wg, wu, wd):
+            wg, wu, wd = gather(wg, 1), gather(wu, 1), gather(wd, 2)
+            Tm, st, sg, aux, x_pad = expert_slots(x_my, router)
+            C = st.shape[1]
+            xr = a2a(x_pad[st].reshape(M, E // M, C, d))
+            # xr[s]: tokens from source rank s destined for my local experts
+            xr = xr.permute(1, 0, 2, 3).reshape(E // M, M * C, d)
+            y = _expert_ffn(xr, wg, wu, wd)  # [E/M, M*C, d]
+            y = y.reshape(E // M, M, C, d).permute(1, 0, 2, 3)
+            yb = a2a(y)
+            out_my = _combine(st, sg, yb.reshape(E, C, d), Tm, d, x_my.dtype)
+            return out_my, aux / n_all
+
+        in_pl = (pl(*[(a, Shard(0)) for a in dp_axes + (tp_axis,)]), rep) + w_ep + (wd_ep,)
+        out_pl = (in_pl[0], aux_all)
+
+    # every axis splits the work (tokens over the data axes; experts, d_ff
+    # or tokens over 'model'): a replicated input's grad is partial there
+    fn = local_map(body, out_placements=out_pl, in_placements=in_pl,
+                   in_grad_placements=grad_placements(in_pl, [True] * len(names)),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"])

@@ -1,7 +1,8 @@
 """Model registry for the port: every served family's entry points behind
 one bundle.
 
-``build_model(cfg, device=None)`` returns a ``ModelBundle`` exposing:
+``build_model(cfg, device=None, mesh=None, moe_strategy="auto")`` returns a
+``ModelBundle`` exposing:
   - init_params(generator)                         -> params on the device
   - loss_fn(params, batch)                         -> 0-d f32 training loss
     (the only entry point not run under ``torch.no_grad``: it follows the
@@ -11,6 +12,10 @@ one bundle.
   - make_cache(batch, cache_len)                   -> empty cache or state on the
     device (the recurrent families also take ``device="meta"``: shapes only,
     which ``SnapshotEngine`` reads each leaf's batch axis from)
+  - param_shapes()                                 -> the parameter tree as meta
+    tensors (shapes and dtypes, no memory)
+  - batch_spec(shape) / cache_spec(shape)          -> a ``ShapeSpec`` cell's batch
+    and cache (or state) as meta tensors, the reference's shapes and dtypes
 and, for the transformer families with a bf16 KV cache only (``None`` for
 the recurrent and audio families and for ``kv_cache_dtype="int8"``, as in
 the JAX registry: int8 blocks carry no scale sidecar, so an int8 engine
@@ -27,6 +32,12 @@ Families: ``dense``, ``moe`` (grok-1-314b, arctic-480b) and ``vlm``
 as in the JAX package.  Families other than the transformer ignore
 ``kv_cache_dtype``.
 
+With ``mesh`` (a ``DeviceMesh``), ``loss_fn``, ``prefill_fn`` and
+``decode_fn`` run the sharded forms on DTensor arguments (``launch/steps.py``
+builds and runs them), ``moe_strategy`` picking the MoE layers' strategy.
+The paged entry points take no mesh, as the reference's sharded steps run
+the dense prefill and decode only.
+
 ``analytic_param_count`` is the reference's count (``MODEL_FLOPS = 6 * N *
 D`` uses it; ``ModelConfig.param_count`` calls it).
 """
@@ -39,7 +50,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import hymba as hymba_lib
 from repro_torch.models import transformer as tf_lib
@@ -103,49 +114,68 @@ class ModelBundle:
     prefill_fn: Callable[..., Any]
     decode_fn: Callable[..., Any]
     make_cache: Callable[..., Any]
+    param_shapes: Callable[[], Any]
+    batch_spec: Callable[[ShapeSpec], Any]
+    cache_spec: Callable[[ShapeSpec], Any]
+    mesh: Any = None
+    moe_strategy: str = "auto"
     prefill_collect_fn: Optional[Callable[..., Any]] = None
     paged_decode_fn: Optional[Callable[..., Any]] = None
     prefill_chunk_fn: Optional[Callable[..., Any]] = None
 
 
-def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _param_shapes(init_params):
+    """``init_params``' tree as meta tensors: drawn under a fake-tensor mode
+    (no memory, no numbers) from a CPU generator."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = init_params(torch.Generator().manual_seed(0))
+
+    def meta(tree):
+        if isinstance(tree, dict):
+            return {k: meta(v) for k, v in tree.items()}
+        return _meta(tree.shape, tree.dtype)
+
+    return meta(fake)
+
+
+def build_model(cfg: ModelConfig, device: DeviceLike = None, mesh=None,
+                moe_strategy: str = "auto") -> ModelBundle:
     """Bundle for ``cfg`` on ``device`` (CUDA unless the caller passes
-    ``device="cpu"``).  Families the port does not serve raise."""
+    ``device="cpu"``).  Families the port does not serve raise.  ``mesh``
+    makes ``loss_fn``, ``prefill_fn`` and ``decode_fn`` the sharded forms."""
     tf_lib.check_supported(cfg)
     dev = resolve_device(device)
+    sharding = {} if mesh is None else {"mesh": mesh}
     if cfg.family == "ssm":  # xlstm
-        return ModelBundle(
-            cfg=cfg,
-            device=dev,
-            init_params=lambda generator: xlstm_lib.init_params(cfg, generator, dev),
-            loss_fn=lambda params, batch: xlstm_lib.loss_fn(params, cfg, batch),
-            prefill_fn=partial(_call, xlstm_lib.prefill, cfg),
-            decode_fn=partial(_call, xlstm_lib.decode_step, cfg),
-            make_cache=lambda batch, cache_len, device=dev: xlstm_lib.init_state(cfg, batch, device),
-        )
-    if cfg.family == "hybrid":  # hymba
-        return ModelBundle(
-            cfg=cfg,
-            device=dev,
-            init_params=lambda generator: hymba_lib.init_params(cfg, generator, dev),
-            loss_fn=lambda params, batch: hymba_lib.loss_fn(params, cfg, batch),
-            prefill_fn=partial(_call, hymba_lib.prefill, cfg),
-            decode_fn=partial(_call, hymba_lib.decode_step, cfg),
-            make_cache=lambda batch, cache_len, device=dev: hymba_lib.make_cache(
-                cfg, batch, cache_len, device),
-        )
-    if cfg.family == "audio":  # whisper
-        return ModelBundle(
-            cfg=cfg,
-            device=dev,
-            init_params=lambda generator: whisper_lib.init_params(cfg, generator, dev),
-            loss_fn=lambda params, batch: whisper_lib.loss_fn(params, cfg, batch),
-            prefill_fn=partial(_call, whisper_lib.prefill, cfg),
-            decode_fn=partial(_call, whisper_lib.decode_step, cfg),
-            make_cache=lambda batch, cache_len: whisper_lib.make_cache(cfg, batch, cache_len, dev),
-        )
+        lib = xlstm_lib
+        make_cache = lambda batch, cache_len, device=dev: xlstm_lib.init_state(cfg, batch, device)
+        cache_spec = lambda shape: xlstm_lib.init_state(cfg, shape.global_batch, "meta")
+    elif cfg.family == "hybrid":  # hymba
+        lib = hymba_lib
+        make_cache = lambda batch, cache_len, device=dev: hymba_lib.make_cache(
+            cfg, batch, cache_len, device)
+        cache_spec = lambda shape: hymba_lib.make_cache(cfg, shape.global_batch, shape.seq_len,
+                                                        "meta")
+    elif cfg.family == "audio":  # whisper
+        lib = whisper_lib
+        make_cache = lambda batch, cache_len: whisper_lib.make_cache(cfg, batch, cache_len, dev)
+        cache_spec = lambda shape: whisper_lib.make_cache(cfg, shape.global_batch, shape.seq_len,
+                                                          "meta")
+    else:  # dense / moe / vlm -> transformer
+        lib = tf_lib
+        if mesh is not None:
+            sharding["moe_strategy"] = moe_strategy
+        make_cache = lambda batch, cache_len: tf_lib.make_cache(cfg, batch, cache_len, device=dev)
+        cache_spec = lambda shape: tf_lib.make_cache(cfg, shape.global_batch, shape.seq_len,
+                                                     device="meta")
     paged = {}
-    if cfg.kv_cache_dtype != "int8":
+    if lib is tf_lib and cfg.kv_cache_dtype != "int8":
         paged = dict(
             prefill_collect_fn=partial(_call, tf_lib.prefill_collect, cfg),
             paged_decode_fn=partial(_call, tf_lib.paged_decode_step, cfg),
@@ -154,13 +184,34 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
     return ModelBundle(
         cfg=cfg,
         device=dev,
-        init_params=lambda generator: tf_lib.init_params(cfg, generator, dev),
-        loss_fn=lambda params, batch: tf_lib.loss_fn(params, cfg, batch),
-        prefill_fn=partial(_call, tf_lib.prefill, cfg),
-        decode_fn=partial(_call, tf_lib.decode_step, cfg),
-        make_cache=lambda batch, cache_len: tf_lib.make_cache(cfg, batch, cache_len, device=dev),
+        init_params=lambda generator: lib.init_params(cfg, generator, dev),
+        loss_fn=lambda params, batch: lib.loss_fn(params, cfg, batch, **sharding),
+        prefill_fn=partial(_call, partial(lib.prefill, **sharding), cfg),
+        decode_fn=partial(_call, partial(lib.decode_step, **sharding), cfg),
+        make_cache=make_cache,
+        param_shapes=lambda: _param_shapes(lambda g: lib.init_params(cfg, g, "cpu")),
+        batch_spec=partial(batch_spec, cfg),
+        cache_spec=cache_spec,
+        mesh=mesh,
+        moe_strategy=moe_strategy,
         **paged,
     )
+
+
+def batch_spec(cfg: ModelConfig, shape: ShapeSpec):
+    """A cell's batch as meta tensors: ``tokens`` [B, S] int32 ([B] for a
+    decode cell), whisper's ``frames`` [B, S, d] with ``tokens`` [B,
+    min(448, S)], phi-3-vision's ``patch_embeds`` [B, P, d] in bf16."""
+    b = shape.global_batch
+    if shape.kind == "decode":
+        return {"tokens": _meta((b,), torch.int32)}
+    if cfg.family == "audio":
+        return {"frames": _meta((b, shape.seq_len, cfg.d_model), torch.bfloat16),
+                "tokens": _meta((b, min(whisper_lib.DEC_LEN, shape.seq_len)), torch.int32)}
+    out = {"tokens": _meta((b, shape.seq_len), torch.int32)}
+    if cfg.family in ("dense", "moe", "vlm") and cfg.frontend == "image_patches":
+        out["patch_embeds"] = _meta((b, cfg.frontend_len, cfg.d_model), torch.bfloat16)
+    return out
 
 
 def _call(fn, cfg, params, *args):

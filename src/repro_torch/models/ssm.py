@@ -7,7 +7,8 @@ state transition:
     y_t = C_t . h_t + D * x_t
 Prefill walks the tokens in order (``chunked_recurrent_scan``: plain
 PyTorch, as the JAX package's ``lax.scan`` runs outside any Pallas kernel).
-Decode is a single O(1) state update.  The casts sit where the JAX package
+Decode is a single O(1) state update.  With ``mesh`` the channels shard
+over 'model' and the scan runs on each rank's shards.  The casts sit where the JAX package
 puts them: the coefficients in float32, the scan output cast back to the
 activations' dtype before the gate.
 """
@@ -18,7 +19,16 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import DEFAULT_DTYPE, chunked_recurrent_scan, dense_init
+from repro_torch.models.layers import (
+    DEFAULT_DTYPE,
+    chunked_recurrent_scan,
+    constrain,
+    dense_init,
+    mesh_axes,
+    proj,
+    shard_if,
+    sharded_recurrent_scan,
+)
 
 
 def _dims(cfg):
@@ -71,12 +81,20 @@ def _causal_conv(p, x, conv_state):
     return F.silu(out), new_state
 
 
-def _ssm_coeffs(p, cfg, xc):
-    """xc: [B, S, di] post-conv activations -> (dA, dBx, C)."""
+def _ssm_coeffs(p, cfg, xc, mesh=None):
+    """xc: [B, S, di] post-conv activations -> (dA, dBx, C).  ``mesh``: dt
+    keeps the channel layout and B, C the sequence whole, so the [B, S, di,
+    N] coefficients form where the scan reads them."""
     _, dt_rank, N, _ = _dims(cfg)
-    proj = xc @ p["w_xproj"]  # [B, S, dt_rank + 2N]
-    dt_r, Bmat, Cmat = torch.split(proj.float(), [dt_rank, N, N], dim=-1)
-    dt = softplus(dt_r @ p["w_dt"].float() + p["dt_bias"])  # [B, S, di]
+    coef = proj(xc, p["w_xproj"])  # [B, S, dt_rank + 2N]
+    coef = coef.float()  # slices, not torch.split: see ssm_forward's xi, z
+    dt_r, Bmat, Cmat = (coef[..., :dt_rank], coef[..., dt_rank : dt_rank + N],
+                        coef[..., dt_rank + N :])
+    dt = softplus(proj(dt_r, p["w_dt"].float()) + p["dt_bias"])  # [B, S, di]
+    if mesh is not None and "model" in mesh.mesh_dim_names:
+        dt = _constrain_channels(dt, mesh)
+        b = (shard_if(mesh, xc.shape[0], mesh_axes(mesh)[0]), None, None)
+        Bmat, Cmat = constrain(Bmat, mesh, b), constrain(Cmat, mesh, b)
     A = -torch.exp(p["A_log"])  # [di, N]
     dA = torch.exp(dt[..., None] * A)  # [B, S, di, N]
     dBx = (dt * xc.float())[..., None] * Bmat[..., None, :]  # [B, S, di, N]
@@ -90,21 +108,58 @@ def _scan_step(h, inp):
     return h, y
 
 
-def ssm_forward(p, cfg, x, state):
-    """x: [B, S, d] -> (y [B, S, d], new_state), the tokens in order."""
-    xz = x @ p["w_in"]
-    xi, z = torch.chunk(xz, 2, dim=-1)
-    xc, conv_state = _causal_conv(p, xi, state["conv"])
-    dA, dBx, Cmat = _ssm_coeffs(p, cfg, xc)
+def _constrain_channels(t, mesh, *, ch_dim=2):
+    """SSM layout: sequence replicated, channels (d_inner) sharded over
+    'model', batch over the data axes (the reference's: a recurrence is
+    sequential over tokens and parallel over channels)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return t
+    dp, _ = mesh_axes(mesh)
+    spec = [None] * t.ndim
+    spec[0] = shard_if(mesh, t.shape[0], dp)
+    spec[ch_dim] = shard_if(mesh, t.shape[ch_dim], "model")
+    return constrain(t, mesh, tuple(spec))
+
+
+def _scan_step_state(st, inp):
+    h, y = _scan_step(st["h"], inp)
+    return {"h": h}, y
+
+
+def ssm_forward(p, cfg, x, state, mesh=None):
+    """x: [B, S, d] -> (y [B, S, d], new_state), the tokens in order.
+    ``mesh``: channels sharded over 'model', the scan on local shards
+    (``layers.sharded_recurrent_scan``)."""
+    xz = proj(x, p["w_in"])
+    # slices, not torch.chunk: chunk's backward concatenates the pieces'
+    # grads, whose DTensor layouts differ and which DTensor cannot
+    # concatenate (it has no rule from Shard to Partial)
+    di = xz.shape[-1] // 2
+    xi, z = xz[..., :di], xz[..., di:]
+    xi = _constrain_channels(xi, mesh)
+    z = _constrain_channels(z, mesh)
+    # the conv state [B, K-1, di] takes xi's layout, so the concatenation
+    # in the conv keeps d_inner sharded
+    xc, conv_state = _causal_conv(p, xi, _constrain_channels(state["conv"], mesh))
+    dA, dBx, Cmat = _ssm_coeffs(p, cfg, xc, mesh)
     to_s = lambda a: a.movedim(1, 0)
-    h, ys = chunked_recurrent_scan(
-        _scan_step, state["h"], (to_s(dA), to_s(dBx), to_s(Cmat)), chunk=128
-    )  # ys [S, B, di]
+    xs = (to_s(dA), to_s(dBx), to_s(Cmat))
+    if mesh is None:
+        h, ys = chunked_recurrent_scan(_scan_step, state["h"], xs, chunk=128)  # ys [S, B, di]
+    else:
+        dp, _ = mesh_axes(mesh)
+        b = shard_if(mesh, x.shape[0], dp)
+        c = shard_if(mesh, dA.shape[2], "model")
+        carry, ys = sharded_recurrent_scan(
+            _scan_step_state, {"h": state["h"]}, xs, mesh=mesh, init_specs={"h": (b, c, None)},
+            xs_specs=((None, b, c, None), (None, b, c, None), (None, b, None)),
+            ys_spec=(None, b, c), chunk=128)
+        h = carry["h"]
     y = ys.transpose(0, 1) + p["D"] * xc.float()
-    out = (y.to(x.dtype) * F.silu(z)) @ p["w_out"]
+    out = proj(y.to(x.dtype) * F.silu(z), p["w_out"])
     return out, {"h": h, "conv": conv_state}
 
 
-def ssm_decode(p, cfg, x, state):
+def ssm_decode(p, cfg, x, state, mesh=None):
     """Single-token step.  x: [B, 1, d]."""
-    return ssm_forward(p, cfg, x, state)
+    return ssm_forward(p, cfg, x, state, mesh=mesh)

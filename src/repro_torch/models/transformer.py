@@ -35,6 +35,14 @@ with each layer rematerialized and the plain chunked attention
 (``attn_prefill_layer(..., remat=True)``; no kernel), then
 ``chunked_cross_entropy`` plus ``aux_coef`` times the MoE layers' GShard
 aux loss.
+
+``mesh=`` (a ``DeviceMesh``, with DTensor parameters and inputs; the
+sharded steps of ``launch/steps.py``) threads the reference's layouts
+through ``loss_fn``, ``prefill`` and ``decode_step``: activations are
+constrained at each layer's boundaries (``constrain_activations``), the
+attention runs in the sharded body of ``layers.attention_prefill_sharded``,
+and an MoE layer runs ``moe.moe_apply_sharded`` with ``moe_strategy``.
+Without a mesh each entry point is what it was.
 """
 from __future__ import annotations
 
@@ -54,13 +62,17 @@ from repro_torch.models.layers import (
     attn_paged_prefill_layer,
     attn_prefill_layer,
     chunked_cross_entropy,
+    constrain_activations,
     decode_slot,
     embed_init,
+    hold_grad_layout,
     make_norm,
     mlp_apply,
     mlp_init,
+    pad_to,
     remat_call,
     slot_update,
+    unshard_dims,
 )
 
 
@@ -152,27 +164,42 @@ def layer_params(layers: Dict[str, Any], num_layers: int) -> List[Dict[str, Any]
 def embed_tokens(params, cfg, tokens, extra_embeds=None):
     """Token embedding; ids are clamped to [0, vocab - 1].  VLM configs
     prepend the stub frontend's embeddings ``extra_embeds`` [B, P, d]."""
-    x = params["embed"][tokens.long().clamp(0, cfg.vocab_size - 1)]
+    ids = tokens.long().clamp(0, cfg.vocab_size - 1)
+    # F.embedding, not indexing, on every route: on the card its backward
+    # sums a table row's duplicate tokens in f32, where indexing's (an
+    # index_put_ with accumulate) rounds a bf16 row after each duplicate;
+    # and DTensor before torch 2.13 has no rule for the indexing with ids
+    # sharded over two mesh axes, nor for its backward on a sharded table
+    x = torch.nn.functional.embedding(ids, params["embed"])
     if extra_embeds is not None:
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x
 
 
-def _mlp_block(lp, cfg, h, *, per_row: bool = False):
+def _mlp_block(lp, cfg, h, *, per_row: bool = False, mesh=None, moe_strategy: str = "auto"):
     """The layer's MLP on h [B, S, d]: the dense MLP, or the MoE over all
     B * S tokens as one dispatch (``per_row``: one dispatch per row), plus
     Arctic's dense residual MLP beside the experts.  Returns (out, aux):
     the MoE's GShard aux loss summed over its dispatches (one without
-    ``per_row``), None for a dense MLP."""
+    ``per_row``), None for a dense MLP.  With a mesh the MoE is
+    ``moe_apply_sharded`` over the B * S tokens (the reference's
+    ``_moe_block``)."""
     if not cfg.moe.num_experts:
         return mlp_apply(lp["mlp"], h, cfg.activation), None
     B, S, d = h.shape
-    groups = h if per_row else h.reshape(1, B * S, d)
-    m, aux = moe_lib.moe_apply_grouped(lp["moe"], groups, cfg)
-    m = m.reshape(B, S, d)
+    if mesh is not None:
+        dp = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+        tokens = hold_grad_layout(unshard_dims(h, (1,))).reshape(B * S, d)  # [B, S] flattened
+        m, aux = moe_lib.moe_apply_sharded(lp["moe"], tokens, cfg, mesh,
+                                           dp_axes=dp, tp_axis="model", strategy=moe_strategy)
+    else:
+        groups = h if per_row else h.reshape(1, B * S, d)
+        m, aux = moe_lib.moe_apply_grouped(lp["moe"], groups, cfg)
+        aux = aux.sum()
+    m = hold_grad_layout(m.reshape(B, S, d))  # its backward flattens [B, S] again
     if cfg.moe.dense_residual:
         m = m + mlp_apply(lp["mlp"], h, cfg.activation)
-    return m, aux.sum()
+    return m, aux
 
 
 # ---------------------------------------------------------------------------
@@ -180,18 +207,25 @@ def _mlp_block(lp, cfg, h, *, per_row: bool = False):
 # ---------------------------------------------------------------------------
 
 
-def _layer(lp, x, cfg, positions, *, contiguous: bool = False, remat: bool = False):
+def _layer(lp, x, cfg, positions, *, contiguous: bool = False, remat: bool = False, mesh=None,
+           moe_strategy: str = "auto"):
     """One layer: (x out, MoE aux or None, (k, v))."""
+    x = constrain_activations(x, mesh)
     h = apply_norm(cfg.norm, lp["ln1"], x)
-    a, kv = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=contiguous, remat=remat)
+    a, kv = attn_prefill_layer(lp["attn"], cfg, h, positions, contiguous=contiguous, remat=remat,
+                               mesh=mesh)
     x = x + a
     h = apply_norm(cfg.norm, lp["ln2"], x)
-    m, aux = _mlp_block(lp, cfg, h)
-    return x + m, aux, kv
+    m, aux = _mlp_block(lp, cfg, h, mesh=mesh, moe_strategy=moe_strategy)
+    x = constrain_activations(x + m, mesh)
+    if mesh is not None:
+        kv = tuple(constrain_activations(t, mesh) for t in kv)
+    return x, aux, kv
 
 
 def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
-                   contiguous: bool = False, remat: bool = False):
+                   contiguous: bool = False, remat: bool = False, mesh=None,
+                   moe_strategy: str = "auto"):
     """Run the layer stack.  x: [B, S, d] embedded inputs.  ``contiguous``
     states that ``positions`` are ``arange(S)`` in every row, which the
     card's flash-attention kernel requires (``attn_prefill_layer``).
@@ -200,16 +234,18 @@ def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
 
     Returns (hidden [B, S, d], aux, cache_kv or None): aux is the MoE
     layers' aux loss summed (f32 0 for a dense stack); cache_kv is (k, v)
-    stacked [L, B, S, KV, Dh].
+    stacked [L, B, S, KV, Dh].  ``mesh``: the sharded layer (see the module
+    docstring).
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
+    sharding = dict(mesh=mesh, moe_strategy=moe_strategy)
     for lp in layer_params(params["layers"], cfg.num_layers):
         if remat:
-            x, aux_l, _ = remat_call(partial(_layer, cfg=cfg, positions=positions, remat=True),
-                                     lp, x)
+            x, aux_l, _ = remat_call(partial(_layer, cfg=cfg, positions=positions, remat=True,
+                                             **sharding), lp, x)
         else:
-            x, aux_l, (k_, v_) = _layer(lp, x, cfg, positions, contiguous=contiguous)
+            x, aux_l, (k_, v_) = _layer(lp, x, cfg, positions, contiguous=contiguous, **sharding)
             if collect_cache:
                 ks.append(k_)
                 vs.append(v_)
@@ -219,7 +255,7 @@ def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
     return x, aux, cache
 
 
-def loss_fn(params, cfg, batch, *, aux_coef: float = 0.01):
+def loss_fn(params, cfg, batch, *, aux_coef: float = 0.01, mesh=None, moe_strategy: str = "auto"):
     """Next-token LM loss (0-d f32).  batch: ``tokens`` [B, S], and for the
     VLM ``patch_embeds`` [B, P, d] in front of them (positions
     ``arange(P + S)``; the P frontend positions carry no label)."""
@@ -227,7 +263,8 @@ def loss_fn(params, cfg, batch, *, aux_coef: float = 0.01):
     B, S = tokens.shape
     x, positions = _embed_prompt(params, cfg, batch)
     P = x.shape[1] - S
-    x, aux, _ = forward_hidden(params, cfg, x, positions, remat=True)
+    x, aux, _ = forward_hidden(params, cfg, x, positions, remat=True, mesh=mesh,
+                               moe_strategy=moe_strategy)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     labels = shifted_labels(tokens, P)
     return chunked_cross_entropy(x, unembed(cfg, params), labels) + aux_coef * aux
@@ -265,7 +302,7 @@ def make_cache(cfg, batch: int, cache_len: int, dtype=DEFAULT_DTYPE, device: Dev
     package; ``kv_cache_dtype="int8"`` makes ``k``/``v`` int8 and adds
     ``k_scale``/``v_scale`` [L, B, Sc, KV] in bf16.  On the card unless
     ``device`` names the CPU."""
-    device = resolve_device(device)
+    device = resolve_device(device, allow_meta=True)
     L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     Sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
     cache = {"pos": torch.full((batch, Sc), -1, dtype=torch.int32, device=device)}
@@ -289,7 +326,7 @@ def _embed_prompt(params, cfg, batch):
     return x, torch.arange(St, device=tokens.device)[None].expand(B, St)
 
 
-def prefill(params, cfg, batch, cache_len: int):
+def prefill(params, cfg, batch, cache_len: int, *, mesh=None, moe_strategy: str = "auto"):
     """Prefill for the dense decode mode; returns (last-position logits
     [B, V] f32, cache).  ``batch["patch_embeds"]`` [B, P, d], when given,
     precede the tokens (positions ``0..P-1``).  The trailing ``min(Sc, P + S)``
@@ -298,9 +335,12 @@ def prefill(params, cfg, batch, cache_len: int):
     ``p % Sc`` that decode later writes; the JAX package does the same)."""
     x, positions = _embed_prompt(params, cfg, batch)
     B, St = positions.shape
-    x, _, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True)
+    x, _, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True,
+                                    mesh=mesh, moe_strategy=moe_strategy)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = (x[:, -1] @ unembed(cfg, params)).float()
+    if mesh is not None:
+        return logits, _sharded_prefill_cache(cfg, ck, cv, positions, cache_len)
     cache = make_cache(cfg, B, cache_len, device=x.device)
     keep = min(cache["k"].shape[2], St)
     # write the trailing `keep` positions of the prefill KV into the cache
@@ -316,7 +356,7 @@ def prefill(params, cfg, batch, cache_len: int):
     return logits, cache
 
 
-def decode_step(params, cfg, cache, tokens, cur_pos):
+def decode_step(params, cfg, cache, tokens, cur_pos, *, mesh=None, moe_strategy: str = "auto"):
     """One dense-cache decode step.  tokens, cur_pos: [B] int.  Returns
     (logits [B, V] f32, new cache); the input cache is unchanged.  An int8
     cache is dequantized one layer at a time, and the layer's slice with
@@ -333,11 +373,14 @@ def decode_step(params, cfg, cache, tokens, cur_pos):
             cv = dequantize_kv(cache["v"][i], cache["v_scale"][i])
         else:
             ck, cv = cache["k"][i], cache["v"][i]
+        x = constrain_activations(x, mesh, seq_dim=None)
         h = apply_norm(cfg.norm, lp["ln1"], x)
         a, nk, nv = attn_decode_layer(lp["attn"], cfg, h, ck, cv, new_pos, cur_pos, slot)
         x = x + a
         h = apply_norm(cfg.norm, lp["ln2"], x)
-        x = x + _mlp_block(lp, cfg, h)[0]
+        x = x + _mlp_block(lp, cfg, h, mesh=mesh, moe_strategy=moe_strategy)[0]
+        if mesh is not None:
+            nk, nv = constrain_activations(nk, mesh), constrain_activations(nv, mesh)
         if int8_kv:
             (nk, nks), (nv, nvs) = quantize_kv(nk), quantize_kv(nv)
             out["k_scale"].append(nks)
@@ -349,6 +392,22 @@ def decode_step(params, cfg, cache, tokens, cur_pos):
     new_cache = {key: torch.stack(ts) for key, ts in out.items()}
     new_cache["pos"] = new_pos
     return logits, new_cache
+
+
+def _sharded_prefill_cache(cfg, ck, cv, positions, cache_len: int):
+    """``prefill``'s cache from DTensor K/V [L, B, St, KV, Dh]: the trailing
+    ``keep`` positions in slots ``0..keep-1`` and the rest unwritten, as
+    ``prefill`` writes them (``layers.pad_to``).  bf16 caches only."""
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("a sharded int8 prefill cache is not ported")
+    St = ck.shape[2]
+    Sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+    keep = min(Sc, St)
+    return {
+        "k": pad_to(ck[:, :, St - keep :], Sc, 2, 0),
+        "v": pad_to(cv[:, :, St - keep :], Sc, 2, 0),
+        "pos": pad_to(positions[:, St - keep :].to(torch.int32), Sc, 1, -1),
+    }
 
 
 def prefill_collect(params, cfg, batch):

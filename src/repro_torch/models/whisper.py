@@ -28,6 +28,11 @@ the bundle's ``prefill_fn``/``decode_fn`` are its entry points.
 ``decode_prefill(remat=True)`` rematerialize each layer, and every
 attention, cross attention included, runs the plain chunked
 ``attention_prefill`` (no kernel: K5 has no backward).
+
+``mesh=`` threads the reference's layouts through ``encode`` and
+``decode_prefill`` (so ``loss_fn`` and ``prefill``): activations
+constrained at each layer's boundaries, self and cross attention in
+``layers.attention_prefill_sharded``'s body.
 """
 from __future__ import annotations
 
@@ -45,16 +50,23 @@ from repro_torch.models.layers import (
     attn_decode_layer,
     attn_init,
     attn_prefill_layer,
+    attention_prefill_sharded,
     chunked_cross_entropy,
+    constrain_activations,
     decode_slot,
     dense_init,
+    is_dtensor,
     embed_init,
     make_norm,
+    merge_heads,
     mlp_apply,
     mlp_init,
+    pad_to,
+    proj,
     remat_call,
     sinusoidal_positions,
     slot_update,
+    split_dim,
 )
 from repro_torch.models.transformer import (
     _device_generator,
@@ -107,24 +119,26 @@ def _arange_rows(B: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device)[None].expand(B, S)
 
 
-def _enc_layer(lp, x, cfg, positions, remat: bool = False):
+def _enc_layer(lp, x, cfg, positions, remat: bool = False, mesh=None):
+    x = constrain_activations(x, mesh)
     h = apply_norm(cfg.norm, lp["ln1"], x)
     a, _ = attn_prefill_layer(
-        lp["attn"], cfg, h, positions, causal=False, use_rope=False, contiguous=True, remat=remat
+        lp["attn"], cfg, h, positions, causal=False, use_rope=False, contiguous=True, remat=remat,
+        mesh=mesh,
     )
     x = x + a
     h = apply_norm(cfg.norm, lp["ln2"], x)
-    return x + mlp_apply(lp["mlp"], h, cfg.activation)
+    return constrain_activations(x + mlp_apply(lp["mlp"], h, cfg.activation), mesh)
 
 
-def encode(params, cfg, frames, *, remat: bool = False):
+def encode(params, cfg, frames, *, remat: bool = False, mesh=None):
     """frames: [B, S, d] stub embeddings -> encoder states [B, S, d].
     ``remat`` (training): each layer one ``remat_call`` over the plain
     attention."""
     B, S, d = frames.shape
     x = frames + sinusoidal_positions(S, d, device=frames.device)[None]
     positions = _arange_rows(B, S, frames.device)
-    layer = partial(_enc_layer, cfg=cfg, positions=positions, remat=remat)
+    layer = partial(_enc_layer, cfg=cfg, positions=positions, remat=remat, mesh=mesh)
     for lp in layer_params(params["enc_layers"], cfg.encoder_layers):
         x = remat_call(layer, lp, x) if remat else layer(lp, x)
     return apply_norm(cfg.norm, params["enc_norm"], x)
@@ -135,42 +149,51 @@ def _cross_kv(lp, cfg, enc_states):
     states (views of the projections, no copies)."""
     B, T, _ = enc_states.shape
     KV, Dh = cfg.num_kv_heads, cfg.resolved_head_dim
-    k = (enc_states @ lp["xattn"]["wk"]).reshape(B, T, KV, Dh)
-    v = (enc_states @ lp["xattn"]["wv"]).reshape(B, T, KV, Dh)
+    k = split_dim(proj(enc_states, lp["xattn"]["wk"]), 2, (KV, Dh))
+    v = split_dim(proj(enc_states, lp["xattn"]["wv"]), 2, (KV, Dh))
     return k, v
 
 
-def _cross_attend(lp, cfg, x, xk, xv, remat: bool = False):
+def _cross_attend(lp, cfg, x, xk, xv, remat: bool = False, mesh=None):
     """Non-causal attention from x [B, S, d] over xk, xv [B, T, KV, Dh];
-    ``remat``: the plain attention with each query block rematerialized."""
+    ``remat``: the plain attention with each query block rematerialized.
+    ``mesh``: in ``attention_prefill_sharded``'s body (the cross K/V
+    gathered once, each rank's query slice)."""
     B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.resolved_head_dim
-    q = (x @ lp["xattn"]["wq"]).reshape(B, S, H, Dh)
-    if remat:
+    q = split_dim(proj(x, lp["xattn"]["wq"]), 2, (H, Dh))
+    if mesh is not None:
+        T = xk.shape[1]
+        out = attention_prefill_sharded(
+            q, xk, xv, q_positions=_arange_rows(B, S, x.device),
+            kv_positions=_arange_rows(B, T, x.device), mesh=mesh, causal=False,
+            contiguous=True, remat=remat)
+    elif remat:
         T = xk.shape[1]
         out = attention_prefill(q, xk, xv, q_positions=_arange_rows(B, S, x.device),
                                 kv_positions=_arange_rows(B, T, x.device), causal=False,
                                 remat=True)
     else:
         out = attention_contiguous(q, xk, xv, causal=False)
-    return out.reshape(B, S, -1) @ lp["xattn"]["wo"]
+    return proj(merge_heads(out, 2), lp["xattn"]["wo"])
 
 
-def _dec_layer(lp, x, enc_states, cfg, positions, remat: bool = False):
+def _dec_layer(lp, x, enc_states, cfg, positions, remat: bool = False, mesh=None):
     """One decoder layer: (x out, (k, v, xk, xv))."""
+    x = constrain_activations(x, mesh)
     h = apply_norm(cfg.norm, lp["ln1"], x)
     a, (k_, v_) = attn_prefill_layer(lp["attn"], cfg, h, positions, use_rope=False,
-                                     contiguous=True, remat=remat)
+                                     contiguous=True, remat=remat, mesh=mesh)
     x = x + a
     h = apply_norm(cfg.norm, lp["lnx"], x)
     xk, xv = _cross_kv(lp, cfg, enc_states)
-    x = x + _cross_attend(lp, cfg, h, xk, xv, remat=remat)
+    x = x + _cross_attend(lp, cfg, h, xk, xv, remat=remat, mesh=mesh)
     h = apply_norm(cfg.norm, lp["ln2"], x)
     return x + mlp_apply(lp["mlp"], h, cfg.activation), (k_, v_, xk, xv)
 
 
 def decode_prefill(params, cfg, tokens, enc_states, *, collect_cache: bool = False,
-                   remat: bool = False):
+                   remat: bool = False, mesh=None):
     """Decoder forward over a token prefix.  Returns (hidden [B, S, d],
     (k, v, xk, xv) stacked on a leading L, or None).  ``remat``
     (training): each layer one ``remat_call`` over the plain attention."""
@@ -181,21 +204,21 @@ def decode_prefill(params, cfg, tokens, enc_states, *, collect_cache: bool = Fal
     ys = []
     for lp in layer_params(params["dec_layers"], cfg.num_layers):
         if remat:
-            x, _ = remat_call(partial(_dec_layer, cfg=cfg, positions=positions, remat=True),
-                              lp, x, enc_states)
+            x, _ = remat_call(partial(_dec_layer, cfg=cfg, positions=positions, remat=True,
+                                      mesh=mesh), lp, x, enc_states)
         else:
-            x, kv = _dec_layer(lp, x, enc_states, cfg, positions)
+            x, kv = _dec_layer(lp, x, enc_states, cfg, positions, mesh=mesh)
             if collect_cache:
                 ys.append(kv)
     cache = tuple(torch.stack(t) for t in zip(*ys)) if collect_cache else None
     return apply_norm(cfg.norm, params["final_norm"], x), cache
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, mesh=None):
     """Next-token LM loss (0-d f32).  batch: ``frames`` [B, T, d] (the stub
     frontend's embeddings) and ``tokens`` [B, S]."""
-    enc_states = encode(params, cfg, batch["frames"], remat=True)
-    x, _ = decode_prefill(params, cfg, batch["tokens"], enc_states, remat=True)
+    enc_states = encode(params, cfg, batch["frames"], remat=True, mesh=mesh)
+    x, _ = decode_prefill(params, cfg, batch["tokens"], enc_states, remat=True, mesh=mesh)
     return chunked_cross_entropy(x, params["embed"].T, shifted_labels(batch["tokens"]))
 
 
@@ -203,8 +226,8 @@ def make_cache(cfg, batch: int, cache_len: int, device: DeviceLike = None):
     """Self cache ``k``/``v`` [L, B, cache_len, KV, Dh] bf16 with ``pos``
     [B, cache_len] (-1 = unwritten), and the cross cache ``xk``/``xv``
     [L, B, cross_attend_len, KV, Dh] bf16.  On the card unless ``device``
-    names the CPU."""
-    dev = resolve_device(device)
+    names the CPU (``"meta"``: shapes only)."""
+    dev = resolve_device(device, allow_meta=True)
     L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
     zeros = lambda n: torch.zeros((L, batch, n, KV, Dh), dtype=torch.bfloat16, device=dev)
     return {
@@ -216,14 +239,25 @@ def make_cache(cfg, batch: int, cache_len: int, device: DeviceLike = None):
     }
 
 
-def prefill(params, cfg, batch, cache_len: int):
+def prefill(params, cfg, batch, cache_len: int, mesh=None):
     """batch: ``frames`` [B, T, d], ``tokens`` [B, S].  Returns (last-position
     logits [B, V] f32, cache)."""
     frames, tokens = batch["frames"], batch["tokens"]
     B, S = tokens.shape
-    enc_states = encode(params, cfg, frames)
-    x, (ck, cv, xk, xv) = decode_prefill(params, cfg, tokens, enc_states, collect_cache=True)
+    enc_states = encode(params, cfg, frames, mesh=mesh)
+    x, (ck, cv, xk, xv) = decode_prefill(params, cfg, tokens, enc_states, collect_cache=True,
+                                         mesh=mesh)
     logits = (x[:, -1] @ params["embed"].T).float()
+    if mesh is not None:  # the same slots, by concatenation (``layers.pad_to``)
+        keep, Tc = min(cache_len, S), min(cfg.cross_attend_len, xk.shape[2])
+        return logits, {
+            "k": pad_to(ck[:, :, S - keep :], cache_len, 2, 0),
+            "v": pad_to(cv[:, :, S - keep :], cache_len, 2, 0),
+            "pos": pad_to(_arange_rows(B, S, x.device)[:, S - keep :].to(torch.int32),
+                          cache_len, 1, -1),
+            "xk": pad_to(xk[:, :, :Tc], cfg.cross_attend_len, 2, 0),
+            "xv": pad_to(xv[:, :, :Tc], cfg.cross_attend_len, 2, 0),
+        }
     cache = make_cache(cfg, B, cache_len, device=x.device)
     keep = min(cache_len, S)
     cache["k"][:, :, :keep] = ck[:, :, S - keep :]
@@ -235,16 +269,19 @@ def prefill(params, cfg, batch, cache_len: int):
     return logits, cache
 
 
-def decode_step(params, cfg, cache, tokens, cur_pos):
+def decode_step(params, cfg, cache, tokens, cur_pos, mesh=None):
     """One decode step.  tokens, cur_pos: [B] int.  Returns (logits [B, V]
-    f32, new cache); the input cache is unchanged."""
+    f32, new cache); the input cache is unchanged.  ``mesh`` is taken and
+    unused: the reference's whisper decode constrains nothing."""
     B = tokens.shape[0]
     d = cfg.d_model
     H, Dh = cfg.num_heads, cfg.resolved_head_dim
     Sc = cache["k"].shape[2]
     pos_table = sinusoidal_positions(Sc + 1, d, device=tokens.device)
     row = torch.clamp(cur_pos.long(), max=Sc)
-    x = embed_tokens(params, cfg, tokens)[:, None, :] + pos_table[row][:, None, :]
+    pos_rows = (torch.nn.functional.embedding(row, pos_table) if is_dtensor(row)  # as embed_tokens
+                else pos_table[row])
+    x = embed_tokens(params, cfg, tokens)[:, None, :] + pos_rows[:, None, :]
     slot = decode_slot(cfg, Sc, cur_pos)
     new_pos = slot_update(cache["pos"][..., None], cur_pos[:, None, None], slot)[..., 0]
     Tc = cache["xk"].shape[2]
@@ -258,9 +295,9 @@ def decode_step(params, cfg, cache, tokens, cur_pos):
         )
         x = x + a
         h = apply_norm(cfg.norm, lp["lnx"], x)
-        q = (h @ lp["xattn"]["wq"]).reshape(B, 1, H, Dh)
+        q = split_dim(proj(h, lp["xattn"]["wq"]), 2, (H, Dh))
         xa = attention_decode(q, cache["xk"][i], cache["xv"][i], kv_positions=xpos, cur_pos=x_cur)
-        x = x + xa.reshape(B, 1, -1) @ lp["xattn"]["wo"]
+        x = x + proj(merge_heads(xa, 2), lp["xattn"]["wo"])
         h = apply_norm(cfg.norm, lp["ln2"], x)
         x = x + mlp_apply(lp["mlp"], h, cfg.activation)
         ks.append(nk)

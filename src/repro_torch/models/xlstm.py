@@ -16,6 +16,11 @@ snapshot rather than KV blocks: predicate ``state_at_token(k)``.
 ``loss_fn`` trains it as the reference does: no per-layer remat, the
 recurrences checkpointed per chunk of ``xlstm.chunk_size`` tokens
 (``layers.chunked_recurrent_scan``), the embedding as the unembedding.
+
+``mesh=`` keeps the token axis replicated through each recurrence
+(``_seq_replicated``, the mLSTM's value and C-state channels sharded over
+'model') and runs the token loop on local shards
+(``layers.sharded_recurrent_scan``).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.layers import (
@@ -31,10 +37,20 @@ from repro_torch.models.layers import (
     apply_norm,
     chunked_cross_entropy,
     chunked_recurrent_scan,
+    constrain,
+    constrain_activations,
     dense_init,
     embed_init,
+    full_local,
+    is_dtensor,
     make_norm,
+    merge_heads,
+    mesh_axes,
+    proj,
     rms_norm,
+    shard_if,
+    sharded_recurrent_scan,
+    split_dim,
     tree_map,
 )
 from repro_torch.models.transformer import _device_generator, embed_tokens, shifted_labels
@@ -92,32 +108,82 @@ def _mlstm_qkvif(p, cfg, x):
     B, S, d = x.shape
     nh, dh = cfg.num_heads, d // cfg.num_heads
     xn = apply_norm(cfg.norm, p["ln"], x)
-    q = (xn @ p["wq"]).reshape(B, S, nh, dh).float()
-    k = (xn @ p["wk"]).reshape(B, S, nh, dh).float() / math.sqrt(dh)
-    v = (xn @ p["wv"]).reshape(B, S, nh, dh).float()
-    log_i = (xn @ p["wi"]).float()
-    log_f = F.logsigmoid((xn @ p["wf"]).float() + p["fb"])
-    gate = F.silu(xn @ p["wg"])
+    q = split_dim(proj(xn, p["wq"]), 2, (nh, dh)).float()
+    k = split_dim(proj(xn, p["wk"]), 2, (nh, dh)).float() / math.sqrt(dh)
+    v = split_dim(proj(xn, p["wv"]), 2, (nh, dh)).float()
+    log_i = proj(xn, p["wi"]).float()
+    f_pre = proj(xn, p["wf"]).float() + p["fb"]
+    if is_dtensor(f_pre):
+        # DTensor has no sharding rule for aten.log_sigmoid_backward:
+        # replicate the input (the dry run counts the gather) and apply the
+        # op to every rank's full local copy
+        mesh, rep = f_pre.device_mesh, [Replicate()] * f_pre.device_mesh.ndim
+        log_f = DTensor.from_local(F.logsigmoid(f_pre.redistribute(mesh, rep).to_local()), mesh,
+                                   rep, run_check=False)
+    else:
+        log_f = F.logsigmoid(f_pre)
+    gate = F.silu(proj(xn, p["wg"]))
     return q, k, v, log_i, log_f, gate
 
 
-def mlstm_forward(p, cfg, x, state):
+def _seq_replicated(t, mesh, *, shard_last=False):
+    """The recurrence's layout: the token axis replicated, batch over the
+    data axes, and (``shard_last``) the value/state channel dim over
+    'model' where it divides (the reference's)."""
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return t
+    dp, _ = mesh_axes(mesh)
+    spec = [None] * t.ndim
+    spec[0] = shard_if(mesh, t.shape[0], dp)
+    if shard_last:
+        spec[-1] = shard_if(mesh, t.shape[-1], "model")
+    return constrain(t, mesh, tuple(spec))
+
+
+def _scan(step, state, xs, cfg, mesh, x_shards_last):
+    """The token recurrence, on local shards with a mesh.  ``xs`` are
+    [S, B, ...]; ``x_shards_last`` says which of them (and so the state
+    leaves and ys that share their last dim) shard it over 'model'."""
+    if mesh is None:
+        return chunked_recurrent_scan(step, state, xs, chunk=cfg.xlstm.chunk_size)
+    dp, _ = mesh_axes(mesh)
+    b = shard_if(mesh, xs[0].shape[1], dp)
+
+    def spec(t, lead, last):
+        out = [None] * t.ndim
+        out[lead] = b
+        if last:
+            out[-1] = shard_if(mesh, t.shape[-1], "model")
+        return tuple(out)
+
+    any_last = any(x_shards_last)
+    init_specs = {k: spec(v, 0, any_last and k == "C") for k, v in state.items()}
+    xs_specs = tuple(spec(t, 1, last) for t, last in zip(xs, x_shards_last))
+    ys_spec = (None, b) + (None,) * (xs[0].ndim - 3) + (
+        shard_if(mesh, xs[0].shape[-1], "model") if any_last else None,)
+    return sharded_recurrent_scan(step, state, xs, mesh=mesh, init_specs=init_specs,
+                                  xs_specs=xs_specs, ys_spec=ys_spec,
+                                  chunk=cfg.xlstm.chunk_size)
+
+
+def mlstm_forward(p, cfg, x, state, mesh=None):
     """Sequence forward (the recurrence token by token).  x: [B, S, d]."""
     B, S, d = x.shape
     q, k, v, log_i, log_f, gate = _mlstm_qkvif(p, cfg, x)
+    q, k, log_i, log_f = (_seq_replicated(t, mesh) for t in (q, k, log_i, log_f))
+    v = _seq_replicated(v, mesh, shard_last=True)  # the C state shards over dv
     to_s = lambda a: a.movedim(1, 0)  # [B, S, ...] -> [S, B, ...]
-    state, hs = chunked_recurrent_scan(
-        lambda st, inp: _mlstm_step(st, *inp), state,
-        (to_s(q), to_s(k), to_s(v), to_s(log_i), to_s(log_f)), chunk=cfg.xlstm.chunk_size,
-    )
+    state, hs = _scan(lambda st, inp: _mlstm_step(st, *inp), state,
+                      (to_s(q), to_s(k), to_s(v), to_s(log_i), to_s(log_f)), cfg, mesh,
+                      (False, False, True, False, False))
     h = hs.transpose(0, 1)  # [B, S, nh, dh]
-    h = rms_norm(h, p["hnorm"]).reshape(B, S, d).to(x.dtype)
-    return x + (h * gate) @ p["wo"], state
+    h = merge_heads(rms_norm(h, p["hnorm"]), 2).to(x.dtype)
+    return x + proj(h * gate, p["wo"]), state
 
 
-def mlstm_decode(p, cfg, x, state):
+def mlstm_decode(p, cfg, x, state, mesh=None):
     """Single-token step.  x: [B, 1, d]."""
-    return mlstm_forward(p, cfg, x, state)
+    return mlstm_forward(p, cfg, x, state, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -182,19 +248,25 @@ def _slstm_step(R, fb, nh, st, xi, xf, xz, xo):
     return {"h": h_new, "c": c, "n": n, "m": m_new}, h_new
 
 
-def slstm_forward(p, cfg, x, state):
+def slstm_forward(p, cfg, x, state, mesh=None):
     B, S, d = x.shape
     nh = cfg.num_heads
     xn = apply_norm(cfg.norm, p["ln"], x)
-    pre = [(xn @ p[w]).float().movedim(1, 0) for w in ("wi", "wf", "wz", "wo")]
+    pre = [_seq_replicated(proj(xn, p[w]).float(), mesh).movedim(1, 0)
+           for w in ("wi", "wf", "wz", "wo")]
     R = {w: p[w].float() for w in ("ri", "rf", "rz", "ro")}  # the per-step casts, hoisted
-    state, hs = chunked_recurrent_scan(
-        lambda st, inp: _slstm_step(R, p["fb"], nh, st, *inp), state, tuple(pre),
-        chunk=cfg.xlstm.chunk_size,
-    )
+    if mesh is not None:  # the step's weights, as every rank's full local copies
+        dp, _ = mesh_axes(mesh)
+        split = [a in dp and shard_if(mesh, B, dp) is not None for a in mesh.mesh_dim_names]
+        R = {w: full_local(t, mesh, split) for w, t in R.items()}
+        fb = full_local(p["fb"], mesh, split)
+    else:
+        fb = p["fb"]
+    state, hs = _scan(lambda st, inp: _slstm_step(R, fb, nh, st, *inp), state, tuple(pre),
+                      cfg, mesh, (False,) * 4)
     h = hs.transpose(0, 1).reshape(B, S, nh, d // nh)
-    h = rms_norm(h, p["hnorm"]).reshape(B, S, d).to(x.dtype)
-    return x + h @ p["wproj"], state
+    h = merge_heads(rms_norm(h, p["hnorm"]), 2).to(x.dtype)
+    return x + proj(h, p["wproj"]), state
 
 
 # ---------------------------------------------------------------------------
@@ -242,55 +314,59 @@ def _stack(states: List[List[Dict[str, torch.Tensor]]]):
     }
 
 
-def _stack_forward(params, cfg, x, state):
+def _stack_forward(params, cfg, x, state, mesh=None):
     """The groups in order; inside each, its mLSTM blocks, then its sLSTM
     blocks."""
     G, nm, ns = _group_counts(cfg)
+    x = constrain_activations(x, mesh)
     new_m, new_s = [], []
     for g in range(G):
         row = []
         for j in range(nm):
             pick = lambda t: t[g, j]
             x, nst = mlstm_forward(tree_map(pick, params["mlstm"]), cfg, x,
-                                   tree_map(pick, state["mlstm"]))
+                                   tree_map(pick, state["mlstm"]), mesh=mesh)
+            x = constrain_activations(x, mesh)
             row.append(nst)
         new_m.append(row)
         row = []
         for j in range(ns):
             pick = lambda t: t[g, j]
             x, nst = slstm_forward(tree_map(pick, params["slstm"]), cfg, x,
-                                   tree_map(pick, state["slstm"]))
+                                   tree_map(pick, state["slstm"]), mesh=mesh)
+            x = constrain_activations(x, mesh)
             row.append(nst)
         new_s.append(row)
     return x, {"mlstm": _stack(new_m), "slstm": _stack(new_s)}
 
 
-def loss_fn(params, cfg, batch):
+def loss_fn(params, cfg, batch, mesh=None):
     """Next-token LM loss (0-d f32) over ``batch["tokens"]`` [B, S], from
     zero states."""
     tokens = batch["tokens"]
     x = embed_tokens(params, cfg, tokens)
-    x, _ = _stack_forward(params, cfg, x, init_state(cfg, tokens.shape[0], device=tokens.device))
+    x, _ = _stack_forward(params, cfg, x, init_state(cfg, tokens.shape[0], device=tokens.device),
+                          mesh=mesh)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     return chunked_cross_entropy(x, params["embed"].T, shifted_labels(tokens))
 
 
-def prefill(params, cfg, batch, cache_len: int = 0):
+def prefill(params, cfg, batch, cache_len: int = 0, mesh=None):
     """Returns (last-position logits [B, V] f32, recurrent state)."""
     tokens = batch["tokens"]
     B = tokens.shape[0]
     x = embed_tokens(params, cfg, tokens)
-    x, state = _stack_forward(params, cfg, x, init_state(cfg, B, device=tokens.device))
+    x, state = _stack_forward(params, cfg, x, init_state(cfg, B, device=tokens.device), mesh=mesh)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = (x[:, -1] @ params["embed"].T).float()
     return logits, state
 
 
-def decode_step(params, cfg, state, tokens, cur_pos):
+def decode_step(params, cfg, state, tokens, cur_pos, mesh=None):
     """One token per row.  tokens: [B]; returns (logits [B, V] f32, new
     state); the input state is unchanged."""
     x = embed_tokens(params, cfg, tokens)[:, None, :]
-    x, state = _stack_forward(params, cfg, x, state)
+    x, state = _stack_forward(params, cfg, x, state, mesh=mesh)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = (x[:, 0] @ params["embed"].T).float()
     return logits, state

@@ -58,8 +58,15 @@ def _flatten(tree) -> Dict[str, np.ndarray]:
 
 
 def _host_copy(tree):
-    """Every leaf copied to host memory now (a CPU tensor is cloned)."""
-    return map_tree(lambda t: t.detach().to("cpu", copy=True), tree)
+    """Every leaf copied to host memory now (a CPU tensor is cloned); a
+    DTensor is gathered whole first, so checkpoints stay unsharded."""
+    def one(t):
+        t = t.detach()
+        if hasattr(t, "full_tensor"):
+            t = t.full_tensor()
+        return t.to("cpu", copy=True)
+
+    return map_tree(one, tree)
 
 
 def save_checkpoint(
@@ -92,10 +99,13 @@ def latest_checkpoint(directory: Path) -> Optional[Path]:
 
 
 def restore_checkpoint(
-    path: Path, state_template, device: DeviceLike = None
+    path: Path, state_template, device: DeviceLike = None, *, mesh=None, specs=None
 ) -> Tuple[int, Any, Dict[str, Any]]:
     """The stored state in ``state_template``'s tree and dtypes, on
-    ``device`` (default: each template leaf's own device)."""
+    ``device`` (default: each template leaf's own device).  With ``mesh``
+    and ``specs`` (a spec tree beside the template, ``sharding/rules.py``)
+    each leaf comes back as a DTensor of those placements: the stored state
+    is unsharded, so it restores onto any mesh."""
     path = Path(path)
     meta = json.loads((path / "meta.json").read_text())
     with np.load(path / "state.npz") as z:
@@ -105,9 +115,15 @@ def restore_checkpoint(
         node = state
         for k in keys[:-1]:
             node = node.setdefault(k, {})
-        node[keys[-1]] = _from_numpy(flat[_SEP.join(keys)], like,
-                                     like.device if device is None else device)
-    return meta["step"], map_tree(lambda t, s: s, state_template, state), meta
+        dev = device if device is not None else (
+            like.to_local().device if hasattr(like, "to_local") else like.device)
+        node[keys[-1]] = _from_numpy(flat[_SEP.join(keys)], like, dev)
+    state = map_tree(lambda t, s: s, state_template, state)
+    if mesh is not None:
+        from repro_torch.sharding.rules import distribute
+
+        state = map_tree(lambda sp, t: distribute(t, sp, mesh), specs, state)
+    return meta["step"], state, meta
 
 
 class AsyncCheckpointer:

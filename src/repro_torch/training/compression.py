@@ -4,18 +4,23 @@
 Quantization rounds half to even, as ``jnp.round`` does, so the int8
 values and scales equal the reference's bit for bit.  Error feedback
 carries the quantization residual into the next step's gradient, so the
-bias does not accumulate.  ``compressed_psum`` (the int8 all-gather across
-pods) waits for the port's distribution module.
+bias does not accumulate.  ``compressed_psum`` sums a tensor over a
+process group at about a quarter of bf16's bytes: an int8 all-gather and an
+f32 scale all-gather, then each rank dequantizes and sums the shards in
+rank order, the reference's arithmetic.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import TYPE_CHECKING, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.training.tree import map_tree
+
+if TYPE_CHECKING:
+    from torch.distributed import ProcessGroup
 
 CBLOCK = 256
 
@@ -38,6 +43,27 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
 def compress_roundtrip(x: torch.Tensor) -> torch.Tensor:
     q, s = quantize(x)
     return dequantize(q, s, x.shape)
+
+
+def compressed_psum(x: torch.Tensor, group: "ProcessGroup") -> torch.Tensor:
+    """int8 all-gather + local dequant-sum == psum at ~0.25x the bf16 bytes.
+
+    Per-shard scales make a direct int8 all-reduce ill-defined, so every
+    rank gathers each rank's (int8 values, f32 scales) pair and sums the
+    dequantized shards itself, in rank order (the reference's
+    ``compressed_psum`` inside ``shard_map`` over ``axis_name``).  ``group``
+    is the process group of the mesh axis (``mesh.get_group(axis)``).  On a
+    one-rank group the result is ``compress_roundtrip(x)`` bit for bit."""
+    from torch.distributed import _functional_collectives as funcol
+
+    q, s = quantize(x)
+    n = torch.distributed.get_world_size(group)
+    qg = funcol.all_gather_tensor(q, 0, group).reshape(n, *q.shape)  # [n, blocks, 256] int8
+    sg = funcol.all_gather_tensor(s, 0, group).reshape(n, *s.shape)  # [n, blocks] f32
+    total = qg[0].float() * sg[0][:, None]
+    for r in range(1, n):
+        total = total + qg[r].float() * sg[r][:, None]
+    return total.reshape(-1)[: math.prod(x.shape)].reshape(x.shape).to(x.dtype)
 
 
 class ErrorFeedback:

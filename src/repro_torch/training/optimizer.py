@@ -15,8 +15,10 @@ warm-up included), under ``torch.no_grad``, and writes the new params and
 moments into the given tensors (the reference donates its buffers to the
 jitted step the same way).  Leaves of rank 3 or more update one slice of
 the leading (layer) axis at a time, as the reference's ``jax.lax.map``
-does, to bound the f32 temporaries to one layer's worth.  The sharding of
-the state (``opt_state_pspecs``) waits for the port's distribution module.
+does, to bound the f32 temporaries to one layer's worth.
+``opt_state_pspecs`` lays the moments out like their parameters (an int8
+moment's ``q`` keeps the parameter's spec, its ``scale`` drops the last
+dim's axis), as spec trees of ``repro_torch.sharding.rules``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.sharding.rules import split_dim
 from repro_torch.training.tree import leaves, map_tree
 
 QBLOCK = 256
@@ -50,7 +53,11 @@ class AdamWConfig:
 
 def _pad_to(x, mult):
     pad = (-x.shape[-1]) % mult
-    if pad:
+    if pad and hasattr(x, "device_mesh"):
+        # a DTensor pads by concatenation: torch 2.11's rule for F.pad
+        # returns a layout of the wrong rank on a multi-axis mesh
+        x = torch.cat([x, x.new_zeros((*x.shape[:-1], pad))], dim=-1)
+    elif pad:
         x = F.pad(x, (0, pad))
     return x, pad
 
@@ -59,7 +66,7 @@ def quantize_blockwise(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     """x [..., n] -> {"q": int8 [..., n padded to 256], "scale": f32
     [..., blocks]}: absmax / 127 per block, values rounded half to even."""
     xp, _ = _pad_to(x.float(), QBLOCK)
-    blocks = xp.reshape(*xp.shape[:-1], xp.shape[-1] // QBLOCK, QBLOCK)
+    blocks = split_dim(xp, -1, (xp.shape[-1] // QBLOCK, QBLOCK))
     scale = blocks.abs().amax(dim=-1, keepdim=True) / 127.0
     q = torch.round(blocks / torch.clamp(scale, min=1e-12)).to(torch.int8)
     return {"q": q.reshape(xp.shape), "scale": scale[..., 0]}
@@ -67,7 +74,7 @@ def quantize_blockwise(x: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def dequantize_blockwise(state: Dict[str, torch.Tensor], orig_last: int) -> torch.Tensor:
     q = state["q"].float()
-    blocks = q.reshape(*q.shape[:-1], q.shape[-1] // QBLOCK, QBLOCK)
+    blocks = split_dim(q, -1, (q.shape[-1] // QBLOCK, QBLOCK))
     x = (blocks * state["scale"][..., None]).reshape(q.shape)
     return x[..., :orig_last]
 
@@ -168,3 +175,23 @@ def adamw_update(grads, opt_state, params, config: AdamWConfig):
     map_tree(upd, params, grads, opt_state["m"], opt_state["v"])
     new_state = {"m": opt_state["m"], "v": opt_state["v"], "step": step}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_state_pspecs(param_pspec_tree, param_shapes, config: AdamWConfig, mesh=None):
+    """Shard optimizer moments like their parameters (scales: prefix spec).
+
+    ``param_pspec_tree`` is ``sharding.rules.param_pspecs``'s tree; the
+    specs are tuples, one entry per dim.  ``mesh`` is unused (the
+    reference's signature)."""
+
+    def one(role):
+        def fn(spec, shape):
+            if _role_dtype(config.state_dtype, role) != "int8":
+                return spec
+            # q keeps the param layout; scale drops sharding on the shrunk last dim
+            scale = tuple(spec[:-1]) + (None,) if spec else ()
+            return {"q": tuple(spec), "scale": scale}
+
+        return map_tree(fn, param_pspec_tree, param_shapes)
+
+    return {"m": one("m"), "v": one("v"), "step": ()}

@@ -1122,3 +1122,44 @@ def test_trainer_runs_on_card_by_default(dev):
     losses = [m["loss"] for m in metrics]
     assert np.isfinite(losses).all() and abs(losses[0] - np.log(cfg.vocab_size)) < 0.5
     assert losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# distribution (a one-rank NCCL group in a spawned process, a 1 x 1 mesh)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def one_rank_card(dev, tmp_path_factory):
+    import torch_dist_workers as W
+
+    out = tmp_path_factory.mktemp("card_rank")
+    W.run_ranks(W.card_worker, 1, str(out), backend="nccl", timeout=300)
+    return torch.load(out / "rank0.pt")
+
+
+def test_sharded_prefill_launches_k5_on_card(one_rank_card):
+    """Reduced qwen3's sharded prefill on the card: K5 once per layer (the
+    attention body hands the whole query slice to the kernel), logits the
+    unsharded prefill's within bf16 tolerance."""
+    got, want = one_rank_card["prefill"]
+    assert one_rank_card["prefill_k5"] == 2
+    _close(got, want, torch.bfloat16)
+
+
+def test_sharded_train_step_on_card(one_rank_card):
+    """Three sharded steps of reduced qwen3 on the 1 x 1 mesh (every
+    parameter Shard-placed over its one-rank axes): losses and grad norms
+    the unsharded Trainer's within 1e-3 relative."""
+    got, want = one_rank_card["train"]
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+
+
+def test_compressed_psum_one_rank_on_card(one_rank_card):
+    assert one_rank_card["psum"]
+
+
+@pytest.mark.parametrize("strategy", ["ep", "tp", "a2a"])
+def test_sharded_moe_on_card(one_rank_card, strategy):
+    e, ea = one_rank_card["moe"][strategy]
+    assert e <= 2e-2 and ea <= 1e-5

@@ -2,8 +2,11 @@
 //
 // Replaces kernels/flash_attention.py:flash_attention_pallas: tiled forward
 // attention with GQA (query head h reads kv head h / (H / KV); KV is never
-// repeated in memory), top-left causal alignment (q_pos = row, k_pos = col,
-// also when Sq != Sk), a sliding window (q_pos - k_pos < window), tanh
+// repeated in memory), causal alignment with a query offset (q_pos =
+// q_offset + row, k_pos = col, also when Sq != Sk; q_offset = 0 is the
+// Pallas kernel's top-left alignment, and a rank of a sequence-sharded
+// prefill passes the position its query slice starts at), a sliding window
+// (q_pos - k_pos < window), tanh
 // soft-capping applied before the mask, and masking of the ragged key edge
 // (k_pos < Sk).  The softmax statistics and the accumulator are f32, and the
 // output is acc / max(l, 1e-30) cast to q's type.  Operands are addressed by
@@ -110,6 +113,7 @@ struct Params {
   long long o_sb, o_sh, o_ss;
   int H, KV, Sq, Sk, D;
   int causal, window;
+  int q_offset;  // position of query row 0; key j sits at position j
   float sm_scale, softcap;
 };
 
@@ -167,10 +171,12 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   load_tile<T>(qs, ld, qb, p.q_ss, q0, p.Sq, D);
 
-  // keys any row of this CTA can attend: [kbeg, kend)
+  // keys any row of this CTA can attend: [kbeg, kend) (row r at position
+  // q_offset + r)
+  const int pos0 = p.q_offset + q0;
   int kend = p.Sk;
-  if (p.causal) kend = min(kend, q0 + kTile);
-  const int kbeg = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
+  if (p.causal) kend = min(kend, pos0 + kTile);
+  const int kbeg = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
 
   float m[kRows], l[kRows], acc[kRows][kCols];
 #pragma unroll
@@ -207,7 +213,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
 
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
-      const int qp = q0 + ty + kSide * i;
+      const int qp = pos0 + ty + kSide * i;
       float mt = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kKeys; ++j) {
@@ -262,18 +268,18 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
     float li = l[i];
 #pragma unroll
     for (int o = kSide / 2; o > 0; o >>= 1) li += __shfl_xor_sync(0xffffffffu, li, o);
-    const int qp = q0 + ty + kSide * i;
+    const int qr = q0 + ty + kSide * i;  // the row (its position is q_offset + qr)
     const float inv = 1.f / fmaxf(li, 1e-30f);
-    if (qp >= p.Sq) continue;
+    if (qr >= p.Sq) continue;
     if (li == 0.f) {  // no valid key: the plain mean of the Sk value rows
       for (int col = tx; col < D; col += kSide)
-        ob[(long long)qp * p.o_ss + col] = from_f<T>(mean_value(vb, p.v_ss, p.Sk, col));
+        ob[(long long)qr * p.o_ss + col] = from_f<T>(mean_value(vb, p.v_ss, p.Sk, col));
       continue;
     }
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = tx + kSide * c;
-      if (col < D) ob[(long long)qp * p.o_ss + col] = from_f<T>(acc[i][c] * inv);
+      if (col < D) ob[(long long)qr * p.o_ss + col] = from_f<T>(acc[i][c] * inv);
     }
   }
 }
@@ -340,8 +346,10 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
   bf16* vs = kv_smem + (kTcGroups + grp) * kStages * kTile;
 
   // keys any row of this CTA can attend: [kbeg, kend); warpgroup grp takes
-  // key tiles grp, grp + 2, ...
-  const int qlo = s0 / G, qhi = (min(s0 + kTcRows, nrows) - 1) / G;
+  // key tiles grp, grp + 2, ...  qlo and qhi are positions (query row q at
+  // q_offset + q), so the offset shifts every bound below with them
+  const int qlo = p.q_offset + s0 / G;
+  const int qhi = p.q_offset + (min(s0 + kTcRows, nrows) - 1) / G;
   int kend = p.Sk;
   if (p.causal) kend = min(kend, qhi + 1);
   const int kbeg = p.window > 0 ? max(0, qlo - p.window + 1) : 0;
@@ -355,7 +363,7 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
 
   // this lane's two rows of the warp's 16: ra (accumulator slots 0, 1), rb (2, 3)
   const int ra = s0 + 16 * warp + (lane >> 2), rb = ra + 8;
-  const int qpa = ra / G, qpb = rb / G;
+  const int qpa = p.q_offset + ra / G, qpb = p.q_offset + rb / G;  // positions
   const float sa = kSoftcap ? p.sm_scale / p.softcap : p.sm_scale * kLog2e;
   const float sb = p.softcap * kLog2e;
 
@@ -651,16 +659,18 @@ extern "C" {
 // dtype: 0 = float32 (SIMT kernel; D a multiple of 4), 1 = bfloat16
 // (tensor-core kernel; D a multiple of 8); D <= 256.  sm_scale multiplies
 // every score: 1 / sqrt(d) of the head dim d before the caller zero-padded
-// it to D.  Strides are in elements.  Returns cudaGetLastError()
+// it to D.  Query row i sits at position q_offset + i and key j at j, for
+// the causal mask (j <= q_offset + i) and the window (q_offset + i - j <
+// window).  Strides are in elements.  Returns cudaGetLastError()
 // after the launch (cudaErrorInvalidValue for shapes the kernels do not take).
 int flash_attention_forward(int dtype, const void* q, const void* k, const void* v, void* out,
                             long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                             long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                             long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
                             int H, int KV, int Sq, int Sk, int D, int causal, int window,
-                            float sm_scale, float softcap, void* stream) {
+                            int q_offset, float sm_scale, float softcap, void* stream) {
   if (D <= 0 || D > kMaxD || D % (dtype == 0 ? 4 : 8) || B <= 0 || H <= 0 || KV <= 0 ||
-      H % KV != 0 || Sq <= 0 || Sk < 0 || B > 65535 || H > 65535)
+      H % KV != 0 || Sq <= 0 || Sk < 0 || q_offset < 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -686,6 +696,7 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
   p.D = D;
   p.causal = causal;
   p.window = window;
+  p.q_offset = q_offset;
   p.sm_scale = sm_scale;
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -3,11 +3,13 @@
 
 ``flash_attention`` replaces the TPU kernel
 ``kernels/flash_attention.py:flash_attention_pallas``: tiled forward
-attention with GQA, top-left causal alignment, a sliding window, tanh
-soft-capping and f32 accumulation.  It runs once per layer in every
-full-length prefill of the serving engine (the dense mode's ``prefill`` and
-the monolithic ``prefill_collect``), where the model hands it its
-[B, S, H, D] activations as [B, H, S, D] views, without a copy.
+attention with GQA, causal alignment (top-left, or with the query rows
+starting at position ``q_offset``), a sliding window, tanh soft-capping and
+f32 accumulation.  It runs once per layer in every full-length prefill of
+the serving engine (the dense mode's ``prefill`` and the monolithic
+``prefill_collect``), where the model hands it its [B, S, H, D] activations
+as [B, H, S, D] views, without a copy, and in each rank's body of a
+sequence-sharded prefill, whose query slice starts at ``q_offset``.
 
 What bounds it on the card: at the serving shapes its roofline bound is
 bytes (about 170 FLOPs per byte, under the bf16 ridge).  A bfloat16 call
@@ -53,7 +55,7 @@ _ARGTYPES = (
     [ctypes.c_int]
     + [ctypes.c_void_p] * 4
     + [ctypes.c_int64] * 12
-    + [ctypes.c_int] * 8
+    + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -67,9 +69,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
+                        q_offset: int = 0):
     """Naive quadratic attention.  q: [B, H, Sq, D]; k, v: [B, KV, Sk, D]
-    -> [B, H, Sq, D].  Positions are the row indices (top-left causal)."""
+    -> [B, H, Sq, D].  Query row i sits at position ``q_offset + i`` and key
+    j at j (``q_offset = 0``: top-left causal)."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
@@ -77,7 +81,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, softca
     s = torch.einsum("bkgqd,bksd->bkgqs", qf, k.float()) / math.sqrt(D)
     if softcap:
         s = softcap * torch.tanh(s / softcap)
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     k_pos = torch.arange(Sk, device=q.device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -91,7 +95,7 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0, softca
 
 
 def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                              softcap: float = 0.0, block_k: int = 64,
+                              softcap: float = 0.0, q_offset: int = 0, block_k: int = 64,
                               p_dtype=torch.bfloat16):
     """The tensor-core kernel's arithmetic: an f32 online softmax over key
     tiles of ``block_k``, the running sum l over the f32 weights, and the
@@ -99,13 +103,14 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
     kernel's two warpgroups take alternate tiles and merge at the end; this
     model walks the tiles in order, which moves only the f32 rounding.)  A
     row with no valid key (its sum l still 0) gives the plain mean of the Sk
-    value rows, as the kernel does.  Shapes as ``flash_attention_ref``."""
+    value rows, as the kernel does.  Shapes and positions as
+    ``flash_attention_ref``."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     G = H // KV
     qf = q.float().reshape(B, KV, G, Sq, D)
     kf, vf = k.float(), v.float()
-    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     m = torch.full((B, KV, G, Sq, 1), -math.inf, device=q.device)
     l = torch.zeros((B, KV, G, Sq, 1), device=q.device)
     acc = torch.zeros((B, KV, G, Sq, D), device=q.device)
@@ -134,14 +139,19 @@ def flash_attention_tiled_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(B, H, Sq, D).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
+                    q_offset: int = 0):
     """Forward attention.  q: [B, H, Sq, D]; k, v: [B, KV, Sk, D], any
     strides with D contiguous -> [B, H, Sq, D] (a view of a [B, Sq, H, D]
-    buffer on the card, so ``out.transpose(1, 2)`` is contiguous)."""
+    buffer on the card, so ``out.transpose(1, 2)`` is contiguous).  Query
+    row i sits at position ``q_offset + i``, key j at j."""
     refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                                   q_offset=q_offset)
     name = "flash_attention"
+    if q_offset < 0:
+        raise ValueError(f"{name}: q_offset {q_offset} must be >= 0")
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if tuple(k.shape) != (B, KV, Sk, D) or v.shape != k.shape or KV == 0 or H % KV:
@@ -167,7 +177,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     rc = _lib().flash_attention_forward(
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os_[0], os_[1], os_[2],
-        B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), 1.0 / math.sqrt(d_true),
+        B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), int(q_offset),
+        1.0 / math.sqrt(d_true),
         float(softcap), stream,
     )
     if rc != 0:

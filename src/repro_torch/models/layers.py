@@ -517,11 +517,14 @@ def _attend_q_block(qb, qp, kb, vb, kv_positions, *, causal, window, softcap, kv
     return acc / torch.clamp(l, min=1e-30)[..., None]
 
 
-def attention_contiguous(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0):
-    """Attention whose query positions are ``arange(Sq)`` and key positions
-    ``arange(Sk)`` in every row (top-left causal alignment): a full-length
-    prefill's self-attention, whisper's encoder, and cross attention over
-    encoder states.  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D] -> [B, Sq, H, D].
+def attention_contiguous(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
+                         q_offset: int = 0):
+    """Attention whose query positions are ``q_offset + arange(Sq)`` and key
+    positions ``arange(Sk)`` in every row: a full-length prefill's
+    self-attention (``q_offset`` 0: top-left causal alignment), whisper's
+    encoder, cross attention over encoder states, and one rank's query
+    slice of a sequence-sharded prefill (``q_offset``: where the slice
+    starts).  q: [B, Sq, H, D]; k, v: [B, Sk, KV, D] -> [B, Sq, H, D].
 
     A CUDA tensor runs in the flash-attention kernel, which takes exactly
     these positions, with the [B, S, H, D] operands handed over as
@@ -531,13 +534,13 @@ def attention_contiguous(q, k, v, *, causal: bool = True, window: int = 0, softc
         B, Sq, Sk = q.shape[0], q.shape[1], k.shape[1]
         return attention_prefill(
             q, k, v,
-            q_positions=torch.arange(Sq, device=q.device).expand(B, Sq),
+            q_positions=(q_offset + torch.arange(Sq, device=q.device)).expand(B, Sq),
             kv_positions=torch.arange(Sk, device=q.device).expand(B, Sk),
             causal=causal, window=window, softcap=softcap,
         )
     return fa.flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, softcap=softcap,
+        causal=causal, window=window, softcap=softcap, q_offset=q_offset,
     ).transpose(1, 2)
 
 
@@ -668,16 +671,12 @@ def attn_qkv(p, cfg, x, positions, *, use_rope: bool = True):
 
 def kernel_slice_check(q0: int, *, causal: bool, window: int, contiguous: bool) -> None:
     """Raise unless the flash-attention kernel computes a rank's query slice
-    starting at position ``q0`` right: it takes positions ``arange`` only,
-    and aligns causal (or windowed) queries with keys top-left, so a slice
-    past 0 needs a query offset the kernel does not take yet (ROADMAP
-    Queue 2, K5).  Nothing falls back to the plain route."""
+    starting at position ``q0`` right: it takes contiguous positions only
+    (keys at ``arange(Sk)``, queries at ``q0 + arange(Sq)``: ``q0`` is its
+    ``q_offset``), causal, windowed or neither.  Nothing falls back to the
+    plain route."""
     if not contiguous:
         raise ValueError("the flash-attention kernel takes positions arange(S) only")
-    if q0 and (causal or window):
-        raise NotImplementedError(
-            f"query slice starting at position {q0}: the flash-attention kernel aligns causal "
-            "queries top-left only (a query offset is open kernel work, ROADMAP Queue 2 K5)")
 
 
 def attention_prefill_sharded(q, k, v, *, q_positions, kv_positions, mesh, causal=True,
@@ -692,14 +691,11 @@ def attention_prefill_sharded(q, k, v, *, q_positions, kv_positions, mesh, causa
     (and on meta tensors) the body is the plain ``attention_prefill`` over
     the rank's positions, as in the reference.  On the card, with
     ``contiguous=True`` (every row's positions ``arange(S)``), the body
-    hands the slice to the flash-attention kernel, which aligns causal
-    queries and keys top-left: that is right when the rank's slice starts
-    at position 0, which holds on a one-rank 'model' axis (the whole
-    sequence) and on model rank 0.  A CUDA rank whose slice starts past 0
-    raises ``NotImplementedError`` where causality or a window makes the
-    offset matter: a query offset in the kernel is later kernel work
-    (ROADMAP).  ``remat`` (training) runs the plain attention with each
-    query block rematerialized, on either device.
+    hands the slice to the flash-attention kernel with the position the
+    slice starts at as its ``q_offset``, so every 'model' rank computes its
+    rows, as the reference's plain body does.  ``remat`` (training) runs
+    the plain attention with each query block rematerialized, on either
+    device.
     """
     from torch.distributed.tensor.experimental import local_map
 
@@ -715,7 +711,7 @@ def attention_prefill_sharded(q, k, v, *, q_positions, kv_positions, mesh, causa
             return attention_prefill(q_loc, k_rep, v_rep, q_positions=qp_loc,
                                      kv_positions=kp_rep, remat=remat, **kw)
         kernel_slice_check(q0, causal=causal, window=window, contiguous=contiguous)
-        return attention_contiguous(q_loc, k_rep, v_rep, **kw)
+        return attention_contiguous(q_loc, k_rep, v_rep, q_offset=q0, **kw)
 
     q_pl = placements((bspec, sspec, None, None), mesh)
     kv_pl = placements((bspec, None, None, None), mesh)

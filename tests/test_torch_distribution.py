@@ -648,15 +648,17 @@ def test_launcher_production_mesh_needs_256_ranks():
 
 def test_kernel_route_refuses_a_query_offset():
     """On the card the sharded attention body hands a rank's query slice to
-    K5 only where the slice starts at 0 (or no mask depends on the offset);
-    a slice past 0 raises, it never takes the plain route."""
+    K5 with the slice's start as K5's ``q_offset``, causal, windowed or
+    neither; it refuses only positions that are not contiguous, and it
+    never takes the plain route."""
     from repro_torch.models.layers import kernel_slice_check
 
     kernel_slice_check(0, causal=True, window=16, contiguous=True)
     kernel_slice_check(512, causal=False, window=0, contiguous=True)
-    with pytest.raises(NotImplementedError, match="query offset"):
-        kernel_slice_check(512, causal=True, window=0, contiguous=True)
-    with pytest.raises(NotImplementedError):
-        kernel_slice_check(512, causal=False, window=16, contiguous=True)
+    kernel_slice_check(512, causal=True, window=0, contiguous=True)
+    kernel_slice_check(512, causal=False, window=16, contiguous=True)
+    kernel_slice_check(512, causal=True, window=16, contiguous=True)
     with pytest.raises(ValueError):
         kernel_slice_check(0, causal=True, window=0, contiguous=False)
+    with pytest.raises(ValueError):
+        kernel_slice_check(512, causal=True, window=0, contiguous=False)

@@ -319,6 +319,41 @@ def test_flash_attention_tensor_core_head_dims(dev, B, H, KV, Sq, Sk, D, causal,
     _close(got, fa.flash_attention_tiled_ref(q, k, v, **kw), bf)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [1, 20, 39])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (12, 0.0), (0, 20.0)])
+def test_flash_attention_query_offset_matches_plain(dev, dtype, offset, window, softcap):
+    """K5 with ``q_offset``: a slice of 8 query rows (or fewer at the end)
+    starting at position ``offset`` over 40 keys, causal, on the SIMT (f32)
+    and tensor-core (bf16) kernels, against the plain version with the
+    same offset and the same rows of the full plain call."""
+    rng = np.random.default_rng(offset)
+    q = _t(rng.normal(size=(2, 40, 4, 32)), dtype, dev).transpose(1, 2)
+    k = _t(rng.normal(size=(2, 40, 2, 32)), dtype, dev).transpose(1, 2)
+    v = _t(rng.normal(size=(2, 40, 2, 32)), dtype, dev).transpose(1, 2)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    qs = q[:, :, offset : offset + 8]
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(qs, k, v, **kw, q_offset=offset)
+    assert fa.flash_attention.launches == n0 + 1
+    _close(got, fa.flash_attention_ref(qs, k, v, **kw, q_offset=offset), dtype)
+    _close(got, fa.flash_attention_ref(q, k, v, **kw)[:, :, offset : offset + 8], dtype)
+
+
+def test_flash_attention_query_offset_sharded_prefill_shape(dev):
+    """K5 at the second half of a two-rank sequence-sharded prefill of
+    qwen3-1.7b: q [4, 16, 1024, 128] (positions 1024-2047) over k/v
+    [4, 8, 2048, 128], causal, bf16, against the plain version with the
+    same offset."""
+    rng = np.random.default_rng(7)
+    bf = torch.bfloat16
+    q = _t(rng.normal(size=(4, 1024, 16, 128)), bf, dev).transpose(1, 2)
+    k = _t(rng.normal(size=(4, 2048, 8, 128)), bf, dev).transpose(1, 2)
+    v = _t(rng.normal(size=(4, 2048, 8, 128)), bf, dev).transpose(1, 2)
+    got = fa.flash_attention(q, k, v, causal=True, q_offset=1024)
+    _close(got, fa.flash_attention_ref(q, k, v, causal=True, q_offset=1024), bf)
+
+
 def test_flash_attention_bf16_head_dim_24_matches_plain(dev):
     """bf16 head dims step by 8 (16-byte loads): 24 runs on the tensor
     cores (tiles zero-padded to 32 columns) and matches the plain version;

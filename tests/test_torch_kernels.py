@@ -679,3 +679,45 @@ def test_flash_attention_empty_row_values():
         np.testing.assert_allclose(got[0, 0, 5:], np.broadcast_to(share * mean, (3, 16)), rtol=1e-5, atol=1e-5)
     tiled = fa.flash_attention_tiled_ref(*targs, **kw, p_dtype=torch.float32)
     _close(tiled, want, "float32")
+
+
+OFFSET_MODES = {
+    "causal": dict(causal=True),
+    "causal_window": dict(causal=True, window=12),
+    "causal_softcap": dict(causal=True, softcap=20.0),
+}
+
+
+@pytest.mark.parametrize("mode", sorted(OFFSET_MODES))
+@pytest.mark.parametrize("offset", [0, 1, 20, 39])
+def test_flash_attention_query_offset(mode, offset):
+    """K5's ``q_offset``: query row i at position ``offset + i`` over keys
+    at ``arange(Sk)``, the body of a sequence-sharded prefill's rank whose
+    slice starts at ``offset``.  A slice of up to 8 rows (Sq != Sk = 40)
+    equals the same rows of the full call bitwise in float32; it matches
+    the reference's ``attention_prefill`` over the slice's positions
+    (float32, 1e-5), and the tiled model of the tensor-core kernel's
+    arithmetic (weights kept in f32 here) matches the plain version
+    (1e-5)."""
+    from repro.models.layers import attention_prefill
+
+    S, n = 40, 8
+    kw = OFFSET_MODES[mode]
+    pairs = _flash_draws(2, 4, 2, S, S, 16, "float32")
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    full = fa.flash_attention_ref(*targs, **kw)
+    q_slice = targs[0][:, :, offset : offset + n]
+    got = fa.flash_attention(q_slice, *targs[1:], **kw, q_offset=offset)
+    assert got.shape == q_slice.shape
+    assert torch.equal(got, full[:, :, offset : offset + n])
+    rows = got.shape[2]
+    want = attention_prefill(
+        jnp.swapaxes(jargs[0][:, :, offset : offset + rows], 1, 2),
+        jnp.swapaxes(jargs[1], 1, 2), jnp.swapaxes(jargs[2], 1, 2),
+        q_positions=jnp.broadcast_to(offset + jnp.arange(rows), (2, rows)),
+        kv_positions=jnp.broadcast_to(jnp.arange(S), (2, S)), **kw,
+    )
+    _close(got, jnp.swapaxes(want, 1, 2), "float32")
+    tiled = fa.flash_attention_tiled_ref(q_slice, *targs[1:], **kw, q_offset=offset,
+                                         block_k=16, p_dtype=torch.float32)
+    _close(tiled, np.asarray(got), "float32")

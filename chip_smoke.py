@@ -170,7 +170,14 @@ K5 at whisper-small's shapes of phase 16 (the non-causal encoder over
 cross attention from 64 and from 448 tokens over 1500 states), and K5 at
 phase 18's sharded prefill shape, whole (4 x 2048) and as model rank 1 of
 two would run it (its 1024 queries at positions 1024-2047 over the 2048
-keys, ``q_offset`` 1024), beside scaled_dot_product_attention.
+keys, ``q_offset`` 1024) and as each model rank past the first of
+``scripts/torch_four_cards.py``'s 2 x 2 and 1 x 4 meshes runs it (2 x 1024
+queries at 1024; 4 x 512 at 512, 1024 and 1536), beside
+scaled_dot_product_attention.  K1, K2, K4 and K5 run at head dims 320 and
+512 in bf16 and f32 (their SIMT routes past the 256-column tiles) against
+their plain versions, K5 beside scaled_dot_product_attention on whichever
+backend takes the head dim; the kernels' JSON record lists these rows
+under their wrapper's name with the wrapper's launch count.
 Every launch count is zeroed
 just before each path of phases 3-19 and read just after it, so the counts
 show each path itself went through its kernels.  The line before the
@@ -351,6 +358,7 @@ def kernel_phase(gen_seed: int = 0):
         **paged_row("K4 paged_attention", copies, P, K4_LENGTHS),
     )
     wide_kernel_rows(dev, rnd, gen_seed)
+    past_256 = head_dim_past_256_rows(dev, rnd, gen_seed)
     snapshot_kernel_rows(dev, rnd)
     moe_vlm_kernel_rows(dev, rnd, gen_seed)
     whisper_kernel_rows(rnd)
@@ -358,7 +366,7 @@ def kernel_phase(gen_seed: int = 0):
     for name, r in results.items():
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}, library {r['library_ms']})")
-    return results
+    return results, past_256
 
 
 def long_prefix_prefill_check(dev, rnd, gen_seed):
@@ -477,10 +485,11 @@ def flash_kernel_check(dev, g, rnd):
     )
 
 
-def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None, timed=None):
+def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None, timed=None,
+               dtype=torch.bfloat16, peak=H100_BF16_FLOPS):
     """One kernel at one shape: checked against its plain version on
-    ``copies[0]`` under each keyword set of ``variants`` (the bf16
-    tolerance), then timed (profiler device time, under the keywords
+    ``copies[0]`` under each keyword set of ``variants`` (the tolerance of
+    ``dtype``), then timed (profiler device time, under the keywords
     ``timed``: the served model's soft-cap, for one) beside the plain version,
     the bound of this input (bytes / 3.35 TB/s or FLOPs / 989 TFLOP/s) and,
     where one PyTorch call computes the same function, that call as the
@@ -491,8 +500,8 @@ def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None, 
         want = plain(*copies[0], **kw)
         torch.cuda.synchronize()
         errs.append(max_err(got, want))
-        check(within(got, want, torch.bfloat16), f"{label} {kw} disagrees with its plain version "
-                                                 f"({errs[-1]})")
+        check(within(got, want, dtype), f"{label} {kw} disagrees with its plain version "
+                                        f"({errs[-1]})")
     timed = timed or {}
     ms = time_ms(lambda *a: fn(*a, **timed), copies, breakdown=True)
     plain_ms = time_ms(lambda *a: plain(*a, **timed), copies, iters=6)
@@ -502,7 +511,7 @@ def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None, 
         e = max_err(lib_fn(*lib_calls[0]), fn(*copies[0], **timed))
         check(e <= 2e-2, f"{label}: the library yardstick computes another function ({e})")
         lib_ms = time_ms(lib_fn, lib_calls)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak)
     print(f"{label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
           f"{100 * b_ms / ms:.1f}% of the bound, {nbytes / ms / 1e6:.0f} GB/s, library "
           f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}), max|d|={max(errs):.3e} over "
@@ -559,7 +568,7 @@ def _prefill_copies(rnd, dev, seed, KV, G, C, D, plen, n=4, page=16):
              rnd(B, KV, C, D), rnd(B, KV, C, D)) for _ in range(n)], P
 
 
-def decode_row(label, copies, P, plen, t_used, variants=BOTH, timed=None):
+def decode_row(label, copies, P, plen, t_used, variants=BOTH, timed=None, **kw):
     """K1 at one shape.  Its bound counts q and the output once, the K/V
     rows of the keys the timed call (window 0) attends (every prefix key
     and each used tail slot: the kernel never loads an empty slot), the
@@ -571,10 +580,10 @@ def decode_row(label, copies, P, plen, t_used, variants=BOTH, timed=None):
     keys = sum(plen) + sum(t_used)
     nbytes = (2 * W * KV * G * D + 2 * keys * KV * D) * es + (W * P + 2 * W + W * T) * 4
     return kernel_row(label, pa.paged_decode_attention, pa.paged_decode_attention_ref, copies,
-                      variants, nbytes, 4.0 * keys * KV * G * D, timed=timed)
+                      variants, nbytes, 4.0 * keys * KV * G * D, timed=timed, **kw)
 
 
-def paged_row(label, copies, P, lengths):
+def paged_row(label, copies, P, lengths, **kw):
     """K4 at one shape, its bound counted as K1's over ``lengths`` keys."""
     from repro_torch.kernels import paged_attention as pa
 
@@ -582,10 +591,11 @@ def paged_row(label, copies, P, lengths):
     keys, es = sum(lengths), copies[0][0].element_size()
     nbytes = (2 * W * KV * G * D + 2 * keys * KV * D) * es + (W * P + W) * 4
     return kernel_row(label, pa.paged_attention, pa.paged_attention_ref, copies,
-                      [dict(softcap=0.0), dict(softcap=30.0)], nbytes, 4.0 * keys * KV * G * D)
+                      [dict(softcap=0.0), dict(softcap=30.0)], nbytes, 4.0 * keys * KV * G * D,
+                      **kw)
 
 
-def prefill_row(label, copies, P, plen, variants=BOTH, timed=None):
+def prefill_row(label, copies, P, plen, variants=BOTH, timed=None, **kw):
     """K2 at one shape: the bound counts q, the output and the chunk's own
     K/V once, each prefix key's K/V row once, the block table and lengths;
     the operations are the causal (query, key) pairs of the chunk."""
@@ -597,7 +607,7 @@ def prefill_row(label, copies, P, plen, variants=BOTH, timed=None):
     nbytes = (2 * B * KV * G * C * D + 2 * sum(plen) * KV * D + 2 * B * KV * C * D) * es
     nbytes += (B * P + B) * 4
     return kernel_row(label, pa.paged_prefill_attention, pa.paged_prefill_attention_ref, copies,
-                      variants, nbytes, 4.0 * keys * KV * G * D, timed=timed)
+                      variants, nbytes, 4.0 * keys * KV * G * D, timed=timed, **kw)
 
 
 def wide_kernel_rows(dev, rnd, gen_seed):
@@ -648,6 +658,76 @@ def wide_kernel_rows(dev, rnd, gen_seed):
         rows[label] = kernel_row(label, fa.flash_attention, fa.flash_attention_ref, copies, variants,
                                  nbytes, 4.0 * H * D * S * (S + 1) / 2, library=lib)
     print("wide kernel rows: " + json.dumps(rows))
+    return rows
+
+
+WIDE_HEAD_DIMS = (320, 512)  # past the tensor-core tiles' 256: the SIMT routes
+
+
+def _sdpa_for(q, k, v, **kw):
+    """``scaled_dot_product_attention`` on the first of its backends (flash,
+    memory-efficient, cuDNN, math) that takes these operands: (the call,
+    the backend's name).  A yardstick only: the port never calls it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(q, k, v, b=b):
+            with sdpa_kernel([b]):
+                return sdpa(q, k, v, enable_gqa=True, **kw)
+        try:
+            call(q, k, v)
+        except RuntimeError:
+            continue
+        return call, b.name
+    return None, "none"
+
+
+def head_dim_past_256_rows(dev, rnd, gen_seed):
+    """K1, K4, K2 and K5 at head dims 320 and 512, in bf16 and f32: the
+    SIMT routes past the tensor-core tiles (K1/K4's wide split kernel, K2's
+    and K5's 512-column SIMT instantiations), each against its plain
+    version under its window/soft-cap variants (the dtype's tolerance),
+    timed beside its bound (bf16's peak for bf16 inputs, f32's for f32)
+    and, for K5, beside ``scaled_dot_product_attention`` on whichever
+    backend takes the head dim.  4 kv heads, G = 2; K1 8 decode rows over
+    prefixes up to 512, K4 lengths up to 512, K2 4 chunks of 32 after
+    prefixes up to 224, K5 8 query heads over S = 512, causal.  Returns
+    {wrapper: [(label, row), ...]}."""
+    from repro_torch.kernels import flash_attention as fa
+
+    rows = {"paged_decode_attention": [], "paged_attention": [], "paged_prefill_attention": [],
+            "flash_attention": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        draw = lambda *s, dtype=None, _t=dtype: rnd(*s, dtype=_t)
+        kw = dict(dtype=dtype, peak=H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS)
+        for D in WIDE_HEAD_DIMS:
+            label = f"K1 D={D} G=2 {name}"
+            copies, P = _decode_copies(draw, dev, gen_seed + D, 4, 2, D, PLEN, T_USED)
+            rows["paged_decode_attention"].append((label, decode_row(label, copies, P, PLEN,
+                                                                     T_USED, **kw)))
+            label = f"K4 D={D} G=2 {name}"
+            copies, P = _paged_copies(draw, dev, gen_seed + D, 4, 2, D, K4_LENGTHS)
+            rows["paged_attention"].append((label, paged_row(label, copies, P, K4_LENGTHS, **kw)))
+            label = f"K2 D={D} G=2 {name}"
+            copies, P = _prefill_copies(draw, dev, gen_seed + D, 4, 2, 32, D, PLEN2)
+            rows["paged_prefill_attention"].append((label, prefill_row(label, copies, P, PLEN2,
+                                                                       **kw)))
+            H, KV, S = 8, 4, 512
+            act = lambda n: draw(1, S, n, D).transpose(1, 2)
+            copies = [(act(H), act(KV), act(KV)) for _ in range(4)]
+            lib, backend = _sdpa_for(*copies[0], is_causal=True)
+            label = f"K5 D={D} 8/4 heads {name} (SDPA backend: {backend})"
+            variants = [dict(causal=True, window=w, softcap=c) for w in (0, 128) for c in (0.0, 30.0)]
+            es = copies[0][0].element_size()
+            row = kernel_row(label, fa.flash_attention, fa.flash_attention_ref, copies, variants,
+                             es * (2 * H * S * D + 2 * KV * S * D), 4.0 * H * D * S * (S + 1) / 2,
+                             library=None if lib is None else (lib, copies),
+                             timed=dict(causal=True), **kw)
+            rows["flash_attention"].append((label, row))
+    print("head dims past 256: " + json.dumps({k: dict(v) for k, v in rows.items()}))
     return rows
 
 
@@ -778,6 +858,25 @@ def sharded_prefill_kernel_row(rnd):
                             2.0 * (2 * B * H * Sq * D + 2 * B * KV * S * D),
                             4.0 * B * H * D * pairs, library=lib, timed=kw)
     print("sharded prefill kernel row: " + json.dumps({label: offset_row}))
+
+    # what each model rank of scripts/torch_four_cards.py's meshes hands K5:
+    # 2 x 2 (2 rows per data rank, two query halves) and 1 x 4 (all 4 rows,
+    # four query quarters)
+    for b, ranks in ((2, 2), (4, 4)):
+        Sq = S // ranks
+        for off in range(Sq, S, Sq):
+            copies = [(rnd(b, Sq, H, D).transpose(1, 2), rnd(b, S, KV, D).transpose(1, 2),
+                       rnd(b, S, KV, D).transpose(1, 2)) for _ in range(4)]
+            keep = (off + torch.arange(Sq, device="cuda")[:, None]) >= torch.arange(S, device="cuda")
+            lib = (lambda q, k, v, keep=keep: sdpa(q, k, v, attn_mask=keep, enable_gqa=True), copies)
+            label = (f"K5 qwen3-1.7b sharded prefill, model rank {off // Sq} of {ranks} ({b} x {Sq} "
+                     f"queries at {off}-{off + Sq - 1} over {S} keys, q_offset {off})")
+            pairs = Sq * (off + 1) + Sq * (Sq - 1) / 2
+            kw = dict(causal=True, q_offset=off)
+            r = kernel_row(label, fa.flash_attention, fa.flash_attention_ref, copies, [kw],
+                           2.0 * (2 * b * H * Sq * D + 2 * b * KV * S * D),
+                           4.0 * b * H * D * pairs, library=lib, timed=kw)
+            print("sharded prefill kernel row: " + json.dumps({label: r}))
     return row
 
 
@@ -2501,7 +2600,7 @@ def main() -> None:
 
     walls = {"build": time.monotonic() - t0}
     t0 = time.monotonic()
-    kernels = kernel_phase()
+    kernels, past_256 = kernel_phase()
     for finish in sass_checks:
         finish()
     walls["kernel rows"] = time.monotonic() - t0
@@ -2666,11 +2765,16 @@ def main() -> None:
           + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()))
     print("kernels: " + json.dumps([{"name": k, "launches": v} for k, v in launches.items()]))
     record = []
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     for name in wrappers:
         r = dict(name=name, **kernels[name], launches=launches[name])
-        record.append({k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                                         "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")})
+        record.append({k: r[k] for k in keys})
+        # the same wrapper's SIMT route past head_dim 256: its rows, with the
+        # wrapper's launch count (no served model has a head past 256)
+        for label, row in past_256.get(name, []):
+            r = dict(kernels[name], **row, name=f"{name} [{label}]", launches=launches[name])
+            record.append({k: r[k] for k in keys})
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,11 @@ roofline (compute, memory, collective seconds) from the port's dry-run
 artifacts in ``results/torch/dryrun/`` (``python -m
 repro_torch.launch.dryrun``).
 
-The counterpart of ``benchmarks/bench_roofline.py``.  The port's dry run
-records the argument bytes per device ("arguments only": it runs no memory
-tracker over the eager step), so the table's memory column is the
-argument bytes per device, not a peak.  Writes
+The counterpart of ``benchmarks/bench_roofline.py``.  Beside the
+reference's peak per device, which the port's dry run takes as the
+argument bytes plus the most bytes the eager step's tensors held at once
+(``roofline.analysis.LiveBytes``; no compiled buffer assignment exists),
+the table keeps the argument bytes per device.  Writes
 ``<out-dir>/roofline-{single,multi}.{md,json}``; reads files only (no
 model, no device).
 
@@ -44,7 +45,8 @@ def build_table(dryrun_dir: Path = DRYRUN_DIR, mesh: str = "single") -> List[Dic
             "model_flops": r["model_flops"],
             "useful_flops_ratio": r["useful_flops_ratio"],
             "argument_GB_per_dev": d["memory"]["argument_bytes_per_device"] / 1e9,
-            "arguments_fit_80GiB": d["memory"]["fits_80GiB_arguments"],
+            "peak_GB_per_dev": d["memory"]["peak_bytes_per_device"] / 1e9,
+            "fits_80GiB": d["memory"]["fits_80GiB"],
             "roofline_fraction": min(
                 1.0, max(r["compute_s"], 1e-30)
                 / max(r["compute_s"], r["memory_s"], r["collective_s"])),
@@ -57,18 +59,18 @@ def to_markdown(rows: List[Dict[str, Any]], mesh: str) -> str:
         f"# Roofline table of the port's dry run ({mesh} mesh)",
         "",
         "| arch | shape | compute s | memory s | collective s | dominant | useful-FLOPs ratio "
-        "| argument bytes per device (GB) | arguments fit 80 GiB |",
-        "|---|---|---|---|---|---|---|---|---|",
+        "| argument bytes per device (GB) | peak bytes per device (GB) | fits 80 GiB |",
+        "|---|---|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         if r.get("status") != "ok":
             lines.append(f"| {r['arch']} | {r['shape']} | — | — | — | "
-                         f"{r['status']}: {(r.get('reason') or '')[:60]} | — | — | — |")
+                         f"{r['status']}: {(r.get('reason') or '')[:60]} | — | — | — | — |")
             continue
         lines.append(
             f"| {r['arch']} | {r['shape']} | {r['compute_s']:.3e} | {r['memory_s']:.3e} | "
             f"{r['collective_s']:.3e} | **{r['dominant']}** | {r['useful_flops_ratio']:.2f} | "
-            f"{r['argument_GB_per_dev']:.2f} | {r['arguments_fit_80GiB']} |")
+            f"{r['argument_GB_per_dev']:.2f} | {r['peak_GB_per_dev']:.2f} | {r['fits_80GiB']} |")
     return "\n".join(lines)
 
 

@@ -309,8 +309,10 @@ def scenario_offloadable(make_engine) -> Dict[str, Any]:
     return {"gates": gates, "claim_id": claim_b.claim_id, "events_path_b": _events(eng_b)}
 
 
-def scenario_routed_reuse(make_engine) -> Dict[str, Any]:
-    engines = [make_engine(namespace=f"w{i}") for i in range(2)]
+def scenario_routed_reuse(make_engine, workers: int = 2) -> Dict[str, Any]:
+    """Two replicas as in the reference, or ``workers`` (one per card in
+    ``scripts/torch_four_cards.py``)."""
+    engines = [make_engine(namespace=f"w{i}") for i in range(workers)]
     try:
         router = KVAwareRouter(engines)
         claim = router.accept_claim(PREFIX)

@@ -15,7 +15,8 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None, *, allow_meta: bool = False) -> torch.device:
-    """``None`` -> ``cuda`` (raises without a card); otherwise the named
+    """``None`` -> the current card (raises without a card; an NCCL rank's
+    own card once ``launch.mesh.init_group`` bound it); otherwise the named
     device.  ``allow_meta`` lets a function that only makes shapes (a state
     or cache built to read its shapes) take ``"meta"``, which holds no memory."""
     dev = torch.device("cuda" if device is None else device)

@@ -7,6 +7,11 @@ through the headers' own includes) and the nvcc flags, so an edited source,
 header or flag never loads a stale library.  Nothing is compiled when a module is imported: the first wrapper
 call that launches a kernel builds its library, and ``build_all`` compiles
 every source at once, one nvcc process per source running side by side.
+
+``launch`` is the one way a wrapper calls an entry point: the entry
+launches on the calling thread's current device, so the wrapper makes its
+operands' card current first, as ATen enters an operand's device guard for
+each of its own ops.
 """
 from __future__ import annotations
 
@@ -98,6 +103,17 @@ def build_all() -> Dict[str, float]:
     with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
         secs = list(pool.map(one, SOURCES))
     return dict(zip(SOURCES, secs))
+
+
+def launch(entry, device, *args) -> int:
+    """``entry(*args, stream)`` with ``device`` (the operands' card) current
+    and its current stream: a tensor on ``cuda:2`` launches on card 2 even
+    when the process's current card is 0, and ``allow_smem``'s per-card flag
+    (``csrc/common.cuh``) reads card 2.  Returns the entry's CUDA error."""
+    import torch
+
+    with torch.cuda.device(device):
+        return entry(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -66,6 +66,15 @@
 //   stride (D + 1; 209 KiB at D = 256); both products are f32 FMAs.  D is
 //   any multiple of 4 up to 256.
 //
+// * head dims past 256, up to 512, in both types: the same SIMT kernel with
+//   32-row query tiles and 32-key tiles (four 32 x (D + 1) f32 tiles and the
+//   weights: 197 KiB at D = 512), 32 output columns per thread, the tiles
+//   converted to f32 as they are loaded.  Every score sums all D columns of
+//   q.k in f32.  Nothing bounds it but simplicity: the tensor-core kernel's
+//   accumulators (DP / 2 f32 per thread) do not fit registers past 256, and
+//   no catalogue model has such a head; a later PR can split D over two
+//   warpgroups there.
+//
 // A query row with no valid key at all (only possible with Sq > Sk under a
 // causal window, or Sk = 0; the model never builds one) gets what the dense
 // reference's uniform softmax over its masked scores gives it: the plain
@@ -96,11 +105,10 @@ using namespace repro_kernels;  // common.cuh, tensor_core.cuh
 
 constexpr int kThreads = 256;
 constexpr int kSide = 16;              // the 16 x 16 thread grid
-constexpr int kTile = 64;              // query rows per CTA, keys per tile
-constexpr int kMaxD = 256;
-constexpr int kRows = kTile / kSide;   // query rows per thread
-constexpr int kKeys = kTile / kSide;   // keys per thread in the score tile
-constexpr int kPs = kTile + 1;         // row stride of the weight tile
+constexpr int kTile = 64;              // query rows per CTA, keys per tile, up to D = 256
+constexpr int kWideTile = 32;          // the same past D = 256: four tiles fit shared memory
+constexpr int kMaxD = 256;             // the tensor-core kernel's widest head dim
+constexpr int kMaxWideD = 512;         // the SIMT kernel's widest head dim
 
 struct Params {
   const void* q;  // [B, H, Sq, D] by strides, D contiguous
@@ -117,14 +125,14 @@ struct Params {
   float sm_scale, softcap;
 };
 
-// Rows [row0, row0 + kTile) of one head -> f32 shared memory with row
+// Rows [row0, row0 + TILE) of one head -> f32 shared memory with row
 // stride ld, by 16-byte vector loads; rows at or past n_rows are zeros.
-template <typename T>
+template <typename T, int TILE>
 __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base, long long stride,
                                           int row0, int n_rows, int D) {
   constexpr int kVec = 16 / sizeof(T);
   const int nvec = D / kVec;
-  for (int i = threadIdx.x; i < kTile * nvec; i += kThreads) {
+  for (int i = threadIdx.x; i < TILE * nvec; i += kThreads) {
     const int r = i / nvec, dv = i % nvec;
     uint4 u = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < n_rows)
@@ -148,19 +156,23 @@ __device__ __noinline__ float mean_value(const T* vb, long long v_ss, int Sk, in
   return Sk > 0 ? sum / (float)Sk : 0.f;
 }
 
-// DM: the widest head dim of the instantiation (128 or 256)
-template <typename T, int DM>
+// DM: the widest head dim of the instantiation (128, 256 or 512); TILE:
+// query rows per CTA and keys per tile (64, or 32 past D = 256)
+template <typename T, int DM, int TILE>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
-  constexpr int kCols = DM / kSide;  // output columns per thread
+  constexpr int kCols = DM / kSide;   // output columns per thread
+  constexpr int kRows = TILE / kSide;  // query rows per thread
+  constexpr int kKeys = TILE / kSide;  // keys per thread in the score tile
+  constexpr int kPs = TILE + 1;        // row stride of the weight tile
   extern __shared__ float smem[];
   const int D = p.D;
   const int ld = D + 1;
-  float* qs = smem;              // [kTile][ld]
-  float* ks = qs + kTile * ld;   // [kTile][ld]
-  float* vs = ks + kTile * ld;   // [kTile][ld]
-  float* ps = vs + kTile * ld;   // [kTile][kPs] unnormalised weights
+  float* qs = smem;             // [TILE][ld]
+  float* ks = qs + TILE * ld;   // [TILE][ld]
+  float* vs = ks + TILE * ld;   // [TILE][ld]
+  float* ps = vs + TILE * ld;   // [TILE][kPs] unnormalised weights
 
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * TILE;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
@@ -169,13 +181,13 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
   const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  load_tile<T>(qs, ld, qb, p.q_ss, q0, p.Sq, D);
+  load_tile<T, TILE>(qs, ld, qb, p.q_ss, q0, p.Sq, D);
 
   // keys any row of this CTA can attend: [kbeg, kend) (row r at position
   // q_offset + r)
   const int pos0 = p.q_offset + q0;
   int kend = p.Sk;
-  if (p.causal) kend = min(kend, pos0 + kTile);
+  if (p.causal) kend = min(kend, pos0 + TILE);
   const int kbeg = p.window > 0 ? max(0, pos0 - p.window + 1) : 0;
 
   float m[kRows], l[kRows], acc[kRows][kCols];
@@ -187,10 +199,10 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = kbeg; k0 < kend; k0 += kTile) {
+  for (int k0 = kbeg; k0 < kend; k0 += TILE) {
     __syncthreads();  // the previous tile's readers are done; qs is visible
-    load_tile<T>(ks, ld, kb, p.k_ss, k0, kend, D);
-    load_tile<T>(vs, ld, vb, p.v_ss, k0, kend, D);
+    load_tile<T, TILE>(ks, ld, kb, p.k_ss, k0, kend, D);
+    load_tile<T, TILE>(vs, ld, vb, p.v_ss, k0, kend, D);
     __syncthreads();
 
     float s[kRows][kKeys];
@@ -246,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
 
     // weighted values: one load of a value row segment feeds every row
 #pragma unroll 2
-    for (int j = 0; j < kTile; ++j) {
+    for (int j = 0; j < TILE; ++j) {
       float pr[kRows], vv[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) pr[i] = ps[(ty + kSide * i) * kPs + j];
@@ -284,8 +296,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   }
 }
 
-size_t smem_bytes(int D) {
-  return sizeof(float) * (size_t)(3 * kTile * (D + 1) + kTile * kPs);
+size_t smem_bytes(int D, int tile) {
+  return sizeof(float) * (size_t)(3 * tile * (D + 1) + tile * (tile + 1));
 }
 
 // ---------------------------------------------------------------- bfloat16
@@ -612,16 +624,18 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
 template <int DP, bool kSoftcap>
 struct TcTag {};
 
-template <int DM>
+template <typename T, int DM>
 struct SimtTag {};
 
-template <int DM>
-int launch_f32(const Params& p, int B, cudaStream_t s) {
-  cudaError_t err =
-      allow_smem<SimtTag<DM>>((const void*)flash_attention_kernel<float, DM>, smem_bytes(DM));
+// The SIMT kernel: float32 at every head dim, bfloat16 past D = 256
+template <typename T, int DM>
+int launch_simt(const Params& p, int B, cudaStream_t s) {
+  constexpr int kT = DM > kMaxD ? kWideTile : kTile;
+  cudaError_t err = allow_smem<SimtTag<T, DM>>((const void*)flash_attention_kernel<T, DM, kT>,
+                                               smem_bytes(DM, kT));
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.Sq + kTile - 1) / kTile, p.H, B);
-  flash_attention_kernel<float, DM><<<grid, kThreads, smem_bytes(p.D), s>>>(p);
+  dim3 grid((p.Sq + kT - 1) / kT, p.H, B);
+  flash_attention_kernel<T, DM, kT><<<grid, kThreads, smem_bytes(p.D, kT), s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -644,6 +658,7 @@ int launch_tc(const Params& p, int B, cudaStream_t s) {
 
 int launch_bf16(const Params& p, int B, cudaStream_t s) {
   if (p.D % 8) return (int)cudaErrorInvalidValue;
+  if (p.D > kMaxD) return launch_simt<bf16, kMaxWideD>(p, B, s);
   if (p.D <= 16) return launch_tc<16>(p, B, s);
   if (p.D <= 32) return launch_tc<32>(p, B, s);
   if (p.D <= 64) return launch_tc<64>(p, B, s);
@@ -657,7 +672,8 @@ int launch_bf16(const Params& p, int B, cudaStream_t s) {
 extern "C" {
 
 // dtype: 0 = float32 (SIMT kernel; D a multiple of 4), 1 = bfloat16
-// (tensor-core kernel; D a multiple of 8); D <= 256.  sm_scale multiplies
+// (tensor-core kernel up to D = 256, the SIMT kernel past it; D a multiple
+// of 8); D <= 512.  sm_scale multiplies
 // every score: 1 / sqrt(d) of the head dim d before the caller zero-padded
 // it to D.  Query row i sits at position q_offset + i and key j at j, for
 // the causal mask (j <= q_offset + i) and the window (q_offset + i - j <
@@ -669,7 +685,7 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
                             long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
                             int H, int KV, int Sq, int Sk, int D, int causal, int window,
                             int q_offset, float sm_scale, float softcap, void* stream) {
-  if (D <= 0 || D > kMaxD || D % (dtype == 0 ? 4 : 8) || B <= 0 || H <= 0 || KV <= 0 ||
+  if (D <= 0 || D > kMaxWideD || D % (dtype == 0 ? 4 : 8) || B <= 0 || H <= 0 || KV <= 0 ||
       H % KV != 0 || Sq <= 0 || Sk < 0 || q_offset < 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -700,7 +716,11 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
   p.sm_scale = sm_scale;
   p.softcap = softcap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return D <= 128 ? launch_f32<128>(p, B, s) : launch_f32<256>(p, B, s);
+  if (dtype == 0) {
+    if (D <= 128) return launch_simt<float, 128>(p, B, s);
+    if (D <= kMaxD) return launch_simt<float, kMaxD>(p, B, s);
+    return launch_simt<float, kMaxWideD>(p, B, s);
+  }
   if (dtype == 1) return launch_bf16(p, B, s);
   return (int)cudaErrorInvalidValue;
 }

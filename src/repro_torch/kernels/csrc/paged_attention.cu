@@ -76,8 +76,17 @@
 //   kernel.  One CTA per (sequence, kv head, 16 rows) walks 32-key tiles
 //   prefetched into registers one tile ahead; the q.k products and the
 //   weighted values are f32 FMAs on the CUDA cores.  Head dims are
-//   multiples of 4 up to 256, in two instantiations (up to 128 and up to
-//   256 columns of accumulators and loads per thread).
+//   multiples of 4 up to 512, in three instantiations (up to 128, 256 and
+//   512 columns of accumulators and loads per thread; at 512 a thread owns
+//   two output columns of each of the tile's 16 rows).
+//
+// * head dims past 256, up to 512, in bfloat16: the same SIMT kernel, its
+//   tiles converted to f32 as they are loaded (166,592 bytes of shared
+//   memory at D = 512).  Every score sums all D columns of q.k in f32, and
+//   the output is written without a merge.  Nothing bounds it but
+//   simplicity: the tensor-core kernel's accumulators (DP / 2 f32 per
+//   thread) do not fit registers past 256, and no catalogue model has such
+//   a head.
 //
 // The kernels allocate nothing and do not synchronise; the caller passes
 // the stream and the scratch and checks the returned cudaGetLastError().
@@ -109,20 +118,24 @@ struct Params {
   int window;
 };
 
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 256;      // the tensor-core kernel's widest head dim
+constexpr int kMaxWideD = 512;  // the SIMT kernel's widest head dim
 
-// ----------------------------------------------------------------- float32
+// ------------------------------------------------------------------- SIMT
 
 constexpr int kThreads = 256;
 constexpr int kRowTile = 16;  // query rows per CTA
 constexpr int kKeyTile = 32;  // keys per shared-memory tile
 constexpr int kLanesPerRow = kThreads / kRowTile;  // softmax lanes per row
 
-// DM: the widest head dim of the instantiation (128 or 256)
-template <int DM>
+// T: the element type (float32 at every head dim, bfloat16 past 256); DM:
+// the widest head dim of the instantiation (128, 256 or 512)
+template <typename T, int DM>
 __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
-  constexpr int kAccPerThread = kRowTile * DM / kThreads;   // output rows per thread
-  constexpr int kVec = 4;                                    // floats per 16-byte load
+  // output columns col + c * kThreads (c < kColPasses) of rows row0 + i * rstride
+  constexpr int kColPasses = DM > kThreads ? DM / kThreads : 1;
+  constexpr int kAccPerThread = kRowTile * DM / kThreads / kColPasses;  // output rows per thread
+  constexpr int kVec = 16 / sizeof(T);                       // elements per 16-byte load
   constexpr int kLoads = kKeyTile * (DM / kVec) / kThreads;  // max loads per thread per side
   extern __shared__ float smem[];
   const int D = p.D;
@@ -148,12 +161,12 @@ __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
   const int n_prefix = max(0, min(plen, p.P * p.page));
   const int nvec = D / kVec;
 
-  const float* q = static_cast<const float*>(p.q);
+  const T* q = static_cast<const T*>(p.q);
   for (int i = tid; i < nr * D; i += kThreads) {
     const int rr = i / D, d = i % D;
     const int r = r0 + rr;
     const int g = r / p.C, c = r % p.C;
-    qs[rr * ld + d] = q[b * p.q_sb + kv * p.q_skv + g * p.q_sg + c * p.q_sc + d];
+    qs[rr * ld + d] = to_f<T>(q[b * p.q_sb + kv * p.q_skv + g * p.q_sg + c * p.q_sc + d]);
   }
   int qmin = 0x7fffffff;
   for (int rr = 0; rr < nr; ++rr) qmin = min(qmin, plen + (r0 + rr) % p.C);
@@ -162,15 +175,19 @@ __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
     l_s[tid] = 0.f;
     qpos_s[tid] = plen + (r0 + tid) % p.C;
   }
-  // output layout: each thread owns one column of a power-of-two padded
-  // width Dp >= D and the rows row0, row0 + rstride, ...
-  const int Dp = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
-  const int col = tid % Dp;
-  const int row0 = tid / Dp;
-  const int rstride = kThreads / Dp;
-  float acc[kAccPerThread];
+  // output layout: each thread owns the columns col + c * kThreads of a
+  // power-of-two padded width Dp >= D (one column up to Dp = kThreads) and
+  // the rows row0, row0 + rstride, ...
+  const int Dp = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : D <= 256 ? 256 : 512;
+  const int Dc = min(Dp, kThreads);
+  const int col = tid % Dc;
+  const int row0 = tid / Dc;
+  const int rstride = kThreads / Dc;
+  float acc[kAccPerThread][kColPasses];
 #pragma unroll
-  for (int i = 0; i < kAccPerThread; ++i) acc[i] = 0.f;
+  for (int i = 0; i < kAccPerThread; ++i)
+#pragma unroll
+    for (int c = 0; c < kColPasses; ++c) acc[i][c] = 0.f;
 
   // Tiles: prefix keys [kstart, n_prefix) first — keys before the window of
   // every row in this CTA can never be attended and are not loaded — then
@@ -178,14 +195,14 @@ __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
   const int kstart = p.window > 0 ? min(n_prefix, max(0, qmin - p.window + 1)) : 0;
   const int n_pre_tiles = (n_prefix - kstart + kKeyTile - 1) / kKeyTile;
   const int n_tiles = n_pre_tiles + (p.C + kKeyTile - 1) / kKeyTile;
-  const float* kp_base = static_cast<const float*>(p.k_pages);
-  const float* vp_base = static_cast<const float*>(p.v_pages);
-  const float* kc = static_cast<const float*>(p.k_chunk);
-  const float* vc = static_cast<const float*>(p.v_chunk);
+  const T* kp_base = static_cast<const T*>(p.k_pages);
+  const T* vp_base = static_cast<const T*>(p.v_pages);
+  const T* kc = static_cast<const T*>(p.k_chunk);
+  const T* vc = static_cast<const T*>(p.v_chunk);
 
   // rows of key j of tile t and its position, or null and -1 when there is
   // no key there
-  auto key_row = [&](int t, int j, const float** kr, const float** vr, int* pos) {
+  auto key_row = [&](int t, int j, const T** kr, const T** vr, int* pos) {
     *kr = nullptr;
     *vr = nullptr;
     *pos = -1;
@@ -216,8 +233,8 @@ __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
       kreg[i] = make_uint4(0u, 0u, 0u, 0u);
       vreg[i] = make_uint4(0u, 0u, 0u, 0u);
       if (v < kKeyTile * nvec) {
-        const float* kr;
-        const float* vr;
+        const T* kr;
+        const T* vr;
         int pos;
         key_row(t, v / nvec, &kr, &vr, &pos);
         if (kr != nullptr) {
@@ -233,13 +250,13 @@ __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
       const int v = tid + i * kThreads;
       if (v < kKeyTile * nvec) {
         const int j = v / nvec, dv = v % nvec;
-        unpack16<float>(ks + j * ld + dv * kVec, kreg[i]);
-        unpack16<float>(vs + j * ld + dv * kVec, vreg[i]);
+        unpack16<T>(ks + j * ld + dv * kVec, kreg[i]);
+        unpack16<T>(vs + j * ld + dv * kVec, vreg[i]);
       }
     }
     if (tid < kKeyTile) {
-      const float* kr;
-      const float* vr;
+      const T* kr;
+      const T* vr;
       int pos;
       key_row(t, tid, &kr, &vr, &pos);
       kpos_s[tid] = pos;
@@ -331,16 +348,21 @@ __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < kAccPerThread; ++i) {
       const int rr = row0 + i * rstride;
-      if (rr < nr) acc[i] *= corr_s[rr];
+#pragma unroll
+      for (int c = 0; c < kColPasses; ++c)
+        if (rr < nr) acc[i][c] *= corr_s[rr];
     }
-    if (col < D) {
+#pragma unroll
+    for (int c = 0; c < kColPasses; ++c) {
+      const int cc = col + c * kThreads;
+      if (cc >= D) continue;
 #pragma unroll 4
       for (int j = 0; j < kKeyTile; ++j) {
-        const float vj = vs[j * ld + col];
+        const float vj = vs[j * ld + cc];
 #pragma unroll
         for (int i = 0; i < kAccPerThread; ++i) {
           const int rr = row0 + i * rstride;
-          if (rr < nr) acc[i] = fmaf(ps[rr * kKeyTile + j], vj, acc[i]);
+          if (rr < nr) acc[i][c] = fmaf(ps[rr * kKeyTile + j], vj, acc[i][c]);
         }
       }
     }
@@ -348,13 +370,17 @@ __global__ void __launch_bounds__(kThreads) simt_prefill_kernel(Params p) {
   }
 
   __syncthreads();  // l_s is final (and visible) even when there was no tile
-  float* out = static_cast<float*>(p.out);
+  T* out = static_cast<T*>(p.out);
 #pragma unroll
   for (int i = 0; i < kAccPerThread; ++i) {
     const int rr = row0 + i * rstride;
-    if (rr < nr && col < D) {
-      const float l = fmaxf(l_s[rr], 1e-30f);
-      out[((long long)bkv * R + r0 + rr) * D + col] = acc[i] / l;
+#pragma unroll
+    for (int c = 0; c < kColPasses; ++c) {
+      const int cc = col + c * kThreads;
+      if (rr < nr && cc < D) {
+        const float l = fmaxf(l_s[rr], 1e-30f);
+        out[((long long)bkv * R + r0 + rr) * D + cc] = from_f<T>(acc[i][c] / l);
+      }
     }
   }
 }
@@ -734,17 +760,18 @@ __global__ void __launch_bounds__(kTcThreads) tc_prefill_kernel(Params p) {
 template <int DP, bool kSoftcap>
 struct TcTag {};
 
-template <int DM>
+template <typename T, int DM>
 struct SimtTag {};
 
-template <int DM>
-int launch_f32(const Params& p, cudaStream_t s) {
-  // past D = 144 the tiles need more than 48 KB (84,672 bytes at 256)
-  cudaError_t err = allow_smem<SimtTag<DM>>((const void*)simt_prefill_kernel<DM>,
-                                            simt_smem_bytes(DM));
+template <typename T, int DM>
+int launch_simt(const Params& p, cudaStream_t s) {
+  // past D = 144 the tiles need more than 48 KB (84,672 bytes at 256,
+  // 166,592 at 512)
+  cudaError_t err = allow_smem<SimtTag<T, DM>>((const void*)simt_prefill_kernel<T, DM>,
+                                               simt_smem_bytes(DM));
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(p.B * p.KV, (p.G * p.C + kRowTile - 1) / kRowTile);
-  simt_prefill_kernel<DM><<<grid, kThreads, simt_smem_bytes(p.D), s>>>(p);
+  simt_prefill_kernel<T, DM><<<grid, kThreads, simt_smem_bytes(p.D), s>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -784,7 +811,8 @@ extern "C" {
 
 // dtype: 0 = float32 (SIMT kernel, D a multiple of 4; part, split_keys,
 // n_pre and n_split are not used), 1 = bfloat16 (tensor-core split kernel
-// and merge; D a multiple of 8); D <= 256.  For bfloat16, split_keys must equal the kernel's split size (128), n_pre =
+// and merge up to D = 256, the SIMT kernel past it; D a multiple of 8);
+// D <= 512.  For bfloat16 up to D = 256, split_keys must equal the kernel's split size (128), n_pre =
 // ceil(P * page / split_keys), n_split = n_pre + 1 (the chunk), and part
 // holds B * KV * n_split * G * C * (D + 2) floats).  sm_scale multiplies
 // every score: 1 / sqrt(d) of the head dim d before the caller zero-padded
@@ -797,7 +825,7 @@ int paged_attention_forward(int dtype, const void* q, const void* k_pages, const
                             long long e_skv, long long e_st, int B, int KV, int G, int C, int D,
                             int N, int page, int P, int split_keys, int n_pre, int n_split,
                             float sm_scale, float softcap, int window, void* stream) {
-  if (D <= 0 || D > kMaxD || D % (dtype == 0 ? 4 : 8) || B <= 0 || KV <= 0 || G <= 0 || C <= 0 ||
+  if (D <= 0 || D > kMaxWideD || D % (dtype == 0 ? 4 : 8) || B <= 0 || KV <= 0 || G <= 0 || C <= 0 ||
       page <= 0 || P < 0 || (G * C + kRowTile - 1) / kRowTile > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -831,7 +859,12 @@ int paged_attention_forward(int dtype, const void* q, const void* k_pages, const
   p.softcap = softcap;
   p.window = window;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return D <= 128 ? launch_f32<128>(p, s) : launch_f32<256>(p, s);
+  if (dtype == 0) {
+    if (D <= 128) return launch_simt<float, 128>(p, s);
+    if (D <= kMaxD) return launch_simt<float, kMaxD>(p, s);
+    return launch_simt<float, kMaxWideD>(p, s);
+  }
+  if (dtype == 1 && D > kMaxD) return launch_simt<bf16, kMaxWideD>(p, s);
   if (dtype != 1 || part == nullptr || split_keys != kSplitKeys ||
       (long long)n_pre != ((long long)P * page + kSplitKeys - 1) / kSplitKeys ||
       n_split != n_pre + 1 || n_split > 65535)

@@ -18,7 +18,7 @@
 // clamped into [0, N) as the reference's gather does, and every tail slot),
 // i.e. the plain mean of those value rows.
 //
-// Domain: D up to 256, a multiple of 8 in bf16 and of 4 in f32; any G.
+// Domain: D up to 512, a multiple of 8 in bf16 and of 4 in f32; any G.
 //
 // What bounds it on the card: bytes.  Each key/value element is used for
 // 4*G FLOPs (G = 2 on qwen3-1.7b, 4 on stablelm-12b, 1 on deepseek-7b), far
@@ -79,6 +79,18 @@
 // row's result does not depend on the batch width or on its place in the
 // batch (empty splits add nothing).
 //
+// Head dims past 256 (up to 512, both types) take wide_split_kernel, a
+// plain SIMT kernel over the same splits, the same partials and the same
+// merge (2 threads per output column there, as a row of 512 fills a merge
+// CTA): one CTA of 8 warps per (sequence, kv head, head group, split) keeps
+// the group's queries in shared memory as f32; each warp takes every 8th
+// key of the split and sums q.k over all D columns, 16 bytes per lane per
+// step, by a warp shuffle; the weights go to shared memory; then each
+// thread owns columns d, d + 256 of the weighted value sum of every head.
+// Nothing bounds it but simplicity: the register layouts above hold a
+// key's whole row per lane group and spill past 256 columns, and no
+// catalogue model has such a head.
+//
 // The kernels allocate nothing and do not synchronise; the caller passes
 // the stream and checks the returned cudaGetLastError().
 
@@ -92,13 +104,17 @@ namespace {
 using repro_kernels::allow_smem;
 using repro_kernels::launch_split_merge;
 using repro_kernels::SplitMerge;
+using repro_kernels::to_f;
 using repro_kernels::unpack16;
 
 constexpr int kSplit = 64;      // keys per split
 constexpr int kMergeParts = 4;  // threads per output element in the merge (up to 34 splits at 2k keys)
 constexpr int kSlice = 8;       // head-dim elements per lane
-constexpr int kMaxD = 256;
+constexpr int kMaxD = 256;      // the register layouts' widest head dim
+constexpr int kMaxWideD = 512;  // wide_split_kernel's widest head dim
 constexpr int kMaxGM = 8;       // heads per CTA; more heads take more CTAs
+constexpr int kWideThreads = 256;
+constexpr int kWideMergeParts = 2;  // a row of up to 512 columns: 256 merge threads
 
 // The CTA's shape for head dims up to the padded width DP.  128 and 256:
 // DP / 32 warps of kSplit / warps keys, one 8-element slice per lane over
@@ -163,6 +179,69 @@ struct Params {
   int window;
 };
 
+// The keys split `split` of sequence b attends: [lo, hi) by key index from
+// base (prefix keys, or tail slots), and whether the sequence has no
+// attendable key at all (then every key of the split, equally weighted).
+struct SplitKeys {
+  bool none, prefix;
+  int base, lo, hi, cur;
+};
+
+// Every thread of the CTA calls it (the tail's positions are read, and
+// reduced over the CTA, only when no prefix key counts).
+template <int kThreads>
+__device__ __forceinline__ SplitKeys split_keys(const Params& p, int b, int split) {
+  SplitKeys k;
+  const int plen = p.prefix_len[b];
+  k.cur = p.cur_pos ? p.cur_pos[b] : plen;
+  const int cur = k.cur;
+  const int n_prefix = max(0, min(plen, p.P * p.page));
+  // does the sequence have any attendable key?  The prefix by arithmetic;
+  // the tail positions are read only when no prefix key counts
+  bool none = (p.window > 0 ? max(0, cur - p.window + 1) : 0) >= min(n_prefix, cur + 1);
+  if (none && p.T > 0) {  // the same branch for every thread of the CTA
+    bool any = false;
+    for (int t = threadIdx.x; t < p.T; t += kThreads) {
+      const int pos = p.tail_pos[(long long)b * p.T + t];
+      any |= pos >= 0 && pos <= cur && (p.window <= 0 || cur - pos < p.window);
+    }
+    none = !__syncthreads_or(any);
+  }
+  k.none = none;
+  k.prefix = split < p.n_pre;
+  k.base = (k.prefix ? split : split - p.n_pre) * kSplit;
+  k.lo = k.base;
+  if (none) {
+    // no valid key: every key of the split, equally weighted
+    k.hi = min(k.base + kSplit, k.prefix ? p.P * p.page : p.T);
+  } else if (k.prefix) {
+    // attendable prefix keys: k < prefix_len, k <= cur, cur - k < window
+    k.hi = min(min(k.base + kSplit, n_prefix), cur + 1);
+    if (p.window > 0) k.lo = max(k.lo, cur - p.window + 1);
+  } else {
+    k.hi = min(k.base + kSplit, p.T);
+  }
+  return k;
+}
+
+// Where key `key` of the split lives: an element offset into the pool (or
+// the tail), -1 for no key (outside [lo, hi), a page id outside [0, N), an
+// invalid tail slot).
+__device__ __forceinline__ long long key_offset(const Params& p, const SplitKeys& k, int b,
+                                                int kv, int key) {
+  if (key < k.lo || key >= k.hi) return -1;
+  if (k.prefix) {
+    int pid = p.block_tables[b * p.P + key / p.page];
+    if (k.none) pid = min(max(pid < 0 ? pid + p.N : pid, 0), p.N - 1);  // the reference's gather
+    if (pid < 0 || pid >= p.N) return -1;
+    return (((long long)kv * p.N + pid) * p.page + key % p.page) * p.D;
+  }
+  const int pos = p.tail_pos[b * p.T + key];
+  if (k.none || (pos >= 0 && pos <= k.cur && (p.window <= 0 || k.cur - pos < p.window)))
+    return b * p.e_sb + kv * p.e_skv + (long long)key * p.e_st;
+  return -1;
+}
+
 template <typename T, int DP, int GM, bool kSoftcap>
 __global__ void __launch_bounds__(32 * Shape<DP>::kWarps) split_kernel(Params p) {
   using S = Shape<DP>;
@@ -187,35 +266,10 @@ __global__ void __launch_bounds__(32 * Shape<DP>::kWarps) split_kernel(Params p)
   float* l_out = p.part + total + row0;
   float* acc_out = p.part + 2 * total + row0 * D;
 
-  const int plen = p.prefix_len[b];
-  const int cur = p.cur_pos ? p.cur_pos[b] : plen;
-  const int n_prefix = max(0, min(plen, p.P * p.page));
-  // does the sequence have any attendable key?  The prefix by arithmetic;
-  // the tail positions are read only when no prefix key counts
-  bool none = (p.window > 0 ? max(0, cur - p.window + 1) : 0) >= min(n_prefix, cur + 1);
-  if (none && p.T > 0) {  // the same branch for every thread of the CTA
-    bool any = false;
-    for (int t = threadIdx.x; t < p.T; t += kThreads) {
-      const int pos = p.tail_pos[(long long)b * p.T + t];
-      any |= pos >= 0 && pos <= cur && (p.window <= 0 || cur - pos < p.window);
-    }
-    none = !__syncthreads_or(any);
-  }
-
-  const bool prefix = split < p.n_pre;
-  const int base = (prefix ? split : split - p.n_pre) * kSplit;
-  int lo = base, hi;
-  if (none) {
-    // no valid key: every key of the split, equally weighted
-    hi = min(base + kSplit, prefix ? p.P * p.page : p.T);
-  } else if (prefix) {
-    // attendable prefix keys: k < prefix_len, k <= cur, cur - k < window
-    hi = min(min(base + kSplit, n_prefix), cur + 1);
-    if (p.window > 0) lo = max(lo, cur - p.window + 1);
-  } else {
-    hi = min(base + kSplit, p.T);
-  }
-  if (lo >= hi) {
+  const SplitKeys sk = split_keys<kThreads>(p, b, split);
+  const bool none = sk.none, prefix = sk.prefix;
+  const int base = sk.base;
+  if (sk.lo >= sk.hi) {
     if (threadIdx.x < G) {
       m_out[threadIdx.x] = -INFINITY;
       l_out[threadIdx.x] = 0.f;
@@ -259,22 +313,7 @@ __global__ void __launch_bounds__(32 * Shape<DP>::kWarps) split_kernel(Params p)
 
   // where each key of the split lives (an element offset into the pool or
   // the tail, -1 for no key): one round of block-table reads for the CTA
-  if (threadIdx.x < kSplit) {
-    const int key = base + threadIdx.x;
-    long long off = -1;
-    if (key >= lo && key < hi) {
-      if (prefix) {
-        int pid = p.block_tables[b * p.P + key / p.page];
-        if (none) pid = min(max(pid < 0 ? pid + p.N : pid, 0), p.N - 1);  // the reference's gather
-        if (pid >= 0 && pid < p.N) off = (((long long)kv * p.N + pid) * p.page + key % p.page) * D;
-      } else {
-        const int pos = p.tail_pos[b * p.T + key];
-        if (none || (pos >= 0 && pos <= cur && (p.window <= 0 || cur - pos < p.window)))
-          off = b * p.e_sb + kv * p.e_skv + (long long)key * p.e_st;
-      }
-    }
-    rows[threadIdx.x] = off;
-  }
+  if (threadIdx.x < kSplit) rows[threadIdx.x] = key_offset(p, sk, b, kv, base + threadIdx.x);
   __syncthreads();
 
   // every K and V slice of this lane's keys, all in flight at once
@@ -426,6 +465,114 @@ __global__ void __launch_bounds__(32 * Shape<DP>::kWarps) split_kernel(Params p)
   }
 }
 
+// Head dims past 256: the split's partials by a plain SIMT kernel (see the
+// header).  Dynamic shared memory holds the GM heads' queries as f32.
+template <typename T, int GM, bool kSoftcap>
+__global__ void __launch_bounds__(kWideThreads) wide_split_kernel(Params p) {
+  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int kWarps = kWideThreads / 32;
+  extern __shared__ float wq[];         // [GM][D]
+  __shared__ float ws[GM][kSplit];      // scores, then weights
+  __shared__ float wm[GM], wl[GM];
+  __shared__ long long rows[kSplit];
+
+  const int bkv = blockIdx.x / p.n_hg, g0 = blockIdx.x % p.n_hg * kMaxGM;
+  const int split = blockIdx.y;
+  const int b = bkv / p.KV, kv = bkv % p.KV;
+  const int G = min(GM, p.G - g0), D = p.D;
+  const long long total = (long long)p.B * p.KV * p.n_split * p.G;
+  const long long row0 = ((long long)bkv * p.n_split + split) * p.G + g0;
+  float* m_out = p.part + row0;
+  float* l_out = p.part + total + row0;
+  float* acc_out = p.part + 2 * total + row0 * D;
+
+  const SplitKeys sk = split_keys<kWideThreads>(p, b, split);
+  if (sk.lo >= sk.hi) {
+    if (threadIdx.x < G) {
+      m_out[threadIdx.x] = -INFINITY;
+      l_out[threadIdx.x] = 0.f;
+    }
+    return;
+  }
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + kv * p.q_skv + g0 * p.q_sg;
+  for (int i = threadIdx.x; i < G * D; i += kWideThreads)
+    wq[i] = to_f<T>(qb[(i / D) * p.q_sg + i % D]);
+  if (threadIdx.x < kSplit) rows[threadIdx.x] = key_offset(p, sk, b, kv, sk.base + threadIdx.x);
+  __syncthreads();
+
+  const T* kbase = static_cast<const T*>(sk.prefix ? p.k_pages : p.k_tail);
+  const T* vbase = static_cast<const T*>(sk.prefix ? p.v_pages : p.v_tail);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int j = warp; j < kSplit; j += kWarps) {
+    const long long off = rows[j];  // the same in every lane of the warp
+    float dot[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) dot[g] = 0.f;
+    if (off >= 0) {
+      for (int v = lane; v < D / kVec; v += 32) {
+        float kf[kVec];
+        unpack16<T>(kf, reinterpret_cast<const uint4*>(kbase + off)[v]);
+#pragma unroll
+        for (int g = 0; g < GM; ++g) {
+          if (g >= G) break;
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) dot[g] = fmaf(wq[g * D + v * kVec + e], kf[e], dot[g]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+        for (int o = 16; o > 0; o >>= 1) dot[g] += __shfl_xor_sync(0xffffffffu, dot[g], o);
+    }
+    if (lane < G) {
+      float x = 0.f;
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+        if (g == lane) x = dot[g];
+      x *= p.sm_scale;
+      if (kSoftcap) x = p.softcap * tanhf(x / p.softcap);
+      ws[lane][j] = off < 0 ? -INFINITY : (sk.none ? 0.f : x);
+    }
+  }
+  __syncthreads();
+  if (warp < G) {  // warp g: head g's max, weights and sum over the split's 64 keys
+    const int g = warp;
+    const float a = ws[g][lane], c = ws[g][lane + 32];
+    float m = fmaxf(a, c);
+    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const float wa = a == -INFINITY ? 0.f : expf(a - m);
+    const float wc = c == -INFINITY ? 0.f : expf(c - m);
+    ws[g][lane] = wa;
+    ws[g][lane + 32] = wc;
+    float l = wa + wc;
+    for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) {
+      wm[g] = m;
+      wl[g] = l;
+    }
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += kWideThreads) {
+    float acc[GM];
+#pragma unroll
+    for (int g = 0; g < GM; ++g) acc[g] = 0.f;
+    for (int j = 0; j < kSplit; ++j) {
+      const long long off = rows[j];
+      if (off < 0) continue;
+      const float v = to_f<T>(vbase[off + d]);
+#pragma unroll
+      for (int g = 0; g < GM; ++g)
+        if (g < G) acc[g] = fmaf(ws[g][j], v, acc[g]);
+    }
+#pragma unroll
+    for (int g = 0; g < GM; ++g)
+      if (g < G) acc_out[g * D + d] = acc[g];
+  }
+  if (threadIdx.x < G) {
+    m_out[threadIdx.x] = wm[threadIdx.x];
+    l_out[threadIdx.x] = wl[threadIdx.x];
+  }
+}
+
 template <typename T, int DP, int GM, bool kSoftcap>
 struct SplitTag {};
 
@@ -441,13 +588,31 @@ int launch_split(const Params& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int merge(const Params& p, int parts, cudaStream_t s) {
+  const SplitMerge m{p.part, p.out, p.B * p.KV, p.G, p.D, p.n_pre, p.n_split, parts, 0};
+  return (int)launch_split_merge<T>(m, s);
+}
+
 template <typename T, int DP, int GM>
 int launch(const Params& p, cudaStream_t s) {
   const int err = p.softcap > 0.f ? launch_split<T, DP, GM, true>(p, s)
                                    : launch_split<T, DP, GM, false>(p, s);
   if (err != 0) return err;
-  const SplitMerge merge{p.part, p.out, p.B * p.KV, p.G, p.D, p.n_pre, p.n_split, kMergeParts, 0};
-  return (int)launch_split_merge<T>(merge, s);
+  return merge<T>(p, kMergeParts, s);
+}
+
+template <typename T, int GM>
+int launch_wide(const Params& p, cudaStream_t s) {
+  const dim3 grid(p.B * p.KV * p.n_hg, p.n_split);
+  const size_t smem = sizeof(float) * GM * p.D;  // 16 KiB at 8 heads of 512
+  if (p.softcap > 0.f)
+    wide_split_kernel<T, GM, true><<<grid, kWideThreads, smem, s>>>(p);
+  else
+    wide_split_kernel<T, GM, false><<<grid, kWideThreads, smem, s>>>(p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return merge<T>(p, kWideMergeParts, s);
 }
 
 template <typename T, int DP>
@@ -463,6 +628,11 @@ int dispatch_heads(const Params& p, cudaStream_t s) {
 
 template <typename T>
 int dispatch(const Params& p, cudaStream_t s) {
+  if (p.D > kMaxD) {
+    if (p.G <= 2) return launch_wide<T, 2>(p, s);
+    if (p.G <= 4) return launch_wide<T, 4>(p, s);
+    return launch_wide<T, kMaxGM>(p, s);  // G > 8: head groups of 8
+  }
   if (p.D <= 128) return dispatch_heads<T, 128>(p, s);
   if constexpr (sizeof(T) == 2) {
     // 160's 2 slices x 4 heads of q and accumulators per lane: bf16 up to 4 heads
@@ -476,7 +646,7 @@ int dispatch(const Params& p, cudaStream_t s) {
 extern "C" {
 
 // dtype: 0 = float32 (D a multiple of 4), 1 = bfloat16 (D a multiple of
-// 8); D <= 256, any G.  sm_scale multiplies every score: 1 / sqrt(d) of the
+// 8); D <= 512, any G.  sm_scale multiplies every score: 1 / sqrt(d) of the
 // head dim d before the caller zero-padded it to D.  split_keys must equal the kernel's split size
 // (64); n_pre = ceil(P * page / split_keys) prefix splits and n_split =
 // n_pre + ceil(T / split_keys) (at least 1).  part holds
@@ -491,7 +661,7 @@ int paged_decode_forward(int dtype, const void* q, const void* k_pages, const vo
                          int n_split, float sm_scale, float softcap, int window, void* stream) {
   const int vec = dtype == 0 ? 4 : 8;  // elements per 16-byte load
   const long long n_hg = (G + kMaxGM - 1) / kMaxGM;
-  if (split_keys != kSplit || D <= 0 || D > kMaxD || D % vec || B <= 0 || KV <= 0 || G <= 0 ||
+  if (split_keys != kSplit || D <= 0 || D > kMaxWideD || D % vec || B <= 0 || KV <= 0 || G <= 0 ||
       (long long)B * KV * n_hg > 0x7fffffffLL || page <= 0 || P < 0 || T < 0 || n_pre < 0 ||
       n_split < 1 || n_split > 65535 || (long long)n_pre * kSplit < (long long)P * page ||
       (long long)(n_split - n_pre) * kSplit < (long long)T || (T > 0 && tail_pos == nullptr))

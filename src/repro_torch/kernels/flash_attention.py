@@ -18,7 +18,9 @@ one K/V tile shared by the G query heads of its kv head, two warpgroups on
 alternate key tiles); a float32 call runs the SIMT kernel of f32 FMAs,
 which the 1e-5 checks need.  Both take head dims up to 256 and any GQA
 group size (tiles zero-padded to 16, 32, 64, 128, 160 or 256 columns in
-bfloat16).  They load 16-byte vectors, so a head dim that is not a
+bfloat16); past 256, up to ``paged_attention.MAX_HEAD_DIM`` (512), both
+dtypes take the SIMT kernel with 32-row tiles, whose scores sum every
+column in f32.  They load 16-byte vectors, so a head dim that is not a
 multiple of the vector width (8 in bfloat16, 4 in float32) is zero-padded
 on the head axis before the launch (``paged_attention.pad_heads``), the
 kernel gets the scale ``1 / sqrt(D)`` of the unpadded D, and the output is
@@ -173,13 +175,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     if B > 65535 or H > 65535:
         raise ValueError(f"{name}: batch {B} and heads {H} must be <= 65535")
     qs, ks, vs, os_ = q.stride(), k.stride(), v.stride(), out.stride()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib().flash_attention_forward(
+    rc = build.launch(
+        _lib().flash_attention_forward, q.device,
         _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os_[0], os_[1], os_[2],
         B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), int(q_offset),
-        1.0 / math.sqrt(d_true),
-        float(softcap), stream,
+        1.0 / math.sqrt(d_true), float(softcap),
     )
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")

@@ -78,10 +78,8 @@ def kv_block_copy(src_pages: torch.Tensor, indices) -> torch.Tensor:
     if M == 0 or page_bytes == 0:
         return out
     d_idx = idx.to(src_pages.device, non_blocking=False)
-    stream = torch.cuda.current_stream(src_pages.device).cuda_stream
-    rc = _lib().kv_block_copy(
-        src_pages.data_ptr(), d_idx.data_ptr(), out.data_ptr(), page_bytes, M, stream
-    )
+    rc = build.launch(_lib().kv_block_copy, src_pages.device, src_pages.data_ptr(),
+                      d_idx.data_ptr(), out.data_ptr(), page_bytes, M)
     if rc != 0:
         raise RuntimeError(f"kv_block_copy: kernel launch failed (CUDA error {rc})")
     kv_block_copy.launches += 1

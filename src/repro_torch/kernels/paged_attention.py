@@ -31,12 +31,16 @@ Three entry points over two CUDA sources:
   path calls it; it is held against the dense decode mode's
   ``attention_decode``.
 
-All three take head dims up to 256 and any number G of query heads per kv
-head; the sources say how (padded tile widths 160 and 256; at decode a CTA
-per 8 heads, and in bfloat16 up to D = 160 and G = 4 a key over 10 lanes of
-16 elements).  The kernels load 16-byte vectors, so a head dim that is not
-a multiple of the vector width (8 in bfloat16, 4 in float32) is zero-padded
-on the head axis to the next multiple before the launch (``pad_heads``, a
+All three take head dims up to ``MAX_HEAD_DIM`` (512) and any number G of
+query heads per kv head; the sources say how (padded tile widths 160 and
+256; at decode a CTA per 8 heads, and in bfloat16 up to D = 160 and G = 4 a
+key over 10 lanes of 16 elements; past 256, in both dtypes, plain SIMT
+kernels whose scores sum every column in f32: ``wide_split_kernel`` at
+decode, feeding the same merge, and the f32 prefill kernel's 512-column
+instantiation at prefill).  A head dim past 512 raises.  The kernels load
+16-byte vectors, so a head dim that is not a multiple of the vector width
+(8 in bfloat16, 4 in float32) is zero-padded on the head axis to the next
+multiple before the launch (``pad_heads``, a
 choice made from the shape, not a fallback), the kernel is told the scale
 ``1 / sqrt(D)`` of the unpadded D, and the output is sliced back to D: zero
 columns add nothing to a score.  A decode
@@ -73,6 +77,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.guard import refuse_grad
 
 NEG_INF = -1e30
+MAX_HEAD_DIM = 512  # the kernels' widest head dim (the SIMT routes past 256)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
@@ -415,7 +420,7 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths, *,
 
 def pad_heads(name, q, *others):
     """Check that ``q`` is a kernel operand (a CUDA tensor of a kernel's
-    dtype, head dim <= 256), then zero-pad ``q`` and ``others`` (None
+    dtype, head dim <= ``MAX_HEAD_DIM``), then zero-pad ``q`` and ``others`` (None
     passes through) on the last axis to the next multiple of the 16-byte
     vector width.  Returns (unpadded D, the padded tensors)."""
     if q.device.type != "cuda":
@@ -423,8 +428,8 @@ def pad_heads(name, q, *others):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
     D = q.shape[-1]
-    if D > 256:
-        raise ValueError(f"{name}: head_dim {D} must be <= 256")
+    if D > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {D} must be <= {MAX_HEAD_DIM}")
     vec = 16 // q.element_size()  # elements per 16-byte vector load
     pad = -D % vec
     if pad:
@@ -441,9 +446,9 @@ def _check_operands(name, q, k_pages, v_pages, extras, ints):
         raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
     vec = 16 // q.element_size()  # elements per 16-byte vector load
     D = q.shape[-1]
-    if D > 256 or D % vec:
-        raise ValueError(f"{name}: head_dim {D} must be <= 256 and a multiple of {vec} "
-                         f"for {q.dtype}")
+    if D > MAX_HEAD_DIM or D % vec:
+        raise ValueError(f"{name}: head_dim {D} must be <= {MAX_HEAD_DIM} and a multiple of "
+                         f"{vec} for {q.dtype}")
     for t in (k_pages, v_pages, *extras):
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"{name}: every operand must be {q.dtype} on {dev}")
@@ -480,14 +485,14 @@ def _split_decode(name, q, k_pages, v_pages, block_tables, prefix_len, k_tail, v
     qs = q.stride()
     es = (0, 0, 0) if k_tail is None else k_tail.stride()
     ptr = lambda t: None if t is None else t.data_ptr()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _decode_lib().paged_decode_forward(
+    rc = build.launch(
+        _decode_lib().paged_decode_forward, q.device,
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), prefix_len.data_ptr(), ptr(k_tail), ptr(v_tail),
         ptr(tail_pos), ptr(cur_pos), out.data_ptr(), part.data_ptr(),
         qs[0], qs[1], qs[2], es[0], es[1], es[2],
         B, KV, G, D, N, page, P, T, SPLIT_KEYS, n_pre, n_split,
-        1.0 / math.sqrt(d_true), float(softcap), int(window), stream,
+        1.0 / math.sqrt(d_true), float(softcap), int(window),
     )
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")
@@ -569,23 +574,24 @@ def paged_prefill_attention(
     out = torch.empty((B, KV, G, C, D), dtype=q.dtype, device=q.device)
     if B == 0 or C == 0:
         return out
-    # bfloat16: the prefix splits over the table's width, then the chunk's
-    # split; f32 (m, l, acc) per split and row for the merge
+    # bfloat16 up to D = 256 (the tensor cores): the prefix splits over the
+    # table's width, then the chunk's split; f32 (m, l, acc) per split and
+    # row for the merge.  The SIMT kernel (f32, or D past 256) needs none.
     n_pre = -(-P * page // PREFILL_SPLIT_KEYS)
     n_split = n_pre + 1
     part = None
-    if q.dtype == torch.bfloat16:
+    if q.dtype == torch.bfloat16 and D <= 256:
         part = torch.empty(B * KV * n_split * G * C * (D + 2), dtype=torch.float32, device=q.device)
     qs = q.stride()
     es = k_chunk.stride()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _lib().paged_attention_forward(
+    rc = build.launch(
+        _lib().paged_attention_forward, q.device,
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), prefix_len.data_ptr(), k_chunk.data_ptr(),
         v_chunk.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
         qs[0], qs[1], qs[2], qs[3], es[0], es[1], es[2],
         B, KV, G, C, D, N, page, P, PREFILL_SPLIT_KEYS, n_pre, n_split,
-        1.0 / math.sqrt(d_true), float(softcap), int(window), stream,
+        1.0 / math.sqrt(d_true), float(softcap), int(window),
     )
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")

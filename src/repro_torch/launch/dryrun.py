@@ -5,6 +5,8 @@ with the analytic roofline (the JAX package's ``launch/dryrun.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both [--subprocess]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \
+      --mesh 2x2 --global-batch 4    # a small (data x model) mesh, the batch cut
 
 Each cell writes results/torch/dryrun/<mesh>/<arch>__<shape>.json with the
 reference's keys where they mean something here: ``status``, ``chips``,
@@ -22,10 +24,16 @@ What differs from the reference, and why:
     and micro-batch, so the collective counts are what the reference's
     loop-aware HLO parser reconstructs;
   - ``memory`` holds the exact per-device bytes of the arguments (each
-    DTensor's local shard) and of the outputs; there is no compiled buffer
-    assignment to read a peak from, so ``peak`` says "arguments only".
-    The budget is the H100's 80 GiB (``fits_80GiB_arguments``); the
-    reference's 16 GiB ``fits_16GiB`` is its TPU's and is not carried over.
+    DTensor's local shard) and of the outputs, and the reference's
+    ``peak_bytes_per_device`` (arguments + outputs + temps): there is no
+    compiled buffer assignment to read it from, so the arguments' bytes
+    plus the most bytes the step's own tensors held at once
+    (``roofline.analysis.LiveBytes``: each storage an op returns counted
+    once, from the op until the storage dies).  Eager torch frees a
+    temporary when its last reference goes, where XLA's assignment may
+    reuse or keep it, so the two peaks need not agree.  The budget is the
+    H100's 80 GiB (``fits_80GiB``); the reference's 16 GiB ``fits_16GiB``
+    is its TPU's and is not carried over.
 
 ``FakeStore`` lives in a private module of torch: ``init_fake_group``
 checks that it and ``local_map`` are there and raises, naming the version
@@ -34,12 +42,15 @@ this was written against (``requirements.txt``), on a torch without them.
 from __future__ import annotations
 
 import argparse
+import re
 import json
 import subprocess
 import sys
 import time
 import traceback
+from dataclasses import replace
 from pathlib import Path
+from typing import Optional
 
 HBM_PER_GPU = 80 * 1024**3  # H100 80GB
 WRITTEN_AGAINST = "torch 2.13.0"
@@ -62,26 +73,45 @@ def init_fake_group(world_size: int) -> None:
 
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
              moe_strategy: str = "auto", attn_sharding: str = "gather_kv",
-             kv_dtype: str = "bf16") -> dict:
+             kv_dtype: str = "bf16", global_batch: Optional[int] = None) -> dict:
+    """One cell.  ``mesh_kind``: ``single`` (16 x 16), ``multi`` (2 x 16 x
+    16) or ``DxM``, a (data, model) debug mesh of D * M fake ranks;
+    ``global_batch`` cuts the shape's batch (the four-card runs' cells)."""
     import torch
 
     from repro_torch.configs import SHAPES_BY_NAME, get_config
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh
     from repro_torch.models.layers import set_attn_sharding
-    from repro_torch.roofline.analysis import CollectiveCounter, model_flops_for, roofline_report
+    from repro_torch.roofline.analysis import (
+        CollectiveCounter,
+        LiveBytes,
+        model_flops_for,
+        roofline_report,
+    )
+    from repro_torch.training.tree import leaves
     from repro_torch.roofline.analytic import cell_flops, cell_hbm_bytes
 
     set_attn_sharding(attn_sharding)
     t0 = time.monotonic()
-    chips = 512 if mesh_kind == "multi" else 256
-    init_fake_group(chips)
-    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"), device="cpu")
+    if mesh_kind in ("single", "multi"):
+        chips = 512 if mesh_kind == "multi" else 256
+        init_fake_group(chips)
+        mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"), device="cpu")
+    else:
+        data, model = (int(n) for n in mesh_kind.split("x"))
+        chips = data * model
+        init_fake_group(chips)
+        mesh = make_debug_mesh(data, model, device="cpu")
+    shape = SHAPES_BY_NAME[shape_name]
+    if global_batch:
+        shape = replace(shape, global_batch=global_batch)
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "chips": chips,
+              "global_batch": shape.global_batch,
               "status": "ok"}
     try:
         cell = steps.build_cell(arch, shape_name, mesh, moe_strategy=moe_strategy,
-                                kv_cache_dtype=kv_dtype)
+                                kv_cache_dtype=kv_dtype, shape=shape)
     except steps.CellSkipped as e:
         record.update(status="skipped", reason=str(e))
         out_path.parent.mkdir(parents=True, exist_ok=True)
@@ -91,7 +121,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
     args = steps.cell_arguments(cell)
     t_build = time.monotonic()
     arg_bytes = steps.argument_bytes_per_device(args)
-    with CollectiveCounter() as counter:
+    with CollectiveCounter() as counter, LiveBytes([t for a in args for t in leaves(a)]) as live:
         outs = steps.run_cell(cell, args)
     t_run = time.monotonic()
     out_bytes = steps.argument_bytes_per_device(
@@ -101,7 +131,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
     cfg = get_config(arch)
     if kv_dtype != "bf16":
         cfg = cfg.replace(kv_cache_dtype=kv_dtype)
-    shape = SHAPES_BY_NAME[shape_name]
     aflops = cell_flops(cfg, shape)
     abytes = cell_hbm_bytes(cfg, shape, chips)
     coll = counter.summary()
@@ -117,8 +146,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
         memory={
             "argument_bytes_per_device": arg_bytes,
             "output_bytes_per_device": out_bytes,
-            "peak": "arguments only",
-            "fits_80GiB_arguments": bool(arg_bytes <= HBM_PER_GPU),
+            "live_peak_bytes_per_device": live.peak,
+            "peak_bytes_per_device": arg_bytes + live.peak,
+            "peak": "arguments + the most bytes of the step's live tensors (LiveBytes)",
+            "fits_80GiB": bool(arg_bytes + live.peak <= HBM_PER_GPU),
         },
         analytic={"flops": aflops, "hbm_bytes": abytes},
         collectives=coll,
@@ -131,7 +162,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(record, indent=1))
     print(f"[dryrun] OK {arch} x {shape_name} x {mesh_kind}: run {t_run - t_build:.1f} s, "
-          f"args {arg_bytes / 1e9:.2f} GB/dev, collectives {coll['total_bytes'] / 1e9:.3f} "
+          f"args {arg_bytes / 1e9:.2f} GB/dev, peak {(arg_bytes + live.peak) / 1e9:.2f} GB/dev, "
+          f"collectives {coll['total_bytes'] / 1e9:.3f} "
           f"GB/dev, dominant={terms.dominant}", flush=True)
     return record
 
@@ -146,7 +178,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch")
     ap.add_argument("--shape")
-    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
+    ap.add_argument("--mesh", default="single",
+                    help="single, multi, both, or DxM: a (data, model) debug mesh")
+    ap.add_argument("--global-batch", type=int, default=None,
+                    help="cut the shape's global batch (a debug mesh's cell)")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--moe-strategy", default="auto")
@@ -159,6 +194,8 @@ def main() -> int:
     args = ap.parse_args()
 
     meshes = ["single", "multi"] if args.mesh == "both" else [args.mesh]
+    if not all(m in ("single", "multi") or re.fullmatch(r"\d+x\d+", m) for m in meshes):
+        ap.error(f"--mesh {args.mesh}: single, multi, both or DxM")
     if args.all:
         cells = cell_list()
     else:
@@ -183,6 +220,8 @@ def main() -> int:
                        "--shape", shape_name, "--mesh", mesh_kind, "--out", args.out,
                        "--moe-strategy", args.moe_strategy, "--attn-sharding",
                        args.attn_sharding, "--kv-dtype", args.kv_dtype, "--force"]
+                if args.global_batch:
+                    cmd += ["--global-batch", str(args.global_batch)]
                 r = subprocess.run(cmd, timeout=3600)
                 if r.returncode != 0:
                     failures += 1
@@ -193,7 +232,7 @@ def main() -> int:
                 continue
             try:
                 run_cell(arch, shape_name, mesh_kind, out_path, args.moe_strategy,
-                         args.attn_sharding, args.kv_dtype)
+                         args.attn_sharding, args.kv_dtype, args.global_batch)
             except Exception as e:  # recorded as an error: it is a bug to fix
                 failures += 1
                 out_path.write_text(json.dumps({

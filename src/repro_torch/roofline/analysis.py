@@ -19,11 +19,19 @@ goes, so these counts are already what the reference's trip-count-aware
 parser (``collective_bytes_with_trip_counts``) reconstructs from its loops.
 The counter sees the same ops on meta tensors (the dry run's fake process
 group), on gloo and on NCCL.
+
+``LiveBytes`` stands in for the compiled program's buffer assignment, the
+source of the reference's peak (arguments + outputs + temps): another
+``TorchDispatchMode``, which counts the storage of every tensor an op
+returns once, while that storage lives (a storage's Python object lives
+exactly as long as the storage, views and tensors autograd saves included),
+so ``peak`` is the most bytes the step held at once beside its arguments.
 """
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, Optional, Set
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -92,6 +100,52 @@ class CollectiveCounter(TorchDispatchMode):
         out: Dict[str, object] = {k: {"count": self.counts[k], "bytes": self.bytes[k]}
                                   for k in COLLECTIVES}
         out["total_bytes"] = self.total_bytes()
+        return out
+
+
+class LiveBytes(TorchDispatchMode):
+    """The bytes of the storages that ops return inside its ``with``, each
+    counted once from the op that first returns it until it is freed:
+    ``live`` now, ``peak`` the most at once.  Storages of ``keep`` (the
+    step's arguments; a DTensor counts by its local shard) are never
+    counted: a view of an argument, or an in-place update of one, adds
+    nothing."""
+
+    def __init__(self, keep=()) -> None:
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+        self._keep: Set[int] = set()
+        self._counted: Set[int] = set()
+        for t in keep:
+            self._keep.add(self._storage(t)._cdata)
+
+    @staticmethod
+    def _storage(t: torch.Tensor):
+        return getattr(t, "_local_tensor", t).untyped_storage()
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = self._storage(t)
+        key = st._cdata
+        if key in self._keep or key in self._counted:
+            return
+        n = st.nbytes()
+        self._counted.add(key)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, key, n)
+
+    def _free(self, key: int, n: int) -> None:
+        self._counted.discard(key)
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.utils._pytree import tree_leaves
+
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._track(t)
         return out
 
 

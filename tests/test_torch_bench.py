@@ -220,10 +220,12 @@ def test_roofline_names_argument_bytes(tmp_path):
     out = roofline.run(tmp_path)
     assert set(out) == {"single", "multi"}
     md = (tmp_path / "roofline-single.md").read_text()
-    assert "argument bytes per device" in md and "peak" not in md.lower()
+    assert "argument bytes per device" in md and "peak bytes per device" in md
     rows = json.loads((tmp_path / "roofline-single.json").read_text())
     cells = sorted((RESULTS_DIR / "dryrun" / "single").glob("*.json"))
     assert len(rows) == len(cells)
+    ok = [r for r in rows if r["status"] == "ok"]
+    assert ok and all(r["peak_GB_per_dev"] >= r["argument_GB_per_dev"] > 0 for r in ok)
 
 
 def test_run_driver_sections(model, tmp_path):

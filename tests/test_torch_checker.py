@@ -15,8 +15,8 @@ symbolic):
   replay a failure path served by the port's engine on the CPU);
 * the unit rules of ``judge_row`` give JAX's label and reasons;
 * no module of the port (its benches under ``repro_torch/bench`` too),
-  nothing in ``chip_smoke.py`` and no ``examples/torch_*.py`` imports
-  JAX, ml_dtypes, YAML or the JAX package.
+  nothing in ``chip_smoke.py`` or ``scripts/torch_four_cards.py`` and no
+  ``examples/torch_*.py`` imports JAX, ml_dtypes, YAML or the JAX package.
 """
 import ast
 from pathlib import Path
@@ -244,7 +244,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "yaml", "repro")
 
 def _port_sources():
     return (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-            + sorted((ROOT / "examples").glob("torch_*.py")))
+            + sorted((ROOT / "examples").glob("torch_*.py"))
+            + [ROOT / "scripts" / "torch_four_cards.py"])
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))

@@ -581,6 +581,8 @@ def test_committed_dryrun_sweep_complete(mesh):
         if r["status"] == "ok":
             assert set(r["collectives"]) >= set(analysis.COLLECTIVES)
             assert r["analytic"]["flops"]["total"] > 0 and r["roofline"]["chips"] == r["chips"]
+            mem = r["memory"]
+            assert mem["peak_bytes_per_device"] >= mem["argument_bytes_per_device"] > 0
             assert "H100" in r["roofline_hw"]
             if r["shape"] == "train_4k":
                 assert r["collectives"]["all-gather"]["bytes"] > 0

@@ -354,6 +354,94 @@ def test_flash_attention_query_offset_sharded_prefill_shape(dev):
     _close(got, fa.flash_attention_ref(q, k, v, causal=True, q_offset=1024), bf)
 
 
+# Head dims past 256 (repair of the 256 bound): K1/K4's wide split kernel,
+# K2's and K5's SIMT kernels with 512-column instantiations, in both
+# dtypes; 300 is zero-padded to 304 in bf16.  G = 5 with a window and a
+# soft-cap, G = 12 (two head groups at decode).
+WIDE_D = [(320, 2, 0, 0.0), (512, 2, 0, 0.0), (320, 5, 24, 30.0), (512, 12, 0, 20.0),
+          (300, 3, 0, 0.0)]
+WIDE_D_IDS = ["D320-G2", "D512-G2", "D320-G5-window-softcap", "D512-G12-softcap", "D300-G3"]
+
+
+def _wide_call(kernel, rng, dtype, dev, D, G, window, softcap):
+    """(kernel wrapper, plain version, args, kwargs) at a small wide-head
+    shape: 2 sequences, 2 kv heads, pages of 8, prefixes of 0-40 keys."""
+    B, KV, page, P, N, T, C = 2, 2, 8, 6, 16, 5, 16
+    if kernel == "K5":
+        H, S = KV * G, 70
+        q = _t(rng.normal(size=(B, S, H, D)), dtype, dev).transpose(1, 2)
+        k = _t(rng.normal(size=(B, S, KV, D)), dtype, dev).transpose(1, 2)
+        v = _t(rng.normal(size=(B, S, KV, D)), dtype, dev).transpose(1, 2)
+        return fa.flash_attention, fa.flash_attention_ref, [q, k, v], dict(
+            causal=True, window=window, softcap=softcap)
+    if kernel == "K1":
+        plen, t_used = [0, 37], [2, 5]
+        return (pa.paged_decode_attention, pa.paged_decode_attention_ref,
+                _decode_args(rng, dtype, dev, plen, t_used, KV=KV, G=G, D=D, page=page, T=T,
+                             P=P, N=N), dict(window=window, softcap=softcap))
+    pages = [_t(rng.normal(size=(KV, N, page, D)), dtype, dev) for _ in range(2)]
+    bt = _t(rng.permutation(N)[: B * P].reshape(B, P), dtype, dev)
+    if kernel == "K4":
+        args = [_t(rng.normal(size=(B, KV, G, D)), dtype, dev), *pages, bt,
+                _t(np.array([0, 41]), dtype, dev)]
+        return pa.paged_attention, pa.paged_attention_ref, args, dict(softcap=softcap)
+    args = [_t(rng.normal(size=(B, KV, G, C, D)), dtype, dev), *pages, bt,
+            _t(np.array([8, 24]), dtype, dev), _t(rng.normal(size=(B, KV, C, D)), dtype, dev),
+            _t(rng.normal(size=(B, KV, C, D)), dtype, dev)]
+    return (pa.paged_prefill_attention, pa.paged_prefill_attention_ref, args,
+            dict(window=window, softcap=softcap))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,G,window,softcap", WIDE_D, ids=WIDE_D_IDS)
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "K5"])
+def test_wide_head_dim_kernels_match_plain(dev, kernel, dtype, D, G, window, softcap):
+    """K1, K2, K4 and K5 past head_dim 256 launch their kernels (no plain
+    route) and match the plain versions: 1e-5 in f32, 2e-2 in bf16."""
+    fn, plain, args, kw = _wide_call(kernel, np.random.default_rng(D + G), dtype, dev, D, G,
+                                     window, softcap)
+    n0 = fn.launches
+    got = fn(*args, **kw)
+    assert fn.launches == n0 + 1 and got.shape[-1] == D
+    _close(got, plain(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "K5"])
+def test_head_dim_past_512_raises_on_card(dev, kernel):
+    fn, _, args, kw = _wide_call(kernel, np.random.default_rng(0), torch.bfloat16, dev, 520, 2,
+                                 0, 0.0)
+    with pytest.raises(ValueError, match="head_dim 520"):
+        fn(*args, **kw)
+
+
+def test_kernels_launch_on_their_operands_card(dev):
+    """Every operand on ``cuda:1`` while ``cuda:0`` is current: K1, K2, K3,
+    K4 and K5 (K1/K4 and K5 at a wide and a tensor-core head dim) launch on
+    card 1 and equal their plain versions there; operands on two cards
+    raise.  Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    one = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    rng = np.random.default_rng(11)
+    for kernel in ("K1", "K2", "K4", "K5"):
+        for dtype, D in ((torch.bfloat16, 128), (torch.float32, 128), (torch.bfloat16, 320)):
+            fn, plain, args, kw = _wide_call(kernel, rng, dtype, one, D, 2, 0, 0.0)
+            got = fn(*args, **kw)
+            assert got.device == one and torch.cuda.current_device() == 0
+            _close(got, plain(*args, **kw), dtype)
+    pages = torch.randn((8, 16, 2, 128), device=one).to(torch.bfloat16)
+    n0 = kbc.kv_block_copy.launches
+    got = kbc.kv_block_copy(pages, [3, 1, 7])
+    torch.cuda.synchronize(one)
+    assert kbc.kv_block_copy.launches == n0 + 1 and got.device == one
+    assert torch.equal(got, pages[[3, 1, 7]])
+    q, k, v = (torch.randn((1, 2, 16, 64), device=d).to(torch.bfloat16) for d in (one, dev, one))
+    with pytest.raises(ValueError, match="every operand"):
+        fa.flash_attention(q, k, v)
+    assert torch.cuda.current_device() == 0
+
+
 def test_flash_attention_bf16_head_dim_24_matches_plain(dev):
     """bf16 head dims step by 8 (16-byte loads): 24 runs on the tensor
     cores (tiles zero-padded to 32 columns) and matches the plain version;
@@ -1198,3 +1286,55 @@ def test_compressed_psum_one_rank_on_card(one_rank_card):
 def test_sharded_moe_on_card(one_rank_card, strategy):
     e, ea = one_rank_card["moe"][strategy]
     assert e <= 2e-2 and ea <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# four cards: scripts/torch_four_cards.py at reduced size, one rank per card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def four_cards(dev, tmp_path_factory):
+    """The four-card program's cases at reduced size (4 NCCL ranks, one per
+    card, and the router over one replica per card); skips below four
+    cards."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    root = Path(__file__).resolve().parents[1]
+    out = tmp_path_factory.mktemp("four_cards")
+    proc = subprocess.run([sys.executable, str(root / "scripts" / "torch_four_cards.py"),
+                           "--reduced", "--out", str(out)],
+                          capture_output=True, text=True, timeout=900)
+    return proc.returncode, json.loads((out / "summary.json").read_text()), proc.stdout[-4000:]
+
+
+def test_four_cards_every_case_holds(four_cards):
+    rc, summary, log = four_cards
+    assert rc == 0 and summary["ok"], log
+    assert set(summary["cases"]) == {"train", "prefill", "decode", "attention", "psum", "moe",
+                                     "grok", "router"}
+
+
+def test_four_cards_k5_offsets_per_rank(four_cards):
+    """Every model rank's attention body launched K5 once per layer with
+    its slice's start as q_offset: 0/32 of 64 on 2 x 2, 0/16/32/48 on
+    1 x 4."""
+    _, summary, _ = four_cards
+    ranks = [summary["per_rank"][f"rank{r}"] for r in range(4)]
+    assert [rk["device"] for rk in ranks] == [f"cuda:{r}" for r in range(4)]
+    assert [rk["prefill"]["2 x 2"]["q_offsets"] for rk in ranks] == [[0], [32], [0], [32]]
+    assert [rk["prefill"]["1 x 4"]["q_offsets"] for rk in ranks] == [[0], [16], [32], [48]]
+    assert all(rk["prefill"]["1 x 4"]["k5_launches"] == 2 for rk in ranks)
+
+
+def test_four_cards_router_serves_on_every_card(four_cards):
+    _, summary, _ = four_cards
+    lc = summary["cases"]["router"]["cards"]["launches_by_card"]
+    assert sorted(lc) == [f"cuda:{i}" for i in range(4)]
+    assert all(c["K1"] > 0 and c["K2"] > 0 for c in lc.values())
+    assert lc["cuda:2"]["K3"] > 0

@@ -656,6 +656,56 @@ def test_flash_attention_plain_wide_heads_match_jax(dtype, D, G):
     _close(fa.flash_attention_tiled_ref(*targs, **kw, block_k=16), want, "bfloat16")
 
 
+# Head dims past 256: the card runs them on SIMT routes (K1/K4's wide split
+# kernel feeding the same merge, K2's and K5's 512-column instantiations);
+# their plain versions here against the reference's oracles and the Pallas
+# kernels in interpret mode, at small B and S (1e-5 in f32, 2e-2 in bf16),
+# K1's split arithmetic too.
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [320, 512])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "K5"])
+def test_plain_past_head_dim_256_matches_jax(kernel, dtype, D):
+    rng = np.random.default_rng(D)
+    B, KV, G, page, P, N, T, C = 2, 2, 2, 4, 4, 16, 3, 8
+    if kernel == "K5":
+        pairs = _flash_draws(1, KV * G, KV, 32, 32, D, dtype)
+        kw = dict(causal=True, window=24, softcap=20.0)
+        got = fa.flash_attention(*[p[1] for p in pairs], **kw)
+        _close(got, ref.flash_attention_ref(*[p[0] for p in pairs], **kw), dtype)
+        want = ops.flash_attention(*[p[0] for p in pairs], **kw, block_q=16, block_k=16,
+                                   interpret=True)
+        _close(got, want, dtype)
+        return
+    bt = rng.permutation(N)[: B * P].reshape(B, P)
+    pages = [rng.normal(size=(KV, N, page, D)) for _ in range(2)]
+    if kernel == "K1":
+        plen, t_used = np.array([5, 13]), np.array([2, 3])
+        tail_pos = np.full((B, T), -1, np.int32)
+        for b in range(B):
+            tail_pos[b, : t_used[b]] = plen[b] + np.arange(t_used[b])
+        draws = [rng.normal(size=(B, KV, G, D)), *pages, bt, plen, rng.normal(size=(B, KV, T, D)),
+                 rng.normal(size=(B, KV, T, D)), tail_pos, plen + t_used - 1]
+        kw, plain, oracle, pallas = (dict(window=8, softcap=20.0), pa.paged_decode_attention,
+                                     ref.paged_decode_attention_ref, ops.paged_decode_attention)
+    elif kernel == "K4":
+        draws = [rng.normal(size=(B, KV, G, D)), *pages, bt, np.array([3, 11])]
+        kw, plain, oracle, pallas = (dict(softcap=20.0), pa.paged_attention,
+                                     ref.paged_attention_ref, ops.paged_attention)
+    else:
+        draws = [rng.normal(size=(B, KV, G, C, D)), *pages, bt, np.array([0, 6]),
+                 rng.normal(size=(B, KV, C, D)), rng.normal(size=(B, KV, C, D))]
+        kw, plain, oracle, pallas = (dict(window=10, softcap=20.0), pa.paged_prefill_attention,
+                                     ref.paged_prefill_attention_ref, ops.paged_prefill_attention)
+    pairs = [_pair(a, dtype) for a in draws]
+    jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
+    got = plain(*targs, **kw)
+    _close(got, oracle(*jargs, **kw), dtype)
+    _close(got, pallas(*jargs, **kw, interpret=True), dtype)
+    if kernel == "K1":
+        _close(pa.paged_decode_attention_split_ref(*targs, **kw, split=8), oracle(*jargs, **kw),
+               dtype)
+
+
 def test_flash_attention_empty_row_values():
     """K5's only row with no valid key: Sq > Sk under a causal window (rows
     5-7 here; the model never builds one).  The reference spreads uniform

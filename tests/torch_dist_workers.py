@@ -247,6 +247,7 @@ def card_worker(rank, out_dir):
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs import ShapeSpec, get_config, reduced
+    from repro_torch.device import resolve_device
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps as st
     from repro_torch.launch.mesh import make_debug_mesh
@@ -260,12 +261,13 @@ def card_worker(rank, out_dir):
     from repro_torch.training.tree import map_tree
 
     mesh = make_debug_mesh(1, 1)
+    dev = resolve_device()  # the rank's own card (init_group bound it)
     res = {}
     cfg = reduced(get_config("qwen3-1.7b"))
     b = build_model(cfg)
     params = b.init_params(torch.Generator().manual_seed(0))
     tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator().manual_seed(1),
-                           dtype=torch.int32).cuda()
+                           dtype=torch.int32).to(dev)
     cell = st.build_cell("qwen3-1.7b", "prefill_t", mesh, cfg=cfg,
                          shape=ShapeSpec("prefill_t", 64, 2, "prefill"))
     n0 = fa.flash_attention.launches
@@ -284,20 +286,20 @@ def card_worker(rank, out_dir):
     got = []
     for i in range(3):
         batch = st.distribute_argument(
-            cell, "batch", {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()})
+            cell, "batch", {k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(i).items()})
         p, o, m = st.run_cell(cell, (p, o, batch))
         got.append((float(full(m["loss"])), float(full(m["grad_norm"]))))
     tr = Trainer(build_model(cfg), data_cfg=DataConfig(cfg.vocab_size, 32, 4), opt_cfg=opt_cfg)
     res["train"] = (got, [(m["loss"], m["grad_norm"]) for m in tr.run(3, log_every=0)])
 
-    x = torch.randn((64, 1000), generator=torch.Generator().manual_seed(2)).cuda()
+    x = torch.randn((64, 1000), generator=torch.Generator().manual_seed(2)).to(dev)
     res["psum"] = bool(torch.equal(compressed_psum(x, mesh.get_group("data")),
                                    compress_roundtrip(x)))
 
     mcfg = reduced(get_config("grok-1-314b"))
-    mp_ = moe_init(torch.Generator(device="cuda").manual_seed(0), mcfg)
-    xm = torch.randn((64, mcfg.d_model), generator=torch.Generator().manual_seed(3)).cuda().to(
-        torch.bfloat16)
+    mp_ = moe_init(torch.Generator(device=dev).manual_seed(0), mcfg)
+    xm = torch.randn((64, mcfg.d_model), generator=torch.Generator().manual_seed(3)).to(
+        dev, torch.bfloat16)
     want, aux = moe_apply_local(mp_, xm, mcfg)
     rep = lambda t: distribute(t, (None,) * t.ndim, mesh)
     res["moe"] = {}

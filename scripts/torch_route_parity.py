@@ -8,10 +8,22 @@ Where the bf16 differences exceed the reference benches' tolerances, the
 f32 run tells rounding (differences near f32's precision) from a wrong
 page or a wrong mask (differences that stay large).
 
-    PYTHONPATH=src python3 scripts/torch_route_parity.py                      # the card, full width
-    PYTHONPATH=src python3 scripts/torch_route_parity.py --device cpu --reduced
+``--trace`` runs the three route pairs once more in bf16 with every
+norm, projection, rotary embedding and attention output recorded, row by
+row with its absolute position, and prints for each pair the first op
+(layer and name, in execution order) whose row bytes differ at each
+position both routes computed, with the max |d| there, and for each op
+name the first layer where it differs.  ``norm_in`` is a norm's input (the
+residual stream), so a residual that differs is not blamed on the norm;
+``rope`` rows are the q and k rows after the rotary embedding, so the
+decoded tail's K/V rows are held against the cold chunk's.
+
+    PYTHONPATH=src python3 scripts/torch_route_parity.py [--trace]            # the card, full width
+    PYTHONPATH=src python3 scripts/torch_route_parity.py --device cpu --reduced [--trace]
 """
 import argparse
+import contextlib
+import dataclasses
 import json
 import sys
 import tempfile
@@ -23,17 +35,175 @@ from torch.utils._pytree import tree_map  # noqa: E402
 
 from repro_torch.bench import multi_claim, radix  # noqa: E402
 from repro_torch.bench.common import Model  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+
+# op name -> the functions of models/layers.py whose outputs it records
+TRACED = {
+    "rms_norm": ("rms_norm",),
+    "proj": ("proj",),
+    "rope": ("apply_rope",),
+    "attention": ("paged_attention_decode", "paged_attention_prefill", "attention_prefill",
+                  "attention_contiguous"),
+}
+# the bundle's entry points and where each finds its rows' positions
+ENTRIES = {
+    "paged_decode_fn": lambda a: a[3][:, None],
+    "decode_fn": lambda a: a[3][:, None],
+    "prefill_chunk_fn": lambda a: a[3],
+    "prefill_collect_fn": lambda a: torch.arange(a[1]["tokens"].shape[1])[None],
+    "prefill_fn": lambda a: torch.arange(a[1]["tokens"].shape[1])[None],
+}
+
+
+class Recorder:
+    """Rows of batch row 0 of every traced op, keyed (layer, op index in
+    the layer, op, position); the layer advances at each attention."""
+
+    def __init__(self):
+        self.rows = {}
+        self.positions = None
+        self.depth = 0
+
+    def begin(self, positions):
+        self.positions = [int(p) for p in positions[0].tolist()]
+        self.layer, self.index = 0, 0
+
+    def record(self, op, out):
+        S = len(self.positions)
+        if out.ndim >= 3 and out.shape[1] == S:
+            rows = out[0].reshape(S, -1).detach().float().cpu()
+            for s, pos in enumerate(self.positions):
+                self.rows[(self.layer, self.index, op, pos)] = rows[s]
+        self.index += 1
+        if op == "attention":
+            self.layer, self.index = self.layer + 1, 0
+
+
+@contextlib.contextmanager
+def tracing(model: Model, rec: Recorder):
+    """Patch the traced functions (in every module of the models package
+    that holds them) and the bundle's entry points for the duration."""
+    patched = []
+
+    def wrap(op, fn):
+        def traced(*args, **kw):
+            if rec.depth or rec.positions is None:
+                return fn(*args, **kw)
+            if op == "rms_norm":
+                rec.record("norm_in", args[0])
+            rec.depth += 1
+            try:
+                out = fn(*args, **kw)
+            finally:
+                rec.depth -= 1
+            rec.record(op, out)
+            return out
+        return traced
+
+    for op, names in TRACED.items():
+        for name in names:
+            fn = getattr(layers, name)
+            new = wrap(op, fn)
+            for mod in [m for k, m in sys.modules.items() if k.startswith("repro_torch.models")]:
+                if getattr(mod, name, None) is fn:
+                    patched.append((mod, name, fn))
+                    setattr(mod, name, new)
+    bundle = model.bundle
+
+    def entry(fn, where):
+        def traced(*args, **kw):
+            rec.begin(where(args))
+            return fn(*args, **kw)
+        return traced
+
+    model.bundle = dataclasses.replace(bundle, **{
+        name: entry(getattr(bundle, name), where) for name, where in ENTRIES.items()
+        if getattr(bundle, name, None) is not None})
+    try:
+        yield
+    finally:
+        model.bundle = bundle
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+
+
+def first_differences(a: dict, b: dict, n_tokens: int) -> dict:
+    """For each position both recordings hold (below ``n_tokens``), the
+    first op in execution order whose row bytes differ; for each op name,
+    the first layer where any of its rows differs."""
+    per_pos, per_op = [], {}
+    for pos in sorted({k[3] for k in a} & {k[3] for k in b}):
+        if pos >= n_tokens:
+            continue
+        for key in sorted(k for k in a if k[3] == pos and k in b):
+            x, y = a[key], b[key]
+            if x.shape != y.shape or torch.equal(x, y):
+                continue
+            d = float((x - y).abs().max())
+            layer, _, op, _ = key
+            if op not in per_op or per_op[op]["layer"] > layer:
+                per_op[op] = {"layer": layer, "pos": pos, "max_abs_diff": d}
+            if len(per_pos) == 0 or per_pos[-1]["pos"] != pos:
+                per_pos.append({"pos": pos, "layer": layer, "op": op, "max_abs_diff": d})
+    equal = [p for p in sorted({k[3] for k in a} & {k[3] for k in b}) if p < n_tokens
+             and p not in {r["pos"] for r in per_pos}]
+    return {"first_diff_per_position": per_pos, "first_layer_per_op": per_op,
+            "positions_bitwise_equal": equal}
+
+
+def trace_pairs(model: Model) -> dict:
+    """The three route pairs of the probes, recorded op by op."""
+    out = {}
+    t1 = radix.SYSTEM_PROMPT + tuple(range(5000, 5000 + radix.TURN_USER_TOKENS))
+
+    def rec_run(fn):
+        rec = Recorder()
+        with tracing(model, rec):
+            result = fn()
+        return rec.rows, result
+
+    def warm():
+        with model.engine(**radix.ENGINE_KW) as eng:
+            r1 = eng.submit(t1, max_new_tokens=radix.TURN_NEW_TOKENS)
+            eng.run(r1)
+            t2 = t1 + tuple(r1.output_tokens) + tuple(range(5100, 5100 + radix.TURN_USER_TOKENS))
+            return t2, eng.prefill_logits(t2)
+
+    warm_rows, (t2, _) = rec_run(warm)
+
+    def logits(tokens, **kw):
+        def run():
+            with model.engine(**kw) as eng:
+                return eng.prefill_logits(tokens)
+        return run
+
+    cold_rows, _ = rec_run(logits(t2, **radix.ENGINE_KW))
+    out["warm_vs_cold"] = first_differences(warm_rows, cold_rows, len(t2))
+    ckw = multi_claim.CEILING_KW
+    common = tuple(range(400, 400 + min(ckw["cache_len"] - 4, 24)))
+    dense, _ = rec_run(logits(common, **ckw, decode_mode="dense"))
+    paged, _ = rec_run(logits(common, **ckw, decode_mode="paged"))
+    out["dense_vs_paged"] = first_differences(dense, paged, len(common))
+    prompt = tuple(range(0, ckw["device_blocks"] * ckw["block_size"] - 32))
+    chunked, _ = rec_run(logits(prompt, **ckw, prefill_chunk=32))
+    mono, _ = rec_run(logits(prompt, **ckw, prefill_chunk=0))
+    out["chunked_vs_monolithic"] = first_differences(chunked, mono, len(prompt))
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--trace", action="store_true", help="also trace the three pairs op by op (bf16)")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32
     model = Model(args.device, reduced=args.reduced)
     out = {"card": model.describe()["card"]}
     with tempfile.TemporaryDirectory() as tmp:
+        if args.trace:
+            for pair, res in trace_pairs(model).items():
+                print(f"route trace {pair} " + json.dumps(res))
         for name in ("bf16", "f32"):
             if name == "f32":
                 model.params = tree_map(lambda t: t.float() if t.is_floating_point() else t,

@@ -14,74 +14,67 @@
 // [B, S, H, D] activations as [B, H, S, D] views without a copy, and the
 // output is written through strides too.
 //
-// Two kernels, chosen by dtype (not a fallback: each takes only its type):
+// Three kernels, chosen by dtype and head dim (not a fallback: each takes
+// only its inputs):
 //
-// * bfloat16, the serving dtype: tc_flash_kernel, on the tensor cores.
-//   What bounds it: at the serving shape (S = 512, D = 128, 16 query heads
-//   over 8 kv heads, causal) the call does 4 * S^2 / 2 * D FLOPs per query
-//   head and moves q, k, v and the output once, about 170 FLOPs per byte,
-//   under the H100's bf16 ridge (~295): bytes bound it, and at this size
-//   the latency of the longest CTA (the last causal q tile walks every key
-//   tile) sets its time.  Design: one CTA of two warpgroups (8 warps) per
-//   (64 stacked rows, kv head, sequence).  The stacked rows are the (query,
-//   head) pairs of the kv head's G query heads, query-major (row s = q * G +
-//   g), so one K/V tile serves every query head of its group and is loaded
-//   once.  Both warpgroups hold the same 64 rows (16 per warp) and take
-//   alternate 64-key tiles, each with its own online softmax, so the last
-//   causal q tile walks half its keys per warpgroup; at the end warpgroup 1
-//   hands its (m, l, acc) to warpgroup 0 through shared memory, which merges
-//   and writes.  QK^T and PV run as mma.sync.m16n8k16 bf16 with f32
-//   accumulators, A and B fragments read from swizzled shared memory by
-//   ldmatrix (V with .trans, since it is key-major), each k-step's fragments
-//   loaded before its independent mma chains, and P goes from the score
-//   accumulators to A fragments in registers, rounded to bf16 (<= 2^-9
-//   relative per weight; the reference keeps p in f32, so the card tests
-//   hold it at the bf16 tolerance).  Each warpgroup streams its K/V tiles
-//   through its own ring of 2 shared-memory stages by cp.async (16 bytes per
-//   thread per copy, zero-filled past the key edge), so its next tile is in
-//   flight while the current one is computed.  The q tiles of a causal call
-//   are scheduled heaviest first; key tiles wholly outside the causal/window
-//   range of every row of the CTA are never loaded, and the per-element mask
-//   runs only on the diagonal, window-edge and ragged tiles.  D is any
-//   multiple of 8 up to 256; the shared tiles are padded with zeros to 16,
-//   32, 64, 128, 160 or 256 columns (24 runs as 32, 80 as 128, 136-160 as
-//   160, 168-256 as 256), and zero columns in Q, K and V add nothing to a
-//   score and are never written.  Registers bound the wide tiles: a thread
-//   holds DP / 2 f32 accumulators (80 at 160, 128 at 256) besides its 32
-//   scores, so past DP = 128 the Q fragments stay in shared memory and are
-//   re-read by ldmatrix at each k-step (one more ldmatrix per four of K),
-//   and V's fragments are loaded 5 or 2 at a time; shared memory bounds DP
-//   = 256 to one K/V stage per warpgroup (160 KiB with Q), where 160 keeps
-//   two (180 KiB).  Left for later: wgmma with TMA tile loads and
-//   warp specialisation (this kernel uses the Ampere-style mma.sync path).
+// * bfloat16 up to D = 256, the serving dtype: tc_flash_kernel, on the
+//   tensor cores.  What bounds it: at the serving shape (S = 512, D = 128,
+//   16 query heads over 8 kv heads, causal) the call does 4 * S^2 / 2 * D
+//   FLOPs per query head and moves q, k, v and the output once, about 170
+//   FLOPs per byte, under the H100's bf16 ridge (~295): bytes bound it.
+//   Design: the key order and the body of the paged kernels
+//   (attention_split.cuh), so a prefill row gets the bits a decode step or
+//   a prefill chunk gives the same query over the same keys.  One CTA of
+//   two warpgroups per (64 stacked rows, kv head, sequence); the stacked
+//   rows are the (query, head) pairs of the kv head's G query heads,
+//   query-major (row s = q * G + g), so one K/V tile serves every query
+//   head of its group and is loaded once.  The CTA walks the position
+//   splits [64 j, 64 j + 64) that any of its rows can attend, the two
+//   warpgroups on alternate splits, each through its own ring of cp.async
+//   stages (2 up to DP = 160, 1 at 256), zero-filled past Sk; each warp
+//   runs split_partial (tensor_core.cuh: QK^T and P V on
+//   mma.sync.m16n8k16, P split into two bf16 terms, about 16 of its bits,
+//   as the reference keeps P in f32) on its 16 rows, and a round's two
+//   partials are folded into the rows' running (M, L, O) in split order
+//   with split_merge.cuh's fold, warpgroup 0's first; (M, L, O) live in
+//   shared memory, one slot per thread of a warpgroup.  The one-warpgroup
+//   version of this design read 0.0357 ms at the serving shape, this one
+//   0.0282 (the earlier alternate-tile kernel, which rounded P to bf16 and
+//   merged its warpgroups' online softmaxes at the end, 0.0161; SDPA
+//   0.0113; NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py phase 2).  The q tiles of a causal call are scheduled
+//   heaviest first, and splits wholly outside the causal/window range of
+//   every row of the CTA are never loaded.  D is any multiple of 8 up to
+//   256; the tiles are padded with zeros to 16, 32, 64, 128, 160 or 256
+//   columns as in every bf16 attention kernel here, and zero columns add
+//   nothing to a score and are never written.  Left for later: wgmma with
+//   TMA tile loads and warp specialisation.
 //
-// * float32 (the card tests' 1e-5 checks, which no bf16 or TF32 tensor-core
-//   product meets): flash_attention_kernel, the SIMT kernel of the first
-//   port.  One CTA per (64-row query tile, query head, sequence) walks 64-key
-//   tiles with the online-softmax state in registers; 256 threads form a
-//   16 x 16 grid; thread (ty, tx) owns query rows ty + 16 i (i < 4), for the
-//   scores keys tx + 16 j (j < 4) of the tile, and for the output columns
-//   tx + 16 c (c < 8, or 16 in the instantiation for D above 128) of its
-//   rows.  Q, K and V tiles live in shared memory as f32 with an odd row
-//   stride (D + 1; 209 KiB at D = 256); both products are f32 FMAs.  D is
-//   any multiple of 4 up to 256.
+// * float32 up to D = 256 (the card tests' 1e-5 checks, which no bf16 or
+//   TF32 tensor-core product meets): flash_attention_kernel, the SIMT
+//   kernel of the first port.  One CTA per (64-row query tile, query head,
+//   sequence) walks 64-key tiles with the online-softmax state in
+//   registers; 256 threads form a 16 x 16 grid; thread (ty, tx) owns query
+//   rows ty + 16 i (i < 4), for the scores keys tx + 16 j (j < 4) of the
+//   tile, and for the output columns tx + 16 c (c < 8, or 16 in the
+//   instantiation for D above 128) of its rows.  Q, K and V tiles live in
+//   shared memory as f32 with an odd row stride (D + 1; 209 KiB at D =
+//   256); both products are f32 FMAs.
 //
-// * head dims past 256, up to 512, in both types: the same SIMT kernel with
-//   32-row query tiles and 32-key tiles (four 32 x (D + 1) f32 tiles and the
-//   weights: 197 KiB at D = 512), 32 output columns per thread, the tiles
-//   converted to f32 as they are loaded.  Every score sums all D columns of
-//   q.k in f32.  Nothing bounds it but simplicity: the tensor-core kernel's
-//   accumulators (DP / 2 f32 per thread) do not fit registers past 256, and
-//   no catalogue model has such a head; a later PR can split D over two
-//   warpgroups there.
+// * head dims past 256, both types, any width: the split-KV SIMT kernel of
+//   attention_split.cuh over the same position splits (FlashFront), the
+//   head dim walked in slices of 512 columns, then split_merge.cuh writing
+//   through the output's strides.  Its partials take B * H * Sq *
+//   ceil(Sk / 64) * (D + 2) floats of scratch from the wrapper; no
+//   catalogue model has such a head.
 //
 // A query row with no valid key at all (only possible with Sq > Sk under a
 // causal window, or Sk = 0; the model never builds one) gets what the dense
 // reference's uniform softmax over its masked scores gives it: the plain
-// mean of the Sk value rows of its kv head (zeros when Sk = 0).  Both
-// kernels find such a row by its running sum l, still 0 after the last key
-// tile, and only such a row takes the branch that reads the Sk value rows
-// (mean_value), so serving rows pay one comparison.  The Pallas kernel
+// mean of the Sk value rows of its kv head (zeros when Sk = 0).  Every
+// kernel finds such a row by its running sum l, still 0 after the last key
+// tile (the wide route's merge by its folded L), and only such a row takes
+// the branch that reads the Sk value rows (mean_value), so serving rows
+// pay one comparison.  The Pallas kernel
 // spreads the weights over the keys of its key blocks, zero padding
 // included, so its value depends on the block size.
 //
@@ -96,19 +89,16 @@
 
 #include <math.h>
 
-#include "common.cuh"
-#include "tensor_core.cuh"
+#include "attention_split.cuh"
 
 namespace {
 
-using namespace repro_kernels;  // common.cuh, tensor_core.cuh
+using namespace repro_kernels;  // common.cuh, split_merge.cuh, tensor_core.cuh, attention_split.cuh
 
 constexpr int kThreads = 256;
 constexpr int kSide = 16;              // the 16 x 16 thread grid
-constexpr int kTile = 64;              // query rows per CTA, keys per tile, up to D = 256
-constexpr int kWideTile = 32;          // the same past D = 256: four tiles fit shared memory
-constexpr int kMaxD = 256;             // the tensor-core kernel's widest head dim
-constexpr int kMaxWideD = 512;         // the SIMT kernel's widest head dim
+constexpr int kTile = 64;              // query rows per CTA and keys per tile
+constexpr int kMaxD = 256;             // the tile kernels' widest head dim
 
 struct Params {
   const void* q;  // [B, H, Sq, D] by strides, D contiguous
@@ -123,6 +113,8 @@ struct Params {
   int causal, window;
   int q_offset;  // position of query row 0; key j sits at position j
   float sm_scale, softcap;
+  float* part;   // past D = 256: split partials (split_merge.cuh, R = G * Sq)
+  int n_split, BKV;
 };
 
 // Rows [row0, row0 + TILE) of one head -> f32 shared memory with row
@@ -144,20 +136,8 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* base, lon
   }
 }
 
-// The output of a query row with no valid key at column col: the plain
-// mean of all Sk value rows of its kv head (zeros when Sk = 0), as the dense
-// reference's uniform softmax over masked scores gives it.  Only such rows
-// call it, so serving rows pay one comparison; kept out of line so that its
-// loop does not change the register allocation of the kernels' main path.
-template <typename T>
-__device__ __noinline__ float mean_value(const T* vb, long long v_ss, int Sk, int col) {
-  float sum = 0.f;
-  for (int key = 0; key < Sk; ++key) sum += to_f<T>(vb[(long long)key * v_ss + col]);
-  return Sk > 0 ? sum / (float)Sk : 0.f;
-}
-
-// DM: the widest head dim of the instantiation (128, 256 or 512); TILE:
-// query rows per CTA and keys per tile (64, or 32 past D = 256)
+// DM: the widest head dim of the instantiation (128 or 256); TILE: query
+// rows per CTA and keys per tile (64)
 template <typename T, int DM, int TILE>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(Params p) {
   constexpr int kCols = DM / kSide;   // output columns per thread
@@ -302,310 +282,175 @@ size_t smem_bytes(int D, int tile) {
 
 // ---------------------------------------------------------------- bfloat16
 
-constexpr int kTcWarps = 4;                         // warps per warpgroup, 16 rows each
-constexpr int kTcRows = 16 * kTcWarps;              // stacked (query, head) rows per CTA
-constexpr int kGroupThreads = 32 * kTcWarps;        // one warpgroup
-constexpr int kTcGroups = 2;                        // warpgroups, alternate key tiles
+constexpr int kTcWarps = 4;                   // warps per warpgroup, 16 rows each
+constexpr int kTcRows = 16 * kTcWarps;        // stacked (query, head) rows per CTA
+constexpr int kGroupThreads = 32 * kTcWarps;  // one warpgroup
+constexpr int kTcGroups = 2;                  // warpgroups, alternate splits
 constexpr int kTcThreads = kTcGroups * kGroupThreads;
-constexpr int kTcKeys = 64;                         // keys per K/V tile
 
 using bf16 = __nv_bfloat16;
 
 template <int DP>
-constexpr size_t tc_smem_bytes() {
-  return sizeof(bf16) * (size_t)(kTcRows + 2 * kTcGroups * TcShape<DP>::kStages * kTcKeys) * DP;
-}
+struct FlashShape {
+  static constexpr int kStages = DP <= 160 ? 2 : 1;  // K/V splits in flight per warpgroup
+  static constexpr int kState = DP / 2 + 4;          // per thread slot: O, then M_a, M_b, L_a, L_b
+  static constexpr size_t kSmem =
+      sizeof(bf16) * (size_t)(kTcRows + kTcGroups * 2 * kStages * kSplitKeys) * DP  // Q, K, V
+      + sizeof(float) * (size_t)kState * kGroupThreads;                           // (M, L, O)
+};
 
-// keys [k0, k0 + kTcKeys) of one kv head -> a swizzled [kTcKeys][DP] tile;
-// keys at or past kend and columns at or past D are zeros
-// (by the 128 threads of one warpgroup, gtid = thread index in the group)
-template <int DP>
-__device__ __forceinline__ void load_kv_tile(bf16* dst, const bf16* base, long long stride, int k0,
-                                             int kend, int nch, int gtid) {
-  constexpr int kChunks = DP / 8;
-#pragma unroll
-  for (int i = gtid; i < kTcKeys * kChunks; i += kGroupThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool ok = k0 + r < kend && c < nch;
-    const bf16* src = ok ? base + (long long)(k0 + r) * stride + c * 8 : base;
-    cp_async16(smem_u32(dst + swz<DP>(r, c)), src, ok);
-  }
-}
-
+// One CTA of two warpgroups per (64 stacked rows, kv head, sequence).  The
+// stacked rows are the (query, head) pairs of the kv head's G query heads,
+// query-major (row s = q * G + g), so one K/V tile serves every query head
+// of its group and is loaded once.  The CTA walks the position splits
+// [64 j, 64 j + 64) that any of its rows can attend; both warpgroups hold
+// the same 64 rows (16 per warp) and take alternate splits, each through
+// its own ring of cp.async stages, and each warp runs the shared body
+// (split_partial) on its 16 rows.  The running (M, L, O) of a row lives in
+// shared memory, one slot per thread of a warpgroup, the same slot for the
+// two threads (one per warpgroup) that hold the same fragment; a round of
+// two splits is folded in ascending order, warpgroup 0's split, a barrier,
+// then warpgroup 1's (split_merge.cuh's fold), so a row gets the bits the
+// split-KV kernels and their merge give it while the two warpgroups'
+// products run side by side.
 template <int DP, bool kSoftcap>
 __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
+  using S = FlashShape<DP>;
+  constexpr int kStages = S::kStages, kChunks = DP / 8, kDBlocks = DP / 8, kH = DP / 2;
+  constexpr int kTile = kSplitKeys * DP;  // elements of one K or V stage
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  constexpr int kStages = TcShape<DP>::kStages;
-  constexpr bool kQRegs = TcShape<DP>::kQRegs;
-  constexpr int kVChunk = TcShape<DP>::kVChunk;
-  constexpr int kChunks = DP / 8;
-  constexpr int kKSteps = DP / 16;      // k-steps of QK^T
-  constexpr int kDBlocks = DP / 8;      // 8-column blocks of the output
-  constexpr int kNB = kTcKeys / 8;      // 8-key blocks of the scores
-  constexpr int kTile = kTcKeys * DP;   // elements of one K or V stage
   bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [kTcRows][DP]
-  bf16* kv_smem = qs + kTcRows * DP;             // K then V: [kTcGroups][kStages][kTcKeys][DP]
+  bf16* kv_smem = qs + kTcRows * DP;             // [group][stage][K, V][64][DP]
+  float* st_s = reinterpret_cast<float*>(kv_smem + kTcGroups * 2 * kStages * kTile);
+  __shared__ int kpos_s[kTcGroups][kStages][kSplitKeys];
 
   const int G = p.H / p.KV;
-  const int nrows = G * p.Sq;  // stacked rows s = q * G + g of this kv head
+  const int nrows = G * p.Sq;
   const int tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // heaviest first
   const int s0 = tile * kTcRows;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int nch = p.D / 8;
   const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & (kTcWarps - 1);
   const int grp = threadIdx.x / kGroupThreads, gtid = threadIdx.x % kGroupThreads;
-  bf16* ks = kv_smem + grp * kStages * kTile;
-  bf16* vs = kv_smem + (kTcGroups + grp) * kStages * kTile;
+  bf16* ring = kv_smem + grp * 2 * kStages * kTile;
 
-  // keys any row of this CTA can attend: [kbeg, kend); warpgroup grp takes
-  // key tiles grp, grp + 2, ...  qlo and qhi are positions (query row q at
-  // q_offset + q), so the offset shifts every bound below with them
+  // splits any row of this CTA can attend (row q at position q_offset + q);
+  // warpgroup grp takes j0 + grp, j0 + grp + 2, ...
   const int qlo = p.q_offset + s0 / G;
   const int qhi = p.q_offset + (min(s0 + kTcRows, nrows) - 1) / G;
   int kend = p.Sk;
   if (p.causal) kend = min(kend, qhi + 1);
   const int kbeg = p.window > 0 ? max(0, qlo - p.window + 1) : 0;
-  const int n_tiles = kend > kbeg ? (kend - kbeg + kTcKeys - 1) / kTcKeys : 0;
-  const int my_tiles = n_tiles > grp ? (n_tiles - grp + kTcGroups - 1) / kTcGroups : 0;
+  const int j0 = kbeg / kSplitKeys;
+  const int n_splits = kend > kbeg ? (kend - 1) / kSplitKeys - j0 + 1 : 0;
+  const int n_rounds = (n_splits + kTcGroups - 1) / kTcGroups;
+  const int my_splits = n_splits > grp ? (n_splits - grp + kTcGroups - 1) / kTcGroups : 0;
 
   const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb;
   const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  auto tile_k0 = [&](int u) { return kbeg + (grp + kTcGroups * u) * kTcKeys; };
 
-  // this lane's two rows of the warp's 16: ra (accumulator slots 0, 1), rb (2, 3)
-  const int ra = s0 + 16 * warp + (lane >> 2), rb = ra + 8;
-  const int qpa = p.q_offset + ra / G, qpb = p.q_offset + rb / G;  // positions
-  const float sa = kSoftcap ? p.sm_scale / p.softcap : p.sm_scale * kLog2e;
-  const float sb = p.softcap * kLog2e;
-
-  float acc[kDBlocks][4];
-#pragma unroll
-  for (int n = 0; n < kDBlocks; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;  // m in log2 units
-  uint32_t qf[kQRegs ? kKSteps : 1][4];
-
-  if (n_tiles > 0) {
-    // commit group u holds this thread's copies of the group's tile u (group
-    // 0 also its share of Q); one group is committed per tile, empty or not
-#pragma unroll
-    for (int i = threadIdx.x; i < kTcRows * kChunks; i += kTcThreads) {
-      const int r = i / kChunks, c = i % kChunks;
-      const int srow = s0 + r;
-      const bool ok = srow < nrows && c < nch;
-      const bf16* src = qb;
-      if (ok) {
-        const int qp = srow / G, h = kvh * G + srow % G;
-        src = qb + h * p.q_sh + (long long)qp * p.q_ss + c * 8;
-      }
-      cp_async16(smem_u32(qs + swz<DP>(r, c)), src, ok);
+  // split j -> stage st of this warpgroup's ring (keys past Sk and columns
+  // past D are zeros), by the warpgroup's threads
+  auto load_split = [&](int st, int j) {
+    bf16* kt = ring + 2 * st * kTile;
+    bf16* vt = kt + kTile;
+    for (int i = gtid; i < kSplitKeys * kChunks; i += kGroupThreads) {
+      const int r = i / kChunks, c = i % kChunks, key = j * kSplitKeys + r;
+      const bool ok = key < p.Sk && c < nch;
+      cp_async16(smem_u32(kt + swz<DP>(r, c)), ok ? kb + (long long)key * p.k_ss + c * 8 : kb, ok);
+      cp_async16(smem_u32(vt + swz<DP>(r, c)), ok ? vb + (long long)key * p.v_ss + c * 8 : vb, ok);
     }
-    for (int u = 0; u < kStages; ++u) {
-      if (u < my_tiles) {
-        load_kv_tile<DP>(ks + u * kTile, kb, p.k_ss, tile_k0(u), kend, nch, gtid);
-        load_kv_tile<DP>(vs + u * kTile, vb, p.v_ss, tile_k0(u), kend, nch, gtid);
-      }
-      cp_async_commit();
-    }
-    cp_async_wait<kStages - 1>();
-    __syncthreads();  // Q and each warpgroup's first tile are in shared memory
-    if constexpr (kQRegs) {
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), qf[kk][0],
-                qf[kk][1], qf[kk][2], qf[kk][3]);
-    }
-  }
-
-  // the A fragment of k-step kk: from registers, or re-read from shared memory
-  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
-    if constexpr (kQRegs) {
-      a[0] = qf[kk][0];
-      a[1] = qf[kk][1];
-      a[2] = qf[kk][2];
-      a[3] = qf[kk][3];
-    } else {
-      ldsm_x4(smem_u32(qs + swz<DP>(16 * warp + (lane & 15), 2 * kk + (lane >> 4))), a[0], a[1],
-              a[2], a[3]);
-    }
+    if (gtid < kSplitKeys) kpos_s[grp][st][gtid] = j * kSplitKeys + gtid;
   };
 
-  for (int u = 0; u < my_tiles; ++u) {
-    const int k0 = tile_k0(u);
-    const int st = u % kStages;
-    if (u > 0) {
-      cp_async_wait<kStages - 1>();
-      group_sync<kGroupThreads>(grp);
-    }
-    const bf16* kt = ks + st * kTile;
-    const bf16* vt = vs + st * kTile;
-
-    // S = Q K^T over this tile's 64 keys: per k-step, the K fragments of all
-    // 8 key blocks are loaded first, then 8 independent mma chains run
-    float sc[kNB][4];
-#pragma unroll
-    for (int j = 0; j < kNB; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-      uint32_t qa[4], kf[kNB / 2][4];
-      q_frag(kk, qa);
-#pragma unroll
-      for (int jp = 0; jp < kNB / 2; ++jp) {
-        const int key = 16 * jp + (lane & 7) + ((lane >> 4) << 3);
-        ldsm_x4(smem_u32(kt + swz<DP>(key, 2 * kk + ((lane >> 3) & 1))), kf[jp][0], kf[jp][1],
-                kf[jp][2], kf[jp][3]);
-      }
-#pragma unroll
-      for (int jp = 0; jp < kNB / 2; ++jp) {
-        mma_bf16(sc[2 * jp], qa, kf[jp][0], kf[jp][1]);
-        mma_bf16(sc[2 * jp + 1], qa, kf[jp][2], kf[jp][3]);
-      }
-    }
-
-    // scale and soft-cap into log2 units, then mask (diagonal, window-edge
-    // and ragged tiles only); both choices are made outside the element loop
-    const bool edge = k0 + kTcKeys > p.Sk || (p.causal && k0 + kTcKeys - 1 > qlo) ||
-                      (p.window > 0 && qhi - k0 >= p.window);
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-    if (edge) {
-#pragma unroll
-      for (int j = 0; j < kNB; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * (lane & 3) + (e & 1);
-          const int qp = e < 2 ? qpa : qpb;
-          bool valid = key < p.Sk;
-          if (p.causal) valid = valid && key <= qp;
-          if (p.window > 0) valid = valid && qp - key < p.window;
-          sc[j][e] = valid ? score_log2<kSoftcap>(sc[j][e], sa, sb) : -INFINITY;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kNB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[j][e] = score_log2<kSoftcap>(sc[j][e], sa, sb);
-    }
-#pragma unroll
-    for (int j = 0; j < kNB; ++j) {
-      mx_a = fmaxf(mx_a, fmaxf(sc[j][0], sc[j][1]));
-      mx_b = fmaxf(mx_b, fmaxf(sc[j][2], sc[j][3]));
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
-    }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
-    const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float corr_a = exp2f(m_a - base_a), corr_b = exp2f(m_b - base_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < kNB; ++j) {
-      sc[j][0] = exp2f(sc[j][0] - base_a);
-      sc[j][1] = exp2f(sc[j][1] - base_a);
-      sc[j][2] = exp2f(sc[j][2] - base_b);
-      sc[j][3] = exp2f(sc[j][3] - base_b);
-      sum_a += sc[j][0] + sc[j][1];
-      sum_b += sc[j][2] + sc[j][3];
-    }
-    l_a = l_a * corr_a + sum_a;  // this lane's columns; reduced at the end
-    l_b = l_b * corr_b + sum_b;
-#pragma unroll
-    for (int n = 0; n < kDBlocks; ++n) {
-      acc[n][0] *= corr_a;
-      acc[n][1] *= corr_a;
-      acc[n][2] *= corr_b;
-      acc[n][3] *= corr_b;
-    }
-
-    // O += P V, P rounded to bf16 straight from the score accumulators; the
-    // V fragments of a 16-key step are loaded kVChunk at a time before
-    // their mma chains
-#pragma unroll
-    for (int kt16 = 0; kt16 < kTcKeys / 16; ++kt16) {
-      uint32_t a[4];
-      a[0] = pack_bf16(sc[2 * kt16][0], sc[2 * kt16][1]);
-      a[1] = pack_bf16(sc[2 * kt16][2], sc[2 * kt16][3]);
-      a[2] = pack_bf16(sc[2 * kt16 + 1][0], sc[2 * kt16 + 1][1]);
-      a[3] = pack_bf16(sc[2 * kt16 + 1][2], sc[2 * kt16 + 1][3]);
-      const int key = 16 * kt16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-#pragma unroll
-      for (int d0 = 0; d0 < kDBlocks / 2; d0 += kVChunk) {
-        uint32_t vf[kVChunk][4];
-#pragma unroll
-        for (int dp = 0; dp < kVChunk; ++dp)
-          ldsm_x4_t(smem_u32(vt + swz<DP>(key, 2 * (d0 + dp) + (lane >> 4))), vf[dp][0], vf[dp][1],
-                    vf[dp][2], vf[dp][3]);
-#pragma unroll
-        for (int dp = 0; dp < kVChunk; ++dp) {
-          mma_bf16(acc[2 * (d0 + dp)], a, vf[dp][0], vf[dp][1]);
-          mma_bf16(acc[2 * (d0 + dp) + 1], a, vf[dp][2], vf[dp][3]);
-        }
-      }
-    }
-    group_sync<kGroupThreads>(grp);  // this stage is read: refill it with tile u + kStages
-    if (u + kStages < my_tiles) {
-      load_kv_tile<DP>(ks + st * kTile, kb, p.k_ss, tile_k0(u + kStages), kend, nch, gtid);
-      load_kv_tile<DP>(vs + st * kTile, vb, p.v_ss, tile_k0(u + kStages), kend, nch, gtid);
-    }
+  // commit group u holds stage u's copies (group 0 also this thread's share
+  // of Q); one group per round, empty or not
+  for (int i = threadIdx.x; i < kTcRows * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = i % kChunks, srow = s0 + r;
+    const bool ok = srow < nrows && c < nch;
+    const bf16* src = qb;
+    if (ok) src = qb + (kvh * G + srow % G) * p.q_sh + (long long)(srow / G) * p.q_ss + c * 8;
+    cp_async16(smem_u32(qs + swz<DP>(r, c)), src, ok);
+  }
+  for (int u = 0; u < kStages; ++u) {
+    if (u < my_splits) load_split(u, j0 + grp + kTcGroups * u);
     cp_async_commit();
   }
 
+  const int ra = s0 + 16 * warp + (lane >> 2), rb = ra + 8;
+  const bool live = s0 + 16 * warp < nrows;
+  SplitMask mk;
+  mk.qpa = p.q_offset + ra / G;
+  mk.qpb = p.q_offset + rb / G;
+  mk.causal = p.causal;
+  mk.window = p.window;
+  mk.uniform = false;
+  const float sa = kSoftcap ? p.sm_scale / p.softcap : p.sm_scale * kLog2e;
+  const float sb = p.softcap * kLog2e;
+  float* slot = st_s + gtid;  // this thread's state: slot[e * kGroupThreads]
+  if (grp == 0) {
 #pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    l_a += __shfl_xor_sync(0xffffffffu, l_a, o);
-    l_b += __shfl_xor_sync(0xffffffffu, l_b, o);
-  }
-  // warpgroup 1 hands (m, l, acc) to warpgroup 0 through the K/V stages,
-  // slot [register][thread] so the 32 lanes of a warp hit 32 banks
-  constexpr int kRegs = 4 * kDBlocks + 4;
-  static_assert(kRegs * kGroupThreads * sizeof(float) <= 2 * kTcGroups * kStages * kTile * sizeof(bf16),
-                "the hand-over must fit in the K/V stages");
-  float* red = reinterpret_cast<float*>(kv_smem);
-  cp_async_wait<0>();
-  __syncthreads();  // every stage is read
-  if (grp == 1) {
-#pragma unroll
-    for (int n = 0; n < kDBlocks; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red[(4 * n + e) * kGroupThreads + gtid] = acc[n][e];
-    red[(kRegs - 4) * kGroupThreads + gtid] = m_a;
-    red[(kRegs - 3) * kGroupThreads + gtid] = m_b;
-    red[(kRegs - 2) * kGroupThreads + gtid] = l_a;
-    red[(kRegs - 1) * kGroupThreads + gtid] = l_b;
-  }
-  __syncthreads();
-  if (grp == 1) return;
-  const float om_a = red[(kRegs - 4) * kGroupThreads + gtid];
-  const float om_b = red[(kRegs - 3) * kGroupThreads + gtid];
-  const float mn_a = fmaxf(m_a, om_a), mn_b = fmaxf(m_b, om_b);
-  const float base_a = mn_a == -INFINITY ? 0.f : mn_a;
-  const float base_b = mn_b == -INFINITY ? 0.f : mn_b;
-  const float c0a = exp2f(m_a - base_a), c1a = exp2f(om_a - base_a);
-  const float c0b = exp2f(m_b - base_b), c1b = exp2f(om_b - base_b);
-  l_a = l_a * c0a + red[(kRegs - 2) * kGroupThreads + gtid] * c1a;
-  l_b = l_b * c0b + red[(kRegs - 1) * kGroupThreads + gtid] * c1b;
-#pragma unroll
-  for (int n = 0; n < kDBlocks; ++n) {
-    acc[n][0] = acc[n][0] * c0a + red[(4 * n + 0) * kGroupThreads + gtid] * c1a;
-    acc[n][1] = acc[n][1] * c0a + red[(4 * n + 1) * kGroupThreads + gtid] * c1a;
-    acc[n][2] = acc[n][2] * c0b + red[(4 * n + 2) * kGroupThreads + gtid] * c1b;
-    acc[n][3] = acc[n][3] * c0b + red[(4 * n + 3) * kGroupThreads + gtid] * c1b;
+    for (int e = 0; e < kH; ++e) slot[e * kGroupThreads] = 0.f;
+    slot[kH * kGroupThreads] = slot[(kH + 1) * kGroupThreads] = -INFINITY;
+    slot[(kH + 2) * kGroupThreads] = slot[(kH + 3) * kGroupThreads] = 0.f;
   }
 
-  const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+  for (int u = 0; u < n_rounds; ++u) {
+    const int j = j0 + grp + kTcGroups * u, st = u % kStages;
+    const bool mine = live && u < my_splits;
+    cp_async_wait<kStages - 1>();
+    __syncthreads();  // this round's stages (and Q, and the state's first values) are visible
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f, acc[kDBlocks][4];
+    if (mine) {
+      const int nk = p.Sk - j * kSplitKeys;
+      mk.kpos = kpos_s[grp][st];
+      mk.present = nk >= kSplitKeys ? ~0ull : (1ull << nk) - 1ull;
+      const bf16* kt = ring + 2 * st * kTile;
+      split_partial<DP, kSoftcap>(qs + 16 * warp * DP, kt, kt + kTile, mk, sa, sb, m_a, m_b, l_a,
+                                  l_b, acc);
+    }
+    // fold in split order: warpgroup 0's split, then warpgroup 1's
+#pragma unroll
+    for (int g = 0; g < kTcGroups; ++g) {
+      __syncthreads();
+      if (g != grp || !mine) continue;
+      float M_a = slot[kH * kGroupThreads], M_b = slot[(kH + 1) * kGroupThreads];
+      float L_a = slot[(kH + 2) * kGroupThreads], L_b = slot[(kH + 3) * kGroupThreads];
+      float ca = 0.f, wa = 0.f, cb = 0.f, wb = 0.f;
+      const bool fa = m_a != -INFINITY, fb = m_b != -INFINITY;  // an empty split is skipped
+      if (fa) fold_stats(M_a, L_a, m_a, l_a, ca, wa);
+      if (fb) fold_stats(M_b, L_b, m_b, l_b, cb, wb);
+#pragma unroll
+      for (int n = 0; n < kDBlocks; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!(e < 2 ? fa : fb)) continue;
+          float& o = slot[(4 * n + e) * kGroupThreads];
+          o = e < 2 ? fold_value(o, acc[n][e], ca, wa) : fold_value(o, acc[n][e], cb, wb);
+        }
+      }
+      slot[kH * kGroupThreads] = M_a;
+      slot[(kH + 1) * kGroupThreads] = M_b;
+      slot[(kH + 2) * kGroupThreads] = L_a;
+      slot[(kH + 3) * kGroupThreads] = L_b;
+    }
+    // this warpgroup's stage st is read: refill it with its split of round u + kStages
+    if (u + kStages < my_splits) load_split(st, j0 + grp + kTcGroups * (u + kStages));
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the last fold is visible
+  if (grp != 0 || !live) return;
+
   bf16* ob = static_cast<bf16*>(p.out) + b * p.o_sb;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? rb : ra;
     if (r >= nrows) continue;
-    const float inv = half ? inv_b : inv_a;
+    const float L = slot[(kH + 2 + half) * kGroupThreads];
     bf16* orow = ob + (kvh * G + r % G) * p.o_sh + (long long)(r / G) * p.o_ss;
-    if ((half ? l_b : l_a) == 0.f) {  // no valid key: the plain mean of the Sk value rows
+    if (L == 0.f) {  // no valid key: the plain mean of the Sk value rows
       for (int d = 2 * (lane & 3); d < p.D; d += 8)
         *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
             mean_value(vb, p.v_ss, p.Sk, d), mean_value(vb, p.v_ss, p.Sk, d + 1));
@@ -614,11 +459,60 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
 #pragma unroll
     for (int n = 0; n < kDBlocks; ++n) {
       const int d = 8 * n + 2 * (lane & 3);
+      const float o0 = slot[(4 * n + 2 * half) * kGroupThreads];
+      const float o1 = slot[(4 * n + 2 * half + 1) * kGroupThreads];
       if (d < p.D)
         *reinterpret_cast<__nv_bfloat162*>(orow + d) =
-            __floats2bfloat162_rn(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
+            __floats2bfloat162_rn(fold_finish(o0, L), fold_finish(o1, L));
     }
   }
+}
+
+// ------------------------------------------------------------ wide (D > 256)
+
+// The split-KV front end (attention_split.cuh) of head dims past 256, both
+// dtypes: the same position splits over contiguous K/V, the SIMT body, and
+// split_merge.cuh writing through the output's strides (a row with no valid
+// key gets the mean of its Sk value rows there).
+template <typename TT>
+struct FlashFront {
+  using T = TT;
+  using Params = ::Params;
+  const Params& p;
+  Rows<T> rows;
+  bool uniform = false, causal;
+  int window, split;
+  const T* kb;
+  const T* vb;
+
+  __device__ FlashFront(const Params& p_, int bkv, int split_) : p(p_), split(split_) {
+    const int b = bkv / p.KV, kvh = bkv % p.KV, G = p.H / p.KV;
+    rows = Rows<T>{static_cast<const T*>(p.q) + b * p.q_sb + (long long)kvh * G * p.q_sh, p.q_sh,
+                   p.q_ss, G, p.Sq, p.q_offset};
+    causal = p.causal != 0;
+    window = p.window;
+    kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+    vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  }
+
+  __device__ bool key(int r, const T*& k, const T*& v, int& pos) const {
+    pos = split * kSplitKeys + r;
+    if (pos >= p.Sk) return false;
+    k = kb + (long long)pos * p.k_ss;
+    v = vb + (long long)pos * p.v_ss;
+    return true;
+  }
+};
+
+template <typename T>
+int launch_wide(const Params& p, int B, cudaStream_t s) {
+  using F = FlashFront<T>;
+  const int G = p.H / p.KV;
+  cudaError_t err = launch_simt_split<F>(p, G * p.Sq, s);
+  if (err != cudaSuccess) return (int)err;
+  const SplitMerge m{p.part, p.out, p.o_sb, p.o_sh, p.o_ss, B * p.KV, p.KV, G, p.Sq, p.D,
+                     p.n_split, p.v, p.v_sb, p.v_sh, p.v_ss, p.Sk};
+  return (int)launch_split_merge<T>(m, s);
 }
 
 template <int DP, bool kSoftcap>
@@ -627,66 +521,61 @@ struct TcTag {};
 template <typename T, int DM>
 struct SimtTag {};
 
-// The SIMT kernel: float32 at every head dim, bfloat16 past D = 256
-template <typename T, int DM>
+// The SIMT tile kernel: float32 up to D = 256
+template <int DM>
 int launch_simt(const Params& p, int B, cudaStream_t s) {
-  constexpr int kT = DM > kMaxD ? kWideTile : kTile;
-  cudaError_t err = allow_smem<SimtTag<T, DM>>((const void*)flash_attention_kernel<T, DM, kT>,
-                                               smem_bytes(DM, kT));
+  cudaError_t err = allow_smem<SimtTag<float, DM>>(
+      (const void*)flash_attention_kernel<float, DM, kTile>, smem_bytes(DM, kTile));
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.Sq + kT - 1) / kT, p.H, B);
-  flash_attention_kernel<T, DM, kT><<<grid, kThreads, smem_bytes(p.D, kT), s>>>(p);
+  dim3 grid((p.Sq + kTile - 1) / kTile, p.H, B);
+  flash_attention_kernel<float, DM, kTile><<<grid, kThreads, smem_bytes(p.D, kTile), s>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int DP, bool kSoftcap>
-int launch_tc(const Params& p, int B, cudaStream_t s) {
-  constexpr size_t smem = tc_smem_bytes<DP>();
+cudaError_t launch_tc(const Params& p, int B, cudaStream_t s) {
+  constexpr size_t smem = FlashShape<DP>::kSmem;
   cudaError_t err =
       allow_smem<TcTag<DP, kSoftcap>>((const void*)tc_flash_kernel<DP, kSoftcap>, smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const int rows = (p.H / p.KV) * p.Sq;
   dim3 grid((rows + kTcRows - 1) / kTcRows, p.KV, B);
   tc_flash_kernel<DP, kSoftcap><<<grid, kTcThreads, smem, s>>>(p);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }
 
 template <int DP>
-int launch_tc(const Params& p, int B, cudaStream_t s) {
+cudaError_t launch_tc(const Params& p, int B, cudaStream_t s) {
   return p.softcap > 0.f ? launch_tc<DP, true>(p, B, s) : launch_tc<DP, false>(p, B, s);
-}
-
-int launch_bf16(const Params& p, int B, cudaStream_t s) {
-  if (p.D % 8) return (int)cudaErrorInvalidValue;
-  if (p.D > kMaxD) return launch_simt<bf16, kMaxWideD>(p, B, s);
-  if (p.D <= 16) return launch_tc<16>(p, B, s);
-  if (p.D <= 32) return launch_tc<32>(p, B, s);
-  if (p.D <= 64) return launch_tc<64>(p, B, s);
-  if (p.D <= 128) return launch_tc<128>(p, B, s);
-  if (p.D <= 160) return launch_tc<160>(p, B, s);
-  return launch_tc<256>(p, B, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32 (SIMT kernel; D a multiple of 4), 1 = bfloat16
-// (tensor-core kernel up to D = 256, the SIMT kernel past it; D a multiple
-// of 8); D <= 512.  sm_scale multiplies
-// every score: 1 / sqrt(d) of the head dim d before the caller zero-padded
-// it to D.  Query row i sits at position q_offset + i and key j at j, for
-// the causal mask (j <= q_offset + i) and the window (q_offset + i - j <
-// window).  Strides are in elements.  Returns cudaGetLastError()
-// after the launch (cudaErrorInvalidValue for shapes the kernels do not take).
+// dtype: 0 = float32 (D a multiple of 4), 1 = bfloat16 (D a multiple of
+// 8); any D.  bfloat16 up to D = 256 runs the tensor-core kernel, float32
+// up to 256 the SIMT tile kernel; past 256 both run the split-KV SIMT
+// kernel and the merge, with n_split = ceil(Sk / 64) (at least 1) and part
+// holding B * KV * n_split * H / KV * Sq * (D + 2) floats (otherwise part
+// may be null).  sm_scale multiplies every score: 1 / sqrt(d) of the head
+// dim d before the caller zero-padded it to D.  Query row i sits at
+// position q_offset + i and key j at j, for the causal mask (j <= q_offset
+// + i) and the window (q_offset + i - j < window).  Strides are in
+// elements.  Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for shapes the kernels do not take).
 int flash_attention_forward(int dtype, const void* q, const void* k, const void* v, void* out,
                             long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                             long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                             long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
                             int H, int KV, int Sq, int Sk, int D, int causal, int window,
-                            int q_offset, float sm_scale, float softcap, void* stream) {
-  if (D <= 0 || D > kMaxWideD || D % (dtype == 0 ? 4 : 8) || B <= 0 || H <= 0 || KV <= 0 ||
-      H % KV != 0 || Sq <= 0 || Sk < 0 || q_offset < 0 || B > 65535 || H > 65535)
+                            int q_offset, float sm_scale, float softcap, float* part, int n_split,
+                            void* stream) {
+  if (D <= 0 || D % (dtype == 0 ? 4 : 8) || B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
+      Sq <= 0 || Sk < 0 || q_offset < 0 || B > 65535 || H > 65535 ||
+      (D > kMaxD && (part == nullptr || n_split < 1 || n_split > 65535 ||
+                     (long long)n_split * kSplitKeys < Sk ||
+                     ((long long)(H / KV) * Sq + kSimtRows - 1) / kSimtRows > 65535)))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -715,14 +604,16 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
   p.q_offset = q_offset;
   p.sm_scale = sm_scale;
   p.softcap = softcap;
+  p.part = part;
+  p.n_split = n_split;
+  p.BKV = B * KV;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (D <= 128) return launch_simt<float, 128>(p, B, s);
-    if (D <= kMaxD) return launch_simt<float, kMaxD>(p, B, s);
-    return launch_simt<float, kMaxWideD>(p, B, s);
-  }
-  if (dtype == 1) return launch_bf16(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D > kMaxD) return dtype == 0 ? launch_wide<float>(p, B, s) : launch_wide<bf16>(p, B, s);
+  if (dtype == 0) return D <= 128 ? launch_simt<128>(p, B, s) : launch_simt<kMaxD>(p, B, s);
+#define REPRO_LAUNCH(DP) launch_tc<DP>(p, B, s)
+  return (int)REPRO_TC_DISPATCH(D, REPRO_LAUNCH);
+#undef REPRO_LAUNCH
 }
 
 }  // extern "C"

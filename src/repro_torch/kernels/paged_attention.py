@@ -1,70 +1,67 @@
 """Paged attention for the serving path: hand-written CUDA kernels and their
 plain PyTorch versions.
 
-Three entry points over two CUDA sources:
+Three entry points over two CUDA sources, both front ends of the split-KV
+kernels of ``csrc/attention_split.cuh``:
 
 * ``paged_decode_attention`` replaces the TPU kernel
   ``kernels/paged_attention.py:paged_decode_attention_pallas`` — the G grouped
   queries of each (sequence, kv head) attend the block-table prefix pages
   and then the dense in-flight tail.  It runs once per layer on every mixed
-  decode+feed step, as a split-KV kernel (``csrc/paged_decode.cu``): the
-  keys are cut into splits of ``SPLIT_KEYS`` by key index, one CTA per
-  (sequence, kv head, split) writes an f32 partial, and a second kernel
-  launched by the same C call merges the partials in split order.
+  decode+feed step (``csrc/paged_decode.cu``).
 * ``paged_prefill_attention`` replaces
   ``kernels/paged_attention.py:paged_prefill_attention_pallas`` — one chunk of
   queries at positions ``prefix_len + c`` attends the prefix pages and then
   its own keys causally.  It runs once per layer on every prefill chunk
-  (``csrc/paged_attention.cu``).  In bfloat16 it is a split-KV kernel on the
-  tensor cores: the prefix keys are cut into splits of
-  ``PREFILL_SPLIT_KEYS`` by key index and the chunk's own keys form one
-  more split, one CTA per (sequence, kv head, 64 stacked (chunk position,
-  head) rows, split) writes an f32 partial, and the merge of the decode
-  kernel (``csrc/split_merge.cuh``), launched by the same C call, merges the
-  partials in split order.  In float32 (the card tests' 1e-5 path) it is a
-  SIMT kernel of f32 FMAs.
+  (``csrc/paged_attention.cu``).
 * ``paged_attention`` replaces ``kernels/paged_attention.py:paged_attention_pallas``
   — the G grouped queries of each (sequence, kv head) attend the first
   ``lengths[b]`` keys of the block-table pages: no tail, no causal cut, no
-  window.  It runs the split-KV kernel with no in-flight keys (T = 0) and
+  window.  It runs the decode kernels with no in-flight keys (T = 0) and
   the query at position ``lengths[b]``.  As in the JAX package, no model
   path calls it; it is held against the dense decode mode's
   ``attention_decode``.
 
-All three take head dims up to ``MAX_HEAD_DIM`` (512) and any number G of
-query heads per kv head; the sources say how (padded tile widths 160 and
-256; at decode a CTA per 8 heads, and in bfloat16 up to D = 160 and G = 4 a
-key over 10 lanes of 16 elements; past 256, in both dtypes, plain SIMT
-kernels whose scores sum every column in f32: ``wide_split_kernel`` at
-decode, feeding the same merge, and the f32 prefill kernel's 512-column
-instantiation at prefill).  A head dim past 512 raises.  The kernels load
-16-byte vectors, so a head dim that is not a multiple of the vector width
-(8 in bfloat16, 4 in float32) is zero-padded on the head axis to the next
-multiple before the launch (``pad_heads``, a
-choice made from the shape, not a fallback), the kernel is told the scale
-``1 / sqrt(D)`` of the unpadded D, and the output is sliced back to D: zero
-columns add nothing to a score.  A decode
-row with no valid key gets what the JAX reference's dense softmax gives
-it: the plain mean of every gathered value row.
+One key order for every route.  The keys of a query row are cut into
+splits of ``SPLIT_KEYS`` (64) by absolute position, wherever they are
+stored (pool pages, the decode tail, the prefill chunk, and
+``flash_attention``'s contiguous K/V), one CTA per (sequence, kv head, row
+tile, split) writes the split's f32 partial from one body, and a merge
+launched by the same C call folds the splits in ascending order.  So the
+same query over the same keys gives the same bits in a decode step, in a
+prefill chunk that starts anywhere and in a flash prefill: a reused page
+serves what a cold run serves.  In bfloat16 up to head dim 256 the body
+runs on the tensor cores (QK^T and P V on mma.sync, P split into two bf16
+terms, about 16 of its bits); float32 (the card tests' 1e-5 path) and head
+dims past 256 run a SIMT body of f32 FMAs whose head dim is walked in
+slices of 512 columns, so any head dim runs.
+
+All three take any head dim and any number G of query heads per kv head.
+The kernels load 16-byte vectors, so a head dim that is not a multiple of
+the vector width (8 in bfloat16, 4 in float32) is zero-padded on the head
+axis to the next multiple before the launch (``pad_heads``, a choice made
+from the shape, not a fallback), the kernel is told the scale
+``1 / sqrt(D)`` of the unpadded D, and the output is sliced back to D:
+zero columns add nothing to a score.  A decode row with no valid key gets
+what the JAX reference's dense softmax gives it: the plain mean of every
+gathered value row.
 
 What bounds all three on the card is bytes: every key/value element is used
 for 4*G FLOPs at decode (G = 2 on qwen3-1.7b) and 4*G*C at prefill (256 at
 G*C = 64), below the ~295 FLOPs per byte where the H100's bf16 tensor cores
-would bound it; the prefill kernel reaches that regime only because its
-bfloat16 products run on the tensor cores (on the CUDA cores in f32 the same
-prefill work would be bound by operations).  The kernels look page ids up in
-the block table themselves and never load pages past ``prefix_len`` or
-before the window (see the sources for the designs).
+would bound it.  The kernels look page ids up in the block table themselves
+and never load pages past ``prefix_len`` (see the sources for the designs).
 
 Dispatch: an input that requires grad raises on either device
-(``guard.refuse_grad``: the kernels have no backward); a CPU tensor goes
-to the plain version (a port of the JAX package's dense-gather oracle,
+(``guard.refuse_grad``: the kernels have no backward); a CPU tensor goes to
+the plain version (a port of the JAX package's dense-gather oracle,
 ``kernels/ref.py``); a CUDA tensor goes to the kernel, and anything the
-kernel does not take raises.  Each wrapper counts
-its launches in ``<wrapper>.launches``.  ``paged_decode_split_partials``,
+kernel does not take raises.  Each wrapper counts its launches in
+``<wrapper>.launches``.  ``split_partials``, ``paged_decode_split_partials``,
 ``paged_prefill_split_partials`` and ``merge_split_partials`` repeat the
-split-KV kernels' arithmetic in plain PyTorch for the tests; nothing on the
-card path calls them.
+split-KV kernels' structure in plain PyTorch for the tests, one row
+independent of every other (so the three routes' plain models give a row
+the same bits on the CPU); nothing on the card path calls them.
 """
 from __future__ import annotations
 
@@ -77,7 +74,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.guard import refuse_grad
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 512  # the kernels' widest head dim (the SIMT routes past 256)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (
@@ -96,8 +92,7 @@ _DECODE_ARGTYPES = (
     + [ctypes.c_int] * 11
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 )
-SPLIT_KEYS = 64  # keys per split of the split-KV decode kernel (csrc/paged_decode.cu)
-PREFILL_SPLIT_KEYS = 128  # prefix keys per split of the bf16 prefill kernel (csrc/paged_attention.cu)
+SPLIT_KEYS = 64  # key positions per split of every attention kernel (csrc/attention_split.cuh)
 
 
 def _gather_ids(block_tables, n_pages):
@@ -230,168 +225,283 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *, softcap: 
     return torch.einsum("bkgs,bksd->bkgd", p, vd).to(q.dtype)
 
 
-def _pad_keys(x, n, dim, value=0):
-    """``x`` with ``n`` more entries of ``value`` along ``dim``."""
-    if n == 0:
-        return x
-    shape = list(x.shape)
-    shape[dim] = n
-    return torch.cat([x, torch.full(shape, value, dtype=x.dtype, device=x.device)], dim=dim)
+def _exp(x):
+    """``exp`` in float64, rounded once to float32: the f32 exp of ATen's
+    vectorised loop body and of its scalar tail differ in the last bit, so
+    an f32 exp would depend on an element's place in its tensor."""
+    return torch.exp(x.double()).float()
+
+
+def split_partials(q, qpos, k, v, kpos, present, *, causal=True, window=0, softcap=0.0,
+                   uniform=None, block_k=0, p_dtype=torch.float32):
+    """The split-KV kernels' per-split partials, in plain PyTorch, one row
+    independent of every other: every reduction is a loop of elementwise
+    ops in a fixed order (q.k over the head dim, then each split's keys in
+    slot order) and exp and tanh run in float64, so a row's partials depend
+    only on its query, its position and its splits' keys, whatever the
+    tensors' shapes.  That is the property the kernels keep on the card.
+
+    q: [L, R, D] rows, qpos: [L, R] their positions; k, v: [L, n, S, D]
+    split key slots, kpos, present: [L, n, S] their positions and whether
+    the slot holds a key; uniform: [L] bool or None, rows with no valid key
+    (every present key scores 0).  Scores are q.k / sqrt(D), soft-capped,
+    masked (a slot without a key; with ``causal`` a key past the row; with
+    ``window`` a key at or past ``window`` before it).  Within a split the
+    keys are walked in tiles of ``block_k`` (0: one tile) by an online
+    softmax whose weights are rounded to ``p_dtype`` before they multiply V
+    (float32: the reference's f32 weights; the kernels keep about 16 bits
+    of them).  Returns f32 (m, l, acc) of shapes [L, n, R], [L, n, R] and
+    [L, n, R, D]; a split the row attends nothing of has m = -inf, l = 0,
+    acc = 0.
+    """
+    L, R, D = q.shape
+    n, S = k.shape[1], k.shape[2]
+    qf, kf, vf = q.float()[:, None, :, None, :], k.float()[:, :, None, :, :], v.float()
+    s = torch.zeros((L, n, R, S), device=q.device)
+    for d in range(D):
+        s = s + qf[..., d] * kf[..., d]
+    s = s / math.sqrt(D)
+    if softcap:
+        s = softcap * torch.tanh((s / softcap).double()).float()
+    qp, kp = qpos.long()[:, None, :, None], kpos.long()[:, :, None, :]
+    has = present[:, :, None, :].expand(L, n, R, S)
+    valid = has
+    if causal:
+        valid = valid & (kp <= qp)
+    if window:
+        valid = valid & (qp - kp < window)
+    if uniform is not None:
+        u = uniform[:, None, None, None]
+        valid = torch.where(u, has, valid)
+        s = torch.where(u, 0.0, s)
+    s = s.masked_fill(~valid, -math.inf)
+    m = torch.full((L, n, R), -math.inf, device=q.device)
+    l = torch.zeros((L, n, R), device=q.device)
+    acc = torch.zeros((L, n, R, D), device=q.device)
+    step = block_k or max(S, 1)
+    for k0 in range(0, S, step):
+        st = s[..., k0 : k0 + step]
+        m_new = torch.maximum(m, st.amax(dim=-1))
+        base = torch.where(torch.isinf(m_new), 0.0, m_new)
+        corr = _exp(m - base)
+        w = _exp(st - base[..., None])
+        lsum = torch.zeros_like(l)
+        asum = torch.zeros_like(acc)
+        for j in range(w.shape[-1]):
+            lsum = lsum + w[..., j]
+            asum = asum + w[..., j, None].to(p_dtype).float() * vf[:, :, None, k0 + j]
+        l = l * corr + lsum
+        acc = acc * corr[..., None] + asum
+        m = m_new
+    return m, l, acc
+
+
+def merge_split_partials(m, l, acc):
+    """The split merge (``csrc/split_merge.cuh``): the splits folded in
+    ascending order into a running (M, L, O), empty splits (m = -inf)
+    skipped: M' = max(M, m_i), c = exp(M - M'), w = exp(m_i - M'),
+    L' = l_i w + L c, O' = acc_i w + O c; out = O / max(L, 1e-30).
+    m, l: [B, KV, n_split, *rows]; acc: [B, KV, n_split, *rows, D]
+    -> [B, KV, *rows, D] f32 (rows: G at decode, G, C at prefill)."""
+    M = torch.full_like(m[:, :, 0], -math.inf)
+    Ls = torch.zeros_like(l[:, :, 0])
+    O = torch.zeros_like(acc[:, :, 0])
+    for i in range(m.shape[2]):
+        mi = m[:, :, i]
+        ok = ~torch.isinf(mi)
+        mn = torch.where(ok, torch.maximum(M, mi), M)
+        c = _exp(M - mn)
+        w = _exp(mi - mn)
+        Ls = torch.where(ok, l[:, :, i] * w + Ls * c, Ls)
+        O = torch.where(ok[..., None], acc[:, :, i] * w[..., None] + O * c[..., None], O)
+        M = mn
+    return O / Ls.clamp_min(1e-30)[..., None]
+
+
+def _slots(x, n, split, src, fill=0):
+    """[B, KV, X, ...] or [B, X] tensors cut into n splits of ``split``."""
+    pad = n * split - x.shape[src]
+    if pad:
+        shape = list(x.shape)
+        shape[src] = pad
+        x = torch.cat([x, torch.full(shape, fill, dtype=x.dtype, device=x.device)], dim=src)
+    return x.unflatten(src, (n, split))
+
+
+def _take(x, idx):
+    """x [B, KV, T, D] at per-sequence slot indices idx [B, X] -> [B, KV, X, D]."""
+    B, KV, _, D = x.shape
+    return torch.gather(x, 2, idx[:, None, :, None].expand(B, KV, idx.shape[1], D))
 
 
 def paged_decode_split_partials(
     q, k_pages, v_pages, block_tables, prefix_len, k_tail, v_tail, tail_pos,
     cur_pos, *, softcap: float = 0.0, window: int = 0, split: int = SPLIT_KEYS,
 ):
-    """The split-KV decode kernel's per-split partials, in plain PyTorch.
+    """The split-KV decode kernel's per-split partials, in plain PyTorch
+    (``split_partials`` on the kernel's key slots).
 
-    Prefix split i holds prefix keys [i*split, (i+1)*split); the tail is cut
-    the same way after the ``ceil(P*page / split)`` prefix splits (at least
-    one split in all).  A key is attended as in ``paged_decode_attention_ref``,
-    except that a block-table entry outside [0, N) is no key (the kernel's
-    rule).  A row with no valid key by index (no prefix key under
-    ``prefix_len``, ``cur_pos`` and the window, no valid tail position)
-    weights every key of every split equally, page ids wrapped and clamped
-    as the reference's gather does: each split gives m = 0, l = its key
-    count, acc = the sum of its value rows, and the merge gives their mean.
-    ``cur_pos=None`` puts the query at ``prefix_len`` (the T = 0 entry of
-    ``paged_attention``).  Heads are independent, so the kernel's CTAs of
-    at most 8 heads (G > 8) change nothing here.  Returns f32 (m, l, acc)
-    of shapes [B, KV, n_split, G], [B, KV, n_split, G] and
-    [B, KV, n_split, G, D]; an empty split has m = -inf, l = 0, acc = 0.
+    The first ``n_pos = max(1, ceil((P*page + T) / split))`` splits hold
+    positions [i*split, (i+1)*split): position x is the prefix page key when
+    x < min(prefix_len, P*page) (no key when its table entry is outside
+    [0, N)), else the tail slot t = x - prefix_len when tail_pos[t] == x
+    (and 0 <= prefix_len <= P*page).  A tail slot at any other valid
+    position takes one of ``ceil(T / split)`` more splits by slot index.  A
+    row with no valid key by index (no prefix key under ``prefix_len``,
+    ``cur_pos`` and the window, no valid tail position) instead weights
+    every key of its gathered window equally: position splits by gathered
+    index (every table column, page ids wrapped and clamped as the
+    reference's gather does, then every tail slot), each key scoring 0, so
+    the merge gives their mean.  ``cur_pos=None`` puts the query at
+    ``prefix_len`` (the T = 0 entry of ``paged_attention``).  Returns f32
+    (m, l, acc) of shapes [B, KV, n_split, G], [B, KV, n_split, G] and
+    [B, KV, n_split, G, D].
     """
     B, KV, G, D = q.shape
     N, page = k_pages.shape[1], k_pages.shape[2]
     P, T = block_tables.shape[1], k_tail.shape[2]
-    n_pre, n_tail = -(-P * page // split), -(-T // split)
-    n = max(1, n_pre + n_tail)
+    PP = P * page
+    n_pos, n_irr = max(1, -(-(PP + T) // split)), -(-T // split)
+    X = n_pos * split
+    dev = q.device
     bt = block_tables.long()
     ids = _gather_ids(bt, N)
-    kd = k_pages[:, ids].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
-    vd = v_pages[:, ids].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
+    kd = k_pages[:, ids].permute(1, 0, 2, 3, 4).reshape(B, KV, PP, D)
+    vd = v_pages[:, ids].permute(1, 0, 2, 3, 4).reshape(B, KV, PP, D)
+    plen = prefix_len.long()[:, None]
     cur = (prefix_len if cur_pos is None else cur_pos).long()[:, None]
-    kidx = torch.arange(P * page, device=q.device)[None]
-    pre_ok = (kidx < prefix_len.long()[:, None]) & (kidx <= cur)
+    n_prefix = plen.clamp(0, PP)
+    regular = (plen >= 0) & (plen <= PP)
     tpos = tail_pos.long()
+    kidx = torch.arange(PP, device=dev)[None]
+    pre_ok = (kidx < plen) & (kidx <= cur)
     tail_ok = (tpos >= 0) & (tpos <= cur)
     if window:
         pre_ok &= cur - kidx < window
         tail_ok &= cur - tpos < window
     none = ~(pre_ok.any(dim=1) | tail_ok.any(dim=1))  # [B]: no valid key by index
-    pre_ok = (pre_ok & ((bt >= 0) & (bt < N)).repeat_interleave(page, dim=1)) | none[:, None]
-    tail_ok = tail_ok | none[:, None]
-    fill_pre, fill_tail = n_pre * split - P * page, n_tail * split - T
-    fill_end = (n - n_pre - n_tail) * split
-    keys = lambda a, b, d, v=0: _pad_keys(
-        torch.cat([_pad_keys(a, fill_pre, d, v), _pad_keys(b, fill_tail, d, v)], dim=d), fill_end, d, v)
-    k_all = keys(kd, k_tail, 2).float().reshape(B, KV, n, split, D)
-    v_all = keys(vd, v_tail, 2).float().reshape(B, KV, n, split, D)
-    valid = keys(pre_ok, tail_ok, 1, False).reshape(B, 1, n, 1, split)
-    s = torch.einsum("bkgd,bknsd->bkngs", q.float(), k_all) / math.sqrt(D)
-    if softcap:
-        s = softcap * torch.tanh(s / softcap)
-    s = torch.where(none[:, None, None, None, None], 0.0, s)
-    s = s.masked_fill(~valid, -math.inf)
-    m = s.amax(dim=-1)
-    w = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
-    return m, w.sum(dim=-1), torch.einsum("bkngs,bknsd->bkngd", w, v_all)
+    x = torch.arange(X, device=dev)[None].expand(B, X)
+    page_id_ok = ((bt >= 0) & (bt < N)).repeat_interleave(page, dim=1)  # [B, PP]
+    on_page = (x < n_prefix) & torch.cat(
+        [page_id_ok, torch.zeros((B, X - PP), dtype=torch.bool, device=dev)], dim=1)[:, :X]
+    t = (x - plen).clamp(0, max(T - 1, 0))
+    on_tail = regular & (x >= plen) & (x - plen < T)
+    if T:
+        on_tail &= torch.gather(tpos, 1, t) == x
+    # the gathered window of a row with no valid key: table columns, then tail slots
+    g_page, g_tail = x < PP, (x >= PP) & (x - PP < T)
+    tg = (x - PP).clamp(0, max(T - 1, 0))
+    on_page = torch.where(none[:, None], g_page, on_page)
+    on_tail = torch.where(none[:, None], g_tail, on_tail)
+    t = torch.where(none[:, None], tg, t)
 
+    def keys(pages, tail):
+        pg = _slots(pages, n_pos, split, 2)
+        tl = _take(tail, t) if T else torch.zeros_like(pg.flatten(2, 3))
+        tl = _slots(tl, n_pos, split, 2)
+        return torch.where(_slots(on_page, n_pos, split, 1)[:, None, ..., None], pg,
+                           torch.where(_slots(on_tail, n_pos, split, 1)[:, None, ..., None], tl, 0))
 
-def _tiled_partials(q, k, v, valid, softcap, block_k, p_dtype):
-    """Per-split (m, l, acc) of q [B, KV, G, C, D] over k, v
-    [B, KV, n, S, D] with valid [B, n, C, S]: an f32 online softmax over
-    tiles of ``block_k`` keys (0: one tile), the weights rounded to
-    ``p_dtype`` before they multiply V."""
-    B, KV, G, C, D = q.shape
-    n, S = k.shape[2], k.shape[3]
-    m = torch.full((B, KV, n, G, C), -math.inf, device=q.device)
-    l = torch.zeros((B, KV, n, G, C), device=q.device)
-    acc = torch.zeros((B, KV, n, G, C, D), device=q.device)
-    step = block_k or max(S, 1)
-    for k0 in range(0, S, step):
-        kt, vt = k[:, :, :, k0 : k0 + step], v[:, :, :, k0 : k0 + step]
-        s = torch.einsum("bkgcd,bknsd->bkngcs", q, kt) / math.sqrt(D)
-        if softcap:
-            s = softcap * torch.tanh(s / softcap)
-        s = s.masked_fill(~valid[:, None, :, None, :, k0 : k0 + step], -math.inf)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        base = torch.where(torch.isinf(m_new), 0.0, m_new)
-        corr = torch.exp(m - base)
-        w = torch.exp(s - base[..., None])
-        l = l * corr + w.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bkngcs,bknsd->bkngcd", w.to(p_dtype).float(), vt)
-        m = m_new
-    return m, l, acc
+    k_all, v_all = keys(kd, k_tail), keys(vd, v_tail)
+    present = _slots(on_page | on_tail, n_pos, split, 1)
+    kpos = _slots(x, n_pos, split, 1)
+    if n_irr:  # tail slots at other positions, by slot index
+        ti = torch.arange(n_irr * split, device=dev)[None].expand(B, -1)
+        tp = torch.gather(tpos, 1, ti.clamp(max=T - 1))
+        irr = (ti < T) & (tp >= 0) & ~(regular & (tp == plen + ti)) & ~none[:, None]
+        ki = _slots(torch.where(irr[:, None, :, None], _take(k_tail, ti.clamp(max=T - 1)), 0), n_irr, split, 2)
+        vi = _slots(torch.where(irr[:, None, :, None], _take(v_tail, ti.clamp(max=T - 1)), 0), n_irr, split, 2)
+        k_all, v_all = torch.cat([k_all, ki], dim=2), torch.cat([v_all, vi], dim=2)
+        present = torch.cat([present, _slots(irr, n_irr, split, 1)], dim=1)
+        kpos = torch.cat([kpos, _slots(tp, n_irr, split, 1)], dim=1)
+    n = n_pos + n_irr
+    flat = lambda a: a.flatten(0, 1)
+    rep = lambda a: a[:, None].expand(B, KV, *a.shape[1:])
+    m, l, acc = split_partials(
+        flat(q), flat(cur[:, None].expand(B, KV, G)), flat(k_all), flat(v_all),
+        flat(rep(kpos)), flat(rep(present)), causal=True, window=window, softcap=softcap,
+        uniform=flat(none[:, None].expand(B, KV)))
+    return (m.reshape(B, KV, n, G), l.reshape(B, KV, n, G), acc.reshape(B, KV, n, G, D))
 
 
 def paged_prefill_split_partials(
     q, k_pages, v_pages, block_tables, prefix_len, k_chunk, v_chunk,
-    *, softcap: float = 0.0, window: int = 0, split: int = PREFILL_SPLIT_KEYS,
+    *, softcap: float = 0.0, window: int = 0, split: int = SPLIT_KEYS,
     block_k: int = 0, p_dtype=torch.float32,
 ):
-    """The bf16 chunked-prefill kernel's per-split partials, in plain PyTorch.
+    """The chunked-prefill kernel's per-split partials, in plain PyTorch
+    (``split_partials`` on the kernel's key slots).
 
-    Prefix split i holds prefix keys [i*split, (i+1)*split) for the
-    ``ceil(P*page / split)`` prefix splits; the chunk's C keys form the last
-    split.  Row (g, c) sits at position ``prefix_len + c`` and attends as in
-    ``paged_prefill_attention_ref``, except that a block-table entry outside
-    [0, N) is no key (the kernel's rule).  Within a split the keys are
-    walked in tiles of ``block_k`` (0: all at once) by an f32 online softmax
-    whose weights are rounded to ``p_dtype`` before they multiply V (the
-    kernel: 64-key tiles and bf16 weights; its two warpgroups take alternate
-    tiles and merge, which moves only the f32 rounding).  Returns f32
+    The first ``n_pos = ceil((P*page + C) / split)`` splits hold positions
+    [i*split, (i+1)*split): position x is the prefix page key when
+    x < min(prefix_len, P*page) (no key when its table entry is outside
+    [0, N)), else chunk key x - prefix_len (when 0 <= prefix_len <=
+    P*page).  The chunk is not a split of its own: its keys join the
+    splits their positions fall in, so a chunk's start moves no key to
+    another split.  (With prefix_len past P*page the chunk takes
+    ``ceil(C / split)`` more splits by chunk index.)  Row (g, c) sits at
+    position ``prefix_len + c`` and attends causally.  Returns f32
     (m, l, acc) of shapes [B, KV, n_split, G, C], the same and
-    [B, KV, n_split, G, C, D]; an empty split has m = -inf, l = 0, acc = 0.
+    [B, KV, n_split, G, C, D].
     """
     B, KV, G, C, D = q.shape
     N, page = k_pages.shape[1], k_pages.shape[2]
     P = block_tables.shape[1]
-    n_pre = -(-P * page // split)
+    PP = P * page
+    n_pos, n_irr = -(-(PP + C) // split), -(-C // split)
+    X = n_pos * split
+    dev = q.device
     bt = block_tables.long()
     safe = bt.clamp(0, N - 1)
-    kd = k_pages[:, safe].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
-    vd = v_pages[:, safe].permute(1, 0, 2, 3, 4).reshape(B, KV, P * page, D)
-    plen = prefix_len.long()[:, None, None]
-    c = torch.arange(C, device=q.device)
-    kidx = torch.arange(P * page, device=q.device)
-    pre_ok = ((bt >= 0) & (bt < N)).repeat_interleave(page, dim=1)[:, None, :] & (kidx < plen)
-    chunk_ok = (c[None, :] <= c[:, None])[None]  # [1, C, C]: key t <= row c
-    if window:
-        pre_ok = pre_ok & (plen + c[:, None] - kidx < window)
-        chunk_ok = chunk_ok & (c[:, None] - c[None, :] < window)
-    fill = n_pre * split - P * page
-    k_pre = _pad_keys(kd, fill, 2).float().reshape(B, KV, n_pre, split, D)
-    v_pre = _pad_keys(vd, fill, 2).float().reshape(B, KV, n_pre, split, D)
-    ok_pre = _pad_keys(pre_ok.expand(B, C, P * page), fill, 2, False).reshape(B, C, n_pre, split)
-    qf = q.float()
-    pre = _tiled_partials(qf, k_pre, v_pre, ok_pre.transpose(1, 2), softcap, block_k, p_dtype)
-    own = _tiled_partials(qf, k_chunk[:, :, None].float(), v_chunk[:, :, None].float(),
-                          chunk_ok.expand(B, C, C)[:, None], softcap, block_k, p_dtype)
-    return tuple(torch.cat([a, b], dim=2) for a, b in zip(pre, own))
+    kd = k_pages[:, safe].permute(1, 0, 2, 3, 4).reshape(B, KV, PP, D)
+    vd = v_pages[:, safe].permute(1, 0, 2, 3, 4).reshape(B, KV, PP, D)
+    plen = prefix_len.long()[:, None]
+    n_prefix = plen.clamp(0, PP)
+    regular = (plen >= 0) & (plen <= PP)
+    x = torch.arange(X, device=dev)[None].expand(B, X)
+    page_id_ok = ((bt >= 0) & (bt < N)).repeat_interleave(page, dim=1)
+    on_page = (x < n_prefix) & torch.cat(
+        [page_id_ok, torch.zeros((B, X - PP), dtype=torch.bool, device=dev)], dim=1)[:, :X]
+    on_chunk = regular & (x >= plen) & (x - plen < C)
+    t = (x - plen).clamp(0, C - 1)
+
+    def keys(pages, chunk):
+        pg = _slots(pages, n_pos, split, 2)
+        ch = _slots(_take(chunk, t), n_pos, split, 2)
+        return torch.where(_slots(on_page, n_pos, split, 1)[:, None, ..., None], pg,
+                           torch.where(_slots(on_chunk, n_pos, split, 1)[:, None, ..., None], ch, 0))
+
+    k_all, v_all = keys(kd, k_chunk), keys(vd, v_chunk)
+    present = _slots(on_page | on_chunk, n_pos, split, 1)
+    kpos = _slots(x, n_pos, split, 1)
+    # the chunk by chunk index, for a prefix_len past the table
+    ti = torch.arange(n_irr * split, device=dev)[None].expand(B, -1)
+    irr = ~regular & (ti < C)
+    tc = ti.clamp(max=C - 1)
+    k_all = torch.cat([k_all, _slots(torch.where(irr[:, None, :, None], _take(k_chunk, tc), 0), n_irr, split, 2)], dim=2)
+    v_all = torch.cat([v_all, _slots(torch.where(irr[:, None, :, None], _take(v_chunk, tc), 0), n_irr, split, 2)], dim=2)
+    present = torch.cat([present, _slots(irr, n_irr, split, 1)], dim=1)
+    kpos = torch.cat([kpos, _slots(plen + ti, n_irr, split, 1)], dim=1)
+    n = n_pos + n_irr
+    rows = q.reshape(B * KV, G * C, D)  # row g * C + c
+    qpos = (plen + torch.arange(C, device=dev)[None])[:, None, None, :].expand(B, KV, G, C)
+    rep = lambda a: a[:, None].expand(B, KV, *a.shape[1:]).flatten(0, 1)
+    m, l, acc = split_partials(
+        rows, qpos.reshape(B * KV, G * C), k_all.flatten(0, 1), v_all.flatten(0, 1), rep(kpos),
+        rep(present), causal=True, window=window, softcap=softcap, block_k=block_k,
+        p_dtype=p_dtype)
+    return (m.reshape(B, KV, n, G, C), l.reshape(B, KV, n, G, C), acc.reshape(B, KV, n, G, C, D))
 
 
 def paged_prefill_attention_split_ref(*args, softcap: float = 0.0, window: int = 0,
-                                      split: int = PREFILL_SPLIT_KEYS, block_k: int = 0,
+                                      split: int = SPLIT_KEYS, block_k: int = 0,
                                       p_dtype=torch.float32):
-    """``paged_prefill_attention`` as the bf16 split-KV kernel computes it
-    (a row with no valid key gives zeros); ``block_k=64`` with bf16
-    ``p_dtype`` models its tensor-core arithmetic."""
+    """``paged_prefill_attention`` as the split-KV kernel computes it (a row
+    with no valid key gives zeros); ``block_k`` and ``p_dtype`` as in
+    ``split_partials``."""
     out = merge_split_partials(*paged_prefill_split_partials(
         *args, softcap=softcap, window=window, split=split, block_k=block_k, p_dtype=p_dtype))
     return out.to(args[0].dtype)
-
-
-def merge_split_partials(m, l, acc):
-    """The split merge (``csrc/split_merge.cuh``): M = max m_i, out =
-    sum acc_i exp(m_i - M) / max(sum l_i exp(m_i - M), 1e-30), empty splits
-    skipped (the kernel folds the splits in one pass with a running max,
-    which moves only the f32 rounding).  m, l: [B, KV, n_split, *rows];
-    acc: [B, KV, n_split, *rows, D] -> [B, KV, *rows, D] f32 (rows: G at
-    decode, G, C at prefill)."""
-    M = m.amax(dim=2, keepdim=True)
-    w = torch.where(torch.isinf(m), 0.0, torch.exp(m - torch.where(torch.isinf(M), 0.0, M)))
-    L = (l * w).sum(dim=2)
-    return (acc * w[..., None]).sum(dim=2) / L.clamp_min(1e-30)[..., None]
 
 
 def paged_decode_attention_split_ref(*args, softcap: float = 0.0, window: int = 0,
@@ -420,16 +530,14 @@ def paged_attention_split_ref(q, k_pages, v_pages, block_tables, lengths, *,
 
 def pad_heads(name, q, *others):
     """Check that ``q`` is a kernel operand (a CUDA tensor of a kernel's
-    dtype, head dim <= ``MAX_HEAD_DIM``), then zero-pad ``q`` and ``others`` (None
-    passes through) on the last axis to the next multiple of the 16-byte
-    vector width.  Returns (unpadded D, the padded tensors)."""
+    dtype), then zero-pad ``q`` and ``others`` (None passes through) on the
+    last axis to the next multiple of the 16-byte vector width.  Returns
+    (unpadded D, the padded tensors)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
     D = q.shape[-1]
-    if D > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head_dim {D} must be <= {MAX_HEAD_DIM}")
     vec = 16 // q.element_size()  # elements per 16-byte vector load
     pad = -D % vec
     if pad:
@@ -446,9 +554,8 @@ def _check_operands(name, q, k_pages, v_pages, extras, ints):
         raise TypeError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
     vec = 16 // q.element_size()  # elements per 16-byte vector load
     D = q.shape[-1]
-    if D > MAX_HEAD_DIM or D % vec:
-        raise ValueError(f"{name}: head_dim {D} must be <= {MAX_HEAD_DIM} and a multiple of "
-                         f"{vec} for {q.dtype}")
+    if D % vec:
+        raise ValueError(f"{name}: head_dim {D} must be a multiple of {vec} for {q.dtype}")
     for t in (k_pages, v_pages, *extras):
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"{name}: every operand must be {q.dtype} on {dev}")
@@ -459,7 +566,7 @@ def _check_operands(name, q, k_pages, v_pages, extras, ints):
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the head dimension must be contiguous")
     for t in (k_pages, v_pages, *extras):
-        if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
+        if t.data_ptr() % 16 or any(s % vec for s, n in zip(t.stride()[:-1], t.shape) if n > 1):
             raise ValueError(f"{name}: operands must be 16-byte aligned for vector loads")
     for t in ints:
         if t.device != dev or t.dtype != torch.int32 or not t.is_contiguous():
@@ -479,8 +586,8 @@ def _split_decode(name, q, k_pages, v_pages, block_tables, prefix_len, k_tail, v
     out = torch.empty((B, KV, G, D), dtype=q.dtype, device=q.device)
     if B == 0:
         return out
-    n_pre = -(-P * page // SPLIT_KEYS)
-    n_split = max(1, n_pre + -(-T // SPLIT_KEYS))
+    n_pos = max(1, -(-(P * page + T) // SPLIT_KEYS))
+    n_split = n_pos + -(-T // SPLIT_KEYS)
     part = torch.empty(B * KV * n_split * G * (D + 2), dtype=torch.float32, device=q.device)
     qs = q.stride()
     es = (0, 0, 0) if k_tail is None else k_tail.stride()
@@ -491,7 +598,7 @@ def _split_decode(name, q, k_pages, v_pages, block_tables, prefix_len, k_tail, v
         block_tables.data_ptr(), prefix_len.data_ptr(), ptr(k_tail), ptr(v_tail),
         ptr(tail_pos), ptr(cur_pos), out.data_ptr(), part.data_ptr(),
         qs[0], qs[1], qs[2], es[0], es[1], es[2],
-        B, KV, G, D, N, page, P, T, SPLIT_KEYS, n_pre, n_split,
+        B, KV, G, D, N, page, P, T, SPLIT_KEYS, n_pos, n_split,
         1.0 / math.sqrt(d_true), float(softcap), int(window),
     )
     if rc != 0:
@@ -574,23 +681,21 @@ def paged_prefill_attention(
     out = torch.empty((B, KV, G, C, D), dtype=q.dtype, device=q.device)
     if B == 0 or C == 0:
         return out
-    # bfloat16 up to D = 256 (the tensor cores): the prefix splits over the
-    # table's width, then the chunk's split; f32 (m, l, acc) per split and
-    # row for the merge.  The SIMT kernel (f32, or D past 256) needs none.
-    n_pre = -(-P * page // PREFILL_SPLIT_KEYS)
-    n_split = n_pre + 1
-    part = None
-    if q.dtype == torch.bfloat16 and D <= 256:
-        part = torch.empty(B * KV * n_split * G * C * (D + 2), dtype=torch.float32, device=q.device)
+    # the position splits over the table's width and the chunk, then the
+    # splits a prefix_len past the table would send the chunk to; f32
+    # (m, l, acc) per split and row for the merge
+    n_pos = -(-(P * page + C) // SPLIT_KEYS)
+    n_split = n_pos + -(-C // SPLIT_KEYS)
+    part = torch.empty(B * KV * n_split * G * C * (D + 2), dtype=torch.float32, device=q.device)
     qs = q.stride()
     es = k_chunk.stride()
     rc = build.launch(
         _lib().paged_attention_forward, q.device,
         _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_tables.data_ptr(), prefix_len.data_ptr(), k_chunk.data_ptr(),
-        v_chunk.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(),
+        v_chunk.data_ptr(), out.data_ptr(), part.data_ptr(),
         qs[0], qs[1], qs[2], qs[3], es[0], es[1], es[2],
-        B, KV, G, C, D, N, page, P, PREFILL_SPLIT_KEYS, n_pre, n_split,
+        B, KV, G, C, D, N, page, P, SPLIT_KEYS, n_pos, n_split,
         1.0 / math.sqrt(d_true), float(softcap), int(window),
     )
     if rc != 0:

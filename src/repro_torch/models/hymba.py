@@ -47,6 +47,7 @@ from repro_torch.models.layers import (
     make_norm,
     mlp_apply,
     mlp_init,
+    proj,
     remat_call,
     slot_update,
 )
@@ -169,7 +170,7 @@ def prefill(params, cfg, batch, cache_len: int, mesh=None):
     x, (ck, cv, nst) = forward_hidden(params, cfg, x, positions, cache["ssm"], collect_cache=True,
                                       mesh=mesh)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = (x[:, -1] @ unembed(cfg, params)).float()
+    logits = proj(x[:, -1], unembed(cfg, params)).float()
     if mesh is not None:
         cache = tf_sharded_prefill_cache(cfg, ck, cv, positions, cache_len)
         cache["ssm"] = nst
@@ -206,6 +207,6 @@ def decode_step(params, cfg, cache, tokens, cur_pos, mesh=None):
         vs.append(nv)
         states.append(nst)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = (x[:, 0] @ unembed(cfg, params)).float()
+    logits = proj(x[:, 0], unembed(cfg, params)).float()
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs), "pos": new_pos,
                     "ssm": _stack_states(states)}

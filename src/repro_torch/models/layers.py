@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gemm as gemm_lib
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.sharding.rules import as_replicated, placements, split_dim
 
@@ -172,16 +173,25 @@ def hold_grad_layout(t):
 
 
 def proj(x, w):
-    """``x @ w``.  A DTensor ``x`` sharded on a dim between its first and
-    its last (the sequence of sequence-parallel activations) is gathered on
-    that dim first, as a sequence-parallel layer gathers the sequence
-    before its projections (Megatron's SP -> TP transition), and the
-    product's grad is held to the product's layout: the product flattens
-    [B, S], which DTensor before torch 2.13 refuses with S sharded.  A
-    plain tensor is multiplied as it is."""
-    if not is_dtensor(x) or x.ndim <= 2:
-        return x @ w
-    return hold_grad_layout(unshard_dims(x, range(1, x.ndim - 1)) @ w)
+    """``x @ w``.  Plain bf16 operands of which none requires grad (the
+    serving paths) go to the row-invariant GEMM (``kernels/gemm.py``; on
+    the CPU its plain version is ``x @ w``), so a row's product does not
+    depend on how many rows ride with it.  Training (an operand requiring
+    grad), DTensors and other dtypes keep ``x @ w``.  A DTensor ``x``
+    sharded on a dim between its first and its last (the sequence of
+    sequence-parallel activations) is gathered on that dim first, as a
+    sequence-parallel layer gathers the sequence before its projections
+    (Megatron's SP -> TP transition), and the product's grad is held to the
+    product's layout: the product flattens [B, S], which DTensor before
+    torch 2.13 refuses with S sharded."""
+    if is_dtensor(x):
+        if x.ndim <= 2:
+            return x @ w
+        return hold_grad_layout(unshard_dims(x, range(1, x.ndim - 1)) @ w)
+    if (not is_dtensor(w) and x.dtype == w.dtype == torch.bfloat16 and w.ndim == 2
+            and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad))):
+        return gemm_lib.gemm(x, w)
+    return x @ w
 
 
 def merge_heads(t, keep: int):
@@ -831,7 +841,7 @@ def attn_paged_prefill_layer(p, cfg, x, k_pages, v_pages, block_tables, prefix_l
         q, k_pages, v_pages, block_tables, prefix_len, k, v, positions,
         window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
     )
-    out = out.reshape(B, C, -1) @ p["wo"]
+    out = proj(out.reshape(B, C, -1), p["wo"])
     return out, (k, v)
 
 
@@ -855,7 +865,7 @@ def attn_paged_decode_layer(
         new_tk, new_tv, tail_pos, cur_pos,
         window=cfg.sliding_window, softcap=cfg.attn_logit_softcap,
     )
-    out = out.reshape(B, 1, -1) @ p["wo"]
+    out = proj(out.reshape(B, 1, -1), p["wo"])
     return out, new_tk, new_tv
 
 

@@ -70,6 +70,7 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_init,
     pad_to,
+    proj,
     remat_call,
     slot_update,
     unshard_dims,
@@ -338,7 +339,7 @@ def prefill(params, cfg, batch, cache_len: int, *, mesh=None, moe_strategy: str 
     x, _, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True,
                                     mesh=mesh, moe_strategy=moe_strategy)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = (x[:, -1] @ unembed(cfg, params)).float()
+    logits = proj(x[:, -1], unembed(cfg, params)).float()
     if mesh is not None:
         return logits, _sharded_prefill_cache(cfg, ck, cv, positions, cache_len)
     cache = make_cache(cfg, B, cache_len, device=x.device)
@@ -388,7 +389,7 @@ def decode_step(params, cfg, cache, tokens, cur_pos, *, mesh=None, moe_strategy:
         out["k"].append(nk)
         out["v"].append(nv)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = (x[:, 0] @ unembed(cfg, params)).float()
+    logits = proj(x[:, 0], unembed(cfg, params)).float()
     new_cache = {key: torch.stack(ts) for key, ts in out.items()}
     new_cache["pos"] = new_pos
     return logits, new_cache
@@ -427,7 +428,7 @@ def prefill_collect(params, cfg, batch):
         last = torch.full((B,), St - 1, device=x.device, dtype=torch.long)
     else:
         last = valid_len.long() + P - 1
-    logits = (x[torch.arange(B, device=x.device), last] @ unembed(cfg, params)).float()
+    logits = proj(x[torch.arange(B, device=x.device), last], unembed(cfg, params)).float()
     return logits, ck, cv
 
 
@@ -492,6 +493,6 @@ def paged_decode_step(params, cfg, state, tokens, cur_pos):
         ks.append(ntk)
         vs.append(ntv)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = (x[:, 0] @ unembed(cfg, params)).float()
+    logits = proj(x[:, 0], unembed(cfg, params)).float()
     new_state = dict(state, k_tail=torch.stack(ks), v_tail=torch.stack(vs), tail_pos=tail_pos)
     return logits, new_state

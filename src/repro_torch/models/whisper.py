@@ -247,7 +247,7 @@ def prefill(params, cfg, batch, cache_len: int, mesh=None):
     enc_states = encode(params, cfg, frames, mesh=mesh)
     x, (ck, cv, xk, xv) = decode_prefill(params, cfg, tokens, enc_states, collect_cache=True,
                                          mesh=mesh)
-    logits = (x[:, -1] @ params["embed"].T).float()
+    logits = proj(x[:, -1], params["embed"].T).float()
     if mesh is not None:  # the same slots, by concatenation (``layers.pad_to``)
         keep, Tc = min(cache_len, S), min(cfg.cross_attend_len, xk.shape[2])
         return logits, {
@@ -303,7 +303,7 @@ def decode_step(params, cfg, cache, tokens, cur_pos, mesh=None):
         ks.append(nk)
         vs.append(nv)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = (x[:, 0] @ params["embed"].T).float()
+    logits = proj(x[:, 0], params["embed"].T).float()
     new_cache = dict(cache)
     new_cache.update(k=torch.stack(ks), v=torch.stack(vs), pos=new_pos)
     return logits, new_cache

@@ -358,7 +358,7 @@ def prefill(params, cfg, batch, cache_len: int = 0, mesh=None):
     x = embed_tokens(params, cfg, tokens)
     x, state = _stack_forward(params, cfg, x, init_state(cfg, B, device=tokens.device), mesh=mesh)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = (x[:, -1] @ params["embed"].T).float()
+    logits = proj(x[:, -1], params["embed"].T).float()
     return logits, state
 
 
@@ -368,5 +368,5 @@ def decode_step(params, cfg, state, tokens, cur_pos, mesh=None):
     x = embed_tokens(params, cfg, tokens)[:, None, :]
     x, state = _stack_forward(params, cfg, x, state, mesh=mesh)
     x = apply_norm(cfg.norm, params["final_norm"], x)
-    logits = (x[:, 0] @ params["embed"].T).float()
+    logits = proj(x[:, 0], params["embed"].T).float()
     return logits, state

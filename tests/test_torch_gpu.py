@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gemm
 from repro_torch.kernels import kv_block_copy as kbc
 from repro_torch.kernels import paged_attention as pa
 
@@ -304,8 +305,8 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, B, H, KV, Sq, Sk, D, c
 def test_flash_attention_tensor_core_head_dims(dev, B, H, KV, Sq, Sk, D, causal, window, softcap):
     """bf16 at head_dims 80 (tiles padded to 128 columns), 16, 160, 144 and
     24, and 192 and 256 (one K/V stage per warpgroup) through the
-    tensor-core kernel: within 2e-2 of the plain version, and of the plain
-    model of its own arithmetic (weights rounded to bf16 before PV)."""
+    tensor-core kernel: within 2e-2 of the plain version, and of the tiled
+    plain model (f32 weights: the kernel keeps about 16 bits of them)."""
     rng = np.random.default_rng(3)
     bf = torch.bfloat16
     q = _t(rng.normal(size=(B, Sq, H, D)), bf, dev).transpose(1, 2)
@@ -354,13 +355,14 @@ def test_flash_attention_query_offset_sharded_prefill_shape(dev):
     _close(got, fa.flash_attention_ref(q, k, v, causal=True, q_offset=1024), bf)
 
 
-# Head dims past 256 (repair of the 256 bound): K1/K4's wide split kernel,
-# K2's and K5's SIMT kernels with 512-column instantiations, in both
-# dtypes; 300 is zero-padded to 304 in bf16.  G = 5 with a window and a
-# soft-cap, G = 12 (two head groups at decode).
+# Head dims past 256: every entry point's SIMT split kernel (the head dim
+# walked in slices of 512 columns), in both dtypes; 300 is zero-padded to
+# 304 in bf16, 640 and 1024 take two slices.  G = 5 with a window and a
+# soft-cap, G = 12 (two row groups of 8 at decode).
 WIDE_D = [(320, 2, 0, 0.0), (512, 2, 0, 0.0), (320, 5, 24, 30.0), (512, 12, 0, 20.0),
-          (300, 3, 0, 0.0)]
-WIDE_D_IDS = ["D320-G2", "D512-G2", "D320-G5-window-softcap", "D512-G12-softcap", "D300-G3"]
+          (300, 3, 0, 0.0), (640, 2, 24, 30.0), (1024, 3, 0, 0.0)]
+WIDE_D_IDS = ["D320-G2", "D512-G2", "D320-G5-window-softcap", "D512-G12-softcap", "D300-G3",
+              "D640-G2-window-softcap", "D1024-G3"]
 
 
 def _wide_call(kernel, rng, dtype, dev, D, G, window, softcap):
@@ -408,10 +410,15 @@ def test_wide_head_dim_kernels_match_plain(dev, kernel, dtype, D, G, window, sof
 
 @pytest.mark.parametrize("kernel", ["K1", "K2", "K4", "K5"])
 def test_head_dim_past_512_raises_on_card(dev, kernel):
-    fn, _, args, kw = _wide_call(kernel, np.random.default_rng(0), torch.bfloat16, dev, 520, 2,
-                                 0, 0.0)
-    with pytest.raises(ValueError, match="head_dim 520"):
-        fn(*args, **kw)
+    """Head dim 520, past the 512 that once bounded the kernels: it raises
+    nothing now, launches the kernel and matches the plain version (bf16,
+    2e-2)."""
+    fn, plain, args, kw = _wide_call(kernel, np.random.default_rng(0), torch.bfloat16, dev, 520,
+                                     2, 0, 0.0)
+    n0 = fn.launches
+    got = fn(*args, **kw)
+    assert fn.launches == n0 + 1 and got.shape[-1] == 520
+    _close(got, plain(*args, **kw), torch.bfloat16)
 
 
 def test_kernels_launch_on_their_operands_card(dev):
@@ -1148,7 +1155,7 @@ def test_int8_offload_and_restore_launch_k3(dev):
 def _launch_counts():
     return (fa.flash_attention.launches, kbc.kv_block_copy.launches,
             pa.paged_decode_attention.launches, pa.paged_prefill_attention.launches,
-            pa.paged_attention.launches)
+            pa.paged_attention.launches, gemm.gemm.launches)
 
 
 def test_training_step_on_card_matches_cpu(dev):
@@ -1338,3 +1345,188 @@ def test_four_cards_router_serves_on_every_card(four_cards):
     assert sorted(lc) == [f"cuda:{i}" for i in range(4)]
     assert all(c["K1"] > 0 and c["K2"] > 0 for c in lc.values())
     assert lc["cuda:2"]["K3"] > 0
+
+
+# ---------------------------------------------------------------------------
+# one key order for every route, and the row-invariant GEMM
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("start", [0, 4, 32, 100])
+@pytest.mark.parametrize("G", [1, 2, 6, 7])
+@pytest.mark.parametrize("D", [64, 96, 128, 160, 256])
+def test_routes_give_the_same_bits_on_card(dev, D, G, start):
+    """K1 (a decode step per position, the tail at prefix_len + t), K2 (a
+    chunk starting at ``start``) and K5 (the whole sequence) give the same
+    query over the same keys the same bits in bf16, with a 20-key window
+    and soft-cap 30 when G is 6 or 7 (``tests/torch_route_scenes.py``);
+    each is within 2e-2 of its plain version."""
+    from torch_route_scenes import rows, scene
+
+    kw = dict(window=20, softcap=30.0) if G >= 6 else {}
+    sc = scene(start + 16, start, 16, G, D, seed=D + G + start, dtype=torch.bfloat16, device=dev)
+    counts = _launch_counts()
+    out = (fa.flash_attention(*sc["flash"]["args"], causal=True, **kw),
+           pa.paged_prefill_attention(*sc["chunk"]["args"], **kw),
+           pa.paged_decode_attention(*sc["decode"]["args"], **kw))
+    assert [b - a for a, b in zip(counts, _launch_counts())] == [1, 0, 1, 1, 0, 0]
+    _close(out[0], fa.flash_attention_ref(*sc["flash"]["args"], causal=True, **kw), torch.bfloat16)
+    _close(out[1], pa.paged_prefill_attention_ref(*sc["chunk"]["args"], **kw), torch.bfloat16)
+    _close(out[2], pa.paged_decode_attention_ref(*sc["decode"]["args"], **kw), torch.bfloat16)
+    f, c, d = rows(sc, *out)
+    torch.cuda.synchronize()
+    assert torch.equal(c, f), f"K2 differs from K5 by {float((c.float() - f.float()).abs().max())}"
+    assert torch.equal(d, f), f"K1 differs from K5 by {float((d.float() - f.float()).abs().max())}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [640, 1024])
+def test_wide_routes_give_the_same_bits_on_card(dev, dtype, D):
+    """Past head dim 256 every entry point runs the SIMT split kernel over
+    the same position splits: K1, K2 and K5 agree bitwise there too."""
+    from torch_route_scenes import rows, scene
+
+    sc = scene(80, 64, 16, 2, D, seed=D, dtype=dtype, device=dev)
+    out = (fa.flash_attention(*sc["flash"]["args"], causal=True),
+           pa.paged_prefill_attention(*sc["chunk"]["args"]),
+           pa.paged_decode_attention(*sc["decode"]["args"]))
+    f, c, d = rows(sc, *out)
+    torch.cuda.synchronize()
+    assert torch.equal(c, f) and torch.equal(d, f)
+    _close(out[0], fa.flash_attention_ref(*sc["flash"]["args"], causal=True), dtype)
+
+
+def test_attention_kernels_keep_16_bits_of_p_on_card(dev):
+    """P V at about the reference's precision.  Each value row is a unit
+    vector (``eye``), so an output column is one key's softmax weight p / l:
+    with P split into two bf16 terms (about 16 bits) K1, K2 and K5 round
+    nearly every nonzero output to the bf16 of the f32 plain version's,
+    where a P rounded once to bf16 (the plain model with ``p_dtype``) gets
+    about three in four."""
+    from torch_route_scenes import rows, scene
+
+    sc = scene(48, 32, 16, 2, 64, seed=9, dtype=torch.bfloat16, device=dev, eye=True)
+    fargs = sc["flash"]["args"]
+    exact = fa.flash_attention_ref(*[a.float() for a in fargs], causal=True).bfloat16()
+    once = fa.flash_attention_tiled_ref(*fargs, causal=True, p_dtype=torch.bfloat16)
+    out = (fa.flash_attention(*fargs, causal=True),
+           pa.paged_prefill_attention(*sc["chunk"]["args"]),
+           pa.paged_decode_attention(*sc["decode"]["args"]))
+    want = rows(sc, exact, out[1], out[2])[0]
+    rounded_once = rows(sc, once, out[1], out[2])[0]
+    nz = want != 0
+    share = lambda got: float((got[nz] == want[nz]).float().mean())
+    torch.cuda.synchronize()
+    assert share(rounded_once) < 0.9
+    for name, got in zip(("K5", "K2", "K1"), rows(sc, *out)):
+        assert share(got) >= 0.97, (name, share(got), share(rounded_once))
+
+
+# qwen3-1.7b's projection shapes (K, N): q/o 2048 x 2048, k/v 2048 x 1024,
+# the MLP's 2048 x 6144 and 6144 x 2048, and the tied LM head (embed.T of a
+# 151,936 x 2048 table, read in place)
+GEMM_SHAPES = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048), (2048, 151936)]
+GEMM_M = [1, 3, 8, 24, 32, 224, 4096]
+
+
+@pytest.mark.parametrize("K,N", GEMM_SHAPES, ids=[f"{k}x{n}" for k, n in GEMM_SHAPES])
+def test_gemm_rows_do_not_depend_on_m_on_card(dev, K, N):
+    """Each output row of the GEMM is bitwise the same for M in 1, 3, 8,
+    24, 32, 224 and 4096 (the same first rows of one activation draw),
+    and within 2e-2 of ``torch.matmul``; the LM head's weight is the
+    transposed view of its [N, K] table."""
+    g = torch.Generator(device=dev).manual_seed(K + N)
+    x = (0.5 * torch.randn((4096, K), generator=g, device=dev)).bfloat16()
+    if N > 100_000:
+        w = (torch.randn((N, K), generator=g, device=dev) * 0.02).bfloat16().T
+    else:
+        w = (torch.randn((K, N), generator=g, device=dev) / K ** 0.5).bfloat16()
+    full = gemm.gemm(x, w)
+    torch.cuda.synchronize()
+    _close(full, x @ w, torch.bfloat16)
+    for M in GEMM_M:
+        n0 = gemm.gemm.launches
+        part = gemm.gemm(x[:M], w)
+        torch.cuda.synchronize()
+        assert gemm.gemm.launches == n0 + 1
+        assert torch.equal(part, full[:M]), f"M = {M}"
+
+
+def test_gemm_tied_head_reads_the_table_in_place_on_card(dev):
+    """The tied LM head: ``embed.T`` of a 151,936 x 2048 table is read in
+    place (no copy) and gives the bits of the same weight laid out [K, N],
+    at decode (M = 8) and chunk (M = 32) widths, rows independent of M."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    embed = (torch.randn((151936, 2048), generator=g, device=dev) * 0.02).bfloat16()
+    x = torch.randn((32, 2048), generator=g, device=dev).bfloat16()
+    alloc = torch.cuda.memory_allocated(dev)
+    tied = gemm.gemm(x, embed.T)
+    assert torch.cuda.memory_allocated(dev) - alloc <= tied.numel() * 2 + 2 ** 20
+    untied = gemm.gemm(x, embed.T.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(tied, untied)
+    assert torch.equal(gemm.gemm(x[:8], embed.T), tied[:8])
+    _close(tied, x @ embed.T, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", [(5, 4, 13), (3, 40, 20), (2, 7, 1000)])
+def test_gemm_pads_odd_shapes_on_card(dev, shape):
+    """K or N not a multiple of 8 is zero-padded before the launch: the
+    result matches ``torch.matmul`` (2e-2) and the padded columns are gone."""
+    M, K, N = shape
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+    w = torch.randn((K, N), generator=g, device=dev).bfloat16()
+    got = gemm.gemm(x, w)
+    assert got.shape == (M, N)
+    _close(got, x @ w, torch.bfloat16)
+
+
+def test_serving_projections_take_the_gemm_on_card(dev):
+    """A reduced qwen3 engine's prefill and decode steps launch the GEMM
+    (``proj`` with no-grad bf16 operands) and serve a request to the end."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = reduced(get_config("qwen3-1.7b"))
+    params = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    params = _to(params, dev)
+    n0 = gemm.gemm.launches
+    with ServingEngine(build_model(cfg, device=dev), params, block_size=4, device_blocks=64,
+                       device=dev) as eng:
+        req = eng.submit(tuple(range(10, 30)), max_new_tokens=4)
+        eng.run(req)
+    assert req.status == "finished" and len(req.output_tokens) == 4
+    assert gemm.gemm.launches > n0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_off_position_keys_kernel_matches_plain(dev, kernel, dtype):
+    """Keys the position splits cannot hold take the extra splits: decode
+    tail slots off ``prefix_len + t`` and a prefix_len past the table (K1),
+    a chunk after a prefix_len past the table (K2); each kernel against its
+    plain version (1e-5 in f32, 2e-2 in bf16)."""
+    from torch_route_scenes import off_position
+
+    args, kw = off_position(kernel, dtype, dev)
+    fn, plain = ((pa.paged_decode_attention, pa.paged_decode_attention_ref) if kernel == "K1"
+                 else (pa.paged_prefill_attention, pa.paged_prefill_attention_ref))
+    n0 = fn.launches
+    got = fn(*args, **kw)
+    assert fn.launches == n0 + 1
+    _close(got, plain(*args, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wide_empty_row_kernel_matches_plain(dev, dtype):
+    """Past head dim 256 the split kernel's merge gives a row with no valid
+    key (Sq > Sk under a causal window) the mean of the Sk value rows, as
+    the plain version does."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev).to(dtype)
+    q, k, v = rnd(1, 2, 8, 320), rnd(1, 1, 4, 320), rnd(1, 1, 4, 320)
+    got = fa.flash_attention(q, k, v, causal=True, window=2)
+    _close(got, fa.flash_attention_ref(q, k, v, causal=True, window=2), dtype)
+    _close(got[0, :, 5:], v[0, 0].float().mean(dim=0).expand(2, 3, 320), dtype)

@@ -377,9 +377,11 @@ def test_paged_decode_split_plain_matches_jax(split_pages, window, softcap):
     pairs = [_pair(a, "float32") for a in _split_case(split, window, softcap)]
     jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
     m, l, acc = pa.paged_decode_split_partials(*targs, softcap=softcap, window=window, split=split)
-    n_pre = -(-20 // split)
-    assert m.shape == (3, 2, n_pre + -(-8 // split), 2) and acc.shape == m.shape + (16,)
-    assert bool(torch.isinf(m[1, :, 1:n_pre]).all())  # prefix split - 1: later prefix splits empty
+    n_pos = -(-(20 + 8) // split)  # position splits over the table's 20 keys and the 8 tail slots
+    assert m.shape == (3, 2, n_pos + -(-8 // split), 2) and acc.shape == m.shape + (16,)
+    cur = int(targs[8][1])  # row 1: no key past its position, no tail slot off its position
+    assert bool(torch.isinf(m[1, :, cur // split + 1 :]).all())
+    assert bool(torch.isinf(m[:, :, n_pos:]).all())  # every tail slot sits at prefix_len + t
     got = pa.merge_split_partials(m, l, acc)
     kw = dict(softcap=softcap, window=window)
     _close(got, ref.paged_decode_attention_ref(*jargs, **kw), "float32")
@@ -430,8 +432,12 @@ def test_paged_decode_split_plain_empty_row_gives_mean():
     as the kernel does; the other rows match the reference too (f32,
     1e-5)."""
     pairs, (m, l, acc) = _empty_row_partials()
-    assert bool((m[0] == 0).all()) and bool((l[0].sum(dim=1) == 5 * 4 + 8).all())
-    assert [float(x) for x in l[0, 0, :, 0]] == [8.0, 8.0, 4.0, 8.0]
+    # the gathered window by gathered index (20 table keys, then 8 tail
+    # slots) in four position splits; the split for off-position tail slots
+    # stays empty
+    assert bool((m[0, :, :4] == 0).all()) and bool(torch.isinf(m[0, :, 4:]).all())
+    assert bool((l[0].sum(dim=1) == 5 * 4 + 8).all())
+    assert [float(x) for x in l[0, 0, :, 0]] == [8.0, 8.0, 8.0, 4.0, 0.0]
     got = pa.merge_split_partials(m, l, acc)
     want = ref.paged_decode_attention_ref(*[p[0] for p in pairs])
     _close(got, want, "float32")
@@ -449,8 +455,9 @@ def test_paged_decode_split_plain_empty_row_gives_zeros():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,window,softcap", FLASH_CASES)
 def test_flash_attention_tiled_model_matches_jax(dtype, B, H, KV, Sq, Sk, D, causal, window, softcap):
-    """The tensor-core flash kernel's arithmetic (online softmax over
-    16-key tiles here, weights rounded to bf16 before PV) against the
+    """An online softmax over 16-key tiles with the weights rounded to bf16
+    before PV (the tensor-core kernels' arithmetic before they split P
+    into two bf16 terms) against the
     reference at the bf16 tolerance (2e-2: the rounded weights are within
     2^-9 of the reference's f32 ones); with f32 weights it holds 1e-5 in
     float32."""
@@ -458,7 +465,7 @@ def test_flash_attention_tiled_model_matches_jax(dtype, B, H, KV, Sq, Sk, D, cau
     kw = dict(causal=causal, window=window, softcap=softcap)
     want = ref.flash_attention_ref(*[p[0] for p in pairs], **kw)
     targs = [p[1] for p in pairs]
-    got = fa.flash_attention_tiled_ref(*targs, **kw, block_k=16)
+    got = fa.flash_attention_tiled_ref(*targs, **kw, block_k=16, p_dtype=torch.bfloat16)
     _close(got, want, "bfloat16")
     if dtype == "float32":
         exact = fa.flash_attention_tiled_ref(*targs, **kw, block_k=16, p_dtype=torch.float32)
@@ -495,9 +502,9 @@ def test_paged_prefill_split_plain_matches_jax(split_pages, window, softcap):
     jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
     kw = dict(softcap=softcap, window=window)
     m, l, acc = pa.paged_prefill_split_partials(*targs, **kw, split=split)
-    n_pre = -(-20 // split)
-    assert m.shape == (5, 2, n_pre + 1, 2, 8) and acc.shape == m.shape + (16,)
-    assert bool(torch.isinf(m[3, :, :n_pre]).all())  # the empty prefix: every prefix split empty
+    n_pos = -(-(20 + 8) // split)  # position splits over the table's 20 keys and the chunk
+    assert m.shape == (5, 2, n_pos + -(-8 // split), 2, 8) and acc.shape == m.shape + (16,)
+    assert bool(torch.isinf(m[3, :, -(-8 // split):]).all())  # the empty prefix: no key past the chunk
     if window:  # splits that end before the first chunk row's window
         first = 19 - window + 1
         assert bool(torch.isinf(m[4, :, : first // split]).all())
@@ -517,10 +524,10 @@ def test_paged_prefill_tiled_model_matches_jax(dtype, G, C):
     """G * C below, at and above the kernel's 64-row tile.  The split
     arithmetic (8-key splits, a 6-key window, softcap 20) holds the
     reference and the Pallas kernel in interpret mode at the dtype's
-    tolerance (1e-5 in f32, 2e-2 in bf16); the model of the tensor-core
-    arithmetic (4-key tiles in each split, weights rounded to bf16 before
-    PV) holds them at 2e-2 (the rounded weights are within 2^-9 of the
-    reference's f32 ones)."""
+    tolerance (1e-5 in f32, 2e-2 in bf16); a model with 4-key tiles in
+    each split and the weights rounded to bf16 before PV (coarser than the
+    kernels' two bf16 terms) holds them at 2e-2 (the rounded weights are
+    within 2^-9 of the reference's f32 ones)."""
     pairs = [_pair(a, dtype) for a in _prefill_split_case(G, C, 8)]
     jargs, targs = [p[0] for p in pairs], [p[1] for p in pairs]
     kw = dict(softcap=20.0, window=6)
@@ -539,9 +546,10 @@ def test_paged_prefill_tiled_model_matches_jax(dtype, G, C):
 @pytest.mark.parametrize(
     "header,users",
     [
-        ("common.cuh", {"paged_attention", "paged_decode", "flash_attention"}),
-        ("tensor_core.cuh", {"paged_attention", "flash_attention"}),
-        ("split_merge.cuh", {"paged_attention", "paged_decode"}),
+        ("common.cuh", {"paged_attention", "paged_decode", "flash_attention", "gemm"}),
+        ("tensor_core.cuh", {"paged_attention", "paged_decode", "flash_attention", "gemm"}),
+        ("split_merge.cuh", {"paged_attention", "paged_decode", "flash_attention"}),
+        ("attention_split.cuh", {"paged_attention", "paged_decode", "flash_attention"}),
     ],
 )
 def test_library_digest_covers_shared_headers(tmp_path, monkeypatch, header, users):
@@ -603,9 +611,8 @@ def test_paged_decode_plain_wide_heads_match_jax(dtype, D, G):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D,G", WIDE_CASES, ids=WIDE_IDS)
 def test_paged_prefill_plain_wide_heads_match_jax(dtype, D, G):
-    """The plain version, the split arithmetic and (bf16) the model of the
-    tensor-core arithmetic (weights rounded to bf16 before PV, 2e-2)
-    against the reference."""
+    """The plain version, the split arithmetic and a model with the
+    weights rounded to bf16 before PV (2e-2) against the reference."""
     rng = np.random.default_rng(32)
     B, KV, page, P, N, C = 3, 2, 4, 5, 16, 8
     draws = [
@@ -644,8 +651,8 @@ def test_paged_attention_plain_wide_heads_match_jax(dtype, D, G):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("D,G", WIDE_CASES, ids=WIDE_IDS)
 def test_flash_attention_plain_wide_heads_match_jax(dtype, D, G):
-    """K5's plain version and the tiled model of its tensor-core arithmetic
-    (weights rounded to bf16 before PV, 2e-2) against the reference, causal
+    """K5's plain version and the tiled model with weights rounded to bf16
+    before PV (2e-2) against the reference, causal
     with a 24-key window over a ragged 40-key tile edge."""
     B, KV, S = 1, 2, 40
     pairs = _flash_draws(B, KV * G, KV, S, S, D, dtype)
@@ -653,7 +660,8 @@ def test_flash_attention_plain_wide_heads_match_jax(dtype, D, G):
     want = ref.flash_attention_ref(*[p[0] for p in pairs], **kw)
     targs = [p[1] for p in pairs]
     _close(fa.flash_attention(*targs, **kw), want, dtype)
-    _close(fa.flash_attention_tiled_ref(*targs, **kw, block_k=16), want, "bfloat16")
+    _close(fa.flash_attention_tiled_ref(*targs, **kw, block_k=16, p_dtype=torch.bfloat16), want,
+           "bfloat16")
 
 
 # Head dims past 256: the card runs them on SIMT routes (K1/K4's wide split

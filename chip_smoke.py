@@ -7,8 +7,12 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      CUDA kernel from ``src/repro_torch/kernels/csrc`` with nvcc (seconds,
      each kernel's registers, shared memory and spills), and whether the
      SASS of the flash-attention, chunked-prefill, decode and GEMM
-     libraries holds tensor-core instructions;
-  2. every kernel against its plain PyTorch version on the card, at the
+     libraries holds tensor-core instructions (HGMMA, wgmma's, in the
+     flash-attention and GEMM libraries);
+  2. the wgmma probe (``repro_torch.bench.wgmma_probe``: a wgmma k16 step
+     must give mma.sync's bits on five input classes, or K5's wgmma
+     products would leave the route gates), then every kernel against its
+     plain PyTorch version on the card, at the
      shapes the serving path gives it (seeded bf16 inputs; f32 and int32 for
      the page copy), with times of the kernel, the plain version, the
      library call where one computes the same function, and the least time
@@ -277,11 +281,12 @@ def within(got, want, dtype) -> bool:
     return bool(torch.allclose(got.float(), want.float(), **TOLS[dtype]))
 
 
-def tensor_core_sass(label: str, lib):
+def tensor_core_sass(label: str, lib, hgmma: bool = False):
     """Start dumping a library's SASS (cuobjdump runs beside the kernel
     phase); the returned function waits for it, counts the tensor-core
     instructions (HGMMA for wgmma, HMMA for mma.sync) and fails if there is
-    none."""
+    none, or, with ``hgmma``, if there is no HGMMA (the kernel's products
+    run on wgmma)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return lambda: print(f"{label} SASS: cuobjdump not found, tensor-core instructions "
@@ -291,9 +296,10 @@ def tensor_core_sass(label: str, lib):
 
     def finish():
         sass = proc.communicate(timeout=300)[0]
-        hgmma, hmma = sass.count("HGMMA"), sass.count("HMMA")
-        print(f"{label} SASS ({lib.name}): {hgmma} HGMMA, {hmma} HMMA instructions")
-        check(hgmma + hmma > 0, f"the {label} library has no tensor-core instruction")
+        n_hgmma, n_hmma = sass.count("HGMMA"), sass.count("HMMA")
+        print(f"{label} SASS ({lib.name}): {n_hgmma} HGMMA, {n_hmma} HMMA instructions")
+        check(n_hgmma + n_hmma > 0, f"the {label} library has no tensor-core instruction")
+        check(not hgmma or n_hgmma > 0, f"the {label} library has no HGMMA (wgmma) instruction")
 
     return finish
 
@@ -307,6 +313,17 @@ def kernel_phase(gen_seed: int = 0):
     bf = torch.bfloat16
     rnd = lambda *s, dtype=bf: torch.randn(s, generator=g, device=dev).to(dtype)
     results = {}
+
+    # ---- the probe that picks K5's products: wgmma's k16 step against mma.sync's
+    from repro_torch.bench import wgmma_probe
+
+    rep = wgmma_probe.probe(dev, n=256)
+    print("wgmma probe: " + json.dumps(rep))
+    check(rep["sane"], "the wgmma probe does not compute its product")
+    check(rep["equal"], "wgmma and mma.sync round a k16 step differently: K5's wgmma products "
+                        "would leave the route gates")
+    print("wgmma probe verdict: equal bits on every element of every class and route (branch A: "
+          "K5 runs both products on wgmma beside K1's and K2's mma.sync)")
 
     # ---- K1: paged decode, W=8 rows, KV=8, G=2, D=128, page=16, T=24 (6
     # pools of 17 MB: timed launches do not run from L2)
@@ -450,6 +467,7 @@ def flash_kernel_check(dev, g, rnd):
         check(within(got, want, bf), f"K5 disagrees with its plain version ({e})")
     copies = [(act(B, S, H, D), act(B, S, KV, D), act(B, S, KV, D)) for _ in range(16)]
     ms = time_ms(lambda q, k, v: fa.flash_attention(q, k, v), copies, breakdown=True)
+    consumer_groups(copies, "K5 at S 512 (16/8 heads, D 128, causal)")
     plain_ms = time_ms(lambda q, k, v: fa.flash_attention_ref(q, k, v), copies, iters=10)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     if tuple(int(x) for x in torch.__version__.split(".")[:2]) >= (2, 5):
@@ -495,6 +513,21 @@ def flash_kernel_check(dev, g, rnd):
         replaces="src/repro/kernels/flash_attention.py:98", max_abs_err=max(errs),
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
     )
+
+
+def consumer_groups(copies, label):
+    """K5's bf16 kernel with one and with two consumer warpgroups per CTA
+    on the same inputs (the dispatch picks by shape): device ms of each and
+    whether their bits agree."""
+    from repro_torch.kernels import flash_attention as fa
+
+    outs = [fa.flash_attention(*copies[0], groups=n) for n in (1, 2)]
+    torch.cuda.synchronize()
+    check(torch.equal(*outs), f"{label}: one and two consumer warpgroups give other bits")
+    ms = [time_ms(lambda q, k, v, n=n: fa.flash_attention(q, k, v, groups=n), copies)
+          for n in (1, 2)]
+    print(f"{label}: one consumer warpgroup per CTA {ms[0]:.4f} ms, two {ms[1]:.4f} ms "
+          "(bitwise equal)")
 
 
 # qwen3-1.7b's projections (K, N): q and o 2048 x 2048, k and v 2048 x
@@ -909,6 +942,7 @@ def sharded_prefill_kernel_row(rnd):
                      [dict(causal=True)], 2.0 * (2 * B * H * S * D + 2 * B * KV * S * D),
                      4.0 * B * H * D * S * (S + 1) / 2, library=lib, timed=dict(causal=True))
     print("sharded prefill kernel row: " + json.dumps({label: row}))
+    consumer_groups(copies, "K5 at 4 x 2048 (16/8 heads, D 128, causal)")
 
     # the second half of a two-rank sequence-sharded prefill: model rank 1's
     # query slice (positions 1024-2047) over the gathered 2048 keys, K5's
@@ -2674,10 +2708,10 @@ def main() -> None:
                 print(f"  {name}: {line.split(chr(39))[1] if chr(39) in line else line.strip()}")
             elif "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
-    sass_checks = [tensor_core_sass("K5", build.library_path("flash_attention")),
+    sass_checks = [tensor_core_sass("K5", build.library_path("flash_attention"), hgmma=True),
                    tensor_core_sass("K2", build.library_path("paged_attention")),
                    tensor_core_sass("K1", build.library_path("paged_decode")),
-                   tensor_core_sass("GEMM", build.library_path("gemm"))]
+                   tensor_core_sass("GEMM", build.library_path("gemm"), hgmma=True)]
 
     walls = {"build": time.monotonic() - t0}
     t0 = time.monotonic()

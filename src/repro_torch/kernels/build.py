@@ -30,7 +30,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
-SOURCES = ("paged_attention", "paged_decode", "kv_block_copy", "flash_attention", "gemm")
+SOURCES = ("paged_attention", "paged_decode", "kv_block_copy", "flash_attention", "gemm",
+           "wgmma_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,36 +18,49 @@
 // only its inputs):
 //
 // * bfloat16 up to D = 256, the serving dtype: tc_flash_kernel, on the
-//   tensor cores.  What bounds it: at the serving shape (S = 512, D = 128,
-//   16 query heads over 8 kv heads, causal) the call does 4 * S^2 / 2 * D
-//   FLOPs per query head and moves q, k, v and the output once, about 170
-//   FLOPs per byte, under the H100's bf16 ridge (~295): bytes bound it.
-//   Design: the key order and the body of the paged kernels
-//   (attention_split.cuh), so a prefill row gets the bits a decode step or
-//   a prefill chunk gives the same query over the same keys.  One CTA of
-//   two warpgroups per (64 stacked rows, kv head, sequence); the stacked
-//   rows are the (query, head) pairs of the kv head's G query heads,
-//   query-major (row s = q * G + g), so one K/V tile serves every query
-//   head of its group and is loaded once.  The CTA walks the position
-//   splits [64 j, 64 j + 64) that any of its rows can attend, the two
-//   warpgroups on alternate splits, each through its own ring of cp.async
-//   stages (2 up to DP = 160, 1 at 256), zero-filled past Sk; each warp
-//   runs split_partial (tensor_core.cuh: QK^T and P V on
-//   mma.sync.m16n8k16, P split into two bf16 terms, about 16 of its bits,
-//   as the reference keeps P in f32) on its 16 rows, and a round's two
-//   partials are folded into the rows' running (M, L, O) in split order
-//   with split_merge.cuh's fold, warpgroup 0's first; (M, L, O) live in
-//   shared memory, one slot per thread of a warpgroup.  The one-warpgroup
-//   version of this design read 0.0357 ms at the serving shape, this one
-//   0.0282 (the earlier alternate-tile kernel, which rounded P to bf16 and
-//   merged its warpgroups' online softmaxes at the end, 0.0161; SDPA
-//   0.0113; NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py phase 2).  The q tiles of a causal call are scheduled
-//   heaviest first, and splits wholly outside the causal/window range of
-//   every row of the CTA are never loaded.  D is any multiple of 8 up to
-//   256; the tiles are padded with zeros to 16, 32, 64, 128, 160 or 256
-//   columns as in every bf16 attention kernel here, and zero columns add
-//   nothing to a score and are never written.  Left for later: wgmma with
-//   TMA tile loads and warp specialisation.
+//   tensor cores (wgmma), fed by TMA.  What bounds it: at qwen3-1.7b's
+//   dense prefill (S = 512, D = 128, 16 query heads over 8 kv heads,
+//   causal) the call does 4 * S^2 / 2 * D FLOPs per query head and moves q,
+//   k, v and the output once, about 170 FLOPs per byte, under the H100's
+//   bf16 ridge (~295): bytes, and at 128 CTAs of a few splits each, the
+//   latency of one split's chain of steps; at the sharded prefill's 4 x
+//   2048 tokens the operations (68.7 GFLOP, 103 with P V doubled).
+//   Design: the key order and the arithmetic of the paged kernels
+//   (attention_split.cuh, tensor_core.cuh), so a prefill row gets the bits
+//   a decode step or a prefill chunk gives the same query over the same
+//   keys.  A CTA holds 64 or 128 stacked rows, the (query, head) pairs of
+//   one kv head's G query heads, query-major (row s = q * G + g), so one
+//   K/V tile serves every query head of its group and is loaded once.  A
+//   producer warp TMA-loads the position splits [64 j, 64 j + 64) that any
+//   of the CTA's rows can attend, in order, into a ring of mbarrier-guarded
+//   K/V stages (zeros past Sk and past D from TMA's out-of-bounds fill);
+//   each consumer warpgroup owns 64 rows, keeps their running (M, L, O) in
+//   registers and runs, per split, S = Q K^T and the doubled P V on
+//   wgmma (K5's products need equal bits with K1's and K2's mma.sync:
+//   bench/wgmma_probe.py found a wgmma k16 step equal to an mma.sync one
+//   on every input class, chip_smoke.py phase 2 checks it), the softmax of
+//   split_softmax and split_merge.cuh's fold per split.  No shared-memory
+//   fold, no barrier between the consumers.  Q is loaded once per CTA into
+//   shared memory and read by wgmma from there.  One consumer warpgroup
+//   per CTA while two-warpgroup CTAs would fill less than 3/4 of the SMs
+//   (S = 512: 64 of them, so 128 CTAs of one), else two (the 4 x 2048
+//   prefill: 0.3564 ms against 0.5301 with one).  The q tiles of a causal call
+//   are scheduled heaviest first, and splits wholly outside the
+//   causal/window range of every row of a CTA are never loaded (of a
+//   warpgroup: never computed).  D is any multiple of 8 up to 256; the
+//   tiles are padded with zeros to 16, 32, 64, 128, 160 or 256 columns as
+//   in every bf16 attention kernel here (the k16 steps a row meets), and
+//   zero columns add nothing to a score and are never written.
+//   On the H100 (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase 2,
+//   SDPA in brackets): S = 512 0.0208 ms (0.0115; the alternate-split
+//   mma.sync design before it 0.0282), the 4 x 2048 prefill 0.3531
+//   (0.1365; that design 0.8152), whisper's encoder
+//   0.2073 (0.0858), D = 160 0.0305 (0.0159).  The CUDA-core work of a
+//   split (the mask, exp2, P's two bf16 terms, the fold per split) bounds
+//   it, not the tensor cores: skipping the mask on splits every row of a
+//   warp sees whole was the largest single gain.  Left for later:
+//   overlapping one split's softmax with the next split's products inside
+//   a warpgroup.
 //
 // * float32 up to D = 256 (the card tests' 1e-5 checks, which no bf16 or
 //   TF32 tensor-core product meets): flash_attention_kernel, the SIMT
@@ -90,10 +103,12 @@
 #include <math.h>
 
 #include "attention_split.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace repro_kernels;  // common.cuh, split_merge.cuh, tensor_core.cuh, attention_split.cuh
+using namespace repro_kernels;  // common.cuh, split_merge.cuh, tensor_core.cuh, attention_split.cuh,
+                                // hopper.cuh
 
 constexpr int kThreads = 256;
 constexpr int kSide = 16;              // the 16 x 16 thread grid
@@ -282,173 +297,274 @@ size_t smem_bytes(int D, int tile) {
 
 // ---------------------------------------------------------------- bfloat16
 
-constexpr int kTcWarps = 4;                   // warps per warpgroup, 16 rows each
-constexpr int kTcRows = 16 * kTcWarps;        // stacked (query, head) rows per CTA
-constexpr int kGroupThreads = 32 * kTcWarps;  // one warpgroup
-constexpr int kTcGroups = 2;                  // warpgroups, alternate splits
-constexpr int kTcThreads = kTcGroups * kGroupThreads;
-
 using bf16 = __nv_bfloat16;
 
-template <int DP>
+constexpr int kBox = 64;                 // columns of one 128-byte-swizzled box
+constexpr int kBoxBytes = 64 * kBox * 2;  // one box of 64 rows (keys or query rows)
+
+// NC consumer warpgroups of 64 stacked rows each, one producer warpgroup.
+// Q stays in shared memory, one 64-row tile per consumer warpgroup, read by
+// wgmma through its descriptor: kept in registers as a wgmma A operand
+// across the split loop, its registers were handed to other data by the
+// compiler in one form of the loop (wrong rows at DP <= 64).
+template <int DP, int NC>
 struct FlashShape {
-  static constexpr int kStages = DP <= 160 ? 2 : 1;  // K/V splits in flight per warpgroup
-  static constexpr int kState = DP / 2 + 4;          // per thread slot: O, then M_a, M_b, L_a, L_b
-  static constexpr size_t kSmem =
-      sizeof(bf16) * (size_t)(kTcRows + kTcGroups * 2 * kStages * kSplitKeys) * DP  // Q, K, V
-      + sizeof(float) * (size_t)kState * kGroupThreads;                           // (M, L, O)
+  static constexpr int kBoxes = (DP + kBox - 1) / kBox;  // 64-column boxes of a K, V or Q tile,
+                                                          // and 64-column chunks of O
+  static constexpr int kTileBytes = kBoxes * kBoxBytes;    // one K or V tile, or one warpgroup's Q
+  static constexpr int kStages = (200 * 1024 - NC * kTileBytes) / (2 * kTileBytes) < 8
+                                     ? (200 * 1024 - NC * kTileBytes) / (2 * kTileBytes)
+                                     : 8;
+  static constexpr int kThreads = 128 * (NC + 1);
+  static constexpr size_t kSmem = 1024 + (size_t)(NC + 2 * kStages) * kTileBytes;
+  static_assert(kStages >= 2, "a ring of at least two K/V stages");
 };
 
-// One CTA of two warpgroups per (64 stacked rows, kv head, sequence).  The
-// stacked rows are the (query, head) pairs of the kv head's G query heads,
-// query-major (row s = q * G + g), so one K/V tile serves every query head
-// of its group and is loaded once.  The CTA walks the position splits
-// [64 j, 64 j + 64) that any of its rows can attend; both warpgroups hold
-// the same 64 rows (16 per warp) and take alternate splits, each through
-// its own ring of cp.async stages, and each warp runs the shared body
-// (split_partial) on its 16 rows.  The running (M, L, O) of a row lives in
-// shared memory, one slot per thread of a warpgroup, the same slot for the
-// two threads (one per warpgroup) that hold the same fragment; a round of
-// two splits is folded in ascending order, warpgroup 0's split, a barrier,
-// then warpgroup 1's (split_merge.cuh's fold), so a row gets the bits the
-// split-KV kernels and their merge give it while the two warpgroups'
-// products run side by side.
-template <int DP, bool kSoftcap>
-__global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
-  using S = FlashShape<DP>;
-  constexpr int kStages = S::kStages, kChunks = DP / 8, kDBlocks = DP / 8, kH = DP / 2;
-  constexpr int kTile = kSplitKeys * DP;  // elements of one K or V stage
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // [kTcRows][DP]
-  bf16* kv_smem = qs + kTcRows * DP;             // [group][stage][K, V][64][DP]
-  float* st_s = reinterpret_cast<float*>(kv_smem + kTcGroups * 2 * kStages * kTile);
-  __shared__ int kpos_s[kTcGroups][kStages][kSplitKeys];
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One 64-column chunk of a split's P V folded into the rows' running O
+// (split_merge.cuh's fold_value: o c + a w, one rounding each).  Where
+// c = 1 (the split left a row's running max where it was) o c is o, so the
+// product is skipped: the same bits, 32 fewer multiplies.
+__device__ __forceinline__ void fold_chunk(float* o, const float (&acc)[32], bool fa, float ca,
+                                           float wa, bool fb, float cb, float wb) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {  // row a: slots 0, 1 of each 8-column block; row b: 2, 3
+    const bool f = h ? fb : fa;
+    const float c = h ? cb : ca, w = h ? wb : wa;
+    if (!f) continue;  // an empty split leaves the row as it was
+    if (c == 1.f) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[4 * n + 2 * h] = __fmaf_rn(acc[4 * n + 2 * h], w, o[4 * n + 2 * h]);
+        o[4 * n + 2 * h + 1] = __fmaf_rn(acc[4 * n + 2 * h + 1], w, o[4 * n + 2 * h + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        o[4 * n + 2 * h] = fold_value(o[4 * n + 2 * h], acc[4 * n + 2 * h], c, w);
+        o[4 * n + 2 * h + 1] = fold_value(o[4 * n + 2 * h + 1], acc[4 * n + 2 * h + 1], c, w);
+      }
+    }
+  }
+}
+
+// One CTA per (64 NC stacked rows, kv head, sequence).  The stacked rows
+// are the (query, head) pairs of the kv head's G query heads, query-major
+// (row s = q * G + g), so one K/V tile serves every query head of its group
+// and is loaded once.  Warpgroup NC is the producer: one thread walks the
+// position splits [64 j, 64 j + 64) that any row of the CTA can attend, in
+// ascending order, and TMA-loads each split's K and V (64 keys x DP, zeros
+// past Sk and past D) into a ring of mbarrier-guarded stages.  Consumer
+// warpgroup c owns rows [64 c, 64 c + 64): it takes every split in order,
+// skips those none of its rows can attend, and per split runs
+//   S = Q K^T: DP / 16 wgmma m64n64k16 from zero (Q from the warpgroup's
+//     shared tile, K K-major from the stage),
+//   split_softmax (tensor_core.cuh) on each warp's 16 rows,
+//   the fold of the split's (m, l) into the rows' running (M, L)
+//     (split_merge.cuh's fold_stats), and per 64-column chunk of O the
+//     split's P V, per 16-key step wgmma m64n64k16 with the hi terms of P
+//     and then the lo terms as register A operands (V MN-major from the
+//     stage) into a zeroed accumulator, folded into the running O
+//     (fold_value).
+// (M, L, O) stay in registers, and no barrier joins the consumers.  Every
+// step is the split-KV kernels' on the same elements in the same order,
+// and a wgmma k16 step rounds as an mma.sync one does, so a row gets the
+// bits K1 and K2 give the same query over the same keys.
+template <int DP, bool kSoftcap, int NC>
+__global__ void __launch_bounds__(128 * (NC + 1), 1)
+    tc_flash_kernel(const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v, Params p) {
+  using S = FlashShape<DP, NC>;
+  constexpr int kStages = S::kStages, kBoxes = S::kBoxes;
+  constexpr int kTile = S::kTileBytes;
+  extern __shared__ unsigned char tc_raw[];
+  unsigned char* smem =
+      reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(tc_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_smem = smem;                // [NC][kBoxes][64 rows][64 cols]
+  unsigned char* ring = smem + NC * kTile;     // [kStages][K, V][kBoxes][64 keys][64 cols]
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
 
   const int G = p.H / p.KV;
   const int nrows = G * p.Sq;
   const int tile = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;  // heaviest first
-  const int s0 = tile * kTcRows;
+  const int s0 = tile * 64 * NC;
   const int kvh = blockIdx.y, b = blockIdx.z;
-  const int nch = p.D / 8;
-  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & (kTcWarps - 1);
-  const int grp = threadIdx.x / kGroupThreads, gtid = threadIdx.x % kGroupThreads;
-  bf16* ring = kv_smem + grp * 2 * kStages * kTile;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  // splits any row of this CTA can attend (row q at position q_offset + q);
-  // warpgroup grp takes j0 + grp, j0 + grp + 2, ...
-  const int qlo = p.q_offset + s0 / G;
-  const int qhi = p.q_offset + (min(s0 + kTcRows, nrows) - 1) / G;
-  int kend = p.Sk;
-  if (p.causal) kend = min(kend, qhi + 1);
-  const int kbeg = p.window > 0 ? max(0, qlo - p.window + 1) : 0;
-  const int j0 = kbeg / kSplitKeys;
-  const int n_splits = kend > kbeg ? (kend - 1) / kSplitKeys - j0 + 1 : 0;
-  const int n_rounds = (n_splits + kTcGroups - 1) / kTcGroups;
-  const int my_splits = n_splits > grp ? (n_splits - grp + kTcGroups - 1) / kTcGroups : 0;
-
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  // split j -> stage st of this warpgroup's ring (keys past Sk and columns
-  // past D are zeros), by the warpgroup's threads
-  auto load_split = [&](int st, int j) {
-    bf16* kt = ring + 2 * st * kTile;
-    bf16* vt = kt + kTile;
-    for (int i = gtid; i < kSplitKeys * kChunks; i += kGroupThreads) {
-      const int r = i / kChunks, c = i % kChunks, key = j * kSplitKeys + r;
-      const bool ok = key < p.Sk && c < nch;
-      cp_async16(smem_u32(kt + swz<DP>(r, c)), ok ? kb + (long long)key * p.k_ss + c * 8 : kb, ok);
-      cp_async16(smem_u32(vt + swz<DP>(r, c)), ok ? vb + (long long)key * p.v_ss + c * 8 : vb, ok);
-    }
-    if (gtid < kSplitKeys) kpos_s[grp][st][gtid] = j * kSplitKeys + gtid;
+  // the splits [j0, j0 + n_splits) any row of this CTA can attend (row q
+  // at position q_offset + q), or of warpgroup c's rows alone
+  auto span = [&](int r0, int r1, int& j0, int& n) {
+    const int qlo = p.q_offset + r0 / G, qhi = p.q_offset + (r1 - 1) / G;
+    int kend = p.Sk;
+    if (p.causal) kend = min(kend, qhi + 1);
+    const int kbeg = p.window > 0 ? max(0, qlo - p.window + 1) : 0;
+    j0 = kbeg / kSplitKeys;
+    n = r1 > r0 && kend > kbeg ? (kend - 1) / kSplitKeys - j0 + 1 : 0;
   };
+  int j0, n_splits;
+  span(s0, min(s0 + 64 * NC, nrows), j0, n_splits);
 
-  // commit group u holds stage u's copies (group 0 also this thread's share
-  // of Q); one group per round, empty or not
-  for (int i = threadIdx.x; i < kTcRows * kChunks; i += kTcThreads) {
-    const int r = i / kChunks, c = i % kChunks, srow = s0 + r;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {  // the producer
+    if constexpr (NC > 1) setmaxnreg_dec<40>();
+    if (tid != 0) return;
+    tma_prefetch_map(&map_k);
+    tma_prefetch_map(&map_v);
+    int stage = 0, phase = 0;
+    for (int u = 0; u < n_splits; ++u) {
+      const int key0 = (j0 + u) * kSplitKeys;
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_expect_tx(&full[stage], 2 * kTile);
+      unsigned char* kt = ring + stage * 2 * kTile;
+#pragma unroll
+      for (int bx = 0; bx < kBoxes; ++bx) {
+        tma_load_4d(kt + bx * kBoxBytes, &map_k, &full[stage], bx * kBox, key0, kvh, b);
+        tma_load_4d(kt + kTile + bx * kBoxBytes, &map_v, &full[stage], bx * kBox, key0, kvh, b);
+      }
+      if (++stage == kStages) stage = 0, phase ^= 1;
+    }
+    return;
+  }
+
+  // ---- a consumer warpgroup: rows r0 .. r0 + 63
+  if constexpr (NC > 1) setmaxnreg_inc<232>();
+  const int lane = tid & 31, warp = tid >> 5;
+  const int r0 = s0 + 64 * wg;
+  const bool live = r0 < nrows;
+  int wj0, wn;
+  span(r0, min(r0 + 64, nrows), wj0, wn);
+
+  // Q rows -> this warpgroup's swizzled Q tile (zeros past the rows and
+  // past D), read by every split's products through its descriptor
+  unsigned char* qt = q_smem + wg * kTile;
+  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb;
+  const int nch = p.D / 8;
+  for (int i = tid; i < 64 * kBoxes * 8; i += 128) {
+    const int r = i / (kBoxes * 8), c = i % (kBoxes * 8), srow = r0 + r;
     const bool ok = srow < nrows && c < nch;
     const bf16* src = qb;
     if (ok) src = qb + (kvh * G + srow % G) * p.q_sh + (long long)(srow / G) * p.q_ss + c * 8;
-    cp_async16(smem_u32(qs + swz<DP>(r, c)), src, ok);
+    cp_async16(smem_addr(qt + (c / 8) * kBoxBytes + 2 * tma_swz(r, (c % 8) * 8)), src, ok);
   }
-  for (int u = 0; u < kStages; ++u) {
-    if (u < my_splits) load_split(u, j0 + grp + kTcGroups * u);
-    cp_async_commit();
-  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();  // generic-proxy writes, read by wgmma
+  named_sync(1 + wg, 128);
 
-  const int ra = s0 + 16 * warp + (lane >> 2), rb = ra + 8;
-  const bool live = s0 + 16 * warp < nrows;
+  // this warp's rows' positions, for the splits it sees whole
+  const int wq_lo = p.q_offset + (r0 + 16 * warp) / G;
+  const int wq_hi = p.q_offset + (min(r0 + 16 * warp + 15, nrows - 1)) / G;
   SplitMask mk;
-  mk.qpa = p.q_offset + ra / G;
-  mk.qpb = p.q_offset + rb / G;
+  mk.kpos = nullptr;
+  mk.qpa = p.q_offset + (r0 + 16 * warp + (lane >> 2)) / G;
+  mk.qpb = p.q_offset + (r0 + 16 * warp + (lane >> 2) + 8) / G;
   mk.causal = p.causal;
   mk.window = p.window;
   mk.uniform = false;
   const float sa = kSoftcap ? p.sm_scale / p.softcap : p.sm_scale * kLog2e;
   const float sb = p.softcap * kLog2e;
-  float* slot = st_s + gtid;  // this thread's state: slot[e * kGroupThreads]
-  if (grp == 0) {
-#pragma unroll
-    for (int e = 0; e < kH; ++e) slot[e * kGroupThreads] = 0.f;
-    slot[kH * kGroupThreads] = slot[(kH + 1) * kGroupThreads] = -INFINITY;
-    slot[(kH + 2) * kGroupThreads] = slot[(kH + 3) * kGroupThreads] = 0.f;
-  }
 
-  for (int u = 0; u < n_rounds; ++u) {
-    const int j = j0 + grp + kTcGroups * u, st = u % kStages;
-    const bool mine = live && u < my_splits;
-    cp_async_wait<kStages - 1>();
-    __syncthreads();  // this round's stages (and Q, and the state's first values) are visible
-    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f, acc[kDBlocks][4];
-    if (mine) {
-      const int nk = p.Sk - j * kSplitKeys;
-      mk.kpos = kpos_s[grp][st];
-      mk.present = nk >= kSplitKeys ? ~0ull : (1ull << nk) - 1ull;
-      const bf16* kt = ring + 2 * st * kTile;
-      split_partial<DP, kSoftcap>(qs + 16 * warp * DP, kt, kt + kTile, mk, sa, sb, m_a, m_b, l_a,
-                                  l_b, acc);
-    }
-    // fold in split order: warpgroup 0's split, then warpgroup 1's
+  float M_a = -INFINITY, M_b = -INFINITY, L_a = 0.f, L_b = 0.f;
+  float O[kBoxes * 32];  // 64-column chunk c: O[32 c + 4 n + e] (n: 8-column block)
 #pragma unroll
-    for (int g = 0; g < kTcGroups; ++g) {
-      __syncthreads();
-      if (g != grp || !mine) continue;
-      float M_a = slot[kH * kGroupThreads], M_b = slot[(kH + 1) * kGroupThreads];
-      float L_a = slot[(kH + 2) * kGroupThreads], L_b = slot[(kH + 3) * kGroupThreads];
+  for (int i = 0; i < kBoxes * 32; ++i) O[i] = 0.f;
+
+  const uint32_t ring_base = smem_addr(ring), q_base = smem_addr(qt);
+  int stage = 0, phase = 0;
+  for (int u = 0; u < n_splits; ++u) {
+    const int j = j0 + u;
+    mbar_wait(&full[stage], phase);
+    if (live && j >= wj0 && j < wj0 + wn) {  // a split this warpgroup's rows attend
+      const uint32_t kt = ring_base + stage * 2 * kTile, vt = kt + kTile;
+      // S = Q K^T: DP / 16 wgmma m64n64k16 from zero, Q and K K-major from
+      // shared memory
+      float sc[kSplitKeys / 8][4];
+#pragma unroll
+      for (int jb = 0; jb < kSplitKeys / 8; ++jb) sc[jb][0] = sc[jb][1] = sc[jb][2] = sc[jb][3] = 0.f;
+      fence_regs(sc);  // the zeros are written before wgmma.fence orders them
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        const uint64_t dk = gmma_desc(kt + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
+        const uint64_t dq = gmma_desc(q_base + (kk / 4) * kBoxBytes + (kk % 4) * 32, 16, 1024);
+        wgmma_ss_scores(sc, dq, dk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      const int nk = p.Sk - j * kSplitKeys;
+      mk.present = nk >= kSplitKeys ? ~0ull : (1ull << nk) - 1ull;
+      const int kbase = j * kSplitKeys;
+      // every slot a key every row of this warp attends: no mask to apply
+      const bool all_valid = nk >= kSplitKeys && (!p.causal || kbase + kSplitKeys - 1 <= wq_lo) &&
+                             (p.window <= 0 || wq_hi - kbase < p.window);
+      float m_a, m_b, l_a, l_b;
+      split_softmax<kSoftcap>(sc, mk, [&](int slot) { return kbase + slot; }, sa, sb, m_a, m_b,
+                              l_a, l_b, all_valid);
       float ca = 0.f, wa = 0.f, cb = 0.f, wb = 0.f;
       const bool fa = m_a != -INFINITY, fb = m_b != -INFINITY;  // an empty split is skipped
       if (fa) fold_stats(M_a, L_a, m_a, l_a, ca, wa);
       if (fb) fold_stats(M_b, L_b, m_b, l_b, cb, wb);
+      uint32_t hi[kSplitKeys / 16][4], lo[kSplitKeys / 16][4];
 #pragma unroll
-      for (int n = 0; n < kDBlocks; ++n) {
+      for (int kt16 = 0; kt16 < kSplitKeys / 16; ++kt16) split_p_frags(sc, kt16, hi[kt16], lo[kt16]);
+      // O = P V per 64-column chunk: per 16-key step the hi product, then
+      // the lo product, into a zeroed accumulator (V MN-major from the
+      // stage), folded into the running O
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (!(e < 2 ? fa : fb)) continue;
-          float& o = slot[(4 * n + e) * kGroupThreads];
-          o = e < 2 ? fold_value(o, acc[n][e], ca, wa) : fold_value(o, acc[n][e], cb, wb);
+      for (int ch = 0; ch < kBoxes; ++ch) {
+        float acc[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+        fence_regs(acc);
+#pragma unroll
+        for (int kt16 = 0; kt16 < kSplitKeys / 16; ++kt16) {
+          fence_regs(hi[kt16]);
+          fence_regs(lo[kt16]);
         }
+        wgmma_fence();
+#pragma unroll
+        for (int kt16 = 0; kt16 < kSplitKeys / 16; ++kt16) {
+          const uint64_t dv = gmma_desc(vt + ch * kBoxBytes + kt16 * 16 * 128, kBoxBytes, 1024);
+          wgmma_rs<64, 1>(acc, hi[kt16], dv);
+          wgmma_rs<64, 1>(acc, lo[kt16], dv);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+#pragma unroll
+        for (int kt16 = 0; kt16 < kSplitKeys / 16; ++kt16) {  // P is read asynchronously
+          fence_regs(hi[kt16]);
+          fence_regs(lo[kt16]);
+        }
+        fold_chunk(&O[32 * ch], acc, fa, ca, wa, fb, cb, wb);
       }
-      slot[kH * kGroupThreads] = M_a;
-      slot[(kH + 1) * kGroupThreads] = M_b;
-      slot[(kH + 2) * kGroupThreads] = L_a;
-      slot[(kH + 3) * kGroupThreads] = L_b;
     }
-    // this warpgroup's stage st is read: refill it with its split of round u + kStages
-    if (u + kStages < my_splits) load_split(st, j0 + grp + kTcGroups * (u + kStages));
-    cp_async_commit();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == kStages) stage = 0, phase ^= 1;
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the last fold is visible
-  if (grp != 0 || !live) return;
+  if (!live) return;
 
+  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   bf16* ob = static_cast<bf16*>(p.out) + b * p.o_sb;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int r = half ? rb : ra;
+    const int r = r0 + 16 * warp + (lane >> 2) + 8 * half;
     if (r >= nrows) continue;
-    const float L = slot[(kH + 2 + half) * kGroupThreads];
+    const float L = half ? L_b : L_a;
     bf16* orow = ob + (kvh * G + r % G) * p.o_sh + (long long)(r / G) * p.o_ss;
     if (L == 0.f) {  // no valid key: the plain mean of the Sk value rows
       for (int d = 2 * (lane & 3); d < p.D; d += 8)
@@ -457,13 +573,15 @@ __global__ void __launch_bounds__(kTcThreads) tc_flash_kernel(Params p) {
       continue;
     }
 #pragma unroll
-    for (int n = 0; n < kDBlocks; ++n) {
-      const int d = 8 * n + 2 * (lane & 3);
-      const float o0 = slot[(4 * n + 2 * half) * kGroupThreads];
-      const float o1 = slot[(4 * n + 2 * half + 1) * kGroupThreads];
-      if (d < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) =
-            __floats2bfloat162_rn(fold_finish(o0, L), fold_finish(o1, L));
+    for (int cb = 0; cb < kBoxes; ++cb) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int d = 64 * cb + 8 * n + 2 * (lane & 3);
+        if (d < p.D)
+          *reinterpret_cast<__nv_bfloat162*>(orow + d) =
+              __floats2bfloat162_rn(fold_finish(O[32 * cb + 4 * n + 2 * half], L),
+                                    fold_finish(O[32 * cb + 4 * n + 2 * half + 1], L));
+      }
     }
   }
 }
@@ -515,7 +633,7 @@ int launch_wide(const Params& p, int B, cudaStream_t s) {
   return (int)launch_split_merge<T>(m, s);
 }
 
-template <int DP, bool kSoftcap>
+template <int DP, bool kSoftcap, int NC>
 struct TcTag {};
 
 template <typename T, int DM>
@@ -532,21 +650,43 @@ int launch_simt(const Params& p, int B, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int DP, bool kSoftcap>
+constexpr int kSms = 132;  // the H100 SXM's SMs
+
+// K and V through 4-d tensor maps over their [B, KV, Sk, D] strides (head
+// dim contiguous), boxes of 64 columns x 64 keys, 128-byte swizzle, zeros
+// past Sk and past D
+template <int DP, bool kSoftcap, int NC>
 cudaError_t launch_tc(const Params& p, int B, cudaStream_t s) {
-  constexpr size_t smem = FlashShape<DP>::kSmem;
-  cudaError_t err =
-      allow_smem<TcTag<DP, kSoftcap>>((const void*)tc_flash_kernel<DP, kSoftcap>, smem);
+  using S = FlashShape<DP, NC>;
+  CUtensorMap map_k, map_v;
+  const uint32_t box[4] = {kBox, kSplitKeys, 1, 1};
+  const uint64_t dims[4] = {(uint64_t)p.D, (uint64_t)p.Sk, (uint64_t)p.KV, (uint64_t)B};
+  const uint64_t ks[3] = {2ull * p.k_ss, 2ull * p.k_sh, 2ull * p.k_sb};
+  const uint64_t vs[3] = {2ull * p.v_ss, 2ull * p.v_sh, 2ull * p.v_sb};
+  if (!make_tensor_map(&map_k, p.k, 4, dims, ks, box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_tensor_map(&map_v, p.v, 4, dims, vs, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return cudaErrorInvalidValue;
+  const void* kernel = (const void*)tc_flash_kernel<DP, kSoftcap, NC>;
+  cudaError_t err = allow_smem<TcTag<DP, kSoftcap, NC>>(kernel, S::kSmem);
   if (err != cudaSuccess) return err;
   const int rows = (p.H / p.KV) * p.Sq;
-  dim3 grid((rows + kTcRows - 1) / kTcRows, p.KV, B);
-  tc_flash_kernel<DP, kSoftcap><<<grid, kTcThreads, smem, s>>>(p);
+  dim3 grid((rows + 64 * NC - 1) / (64 * NC), p.KV, B);
+  tc_flash_kernel<DP, kSoftcap, NC><<<grid, S::kThreads, S::kSmem, s>>>(map_k, map_v, p);
   return cudaGetLastError();
 }
 
+// groups: consumer warpgroups per CTA, 1 or 2; 0 picks by shape: two while
+// two-warpgroup CTAs still fill three quarters of the SMs, else one (twice
+// the CTAs; chip_smoke.py phase 2 times both)
 template <int DP>
-cudaError_t launch_tc(const Params& p, int B, cudaStream_t s) {
-  return p.softcap > 0.f ? launch_tc<DP, true>(p, B, s) : launch_tc<DP, false>(p, B, s);
+cudaError_t launch_tc(const Params& p, int B, int groups, cudaStream_t s) {
+  if (groups == 0) {
+    const long long ctas = (long long)((p.H / p.KV) * p.Sq + 127) / 128 * p.KV * B;
+    groups = 4 * ctas >= 3 * kSms ? 2 : 1;
+  }
+  if (groups == 1)
+    return p.softcap > 0.f ? launch_tc<DP, true, 1>(p, B, s) : launch_tc<DP, false, 1>(p, B, s);
+  return p.softcap > 0.f ? launch_tc<DP, true, 2>(p, B, s) : launch_tc<DP, false, 2>(p, B, s);
 }
 
 }  // namespace
@@ -570,9 +710,9 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
                             long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
                             int H, int KV, int Sq, int Sk, int D, int causal, int window,
                             int q_offset, float sm_scale, float softcap, float* part, int n_split,
-                            void* stream) {
+                            int groups, void* stream) {
   if (D <= 0 || D % (dtype == 0 ? 4 : 8) || B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 ||
-      Sq <= 0 || Sk < 0 || q_offset < 0 || B > 65535 || H > 65535 ||
+      Sq <= 0 || Sk < 0 || q_offset < 0 || B > 65535 || H > 65535 || groups < 0 || groups > 2 ||
       (D > kMaxD && (part == nullptr || n_split < 1 || n_split > 65535 ||
                      (long long)n_split * kSplitKeys < Sk ||
                      ((long long)(H / KV) * Sq + kSimtRows - 1) / kSimtRows > 65535)))
@@ -611,7 +751,7 @@ int flash_attention_forward(int dtype, const void* q, const void* k, const void*
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (D > kMaxD) return dtype == 0 ? launch_wide<float>(p, B, s) : launch_wide<bf16>(p, B, s);
   if (dtype == 0) return D <= 128 ? launch_simt<128>(p, B, s) : launch_simt<kMaxD>(p, B, s);
-#define REPRO_LAUNCH(DP) launch_tc<DP>(p, B, s)
+#define REPRO_LAUNCH(DP) launch_tc<DP>(p, B, groups, s)
   return (int)REPRO_TC_DISPATCH(D, REPRO_LAUNCH);
 #undef REPRO_LAUNCH
 }

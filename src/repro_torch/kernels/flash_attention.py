@@ -11,13 +11,18 @@ the serving engine (the dense mode's ``prefill`` and the monolithic
 as [B, H, S, D] views, without a copy, and in each rank's body of a
 sequence-sharded prefill, whose query slice starts at ``q_offset``.
 
-What bounds it on the card: at the serving shapes its roofline bound is
-bytes (about 170 FLOPs per byte, under the bf16 ridge).  A bfloat16 call up
-to head dim 256 runs the tensor-core kernel: the key order and the body of
-the paged kernels (splits of 64 keys by position, ``paged_attention``'s
+What bounds it on the card: at qwen3-1.7b's dense prefill its roofline
+bound is bytes (about 170 FLOPs per byte, under the bf16 ridge), at the
+sharded prefill's 4 x 2048 tokens the operations.  A bfloat16 call up to
+head dim 256 runs the tensor-core kernel: the key order and the arithmetic
+of the paged kernels (splits of 64 keys by position, ``paged_attention``'s
 docstring), each split's partial folded into the row's running sums as the
 split-KV merge folds it, so a prefill row gets the bits of the same row
-served by the paged kernels.  A float32 call up to 256 runs the SIMT tile
+served by the paged kernels.  Its products run on ``wgmma`` (a ``wgmma``
+k16 step rounds as the paged kernels' ``mma.sync`` does:
+``bench/wgmma_probe.py``), fed by TMA loads of the K/V splits from a
+producer warp; each consumer warpgroup keeps 64 rows' running sums in
+registers.  A float32 call up to 256 runs the SIMT tile
 kernel of f32 FMAs, which the 1e-5 checks need; past 256 both dtypes run
 the split-KV SIMT kernel and the merge, any head dim.  The kernels load
 16-byte vectors, so a head dim that is not a multiple of the vector width
@@ -57,7 +62,7 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 4
     + [ctypes.c_int64] * 12
     + [ctypes.c_int] * 9
-    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
 
 
@@ -178,11 +183,13 @@ def flash_attention_split_ref(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: float = 0.0,
-                    q_offset: int = 0):
+                    q_offset: int = 0, groups: int = 0):
     """Forward attention.  q: [B, H, Sq, D]; k, v: [B, KV, Sk, D], any
     strides with D contiguous -> [B, H, Sq, D] (a view of a [B, Sq, H, D]
     buffer on the card, so ``out.transpose(1, 2)`` is contiguous).  Query
-    row i sits at position ``q_offset + i``, key j at j."""
+    row i sits at position ``q_offset + i``, key j at j.  ``groups``: the
+    bf16 tensor-core kernel's consumer warpgroups per CTA, 1 or 2 (0, the
+    default: chosen by shape; every choice gives the same bits)."""
     refuse_grad("flash_attention", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
@@ -190,6 +197,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
     name = "flash_attention"
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset {q_offset} must be >= 0")
+    if groups not in (0, 1, 2):
+        raise ValueError(f"{name}: groups {groups} must be 0, 1 or 2")
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if tuple(k.shape) != (B, KV, Sk, D) or v.shape != k.shape or KV == 0 or H % KV:
@@ -222,6 +231,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0, softcap: f
         qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], os_[0], os_[1], os_[2],
         B, H, KV, Sq, Sk, D, int(bool(causal)), int(window), int(q_offset),
         1.0 / math.sqrt(d_true), float(softcap), None if part is None else part.data_ptr(), n_split,
+        int(groups),
     )
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")

@@ -17,8 +17,13 @@ read in place, never copied.  A weight of any other layout is made
 contiguous first, and a K or N that is not a multiple of 8 (the 16-byte
 vector width) is zero-padded before the launch and the output sliced back
 (choices made from the shape, not fallbacks: zero columns of K add
-nothing).  What bounds it on the card: the weight's bytes at decode M, the
-tensor cores' operations at prefill M (``csrc/gemm.cu``).
+nothing).  On the card the kernel runs ``wgmma`` fed by TMA loads from a
+producer warp, in persistent CTAs: 64-row tiles of one consumer warpgroup
+up to M = 64 (the weight's bytes bound a decode step), 128-row tiles of
+two from there (the tensor cores' operations bound a prefill); every tile
+shape gives a row the same bits (``csrc/gemm.cu``).  TMA addresses each
+operand through a tensor map: an operand past 2^31 rows or columns, or
+with a row stride of 2^40 bytes or more, raises.
 
 Dispatch: an operand that requires grad raises on either device
 (``guard.refuse_grad``: the kernel has no backward; training keeps
@@ -35,7 +40,9 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.guard import refuse_grad
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 3 + [ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 3
+             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_TMA_MAX_STRIDE = 1 << 40  # bytes: what a TMA tensor map can stride
 
 
 def _lib() -> ctypes.CDLL:
@@ -93,10 +100,13 @@ def gemm(x, w):
     bt = w if kn else w.T  # the memory as laid out: [K, N] or [N, K]
     if bt.stride(-1) != 1 or lda(bt) % 8 or bt.data_ptr() % 16:
         bt = bt.contiguous()
+    if max(M, Np, Kp) >= 2 ** 31 or max(lda(a), lda(bt)) * 2 >= _TMA_MAX_STRIDE:
+        raise ValueError(f"{name}: operands {tuple(a.shape)} @ {tuple(w.shape)} are past what "
+                         "a TMA tensor map addresses")
     out = torch.empty((M, Np), dtype=torch.bfloat16, device=x.device)
     rc = build.launch(
         _lib().gemm_forward, x.device, a.data_ptr(), bt.data_ptr(), out.data_ptr(),
-        M, Np, Kp, lda(a), lda(bt), Np, int(kn),
+        M, Np, Kp, lda(a), lda(bt), Np, int(kn), 0,
     )
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed (CUDA error {rc})")

@@ -1379,6 +1379,52 @@ def test_routes_give_the_same_bits_on_card(dev, D, G, start):
     assert torch.equal(d, f), f"K1 differs from K5 by {float((d.float() - f.float()).abs().max())}"
 
 
+@pytest.mark.parametrize("start", [0, 100, 1040])
+@pytest.mark.parametrize("G", [2, 7])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
+def test_long_routes_give_the_same_bits_on_card(dev, D, G, start):
+    """The same bits over a sequence of 1100 keys: 18 splits wrap K5's ring
+    of K/V stages (at most 8), and K5 runs with one and with two consumer
+    warpgroups per CTA (two row blocks of 64 over one kv head); K5 over the
+    chunk's query slice alone (``q_offset`` = start, keys up to the chunk's
+    end) gives the same rows too.  K1 and K2 as in
+    ``test_routes_give_the_same_bits_on_card``; a 300-key window and
+    soft-cap 30 when G is 7."""
+    from torch_route_scenes import rows, scene
+
+    kw = dict(window=300, softcap=30.0) if G == 7 else {}
+    C = 16
+    sc = scene(1100, start, C, G, D, seed=D + G + start, dtype=torch.bfloat16, device=dev)
+    q, k, v = sc["flash"]["args"]
+    flash = [fa.flash_attention(q, k, v, causal=True, groups=n, **kw) for n in (1, 2)]
+    sliced = fa.flash_attention(q[:, :, start:start + C], k[:, :, :start + C], v[:, :, :start + C],
+                                causal=True, q_offset=start, **kw)
+    chunk = pa.paged_prefill_attention(*sc["chunk"]["args"], **kw)
+    decode = pa.paged_decode_attention(*sc["decode"]["args"], **kw)
+    _close(flash[0], fa.flash_attention_ref(q, k, v, causal=True, **kw), torch.bfloat16)
+    f, c, d = rows(sc, flash[0], chunk, decode)
+    f2 = rows(sc, flash[1], chunk, decode)[0]
+    fs = sliced[0].reshape(2, G, C, D)
+    torch.cuda.synchronize()
+    for name, got in (("K5 two warpgroups", f2), ("K5 q_offset", fs), ("K2", c), ("K1", d)):
+        assert torch.equal(got, f), f"{name} differs from K5 by {float((got.float() - f.float()).abs().max())}"
+
+
+def test_wgmma_and_mma_sync_give_the_same_bits_on_card(dev):
+    """The probe of bench/wgmma_probe.py: a wgmma k16 step (A from
+    registers or shared memory, B K-major or MN-major from a 128-byte-
+    swizzled tile) gives mma.sync's bits on every element of five input
+    classes (normals, exponent spreads, near-cancelling sums, subnormals,
+    large C).  K5 runs its products on wgmma beside K1's and K2's mma.sync
+    (branch A of the design), which is sound only while this holds."""
+    from repro_torch.bench import wgmma_probe
+
+    report = wgmma_probe.probe(dev, n=256)
+    print("wgmma probe:", report)
+    assert report["sane"], report
+    assert report["equal"], report
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [640, 1024])
 def test_wide_routes_give_the_same_bits_on_card(dev, dtype, D):
@@ -1426,15 +1472,16 @@ def test_attention_kernels_keep_16_bits_of_p_on_card(dev):
 # the MLP's 2048 x 6144 and 6144 x 2048, and the tied LM head (embed.T of a
 # 151,936 x 2048 table, read in place)
 GEMM_SHAPES = [(2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048), (2048, 151936)]
-GEMM_M = [1, 3, 8, 24, 32, 224, 4096]
+GEMM_M = [1, 3, 8, 24, 32, 64, 65, 127, 128, 129, 224, 512, 4096]
 
 
 @pytest.mark.parametrize("K,N", GEMM_SHAPES, ids=[f"{k}x{n}" for k, n in GEMM_SHAPES])
 def test_gemm_rows_do_not_depend_on_m_on_card(dev, K, N):
-    """Each output row of the GEMM is bitwise the same for M in 1, 3, 8,
-    24, 32, 224 and 4096 (the same first rows of one activation draw),
-    and within 2e-2 of ``torch.matmul``; the LM head's weight is the
-    transposed view of its [N, K] table."""
+    """Each output row of the GEMM is bitwise the same for every M of
+    GEMM_M, 1 to 4096 across the tile edges (64 rows: one consumer
+    warpgroup; 128: two) as the M = 4096 product's same rows (one
+    activation draw), and within 2e-2 of ``torch.matmul``; the LM head's
+    weight is the transposed view of its [N, K] table."""
     g = torch.Generator(device=dev).manual_seed(K + N)
     x = (0.5 * torch.randn((4096, K), generator=g, device=dev)).bfloat16()
     if N > 100_000:

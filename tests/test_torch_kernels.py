@@ -547,9 +547,10 @@ def test_paged_prefill_tiled_model_matches_jax(dtype, G, C):
     "header,users",
     [
         ("common.cuh", {"paged_attention", "paged_decode", "flash_attention", "gemm"}),
-        ("tensor_core.cuh", {"paged_attention", "paged_decode", "flash_attention", "gemm"}),
+        ("tensor_core.cuh", {"paged_attention", "paged_decode", "flash_attention", "wgmma_probe"}),
         ("split_merge.cuh", {"paged_attention", "paged_decode", "flash_attention"}),
         ("attention_split.cuh", {"paged_attention", "paged_decode", "flash_attention"}),
+        ("hopper.cuh", {"flash_attention", "gemm", "wgmma_probe"}),
     ],
 )
 def test_library_digest_covers_shared_headers(tmp_path, monkeypatch, header, users):

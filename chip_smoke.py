@@ -1105,42 +1105,37 @@ def serving_phase(bundle, params, cfg, traffic, device_blocks):
     failed closed.  Then one more request under the profiler for the
     device busy share.  Returns the event log, the metrics and the first
     batch's prompts."""
+    from repro_torch.bench.scheduler import StepTrace
     from repro_torch.serving.engine import ServingEngine
 
     V = cfg.vocab_size
     batches = traffic(V)
     eng = ServingEngine(bundle, params, block_size=16, device_blocks=device_blocks,
                         device=bundle.device)
-    # time the page-store mirror uploads (the engine re-uploads the whole
-    # host page store to the card after any page write)
-    uploads = {"s": 0.0, "n": 0}
-    mirror = eng._device_pages
-
-    def timed_mirror():
-        before = eng._pages_mirror
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        out = mirror()
-        torch.cuda.synchronize()
-        if before is None or before[1] is not out[0]:
-            uploads["n"] += 1
-            uploads["s"] += time.monotonic() - t
-        return out
-
-    eng._device_pages = timed_mirror
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     reqs, ttft, hits = [], [], [eng.prefix_reuse_hits.value()]
-    for batch in batches:
-        rs = [eng.submit(p, max_new_tokens=16) for p in batch]
-        tb = time.monotonic()
-        eng.run_batch(rs)
-        torch.cuda.synchronize()
-        ttft += [r.first_token_ts - tb for r in rs if r.first_token_ts is not None]
-        reqs += rs
-        hits.append(eng.prefix_reuse_hits.value())
+    # what crosses between host and card while the two batches run: the
+    # store is the pool's own on the card, so the only page bytes to the
+    # card are restores
+    with StepTrace(eng) as trace:
+        for batch in batches:
+            rs = [eng.submit(p, max_new_tokens=16) for p in batch]
+            tb = time.monotonic()
+            eng.run_batch(rs)
+            torch.cuda.synchronize()
+            ttft += [r.first_token_ts - tb for r in rs if r.first_token_ts is not None]
+            reqs += rs
+            hits.append(eng.prefix_reuse_hits.value())
     wall = time.monotonic() - t0
     name = cfg.name
+    pages = eng._device_pages()
+    check(pages[0] is eng.pool.k_pages and pages[1] is eng.pool.v_pages
+          and pages[0].device.type == "cuda",
+          f"{name}: the page store handed out is not the pool's own on the card")
+    copies = trace.totals()
+    up = copies.get("page_h2d", {"bytes": 0, "s": 0.0, "n": 0})
+    down = copies.get("d2h", {"bytes": 0})
     for r in reqs:
         check(r.status == "finished", f"{name} {r.request_id}: {r.status} ({r.error})")
         check(len(r.output_tokens) == 16, f"{name} {r.request_id}: {len(r.output_tokens)} tokens")
@@ -1158,9 +1153,10 @@ def serving_phase(bundle, params, cfg, traffic, device_blocks):
     n_steps = len(eng.events.named("step_scheduled"))
     print(f"{name} serving time: wall {wall:.3f} s over {n_steps} steps = decode/feed launches "
           f"{stage['decode_step']:.3f} s + prefill chunks {stage['prefill_chunk']:.3f} s + "
-          f"page-store uploads {uploads['s']:.3f} s ({uploads['n']} x "
-          f"{eng.pool.k_pages.numel() * 2 * eng.pool.k_pages.element_size() / 2**20:.0f} MiB) + "
-          f"other host work {wall - sum(stage.values()) - uploads['s']:.3f} s")
+          f"host-to-card page copies {up['s']:.3f} s ({up['bytes']} B in {up['n']} restores; the "
+          f"store, {eng.pool.k_pages.nbytes * 2 / 2**20:.0f} MiB, is the pool's own on "
+          f"{eng.pool.k_pages.device}) + other host work "
+          f"{wall - sum(stage.values()) - up['s']:.3f} s; card to host {down['bytes']} B")
     # one more request under the profiler: how busy the card is on this path
     extra = eng.submit(tuple(int(t) for t in np.random.default_rng(5).integers(0, V, 64)),
                        max_new_tokens=8)
@@ -1173,8 +1169,10 @@ def serving_phase(bundle, params, cfg, traffic, device_blocks):
     check(extra.status == "finished", f"profiled request {extra.status}")
     avg = prof.key_averages()
     busy = sum(getattr(e, "self_device_time_total", 0.0) for e in avg) / 1e6
+    htod = sum(getattr(e, "self_device_time_total", 0.0) for e in avg if "HtoD" in e.key) / 1e6
     print(f"{name} profiled request (64-token prompt, 8 new tokens): wall {w:.3f} s, device busy "
-          f"{busy:.3f} s ({100 * busy / w:.1f}%), {sum(e.count for e in avg)} device ops")
+          f"{busy:.3f} s ({100 * busy / w:.1f}%), {sum(e.count for e in avg)} device ops, "
+          f"host-to-card copies {htod * 1e3:.3f} ms ({100 * htod / max(busy, 1e-12):.1f}% of busy)")
     top = sorted(avg, key=lambda e: -getattr(e, "self_device_time_total", 0.0))[:6]
     for e in top:  # where the device time of the request went, by kernel
         us = getattr(e, "self_device_time_total", 0.0)

@@ -21,7 +21,10 @@ Gates (any failure exits 1):
   - every request finishes with its full token budget.
 
 Also reported (not gated): TTFT percentiles of the burst requests, step
-occupancy, the prefill chunks' wall.  The summary merges into
+occupancy, the prefill chunks' wall, and ``step_trace``: one more burst
+repetition, after the measured ones and outside every statistic above,
+recorded step by step (``StepTrace``) with the contended steps' gaps
+split into stages.  The summary merges into
 ``<out-dir>/BENCH_serving.json`` under ``mixed_scheduler``.
 
     PYTHONPATH=src python -m repro_torch.bench.scheduler [--fast]        # card
@@ -33,6 +36,8 @@ import json
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Optional
+
+import torch
 
 from repro_torch.bench.common import (
     RESULTS_DIR,
@@ -85,6 +90,207 @@ def join_deltas(eng) -> List[float]:
     return [cur.ts - prev.ts for prev, cur in zip(steps, steps[1:])
             if cur.payload["step"] == prev.payload["step"] + 1
             and cur.payload["n_decode"] > N_STREAMS]
+
+
+_UNSET = object()
+
+
+class StepTrace:
+    """Per-step record of one burst repetition: what each scheduler step
+    spent, by stage, and what it copied across the host/card boundary.
+
+    Measurement code of the bench, not of the engine: while the context is
+    open it wraps the engine's ``_device_pages`` (a page-store copy to the
+    card when it returns tensors other than the pool's own), the offload
+    connector's ``gather_payloads`` (restored payloads uploaded from the
+    host), the pool's ``_page_in`` (a host payload landing in a store on the
+    card), ``StepLoop._sync_state`` (whether the batched state was
+    rebuilt) and ``torch.Tensor.cpu``/``to`` (bytes copied between host and
+    card), and it restores all of them on exit.  Each record is stamped
+    with ``time.monotonic()``, the event log's clock, and belongs to the
+    first ``step_scheduled`` event at or after it."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.records: List[tuple] = []  # (ts, kind, nbytes, seconds)
+        self._quiet = 0  # inside a wrapped page copy: .to() is not counted twice
+
+    def _note(self, kind: str, nbytes: int, seconds: float = 0.0) -> None:
+        self.records.append((time.monotonic(), kind, int(nbytes), seconds))
+
+    def _timed_page_copy(self, fn, *args):
+        """Run ``fn`` with the device synchronised around it: the seconds
+        of a page copy, not of whatever was queued before it."""
+        dev = self.eng.device
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda *_: None)
+        sync(dev)
+        t0 = time.perf_counter()
+        self._quiet += 1
+        try:
+            out = fn(*args)
+        finally:
+            self._quiet -= 1
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    def __enter__(self) -> "StepTrace":
+        from repro_torch.serving import offload, scheduler_loop
+
+        eng, pool, tr = self.eng, self.eng.pool, self
+        pages_fn, page_in, gather = eng._device_pages, pool._page_in, offload.gather_payloads
+        sync_state, cpu, to = scheduler_loop.StepLoop._sync_state, torch.Tensor.cpu, torch.Tensor.to
+        last = [None]
+
+        def device_pages():
+            out, secs = tr._timed_page_copy(pages_fn)
+            own = out[0] is pool.k_pages
+            if not own and pool.k_pages is not None and out[0] is not last[0]:
+                tr._note("page_h2d", pool.k_pages.nbytes + pool.v_pages.nbytes, secs)
+            last[0] = out[0]
+            return out
+
+        def page_in_wrapped(blk, k, v):
+            store = pool.k_pages
+            if store is None or k.device == store.device:
+                return page_in(blk, k, v)
+            _, secs = tr._timed_page_copy(page_in, blk, k, v)
+            tr._note("page_h2d", k.nbytes + v.nbytes, secs)
+
+        def gather_wrapped(arrays, device=None):
+            out, secs = tr._timed_page_copy(gather, arrays, device)
+            up = sum(a.nbytes for a, o in zip(arrays, out)
+                     if a.device.type == "cpu" and o.device.type != "cpu")
+            if up:
+                tr._note("page_h2d", up, secs)
+            return out
+
+        def sync_wrapped(loop, pages):
+            rebuilt = not (loop._state is not None and loop._members == loop.rows)
+            tr._note("rebuilt" if rebuilt else "kept", 0)
+            return sync_state(loop, pages)
+
+        def cpu_wrapped(t, *a, **kw):
+            if t.is_cuda and not tr._quiet:
+                tr._note("d2h", t.nbytes)
+            return cpu(t, *a, **kw)
+
+        def to_wrapped(t, *a, **kw):
+            out = to(t, *a, **kw)
+            if not tr._quiet and out.device != t.device:
+                tr._note("d2h" if t.is_cuda else "h2d_other", out.nbytes)
+            return out
+
+        self._saved = []
+        for obj, name, fn in (
+            (eng, "_device_pages", device_pages), (pool, "_page_in", page_in_wrapped),
+            (offload, "gather_payloads", gather_wrapped),
+            (scheduler_loop.StepLoop, "_sync_state", sync_wrapped),
+            (torch.Tensor, "cpu", cpu_wrapped), (torch.Tensor, "to", to_wrapped),
+        ):
+            self._saved.append((obj, name, vars(obj).get(name, _UNSET)))
+            setattr(obj, name, fn)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for obj, name, orig in reversed(self._saved):
+            if orig is _UNSET:
+                delattr(obj, name)  # the inherited attribute shows again
+            else:
+                setattr(obj, name, orig)
+
+    def totals(self) -> Dict[str, Dict[str, float]]:
+        """Bytes, seconds and count of each kind of copy over the whole
+        trace (``page_h2d``, ``h2d_other``, ``d2h``)."""
+        out: Dict[str, Dict[str, float]] = {}
+        for _, kind, nbytes, secs in self.records:
+            if kind in ("rebuilt", "kept"):
+                continue
+            t = out.setdefault(kind, {"bytes": 0, "s": 0.0, "n": 0})
+            t["bytes"] += nbytes
+            t["s"] += secs
+            t["n"] += 1
+        return out
+
+    def steps(self) -> List[Dict[str, Any]]:
+        """One dict per ``step_scheduled`` event: its counts, the gap since
+        the previous step (the ITL sample when both carried the ten decode
+        rows), the seconds of each stage and the bytes copied."""
+        events = self.eng.events.named("step_scheduled")
+        stages = self.eng.events.named("stage_latency")
+        out, r, s, prev_ts = [], 0, 0, None
+        for ev in events:
+            p = ev.payload
+            row = {
+                "step": p["step"], "n_decode": p["n_decode"], "n_feed": p["n_feed"],
+                "prefill_tokens": p["prefill_tokens"], "rebuilt": False,
+                "gap_ms": None if prev_ts is None else round((ev.ts - prev_ts) * 1e3, 4),
+                "decode_step_ms": 0.0, "prefill_chunk_ms": 0.0,
+                "page_h2d_bytes": 0, "page_h2d_ms": 0.0, "other_h2d_bytes": 0, "d2h_bytes": 0,
+            }
+            while s < len(stages) and stages[s].seq < ev.seq:
+                key = f"{stages[s].payload['stage']}_ms"
+                row[key] = row.get(key, 0.0) + stages[s].payload["seconds"] * 1e3
+                s += 1
+            while r < len(self.records) and self.records[r][0] <= ev.ts:
+                _, kind, nbytes, secs = self.records[r]
+                if kind == "rebuilt":
+                    row["rebuilt"] = True
+                elif kind == "page_h2d":
+                    row["page_h2d_bytes"] += nbytes
+                    row["page_h2d_ms"] += secs * 1e3
+                elif kind == "h2d_other":
+                    row["other_h2d_bytes"] += nbytes
+                elif kind == "d2h":
+                    row["d2h_bytes"] += nbytes
+                r += 1
+            for key in ("decode_step_ms", "prefill_chunk_ms", "page_h2d_ms"):
+                row[key] = round(row[key], 4)
+            out.append(row)
+            prev_ts = ev.ts
+        return out
+
+
+def contended(rows: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """The steps whose gaps ``decode_deltas(overlap_only=True)`` takes."""
+    return [cur for prev, cur in zip(rows, rows[1:])
+            if cur["step"] == prev["step"] + 1
+            and prev["n_decode"] == N_STREAMS and cur["n_decode"] == N_STREAMS
+            and cur["prefill_tokens"] >= 1]
+
+
+def stage_breakdown(rows: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """The contended steps' gaps split into the decode launch, the prefill
+    chunk, page-store copies to the card and the rest (host work: stores,
+    admission, state assembly, copies back): the p50 of each stage, and
+    the step at the gap's p50 and p99 whole."""
+    steps = contended(rows)
+    if not steps:
+        return {"contended_steps": 0}
+    for row in steps:
+        row["other_ms"] = round(row["gap_ms"] - row["decode_step_ms"] - row["prefill_chunk_ms"]
+                                - row["page_h2d_ms"], 4)
+    keys = ("gap_ms", "decode_step_ms", "prefill_chunk_ms", "page_h2d_ms", "other_ms",
+            "page_h2d_bytes", "other_h2d_bytes", "d2h_bytes")
+    by_gap = sorted(steps, key=lambda row: row["gap_ms"])
+    at = lambda q: by_gap[max(0, min(len(by_gap) - 1, -(-q * len(by_gap) // 100) - 1))]
+    return {
+        "contended_steps": len(steps),
+        "p50": {k: pct([row[k] for row in steps], 50) for k in keys},
+        "step_at_gap_p50": at(50),
+        "step_at_gap_p99": at(99),
+        "rebuilt_steps": sum(row["rebuilt"] for row in steps),
+    }
+
+
+def run_traced_rep(model: Model, *, dec_new: int, burst_lens: List[int]) -> Dict[str, Any]:
+    """One more burst repetition under ``StepTrace``: every step's record
+    and the contended steps' breakdown.  Not counted in the ITL gate."""
+    with model.engine(**ENGINE_KW) as eng:
+        with StepTrace(eng) as trace:
+            eng.run_batch(submit_streams(eng, dec_new=dec_new) + submit_burst(eng, burst_lens))
+        rows = trace.steps()
+        _check_trace(eng, "traced burst")
+    return {"breakdown": stage_breakdown(rows), "steps": rows}
 
 
 def _check_trace(eng, label: str) -> None:
@@ -169,6 +375,7 @@ def measure(model: Model, out_dir: Path = RESULTS_DIR, *, fast: bool = False) ->
     iso_reps = [run_iso_rep(model, dec_new=dec_new) for _ in range(reps)]
     burst_reps = [run_burst_rep(model, dec_new=dec_new, burst_lens=burst_lens)
                   for _ in range(reps)]
+    step_trace = run_traced_rep(model, dec_new=dec_new, burst_lens=burst_lens)
     # best-of-reps p99 on both sides: one OS hiccup must not fail the gate,
     # and the same treatment of numerator and denominator keeps it honest
     iso_p99 = min(pct(d, 99) for d in iso_reps)
@@ -198,6 +405,7 @@ def measure(model: Model, out_dir: Path = RESULTS_DIR, *, fast: bool = False) ->
         "phased_prefill_wall_ms": round(
             max(r["phased_prefill_wall_s"] for r in burst_reps) * 1e3, 2),
         "decode_stall_steps_total": 0,
+        "step_trace": step_trace,
         "gates": {
             "itl_ratio_p99_max": ITL_RATIO_MAX,
             "zero_decode_stalls": True,

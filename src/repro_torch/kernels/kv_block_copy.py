@@ -95,7 +95,9 @@ def gather_payloads(arrays: Sequence[torch.Tensor], device: DeviceLike = None) -
 
     The payloads are stacked into a [N, page, KV, D] slab on the device,
     gathered in a single ``kv_block_copy`` launch, and come back as fresh
-    tensors on the payloads' own device, in input order.  Payloads whose
+    tensors on ``device``, in input order: a restore's payloads stay on
+    the card, where the pool copies each into its page slot, and an
+    offload's reach the host tier's own copy there.  Payloads whose
     shapes cannot form a uniform page layout (mixed shapes or dtypes, empty
     payloads) take a plain per-array copy instead — chosen from the shapes,
     before any launch.
@@ -114,7 +116,6 @@ def gather_payloads(arrays: Sequence[torch.Tensor], device: DeviceLike = None) -
         page_shape = (first.numel(), 1, 1)
     src = torch.stack([a.reshape(page_shape) for a in arrays]).to(dev)
     out = kv_block_copy(src, torch.arange(len(arrays), dtype=torch.int32))
-    out = out.to(first.device)
     return [out[i].reshape(arrays[i].shape) for i in range(len(arrays))]
 
 

@@ -245,7 +245,7 @@ class EngineCore:
             block_size=block_size,
         )
         self.registry = ClaimRegistry(self.events, self.identity)
-        self.pool = BlockPool(device_blocks, self.events)
+        self.pool = BlockPool(device_blocks, self.events, device=self.device)
         self.host = HostTier(host_blocks)
         self.disk = DiskTier(disk_dir)
         self.fault_plan = fault_plan

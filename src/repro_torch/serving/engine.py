@@ -15,16 +15,16 @@ The claim lifecycle itself lives in ``core_engine.EngineCore``; this
 module adds what is specific to KV block chains and the execution strategy:
 
 **Paged decode (default).**  Block payloads live in the pool's
-page store (kv_cache.BlockPool, host memory) and decode attends over them IN
-PLACE through per-request block tables (models/transformer.paged_decode_step;
-on the GPU the CUDA kernel behind kernels/paged_attention.py), reading the
-engine's device mirror of the page store.  No dense per-request cache is
-ever assembled: a reused or restored block is consumed at its page slot,
+page store (kv_cache.BlockPool, on the engine's device) and decode attends
+over them IN PLACE through per-request block tables
+(models/transformer.paged_decode_step; on the GPU the CUDA kernel behind
+kernels/paged_attention.py), reading the store itself.  No dense
+per-request cache is ever assembled: a reused or restored block is consumed at its page slot,
 shared prefixes occupy their pages ONCE across the whole batch, and context
 length is bounded by pool pages — not by a per-request cache shape.  Only
 the in-flight tail (trailing partial block + decoded tokens) is per-request
 state.  ``decode_mode="dense"`` keeps the gather-to-dense path (the parity
-anchor): each request's prefix blocks are copied from the host page store
+anchor): each request's prefix blocks are copied from the page store
 into a per-request [cache_len] cache, a fresh prompt runs one full-length
 prefill (on the GPU the flash-attention kernel behind
 kernels/flash_attention.py), and decode attends that cache.
@@ -190,7 +190,6 @@ class ServingEngine(EngineCore):
         # unified step-scheduler budget: live rows (1 token each) + at most
         # one prefill chunk (chunk_len x bucket rows) per step
         self.max_tokens_per_step = max_tokens_per_step
-        self._pages_mirror: Optional[Tuple[int, Any, Any]] = None
         # step-scheduler observability (registered unconditionally so the
         # reconcile rule step_tokens.count == |step_scheduled| holds 0==0
         # for dense/idle engines too)
@@ -271,7 +270,7 @@ class ServingEngine(EngineCore):
     # ------------------------------------------------------------ cache plumbing
     def _dense_cache(self, blocks: List[KVBlock], batch: int = 1):
         """Gather-to-dense assembly (decode_mode="dense" only): copies every
-        block payload from the host page store into row 0 of a fresh cache
+        block payload from the page store into row 0 of a fresh cache
         on the engine's device.  A prefix longer than the cache (possible
         only on a sliding-window ring) raises ValueError, as the JAX
         package's scatter does; nothing is truncated.  Under an int8 cache
@@ -299,50 +298,39 @@ class ServingEngine(EngineCore):
         return cache, n
 
     def _device_pages(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Device mirror of the host pool page store, rebuilt only when pages
-        change (version-keyed).  Page frees alone never re-upload: no block
-        table references a freed slot, so stale mirror bytes there are
-        unreachable and the existing device tensors are simply re-keyed
-        (mid-stream completions between steps would otherwise force a full
-        upload onto the next step's critical path).  Any page write uploads
-        the whole store as a fresh copy: live decode states hold the old
-        mirror, so it is never updated in place."""
+        """The page store the paged kernels read: the pool's own
+        ``k_pages``/``v_pages``, which live on the engine's device (the
+        reference's "on the TPU target the page store IS device memory and
+        this is the identity").  Nothing is copied, so live decode states
+        and every later page write share one pair of tensors at fixed
+        addresses; ``kv_cache.BlockPool`` says why no write lands in a slot
+        a live block table reads.  Before the first page exists, a one-page
+        zero store stands in (no block table references a page yet).  A
+        store on another device than the engine's raises: the engine never
+        serves from a host store."""
         pool = self.pool
-        ver = pool._pages_version if pool.k_pages is not None else -1
-        if self._pages_mirror is None or self._pages_mirror[0] != ver:
-            if pool.k_pages is None:
-                cfg = self.cfg
-                z = torch.zeros(
-                    (cfg.num_layers, cfg.num_kv_heads, 1, self.block_size, cfg.resolved_head_dim),
-                    dtype=self.params["embed"].dtype,
-                    device=self.device,
-                )
-                self._pages_mirror = (ver, z, z)
-            else:
-                dirty = pool._dirty_pages
-                km = vm = None
-                if self._pages_mirror is not None:
-                    _, km, vm = self._pages_mirror
-                if km is not None and km.shape == pool.k_pages.shape and not dirty:
-                    # frees only: re-key the mirror, bytes are still valid
-                    self._pages_mirror = (ver, km, vm)
-                else:
-                    self._pages_mirror = (
-                        ver,
-                        pool.k_pages.to(self.device, copy=True),
-                        pool.v_pages.to(self.device, copy=True),
-                    )
-                dirty.clear()
-        return self._pages_mirror[1], self._pages_mirror[2]
+        if pool.k_pages is None:
+            cfg = self.cfg
+            z = torch.zeros(
+                (cfg.num_layers, cfg.num_kv_heads, 1, self.block_size, cfg.resolved_head_dim),
+                dtype=self.params["embed"].dtype,
+                device=self.device,
+            )
+            return z, z
+        if pool.k_pages.device != self.device:
+            raise RuntimeError(
+                f"page store on {pool.k_pages.device}, the engine serves on {self.device}"
+            )
+        return pool.k_pages, pool.v_pages
 
     def _store_prefix_blocks(
         self, req: Request, ck, cv, upto: int, *, start: int = 0, pin: bool = True
     ) -> List[KVBlock]:
         """Slice a request's KV into reusable pool pages.
 
-        ck/cv: [L, S, KV, Dh] host tensors — the request's KV for token
-        positions ``start..upto`` (``start`` must be block-aligned; blocks
-        before it are assumed resident and are skipped, their chain hashes
+        ck/cv: [L, S, KV, Dh] tensors on the engine's device — the
+        request's KV for token positions ``start..upto`` (``start`` must be
+        block-aligned; blocks before it are assumed resident and are skipped, their chain hashes
         still folded in).
 
         With ``pin=True`` returns the stored/reused blocks from ``start``
@@ -413,9 +401,9 @@ class ServingEngine(EngineCore):
         radix path.
 
         ``seq`` is the request's token sequence (prompt, optionally plus
-        generated output); ``tail_k``/``tail_v`` ([L, T, KV, Dh] host tensors)
-        hold the KV computed through the in-flight tail for positions
-        ``plen..plen+T``.  Resident full blocks are skipped (radix
+        generated output); ``tail_k``/``tail_v`` ([L, T, KV, Dh] on the
+        engine's device) hold the KV computed through the in-flight tail
+        for positions ``plen..plen+T``.  Resident full blocks are skipped (radix
         descent); a matching partial block is EXTENDED — in place while
         this caller is its only holder (``held_blocks``), copy-on-write
         once shared; missing blocks are cut from the tail.  With
@@ -673,11 +661,11 @@ class ServingEngine(EngineCore):
         pages: Optional[Tuple[Any, Any]] = None,
     ) -> Dict[str, Any]:
         """Assemble the paged-decode state on the engine's device: pool pages
-        + per-request block tables + in-flight tails.
+        + per-request block tables + in-flight tails (``tails``' tensors
+        may already sit there: they are copied on the device).
 
-        ``pages`` lets run_batch share ONE mirror across every continuation
-        feed in a batch (their stores only add pages no current block table
-        references), instead of re-uploading the pool per request.
+        ``pages`` is the ``_device_pages()`` pair the caller holds for the
+        batch (the pool's own store).
         """
         B = len(blocks_per_req)
         jk, jv = pages if pages is not None else self._device_pages()
@@ -687,7 +675,8 @@ class ServingEngine(EngineCore):
         for i, bl in enumerate(blocks_per_req):
             pt = self.pool.page_table(bl)
             bt[i, : len(pt)] = pt
-        tk = torch.zeros((L, B, tail_cap, KV, Dh), dtype=jk.dtype)
+        dev = self.device
+        tk = torch.zeros((L, B, tail_cap, KV, Dh), dtype=jk.dtype, device=dev)
         tv = torch.zeros_like(tk)
         tpos = np.full((B, tail_cap), -1, np.int32)
         if tails is not None:
@@ -698,14 +687,13 @@ class ServingEngine(EngineCore):
                 tk[:, i, :n] = t["k"]
                 tv[:, i, :n] = t["v"]
                 tpos[i, :n] = t["pos"]
-        dev = self.device
         return {
             "k_pages": jk,
             "v_pages": jv,
             "block_tables": torch.from_numpy(bt).to(dev),
             "prefix_len": torch.tensor(plens, dtype=torch.int32, device=dev),
-            "k_tail": tk.to(dev),
-            "v_tail": tv.to(dev),
+            "k_tail": tk,
+            "v_tail": tv,
             "tail_pos": torch.from_numpy(tpos).to(dev),
         }
 
@@ -718,7 +706,7 @@ class ServingEngine(EngineCore):
             "req": req,
             "blocks": blocks,
             "plen": plen,
-            "tail_k": tail_k,  # [L, t, KV, Dh] host tensor (may be empty)
+            "tail_k": tail_k,  # [L, t, KV, Dh] on the engine's device (may be empty)
             "tail_v": tail_v,
             "tail_pos": tail_pos,  # [t] absolute positions
             "logits": logits,  # [V]
@@ -764,8 +752,8 @@ class ServingEngine(EngineCore):
                 )
                 logits = lg[0]
             t_used = n - plen
-            tail_k = state["k_tail"][:, 0, :t_used].cpu()
-            tail_v = state["v_tail"][:, 0, :t_used].cpu()
+            tail_k = state["k_tail"][:, 0, :t_used]
+            tail_v = state["v_tail"][:, 0, :t_used]
             tail_pos = np.arange(plen, n)
             if cached < n:
                 # freshly computed KV folds back into pool pages along the
@@ -813,8 +801,7 @@ class ServingEngine(EngineCore):
         )
         device_sync(self.device)
         self._observe_stage("prefill", time.monotonic() - t0)
-        ck = ck.cpu()  # [L, B, S, KV, Dh]
-        cv = cv.cpu()
+        # ck/cv: [L, B, S, KV, Dh] on the device, sliced into the store there
         stored: List[Tuple[Request, List[KVBlock]]] = []
         for i, req in enumerate(reqs):
             n = lens[i]
@@ -920,8 +907,6 @@ class ServingEngine(EngineCore):
         )
         device_sync(self.device)
         self._observe_stage("prefill", time.monotonic() - t0)
-        ck = ck.cpu()
-        cv = cv.cpu()
         stored: List[Tuple[Request, List[KVBlock], int]] = []
         for i, req in enumerate(reqs):
             n = lens[i]
@@ -965,8 +950,8 @@ class ServingEngine(EngineCore):
                         self.params, cache, tok(req.tokens[-1]), tok(n - 1)
                     )
                     logits = lg[0]
-            ck = cache["k"][:, 0].cpu()  # [L, Sc, KV, Dh]
-            cv = cache["v"][:, 0].cpu()
+            ck = cache["k"][:, 0]  # [L, Sc, KV, Dh], copied into pages on the device
+            cv = cache["v"][:, 0]
             # dense decode owns a private cache copy, so the pins taken by
             # the store (to protect the chain mid-store) release right away
             unpin_chain(self._store_prefix_blocks(req, ck, cv, len(req.tokens)))

@@ -6,11 +6,13 @@ engine's decode consumes these bytes, so offload/restore is actual data
 movement, not counters (the paper rejects "generic transfer counters" as
 evidence; here a failed restore really does leave the KV absent).
 
-Payloads are torch tensors.  The page store lives in host memory; the
-serving engine keeps a version-keyed mirror of it on the engine's device
-(``ServingEngine._device_pages``), which is what the paged attention
-kernels read.  The off-device tiers sit behind an injectable transfer
-layer (see serving/offload.py).
+Payloads are torch tensors.  The page store lives on the device the pool
+is given (the engine's: the card unless the caller asks for the CPU), and
+the paged attention kernels read it there, in place
+(``ServingEngine._device_pages`` hands out the pool's own tensors).  A page
+write copies one block's bytes into its slot; nothing copies the pool.
+The off-device tiers sit behind an injectable transfer layer (see
+serving/offload.py).
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.device import DeviceLike
 
 
 def chain_hash(prev: str, tokens: Sequence[int]) -> str:
@@ -144,10 +148,30 @@ class BlockPool:
     chunk's allocation can never evict a page the growing block table
     attends — the pool is the only resident prefill KV, bounding peak
     prefill memory at O(chunk).
+
+    ``device`` is where the page store lives (the engine passes its own;
+    a bare pool names it).  There is ONE store: live decode states hold
+    these very tensors, so every page write is seen by every state at
+    once.  No write may therefore land in a slot that a live block table
+    reads within its lengths, and none does:
+
+    - a block in a live block table is pinned (``pin_chain``: ref > 0), and
+      a pinned block is never a victim, so its slot is never freed or
+      reused while the table lives;
+    - a fresh store (``add_block``, ``add_partial_block``, ``readmit``)
+      takes a FREE slot, which no live table references;
+    - ``extend_block`` appends in place only while the caller's own pins
+      are the block's only references (``ref <= held``), and only at rows
+      past the block's valid tokens — past ``prefix_len`` of the one table
+      that holds it, so no state reads them from the page;
+    - a shared partial page is copy-on-written (``page_cow``): the sharers
+      keep its bytes, the extension lands in a free slot.
     """
 
-    def __init__(self, capacity_blocks: int, event_log, clock=time.monotonic):
+    def __init__(self, capacity_blocks: int, event_log, clock=time.monotonic, *,
+                 device: DeviceLike):
         self.capacity = capacity_blocks
+        self.device = torch.device(device)
         self._events = event_log
         self._clock = clock
         self.blocks: Dict[int, KVBlock] = {}
@@ -166,14 +190,9 @@ class BlockPool:
         # engine hook invoked once per page_cow emit (metric witness 1:1)
         self.on_cow = None
         # paged backing store (lazily shaped from the first block payload)
-        self.k_pages: Optional[torch.Tensor] = None  # [L, KV, N, page, Dh], host
+        self.k_pages: Optional[torch.Tensor] = None  # [L, KV, N, page, Dh] on self.device
         self.v_pages: Optional[torch.Tensor] = None
         self._free_pages: List[int] = []
-        self._pages_version = 0  # bumped on any page write (device mirror key)
-        # page slots written since the device mirror last synced (the
-        # mirror consumer drains this set when it syncs; an empty set means
-        # only frees happened and the mirror is re-keyed, not re-uploaded)
-        self._dirty_pages: set = set()
 
     # -- page store -----------------------------------------------------------
     @staticmethod
@@ -191,12 +210,14 @@ class BlockPool:
             return
         L, bs, KV, Dh = k.shape
         shape = (L, KV, self.capacity, bs, Dh)
-        self.k_pages = torch.zeros(shape, dtype=k.dtype, device="cpu")
-        self.v_pages = torch.zeros(shape, dtype=k.dtype, device="cpu")
+        self.k_pages = torch.zeros(shape, dtype=k.dtype, device=self.device)
+        self.v_pages = torch.zeros(shape, dtype=k.dtype, device=self.device)
         self._free_pages = list(range(self.capacity - 1, -1, -1))
 
     def _page_in(self, blk: KVBlock, k: torch.Tensor, v: torch.Tensor) -> None:
-        """Land a payload in a free page slot; blk.k/v become views of it."""
+        """Land a payload in a free page slot; blk.k/v become views of it.
+        A payload on another device (a restore staged elsewhere) is copied
+        into the slot: one block's bytes."""
         self._ensure_pages(k)
         L, KV, _, bs, Dh = self.k_pages.shape
         if tuple(k.shape) != (L, bs, KV, Dh) or not self._free_pages:
@@ -210,15 +231,12 @@ class BlockPool:
         # zero-copy views back in [L, block_size, KV, Dh] layout
         blk.k = self.k_pages[:, :, pi].permute(0, 2, 1, 3)
         blk.v = self.v_pages[:, :, pi].permute(0, 2, 1, 3)
-        self._pages_version += 1
-        self._dirty_pages.add(pi)
 
     def _page_out(self, blk: KVBlock) -> None:
         if blk.page_index is not None:
             pi = blk.page_index
             blk.detach_payload()
             self._free_pages.append(pi)
-            self._pages_version += 1
 
     def page_table(self, blocks: Sequence[KVBlock]) -> List[int]:
         """Page indices for a block chain (the per-request block table)."""
@@ -383,7 +401,8 @@ class BlockPool:
         p0 = int(blk.positions[0]) if len(blk.positions) else 0
         if blk.ref > held:
             # shared: copy the base payload BEFORE any allocation below —
-            # eviction inside add could otherwise free the source page
+            # eviction inside add could otherwise free the source page (the
+            # copy runs on the store's device; the sharers' slot is untouched)
             base_k = blk.k[:, :n0].clone()
             base_v = blk.v[:, :n0].clone()
             cow_k = torch.cat([base_k, k_ext.to(base_k.device)], dim=1)
@@ -414,7 +433,9 @@ class BlockPool:
             if self.on_cow is not None:
                 self.on_cow()
             return nb
-        # unshared: in-place append into the zero-padded region
+        # unshared: in-place append into the zero-padded region — rows
+        # n0.. lie past the valid tokens, where the one holder's table
+        # stops (its prefix_len), so no live state reads them from the page
         blk.k[:, n0 : n0 + e] = k_ext
         blk.v[:, n0 : n0 + e] = v_ext
         blk.tokens = toks
@@ -435,9 +456,6 @@ class BlockPool:
             cur_blk = self.blocks.get(cur) if cur is not None else None
             if cur_blk is None or cur_blk.chain != chain or cur_blk.partial:
                 self.prefix_index[chain] = blk.block_id
-        if blk.page_index is not None:
-            self._pages_version += 1
-            self._dirty_pages.add(blk.page_index)
         self._events.emit(
             "page_extend",
             block_id=blk.block_id,
@@ -448,9 +466,11 @@ class BlockPool:
         return blk
 
     def readmit(self, blk: KVBlock) -> KVBlock:
-        """Re-admit a restored block: its payload lands directly in a page
-        slot (restore lands BLOCKS, not dense slabs) and becomes attendable
-        in place via block tables."""
+        """Re-admit a restored block: its payload lands directly in a free
+        page slot (restore lands BLOCKS, not dense slabs) and becomes
+        attendable in place via block tables.  The payload may arrive on
+        another device than the store (the copy device of the restore):
+        ``_page_in`` copies it into the slot."""
         blk.location = "device"
         blk.last_use = self._clock()
         k, v = blk.k, blk.v

@@ -48,6 +48,8 @@ import itertools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+import torch
+
 from repro_torch.serving.chaos import (
     FaultPlan,
     TierHealth,
@@ -552,7 +554,8 @@ class OffloadingConnector:
             kind=job.kind,
             n_blocks=len(job.block_ids),
         )
-        tjob = TransferJob(job.job_id, job.kind, fn, policy=self.retry_policy)
+        tjob = TransferJob(job.job_id, job.kind, self._on_caller_stream(fn),
+                           policy=self.retry_policy)
         self.queue.submit(tjob)
         try:
             tjob.wait()
@@ -565,6 +568,23 @@ class OffloadingConnector:
                 job, e.block_id, e.direction, str(e), TRIGGER_TRANSIENT_EXHAUSTED
             )
         self._update_tier_gauges()
+
+    def _on_caller_stream(self, fn):
+        """``fn`` run on the submitting thread's current stream of the copy
+        device.  The worker's device work (payload gathers, copies into
+        page slots) is then queued on the stream the engine launches on, so
+        the next launch that reads a restored slot is ordered after the
+        write, whichever thread made it.  The copies are blocking (no
+        pinned staging), so none is still in flight at the join."""
+        if self.copy_device.type != "cuda":
+            return fn
+        stream = torch.cuda.current_stream(self.copy_device)
+
+        def on_stream() -> None:
+            with torch.cuda.stream(stream):
+                fn()
+
+        return on_stream
 
     def _job_fault_at_join(
         self, job: OffloadJob, block_id, direction, reason: str, trigger: str
@@ -672,7 +692,9 @@ class OffloadingConnector:
     def _batched_copy(self, blocks: List[KVBlock], job: OffloadJob) -> None:
         """Materialize fresh payload buffers for a job's surviving blocks via
         one batched kernel gather per side on the engine's device (the
-        restoration hot path)."""
+        restoration hot path).  The buffers stay there: a restore's land
+        in their page slots (``BlockPool.readmit``), an offload's are
+        copied down by the tier that takes them."""
         with_payload = [b for b in blocks if b.k is not None and b.k.numel() > 0]
         if with_payload:
             new_k = gather_payloads([b.k for b in with_payload], self.copy_device)

@@ -95,11 +95,10 @@ def _gather_rebuild(k, v, pos, lg, idx, fresh):
     """Device-side membership rebuild: permute the old batched tail state
     (and carried logits) into the new row order, zero-filling rows that
     were not members before (a fresh row has no written tail — zeros and
-    position sentinel -1 are exactly what the host-side state assembly
+    position sentinel -1 are exactly what the full state assembly
     produces for it).  Gather copies bytes verbatim, so this path is
-    bitwise-identical to the host round-trip it replaces — just without
-    shipping W x tail_cap KV across the device boundary on the step's
-    critical path."""
+    bitwise-identical to the full rebuild — in a few launches instead of
+    one copy per row."""
     idx = idx.long()
     fm = fresh[None, :, None, None, None]
     return (
@@ -215,9 +214,10 @@ class PrefillJob:
         then land each row's completed blocks in pool page slots.
 
         This runs INSIDE a mixed step next to live decode rows, so its
-        host<->device traffic stays small: four small per-chunk operands up,
-        and the chunk's (k, v) pair down — per-chunk overhead is what decode
-        ITL pays on every contended step."""
+        host<->device traffic stays small: four small per-chunk operands
+        up, and nothing down — the chunk's (k, v) pair is cut into page
+        slots on the device.  Per-chunk overhead is what decode ITL pays on
+        every contended step."""
         eng = self.eng
         bs = eng.block_size
         lo, hi = self.lo, self.lo + self.C
@@ -249,7 +249,7 @@ class PrefillJob:
             self.abort("prefill_launch_failure", f"{type(e).__name__}: {e}")
             return
         eng._observe_stage("prefill_chunk", time.monotonic() - t0)
-        ck, cv = ck.cpu(), cv.cpu()  # [L, B, C, KV, Dh] — the chunk, not O(S)
+        # ck/cv: [L, B, C, KV, Dh] on the device — the chunk, not O(S)
         for i in list(self.alive):
             req = self.reqs[i]
             upto = min(hi, self.lens[i] - self.lens[i] % bs)
@@ -379,14 +379,15 @@ class StepLoop:
     # ------------------------------------------------------------ step state
     def _sync_state(self, pages: Tuple[Any, Any]) -> None:
         """(Re)build the batched device state when row membership changed;
-        otherwise just swap in the step's page mirror.
+        otherwise just swap in the step's ``pages``.
 
-        ``pages`` is the mirror snapshot taken at the START of the step,
-        before this step's chunk launch stored anything: the decode rows
-        pin every page they reference, so pages stored (or evicted slots
-        reused) later in the same step are unreachable from any live block
-        table and the decode launch must not pay a second mirror upload
-        for them."""
+        ``pages`` is the ``_device_pages()`` pair taken at the START of the
+        step: the pool's own store, which this step's chunk then writes in
+        place.  The decode rows pin every page they reference, so pages
+        stored (or evicted slots reused) later in the same step are slots
+        no live block table reads (``kv_cache.BlockPool``).  The swap
+        matters only on the step that allocates the store: until then the
+        pair is a one-page stand-in."""
         eng = self.eng
         rows = self.rows
         if self._state is not None and self._members == rows:
@@ -406,10 +407,10 @@ class StepLoop:
             and tail_cap == self._tail_cap
         ):
             # membership-only change at the same tail capacity (the common
-            # mid-stream join/leave): permute tails + carried logits ON
-            # DEVICE instead of round-tripping W x tail_cap KV through the
-            # host — this rebuild sits on the contended step's critical
-            # path, right where admitted rows enter the batch
+            # mid-stream join/leave): permute tails + carried logits in one
+            # gather instead of a state assembly row by row — this rebuild
+            # sits on the contended step's critical path, right where
+            # admitted rows enter the batch
             idx_rows = [old_index.get(id(r), 0) for r in rows]
             fresh = [id(r) not in old_index for r in rows]
             idx = np.asarray(idx_rows + [idx_rows[0]] * pad, np.int32)
@@ -444,10 +445,10 @@ class StepLoop:
             self._logits = glg
         else:
             old_k = old_v = old_lg = None
-            if self._state is not None:
-                old_k = self._state["k_tail"].cpu()
-                old_v = self._state["v_tail"].cpu()
-                old_lg = self._logits.cpu() if self._logits is not None else None
+            if self._state is not None:  # the old tails, copied on the device
+                old_k = self._state["k_tail"]
+                old_v = self._state["v_tail"]
+                old_lg = self._logits
             tails: List[Optional[Dict[str, Any]]] = []
             for r in rows:
                 t = r.pos - r.plen  # written tail slots
@@ -466,18 +467,21 @@ class StepLoop:
             self._state = eng._make_paged_state(
                 blocks_per, plens, tail_cap, tails=tails, pages=pages
             )
-            # surviving decode rows keep their pre-rebuild logits (the host
-            # round-trip is bitwise); rows that have not launched yet are
-            # still feeding and never consume a logits slot before their
-            # first launch
+            # surviving decode rows keep their pre-rebuild logits (a copy,
+            # bitwise); rows that have not launched yet are still feeding
+            # and never consume a logits slot before their first launch
             if old_lg is not None:
-                lg = torch.zeros((W, old_lg.shape[1]), dtype=old_lg.dtype)
-                for i, r in enumerate(rows):
-                    oi = old_index.get(id(r))
-                    if oi is not None:
-                        lg[i] = old_lg[oi]
-                lg[len(rows) :] = lg[0]
-                self._logits = lg.to(eng.device)
+                idx_rows = [old_index.get(id(r)) for r in rows]
+                idx = np.asarray([0 if oi is None else oi for oi in idx_rows], np.int32)
+                fm = np.asarray([oi is None for oi in idx_rows], bool)
+                idx = np.concatenate([idx, np.repeat(idx[:1], pad)])
+                fm = np.concatenate([fm, np.repeat(fm[:1], pad)])
+                d_fm = torch.from_numpy(fm).to(eng.device)
+                self._logits = torch.where(
+                    d_fm[:, None],
+                    torch.zeros((), dtype=old_lg.dtype, device=old_lg.device),
+                    old_lg[torch.from_numpy(idx).to(eng.device).long()],
+                )
             else:
                 self._logits = None
         self._members = list(rows)
@@ -582,8 +586,8 @@ class StepLoop:
                 # freshly computed KV folds back into pool pages along the
                 # radix path: full blocks are cut from the tail, a matched
                 # partial block grows in place (or COWs if shared)
-                tk = self._state["k_tail"][:, idx].cpu()
-                tv = self._state["v_tail"][:, idx].cpu()
+                tk = self._state["k_tail"][:, idx]
+                tv = self._state["v_tail"][:, idx]
                 eng._fold_sequence_blocks(
                     req, req.tokens, tk, tv, row.plen, held_blocks=row.blocks
                 )
@@ -610,8 +614,8 @@ class StepLoop:
             idx = self._members.index(row)
             t = row.pos - row.plen
             if t > 0:
-                tk = self._state["k_tail"][:, idx, :t].cpu()
-                tv = self._state["v_tail"][:, idx, :t].cpu()
+                tk = self._state["k_tail"][:, idx, :t]
+                tv = self._state["v_tail"][:, idx, :t]
                 self.eng._readmit_decode_tail(row.req, row.blocks, row.plen, tk, tv)
         unpin_chain(row.blocks)
         self.eng._finish_ok(row.req)
@@ -624,10 +628,9 @@ class StepLoop:
         while self.waiting or self.pending_fresh or self.rows or self.job:
             self._admit()
             self._start_job()
-            # ONE mirror snapshot per step, taken before the chunk launch
-            # stores anything: admissions/restores above are covered, and
-            # the decode side never re-uploads for pages its pinned block
-            # tables cannot reference (see _sync_state)
+            # the page store for this step (the pool's own tensors; the
+            # chunk below writes into it in slots no live table reads, see
+            # _sync_state)
             pages = eng._device_pages()
             prefill_tokens = 0
             prefill_rows = 0
@@ -645,8 +648,9 @@ class StepLoop:
                         self.rows.extend(self.job.take_rows())
                         self.job = None
                         # the joined rows feed THIS step and their block
-                        # tables reference the job's freshly stored pages —
-                        # refresh the snapshot (one upload per bucket)
+                        # tables reference the job's freshly stored pages:
+                        # the store exists now even if it did not at the
+                        # step's start
                         pages = eng._device_pages()
             # decode side: every live row launches every step — the budget
             # never holds a decode row back (zero decode stalls)

@@ -11,8 +11,9 @@ outcome on same-claim restoration failure.
 The lifecycle is the same code as the KV engine's: ``SnapshotEngine``
 subclasses ``core_engine.EngineCore`` with ``kind = StateSnapshotKind()``
 and supplies only the snapshot plumbing: packing a state tree into a single
-pseudo-block whose payload is the flattened state bytes (a host ``uint8``
-tensor, where the pool keeps every payload), and unpacking it on reuse.
+pseudo-block whose payload is the flattened state bytes (a ``uint8``
+tensor: packed on the host; a restore leaves it on the engine's device,
+where the page-copy kernel wrote it), and unpacking it on reuse.
 Transfers ride the same tiered connector, the same batched job queue
 (offload and restore move the payload through ``gather_payloads``, the
 page-copy kernel on the card), the same failure injection, and the same

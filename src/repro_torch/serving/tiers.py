@@ -67,9 +67,17 @@ class HostTier:
         return self.capacity is not None and self.used > self.capacity
 
     def put(self, blk: KVBlock) -> None:
-        # A block arriving from the device pool may still be a view of its
-        # (now freed) page slot: take ownership of the bytes host-side.
-        blk.detach_payload()
+        # The tier holds host copies.  A payload on the card (the offload's
+        # batched copy, or a view of a freed page slot) is copied to the
+        # host here: that copy is what an offload is.  A payload on the
+        # host may still be a view of its (now freed) page slot in a host
+        # store: take ownership of its bytes.
+        if blk.k is not None and blk.k.device.type != "cpu":
+            blk.k = blk.k.cpu()
+            blk.v = blk.v.cpu() if blk.v is not None else None
+            blk.page_index = None
+        else:
+            blk.detach_payload()
         if blk.checksum is None:
             blk.checksum = payload_checksum(blk.k, blk.v)
         if self.fault_plan is not None and self.fault_plan.draw_corruption(

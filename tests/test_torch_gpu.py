@@ -23,7 +23,10 @@ against the CPU, and an int8 engine's offload and restore move int8 pages
 through K3.  Training: a reduced training step on the card against the
 CPU (loss, grads, updated masters), every kernel wrapper refusing a
 grad-requiring CUDA input, and ``Trainer`` on the card by default, none of
-them launching a kernel.
+them launching a kernel.  The page store: the pool's own tensors on the
+card through a ``run_batch``, a host-tier restore landing bitwise in its
+slot there, and full-width qwen3-1.7b serving the same bits whether its
+live states read the one store or a clone of it.
 """
 import numpy as np
 import pytest
@@ -189,7 +192,9 @@ def test_gather_payloads_through_kernel(dev):
     n0 = kbc.kv_block_copy.launches
     out = kbc.gather_payloads(arrays, dev)
     assert kbc.kv_block_copy.launches == n0 + 1
-    assert all(torch.equal(a, b) and b.device.type == "cpu" for a, b in zip(arrays, out))
+    # the gathered payloads stay on the copy device (a restore lands them
+    # in page slots there)
+    assert all(b.device.type == "cuda" and torch.equal(a, b.cpu()) for a, b in zip(arrays, out))
 
 
 def test_reduced_engine_on_card_matches_cpu(dev):
@@ -876,7 +881,7 @@ def test_kv_block_copy_snapshot_payloads(dev, nbytes):
     n0, plain = kbc.kv_block_copy.launches, kbc.gather_payloads.plain_copies
     (out,) = kbc.gather_payloads([payload], dev)
     assert kbc.kv_block_copy.launches == n0 + 1 and kbc.gather_payloads.plain_copies == plain
-    assert out.device.type == "cpu" and torch.equal(out, payload)
+    assert out.device.type == "cuda" and torch.equal(out.cpu(), payload)
 
 
 @pytest.mark.parametrize("name", ["hymba-1.5b", "xlstm-350m"])
@@ -1577,3 +1582,81 @@ def test_flash_attention_wide_empty_row_kernel_matches_plain(dev, dtype):
     got = fa.flash_attention(q, k, v, causal=True, window=2)
     _close(got, fa.flash_attention_ref(q, k, v, causal=True, window=2), dtype)
     _close(got[0, :, 5:], v[0, 0].float().mean(dim=0).expand(2, 3, 320), dtype)
+
+
+def _reduced_qwen3(dev):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models.registry import build_model
+
+    bundle = build_model(reduced(get_config("qwen3-1.7b")), device=dev)
+    return bundle, bundle.init_params(torch.Generator().manual_seed(0))
+
+
+def test_page_store_is_the_pools_own_on_the_card(dev):
+    """The pool's page store lives on the card, and through a ``run_batch``
+    every ``_device_pages()`` call hands out the pool's own tensors."""
+    from repro_torch.serving.engine import ServingEngine
+
+    with ServingEngine(*_reduced_qwen3(dev), block_size=4, device_blocks=32, device=dev) as eng:
+        handed = []
+        pages = eng._device_pages
+
+        def checked():
+            out = pages()
+            if eng.pool.k_pages is not None:
+                handed.append(out[0] is eng.pool.k_pages and out[1] is eng.pool.v_pages)
+            return out
+
+        eng._device_pages = checked
+        reqs = [eng.submit(tuple(range(40 + 30 * i, 62 + 30 * i)), max_new_tokens=4)
+                for i in range(3)]
+        eng.run_batch(reqs)
+        assert all(r.status == "finished" for r in reqs)
+        assert eng.pool.k_pages.device.type == "cuda" and eng.pool.v_pages.device.type == "cuda"
+        assert handed and all(handed)
+        assert eng._device_pages()[0] is eng.pool.k_pages
+
+
+def test_host_tier_restore_lands_bitwise_in_its_card_slot(dev):
+    """An offloaded claim's pages sit in the host tier as host copies; the
+    restore gathers them through K3 on the card and copies each into a
+    free slot of the store there, bitwise."""
+    from repro_torch.core.claims import ClaimMode, ClaimState
+    from repro_torch.serving.engine import ServingEngine
+
+    prefix = tuple(range(100, 132))
+    with ServingEngine(*_reduced_qwen3(dev), block_size=4, device_blocks=32, device=dev) as eng:
+        claim = eng.accept_claim(prefix, ClaimMode.OFFLOADABLE)
+        eng.run(eng.submit(prefix + (7,), max_new_tokens=2))
+        before = [(b.k.clone(), b.v.clone()) for b in eng.pool.lookup_prefix(prefix, 4)]
+        assert eng.offload_claim(claim.claim_id)
+        assert all(b.k.device.type == "cpu" for b in eng.host.blocks.values())
+        n0 = kbc.kv_block_copy.launches
+        r = eng.run(eng.submit(prefix + (8, 9), max_new_tokens=2))
+        assert r.status == "finished" and r.restored_tokens == len(prefix)
+        assert claim.state == ClaimState.RESTORED and kbc.kv_block_copy.launches >= n0 + 2
+        back = eng.pool.lookup_prefix(prefix, 4)
+        assert len(back) == len(before) == 8
+        store = eng.pool.k_pages.untyped_storage().data_ptr()
+        for b, (k, v) in zip(back, before):
+            assert b.k.untyped_storage().data_ptr() == store
+            assert torch.equal(eng.pool.k_pages[:, :, b.page_index], k.permute(0, 2, 1, 3))
+            assert torch.equal(eng.pool.v_pages[:, :, b.page_index], v.permute(0, 2, 1, 3))
+
+
+def test_in_place_store_serves_the_snapshot_bits_full_width(dev):
+    """``tests/test_torch_page_store.py``'s (b) on full-width qwen3-1.7b in
+    bfloat16 on the card: the engine whose live states read the one store
+    and the clone engine serve the same tokens, first-decode logits and
+    page bytes, bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingEngine
+    from torch_page_traffic import CloneEngine, drive, make, same
+
+    bundle = build_model(get_config("qwen3-1.7b"), device=dev)
+    model = (bundle, bundle.init_params(torch.Generator().manual_seed(0)))
+    with make(ServingEngine, model, device=dev) as eng, make(CloneEngine, model, device=dev) as ref:
+        got, want = drive(eng), drive(ref)
+    assert got["claim"] == want["claim"] and got["offloaded"]
+    same(got, want)

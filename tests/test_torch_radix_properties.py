@@ -35,6 +35,8 @@ SIDES = {
     "jax": (j_kv, JEventLog, j_immutable, lambda a: a, lambda a: np.array(a)),
     "port": (t_kv, EventLog, t_immutable, torch.from_numpy, lambda a: a.numpy().copy()),
 }
+# the port's pool names the device of its page store
+STORE = {"jax": {}, "port": {"device": "cpu"}}
 
 
 def _counter():
@@ -51,7 +53,7 @@ class RadixOps:
     def __init__(self, side, capacity=CAP, seed=0):
         self.kv, log_cls, self.immutable, self.arr, self.np = SIDES[side]
         self.log = log_cls()
-        self.pool = self.kv.BlockPool(capacity, self.log, clock=_counter())
+        self.pool = self.kv.BlockPool(capacity, self.log, clock=_counter(), **STORE[side])
         self.rng = np.random.default_rng(seed)
         self.pins = []
 
@@ -248,7 +250,7 @@ def test_random_interleaving_matches_reference(seed):
 def _regression(side, body):
     kv, log_cls, immutable, arr, to_np = SIDES[side]
     log = log_cls()
-    pool = kv.BlockPool(8, log, clock=_counter())
+    pool = kv.BlockPool(8, log, clock=_counter(), **STORE[side])
     rng = np.random.default_rng(1)
 
     def payload(n):

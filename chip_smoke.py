@@ -1149,10 +1149,16 @@ def serving_phase(bundle, params, cfg, traffic, device_blocks):
           f"{ttft[len(ttft) // 2] * 1e3:.1f} ms max {ttft[-1] * 1e3:.1f} ms, prefix reuse hits "
           f"{hits[2] - hits[0]:.0f} ({hits[2] - hits[1]:.0f} in the second call), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {torch.cuda.get_device_name(0)}")
-    stage = {k: sum(eng.stage_seconds.samples(stage=k)) for k in ("prefill_chunk", "decode_step")}
+    stage = {k: sum(eng.stage_seconds.samples(stage=k))
+             for k in ("prefill_chunk", "decode_step", "mixed_step")}
     n_steps = len(eng.events.named("step_scheduled"))
+    routes = eng.chunk_routes.as_dict()
+    fused = routes.pop("fused", 0)
     print(f"{name} serving time: wall {wall:.3f} s over {n_steps} steps = decode/feed launches "
-          f"{stage['decode_step']:.3f} s + prefill chunks {stage['prefill_chunk']:.3f} s + "
+          f"{stage['decode_step']:.3f} s + mixed_step (decode rows and chunk in one launch) "
+          f"{stage['mixed_step']:.3f} s ({fused} fused steps; chunk steps split "
+          f"{sum(routes.values())}: {json.dumps(routes)}) + prefill chunks alone "
+          f"{stage['prefill_chunk']:.3f} s + "
           f"host-to-card page copies {up['s']:.3f} s ({up['bytes']} B in {up['n']} restores; the "
           f"store, {eng.pool.k_pages.nbytes * 2 / 2**20:.0f} MiB, is the pool's own on "
           f"{eng.pool.k_pages.device}) + other host work "
@@ -2436,9 +2442,10 @@ def vlm_prefix_prefill(bundle, params, cfg):
 
 def launch_failure_phase():
     """The card tests that make K1's and K2's launch fail (their library
-    entry points stubbed to return a CUDA error): each must become a
-    fail-closed refusal with every pin unwound, after which the engine
-    serves again.  Runs pytest in a child process and waits for it."""
+    entry points stubbed to return a CUDA error), in their own launches and
+    inside a fused step: each must become a fail-closed refusal attributed
+    to its side with every pin unwound, after which the engine serves
+    again.  Runs pytest in a child process and waits for it."""
     t0 = time.monotonic()
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-m", "gpu", "-p", "no:cacheprovider",
@@ -2448,8 +2455,9 @@ def launch_failure_phase():
     )
     last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
     print(f"launch failures on the card (K1 -> decode_launch_failure, K2 -> "
-          f"prefill_launch_failure): {last} ({time.monotonic() - t0:.1f} s)")
-    check(proc.returncode == 0 and "2 passed" in last,
+          f"prefill_launch_failure; each alone and inside a fused step): {last} "
+          f"({time.monotonic() - t0:.1f} s)")
+    check(proc.returncode == 0 and "4 passed" in last,
           f"launch-failure card tests failed:\n{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
 
 
@@ -2532,6 +2540,14 @@ def paper_scheduler(model):
           f"contended {json.dumps(s['burst_itl_contended_ms'])}, TTFT ms "
           f"{json.dumps(s['ttft_ms'])}, itl_ratio_p99 {s['itl_ratio_p99']}; zero decode "
           f"stalls ({s['wall_s']} s)")
+    bd = s["step_trace"]["breakdown"]
+    for route in ("fused", "split"):
+        if route in bd:
+            r = bd[route]
+            print(f"paper gates scheduler contended steps {route}: {r['steps']} of "
+                  f"{bd['contended_steps']} ({r['join_steps']} join steps), p50 ms "
+                  f"{json.dumps(r['p50'])}, launches a step {r['launches_per_step']}, GEMM "
+                  f"launches a step {r['gemm_launches_per_step']}")
     return {"itl_ratio_p99": s["itl_ratio_p99"]}
 
 

@@ -1,8 +1,13 @@
 """Route parity of the port in bf16 and in f32: the radix bench's
 byte-identity probe (a warm turn-2 prefill over reused pages against a
-cold prefill) and the ceilings' logits parity (the dense mode's K5
-prefill against the paged K2 prefill; chunked against monolithic), first
-with the model's bf16 weights, then with the same weights cast to f32.
+cold prefill), the ceilings' logits parity (the dense mode's K5 prefill
+against the paged K2 prefill; chunked against monolithic) and the step
+loop's fused route against its split one (the scheduler bench's burst
+beside ten decode streams: every decode launch's logits, the greedy tokens
+and the page store, with each contended step as one ``paged_mixed_step``
+launch or as the chunk's launch and then the decode rows'), first with
+the model's bf16 weights, then with the same weights cast to f32.  The
+fused-vs-split pair is held at 0 in bf16 (the script exits 1 otherwise).
 
 Where the bf16 differences exceed the reference benches' tolerances, the
 f32 run tells rounding (differences near f32's precision) from a wrong
@@ -33,7 +38,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 import torch  # noqa: E402
 from torch.utils._pytree import tree_map  # noqa: E402
 
-from repro_torch.bench import multi_claim, radix  # noqa: E402
+from repro_torch.bench import multi_claim, radix, scheduler  # noqa: E402
 from repro_torch.bench.common import Model  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 
@@ -191,6 +196,43 @@ def trace_pairs(model: Model) -> dict:
     return out
 
 
+def fused_vs_split(model: Model) -> dict:
+    """The scheduler bench's burst (``--fast`` lengths) on an engine with
+    the fused route and on one without it (``_step_mixed = None``): the
+    max |d| over every decode-side launch's logits, step by step, whether
+    the tokens and the page store are equal, and the fused steps taken."""
+    runs = []
+    for fused in (True, False):
+        with model.engine(**scheduler.ENGINE_KW) as eng:
+            logits = []
+
+            def keep(fn):
+                def launch(*args):
+                    out = fn(*args)
+                    logits.append(out[0].float().cpu())
+                    return out
+                return launch
+
+            eng._step_paged_decode = keep(eng._step_paged_decode)
+            eng._step_mixed = keep(eng._step_mixed) if fused else None
+            reqs = (scheduler.submit_streams(eng, dec_new=16)
+                    + scheduler.submit_burst(eng, [40, 72]))
+            eng.run_batch(reqs)
+            runs.append({"logits": logits, "tokens": [r.output_tokens for r in reqs],
+                         "pages": (eng.pool.k_pages.clone(), eng.pool.v_pages.clone()),
+                         "fused_steps": eng.chunk_routes.value(route="fused")})
+    a, b = runs
+    same_steps = len(a["logits"]) == len(b["logits"])
+    return {
+        "max_abs_diff": max(float((x - y).abs().max()) for x, y in zip(a["logits"], b["logits"]))
+        if same_steps else float("inf"),
+        "decode_launches": len(a["logits"]),
+        "fused_steps": a["fused_steps"],
+        "tokens_equal": a["tokens"] == b["tokens"],
+        "pages_equal": all(torch.equal(x, y) for x, y in zip(a["pages"], b["pages"])),
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="default: the CUDA card")
@@ -212,8 +254,12 @@ def main() -> None:
             prefill = multi_claim.run_prefill_ceiling(model, tmp)
             out[name] = {"warm_vs_cold": radix.byte_identity_probe(model),
                          "dense_vs_paged_max_abs_diff": ceiling["logits_max_abs_diff"],
-                         "chunked_vs_monolithic_max_abs_diff": prefill["logits_max_abs_diff"]}
+                         "chunked_vs_monolithic_max_abs_diff": prefill["logits_max_abs_diff"],
+                         "fused_vs_split": fused_vs_split(model)}
     print("route parity " + json.dumps(out))
+    fused = out["bf16"]["fused_vs_split"]
+    if fused["max_abs_diff"] != 0 or not (fused["tokens_equal"] and fused["pages_equal"]):
+        sys.exit(f"fused vs split differs in bf16: {fused}")
 
 
 if __name__ == "__main__":

@@ -21,10 +21,12 @@ Gates (any failure exits 1):
   - every request finishes with its full token budget.
 
 Also reported (not gated): TTFT percentiles of the burst requests, step
-occupancy, the prefill chunks' wall, and ``step_trace``: one more burst
-repetition, after the measured ones and outside every statistic above,
-recorded step by step (``StepTrace``) with the contended steps' gaps
-split into stages.  The summary merges into
+occupancy, the prefill chunks' wall, the chunk steps by route
+(``scheduler_chunk_steps_total``: fused into the decode rows' launch, or
+why not), and ``step_trace``: one more burst repetition, after the
+measured ones and outside every statistic above, recorded step by step
+(``StepTrace``) with the contended steps' gaps split into stages, fused
+and split steps apart.  The summary merges into
 ``<out-dir>/BENCH_serving.json`` under ``mixed_scheduler``.
 
     PYTHONPATH=src python -m repro_torch.bench.scheduler [--fast]        # card
@@ -61,6 +63,15 @@ ITL_RATIO_MAX = 1.5
 N_STREAMS = 10
 STREAM_PLEN = 96
 ENGINE_KW = dict(device_blocks=320, cache_len=128, prefill_chunk=8)
+LAUNCHES = ("_step_mixed", "_step_paged_decode", "_step_prefill_chunk")
+
+
+def _launch_counts() -> Dict[str, int]:
+    """The GEMM's, K1's and K2's launch counters (they move on the card only)."""
+    from repro_torch.kernels import gemm, paged_attention as pa
+
+    return {"gemm": gemm.gemm.launches, "k1": pa.paged_decode_attention.launches,
+            "k2": pa.paged_prefill_attention.launches}
 
 
 def _fail(msg: str) -> None:
@@ -105,18 +116,21 @@ class StepTrace:
     connector's ``gather_payloads`` (restored payloads uploaded from the
     host), the pool's ``_page_in`` (a host payload landing in a store on the
     card), ``StepLoop._sync_state`` (whether the batched state was
-    rebuilt) and ``torch.Tensor.cpu``/``to`` (bytes copied between host and
-    card), and it restores all of them on exit.  Each record is stamped
+    rebuilt), ``torch.Tensor.cpu``/``to`` (bytes copied between host and
+    card) and the engine's three launches (``_step_mixed``,
+    ``_step_paged_decode``, ``_step_prefill_chunk``: the GEMM, K1 and K2
+    launches each made, from the wrappers' counters), and it restores all
+    of them on exit.  Each record is stamped
     with ``time.monotonic()``, the event log's clock, and belongs to the
     first ``step_scheduled`` event at or after it."""
 
     def __init__(self, eng):
         self.eng = eng
-        self.records: List[tuple] = []  # (ts, kind, nbytes, seconds)
+        self.records: List[tuple] = []  # (ts, kind, nbytes, seconds, launches)
         self._quiet = 0  # inside a wrapped page copy: .to() is not counted twice
 
-    def _note(self, kind: str, nbytes: int, seconds: float = 0.0) -> None:
-        self.records.append((time.monotonic(), kind, int(nbytes), seconds))
+    def _note(self, kind: str, nbytes: int, seconds: float = 0.0, launches=None) -> None:
+        self.records.append((time.monotonic(), kind, int(nbytes), seconds, launches))
 
     def _timed_page_copy(self, fn, *args):
         """Run ``fn`` with the device synchronised around it: the seconds
@@ -149,11 +163,11 @@ class StepTrace:
             last[0] = out[0]
             return out
 
-        def page_in_wrapped(blk, k, v):
+        def page_in_wrapped(blk, k, v, *slot):
             store = pool.k_pages
             if store is None or k.device == store.device:
-                return page_in(blk, k, v)
-            _, secs = tr._timed_page_copy(page_in, blk, k, v)
+                return page_in(blk, k, v, *slot)
+            _, secs = tr._timed_page_copy(page_in, blk, k, v, *slot)
             tr._note("page_h2d", k.nbytes + v.nbytes, secs)
 
         def gather_wrapped(arrays, device=None):
@@ -180,12 +194,24 @@ class StepTrace:
                 tr._note("d2h" if t.is_cuda else "h2d_other", out.nbytes)
             return out
 
+        def counted(fn):
+            def launch(*args):
+                n0 = _launch_counts()
+                try:
+                    return fn(*args)
+                finally:
+                    n1 = _launch_counts()
+                    tr._note("launch", 0, launches={k: n1[k] - n0[k] for k in n0})
+            return launch
+
         self._saved = []
         for obj, name, fn in (
             (eng, "_device_pages", device_pages), (pool, "_page_in", page_in_wrapped),
             (offload, "gather_payloads", gather_wrapped),
             (scheduler_loop.StepLoop, "_sync_state", sync_wrapped),
             (torch.Tensor, "cpu", cpu_wrapped), (torch.Tensor, "to", to_wrapped),
+            *((eng, name, counted(getattr(eng, name))) for name in LAUNCHES
+              if getattr(eng, name) is not None),
         ):
             self._saved.append((obj, name, vars(obj).get(name, _UNSET)))
             setattr(obj, name, fn)
@@ -202,8 +228,8 @@ class StepTrace:
         """Bytes, seconds and count of each kind of copy over the whole
         trace (``page_h2d``, ``h2d_other``, ``d2h``)."""
         out: Dict[str, Dict[str, float]] = {}
-        for _, kind, nbytes, secs in self.records:
-            if kind in ("rebuilt", "kept"):
+        for _, kind, nbytes, secs, _ in self.records:
+            if kind in ("rebuilt", "kept", "launch"):
                 continue
             t = out.setdefault(kind, {"bytes": 0, "s": 0.0, "n": 0})
             t["bytes"] += nbytes
@@ -214,7 +240,9 @@ class StepTrace:
     def steps(self) -> List[Dict[str, Any]]:
         """One dict per ``step_scheduled`` event: its counts, the gap since
         the previous step (the ITL sample when both carried the ten decode
-        rows), the seconds of each stage and the bytes copied."""
+        rows), its route (``fused``: one ``mixed_step`` launch; else
+        ``split``), the seconds of each stage, the GEMM, K1 and K2 launches
+        and the bytes copied."""
         events = self.eng.events.named("step_scheduled")
         stages = self.eng.events.named("stage_latency")
         out, r, s, prev_ts = [], 0, 0, None
@@ -224,7 +252,8 @@ class StepTrace:
                 "step": p["step"], "n_decode": p["n_decode"], "n_feed": p["n_feed"],
                 "prefill_tokens": p["prefill_tokens"], "rebuilt": False,
                 "gap_ms": None if prev_ts is None else round((ev.ts - prev_ts) * 1e3, 4),
-                "decode_step_ms": 0.0, "prefill_chunk_ms": 0.0,
+                "decode_step_ms": 0.0, "prefill_chunk_ms": 0.0, "mixed_step_ms": 0.0,
+                "launches": 0, "gemm_launches": 0, "k1_launches": 0, "k2_launches": 0,
                 "page_h2d_bytes": 0, "page_h2d_ms": 0.0, "other_h2d_bytes": 0, "d2h_bytes": 0,
             }
             while s < len(stages) and stages[s].seq < ev.seq:
@@ -232,9 +261,13 @@ class StepTrace:
                 row[key] = row.get(key, 0.0) + stages[s].payload["seconds"] * 1e3
                 s += 1
             while r < len(self.records) and self.records[r][0] <= ev.ts:
-                _, kind, nbytes, secs = self.records[r]
+                _, kind, nbytes, secs, counts = self.records[r]
                 if kind == "rebuilt":
                     row["rebuilt"] = True
+                elif kind == "launch":
+                    row["launches"] += 1
+                    for k, n in counts.items():
+                        row[f"{k}_launches"] += n
                 elif kind == "page_h2d":
                     row["page_h2d_bytes"] += nbytes
                     row["page_h2d_ms"] += secs * 1e3
@@ -243,8 +276,9 @@ class StepTrace:
                 elif kind == "d2h":
                     row["d2h_bytes"] += nbytes
                 r += 1
-            for key in ("decode_step_ms", "prefill_chunk_ms", "page_h2d_ms"):
+            for key in ("decode_step_ms", "prefill_chunk_ms", "mixed_step_ms", "page_h2d_ms"):
                 row[key] = round(row[key], 4)
+            row["route"] = "fused" if row["mixed_step_ms"] > 0 else "split"
             out.append(row)
             prev_ts = ev.ts
         return out
@@ -258,27 +292,41 @@ def contended(rows: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
             and cur["prefill_tokens"] >= 1]
 
 
+def _route_breakdown(steps: List[Dict[str, Any]]) -> Dict[str, Any]:
+    keys = ("gap_ms", "mixed_step_ms", "decode_step_ms", "prefill_chunk_ms", "page_h2d_ms",
+            "other_ms", "gemm_launches", "k1_launches", "k2_launches", "page_h2d_bytes",
+            "other_h2d_bytes", "d2h_bytes")
+    by_gap = sorted(steps, key=lambda row: row["gap_ms"])
+    at = lambda q: by_gap[max(0, min(len(by_gap) - 1, -(-q * len(by_gap) // 100) - 1))]
+    return {
+        "steps": len(steps),
+        "p50": {k: pct([row[k] for row in steps], 50) for k in keys},
+        "launches_per_step": sorted({row["launches"] for row in steps}),
+        "gemm_launches_per_step": sorted({row["gemm_launches"] for row in steps}),
+        "step_at_gap_p50": at(50),
+        "step_at_gap_p99": at(99),
+        "rebuilt_steps": sum(row["rebuilt"] for row in steps),
+        "join_steps": sum(row["n_feed"] > 0 for row in steps),
+    }
+
+
 def stage_breakdown(rows: List[Dict[str, Any]]) -> Dict[str, Any]:
-    """The contended steps' gaps split into the decode launch, the prefill
-    chunk, page-store copies to the card and the rest (host work: stores,
-    admission, state assembly, copies back): the p50 of each stage, and
+    """The contended steps' gaps split into the fused launch
+    (``mixed_step``), the decode launch, the prefill chunk's own launch,
+    page-store copies to the card and the rest (host work: stores,
+    admission, state assembly, copies back): for fused and split steps
+    apart, the p50 of each stage and of the GEMM, K1 and K2 launches, and
     the step at the gap's p50 and p99 whole."""
     steps = contended(rows)
     if not steps:
         return {"contended_steps": 0}
     for row in steps:
-        row["other_ms"] = round(row["gap_ms"] - row["decode_step_ms"] - row["prefill_chunk_ms"]
-                                - row["page_h2d_ms"], 4)
-    keys = ("gap_ms", "decode_step_ms", "prefill_chunk_ms", "page_h2d_ms", "other_ms",
-            "page_h2d_bytes", "other_h2d_bytes", "d2h_bytes")
-    by_gap = sorted(steps, key=lambda row: row["gap_ms"])
-    at = lambda q: by_gap[max(0, min(len(by_gap) - 1, -(-q * len(by_gap) // 100) - 1))]
+        row["other_ms"] = round(row["gap_ms"] - row["mixed_step_ms"] - row["decode_step_ms"]
+                                - row["prefill_chunk_ms"] - row["page_h2d_ms"], 4)
     return {
         "contended_steps": len(steps),
-        "p50": {k: pct([row[k] for row in steps], 50) for k in keys},
-        "step_at_gap_p50": at(50),
-        "step_at_gap_p99": at(99),
-        "rebuilt_steps": sum(row["rebuilt"] for row in steps),
+        **{route: _route_breakdown(group) for route in ("fused", "split")
+           if (group := [row for row in steps if row["route"] == route])},
     }
 
 
@@ -355,6 +403,7 @@ def run_burst_rep(model: Model, *, dec_new: int, burst_lens: List[int]) -> Dict[
             "n_steps": len(steps),
             "mixed_steps": sum(1 for e in steps if e.payload["n_decode"] >= 1
                                and e.payload["prefill_tokens"] >= 1),
+            "chunk_routes": eng.chunk_routes.as_dict(),
             "occupancy_max": max(e.payload["step_tokens"] / e.payload["budget"] for e in steps),
         }
         _check_trace(eng, "burst")
@@ -401,6 +450,7 @@ def measure(model: Model, out_dir: Path = RESULTS_DIR, *, fast: bool = False) ->
                             "contended": round(burst_p99 * 1e3, 4)},
         "itl_ratio_p99": round(ratio, 3),
         "mixed_steps_per_rep": [r["mixed_steps"] for r in burst_reps],
+        "chunk_routes_per_rep": [r["chunk_routes"] for r in burst_reps],
         "step_occupancy_max": round(max(r["occupancy_max"] for r in burst_reps), 4),
         "phased_prefill_wall_ms": round(
             max(r["phased_prefill_wall_s"] for r in burst_reps) * 1e3, 2),

@@ -268,17 +268,40 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=DEFAULT_DTYPE):
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x, weight, eps: float = 1e-6):
+def _row_stat(stat, t, split):
+    """``stat(t)``, a reduction over the last dim; with ``split`` the rows
+    ``t[:split]`` and ``t[split:]`` are reduced apart and stacked again.  On
+    the card a row's sum over the model width takes another order when
+    the reduction covers another number of rows (the kernel spreads a row
+    over more threads when there are fewer rows), so a fused launch
+    (``transformer.paged_mixed_step``) reduces each side over the rows its
+    own launch would: the same bits."""
+    if split is None:
+        return stat(t)
+    return torch.cat([stat(t[:split]), stat(t[split:])])
+
+
+def _mean(t):
+    return torch.mean(t, dim=-1, keepdim=True)
+
+
+def _var(t):
+    return torch.var(t, dim=-1, keepdim=True, unbiased=False)
+
+
+def rms_norm(x, weight, eps: float = 1e-6, *, split=None):
+    """RMS norm over the last dim; ``split``: see ``_row_stat``."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = _row_stat(_mean, xf * xf, split)
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
 
 
-def layer_norm(x, weight, bias, eps: float = 1e-5):
+def layer_norm(x, weight, bias, eps: float = 1e-5, *, split=None):
+    """Layer norm over the last dim; ``split``: see ``_row_stat``."""
     xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    mu = _row_stat(_mean, xf, split)
+    var = _row_stat(_var, xf, split)
     out = (xf - mu) * torch.rsqrt(var + eps)
     return (out * weight.float() + bias.float()).to(x.dtype)
 
@@ -290,10 +313,10 @@ def make_norm(cfg_norm: str, dim: int, *, lead=(), device=None):
     return {"w": w, "b": torch.zeros_like(w)}
 
 
-def apply_norm(cfg_norm: str, p, x):
+def apply_norm(cfg_norm: str, p, x, *, split=None):
     if cfg_norm == "rmsnorm":
-        return rms_norm(x, p["w"])
-    return layer_norm(x, p["w"], p["b"])
+        return rms_norm(x, p["w"], split=split)
+    return layer_norm(x, p["w"], p["b"], split=split)
 
 
 # ---------------------------------------------------------------------------

@@ -122,6 +122,7 @@ class ModelBundle:
     prefill_collect_fn: Optional[Callable[..., Any]] = None
     paged_decode_fn: Optional[Callable[..., Any]] = None
     prefill_chunk_fn: Optional[Callable[..., Any]] = None
+    mixed_step_fn: Optional[Callable[..., Any]] = None
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -180,6 +181,7 @@ def build_model(cfg: ModelConfig, device: DeviceLike = None, mesh=None,
             prefill_collect_fn=partial(_call, tf_lib.prefill_collect, cfg),
             paged_decode_fn=partial(_call, tf_lib.paged_decode_step, cfg),
             prefill_chunk_fn=partial(_call, tf_lib.prefill_chunk, cfg),
+            mixed_step_fn=partial(_call, tf_lib.paged_mixed_step, cfg),
         )
     return ModelBundle(
         cfg=cfg,

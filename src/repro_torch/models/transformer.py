@@ -5,7 +5,8 @@ family (qwen3-1.7b, h2o-danube-1.8b, stablelm-12b, deepseek-7b), the MoE
 family (grok-1-314b, arctic-480b with its dense residual MLP: the MLP is
 ``models/moe.py``'s capacity-bounded top-k experts) and the VLM family
 (phi-3-vision-4.2b: stub patch embeddings prepended at prefill): the paged
-entry points (``prefill_collect``, ``prefill_chunk``, ``paged_decode_step``) and the
+entry points (``prefill_collect``, ``prefill_chunk``, ``paged_decode_step``, and
+``paged_mixed_step``, which runs the last two as one launch) and the
 dense-cache ones (``make_cache``, ``prefill``, ``decode_step``).  The layer stack keeps a leading ``L``
 axis on every parameter and runs as a Python loop over layers (the JAX
 package's ``lax.scan``).  A batch runs as one batched computation per layer:
@@ -61,6 +62,7 @@ from repro_torch.models.layers import (
     attn_paged_decode_layer,
     attn_paged_prefill_layer,
     attn_prefill_layer,
+    attn_qkv,
     chunked_cross_entropy,
     constrain_activations,
     decode_slot,
@@ -70,6 +72,8 @@ from repro_torch.models.layers import (
     mlp_apply,
     mlp_init,
     pad_to,
+    paged_attention_decode,
+    paged_attention_prefill,
     proj,
     remat_call,
     slot_update,
@@ -496,3 +500,147 @@ def paged_decode_step(params, cfg, state, tokens, cur_pos):
     logits = proj(x[:, 0], unembed(cfg, params)).float()
     new_state = dict(state, k_tail=torch.stack(ks), v_tail=torch.stack(vs), tail_pos=tail_pos)
     return logits, new_state
+
+
+class MixedStepError(RuntimeError):
+    """An error inside ``paged_mixed_step``, with the side whose code
+    raised: ``"decode"`` (the tail write, K1, the decode rows' MoE groups,
+    the final norm and LM head), ``"chunk"`` (the page write, K2, the
+    chunk's MoE group) or ``"shared"`` (the flat matrix's embedding, norms,
+    projections, RoPE, residuals and dense MLP).  ``error`` is the
+    exception that was raised."""
+
+    def __init__(self, side: str, error: Exception):
+        super().__init__(f"{side}: {type(error).__name__}: {error}")
+        self.side = side
+        self.error = error
+
+
+def write_chunk_pages(k_pages, v_pages, k, v, blocks, pages):
+    """Copy completed blocks of a chunk into pages of a store.
+
+    k_pages/v_pages [..., KV, N, page, Dh] (written in place); k, v [...,
+    B, C, KV, Dh] the chunk's keys and values with the same leading dims
+    (one layer's, or every layer's), C a multiple of the page; blocks [n]
+    int64 index the chunk's blocks as ``b * (C // page) + j`` (None: every
+    block, in order); pages [n] int64 are their destination slots.  The
+    same bytes the pool's store receives when a block is stored
+    (``BlockPool._page_in``)."""
+    *lead, B, C, KV, Dh = k.shape
+    page, n = k_pages.shape[-2], len(lead)
+    for store, t in ((k_pages, k), (v_pages, v)):
+        src = t.reshape(*lead, B * C // page, page, KV, Dh)
+        if blocks is not None:
+            src = src.index_select(n, blocks)
+        store.index_copy_(n + 1, pages, src.permute(*range(n), n + 2, n, n + 1, n + 3))
+
+
+def paged_mixed_step(params, cfg, state, tokens, cur_pos, chunk):
+    """One scheduler step as one launch: ``paged_decode_step``'s decode rows
+    and ``prefill_chunk``'s chunk in one layer loop.
+
+    ``state``, ``tokens``, ``cur_pos``: as ``paged_decode_step`` ([W]
+    rows).  ``chunk``:
+      tokens, positions [B, C]   the chunk, as ``prefill_chunk`` takes it
+      block_tables [B, P], prefix_len [B]   its prefix pages
+      write_blocks [n] int64     the chunk's completed blocks that need a
+                                 page, as ``b * (C // page) + j`` (None:
+                                 every block of the chunk, in order)
+      write_pages [n] int64      their destination slots in the store
+      rows_join                  True on the job's last chunk: its rows
+                                 join the decode rows in this launch
+    Returns ``(logits [W, V] f32, new state, ck, cv)``: what
+    ``paged_decode_step`` returns, then what ``prefill_chunk`` returns.
+
+    The W + B*C tokens run as one matrix [W + B*C, 1, d] through the
+    embedding, the norms, the seven projections, qk-norm, RoPE, the
+    residuals and a dense MLP.  Attention splits: the decode rows write
+    their tails and run K1 (``attn_paged_decode_layer``'s route), the chunk
+    runs K2 (``attn_paged_prefill_layer``'s).  Right after its projections
+    each layer writes the chunk's completed blocks into ``write_pages`` of
+    its store slice, before the decode rows' attention, so a row that joins
+    in this step reads them through its block table; when no row joins,
+    nothing in the launch reads them, and they are written once after the
+    layer loop.  The slots are free ones that no other table reads
+    (``kv_cache.BlockPool``), and the chunk's own table never names them.  The final norm and LM head run on the
+    decode rows only.
+
+    Bits: every projection runs the row-invariant GEMM, attention and the
+    MoE run per side, the layer norms reduce each side's rows apart
+    (``layers._row_stat``: on the card a row's sum over the model width
+    took another order over the flat matrix's rows), and the rest is
+    elementwise or, as the qk-norm over heads, a reduction whose order
+    stayed the same, so every logit, tail and ``(ck, cv)`` row has the
+    bits its own launch gives it (held on the card by
+    ``tests/test_torch_gpu.py -k "fused_step or fused_route"``).  An MoE
+    layer runs its MLP per side, with the groups of the two launches: each
+    decode row alone, the chunk as one group.
+
+    An error raises ``MixedStepError`` naming the side whose code raised.
+    """
+    W = tokens.shape[0]
+    ctoks, cpos = chunk["tokens"], chunk["positions"]
+    B, C = ctoks.shape
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    attn_kw = dict(window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    wb, wp = chunk["write_blocks"], chunk["write_pages"]
+    early = chunk["rows_join"] and wp.shape[0] > 0  # pages written layer by layer
+    side = "shared"  # whose code runs now: a raise is attributed to it
+    try:
+        ids = torch.cat([tokens.reshape(-1).long(), ctoks.reshape(-1).long()])
+        x = embed_tokens(params, cfg, ids)[:, None, :]  # [W + B*C, 1, d]
+        pos = torch.cat([cur_pos.to(cpos.dtype), cpos.reshape(-1)])[:, None]
+        side = "decode"
+        slot = cur_pos - state["prefix_len"]
+        tail_pos = slot_update(state["tail_pos"][..., None], cur_pos[:, None, None], slot)[..., 0]
+        ks, vs, tks, tvs = [], [], [], []
+        for i, lp in enumerate(layer_params(params["layers"], cfg.num_layers)):
+            kp, vp = state["k_pages"][i], state["v_pages"][i]
+            side = "shared"
+            h = apply_norm(cfg.norm, lp["ln1"], x, split=W)
+            q, k, v = attn_qkv(lp["attn"], cfg, h, pos)  # [W + B*C, 1, heads, Dh]
+            kc, vc = k[W:].reshape(B, C, KV, Dh), v[W:].reshape(B, C, KV, Dh)
+            if early:
+                side = "chunk"
+                write_chunk_pages(kp, vp, kc, vc, wb, wp)
+            side = "decode"
+            ntk = slot_update(state["k_tail"][i], k[:W], slot)
+            ntv = slot_update(state["v_tail"][i], v[:W], slot)
+            a_dec = paged_attention_decode(
+                q[:W], kp, vp, state["block_tables"], state["prefix_len"],
+                ntk, ntv, tail_pos, cur_pos, **attn_kw,
+            )
+            side = "chunk"
+            a_chk = paged_attention_prefill(
+                q[W:].reshape(B, C, H, Dh), kp, vp, chunk["block_tables"], chunk["prefix_len"],
+                kc, vc, cpos, **attn_kw,
+            )
+            side = "shared"
+            a = torch.cat([a_dec.reshape(W, 1, -1), a_chk.reshape(B * C, 1, -1)])
+            x = x + proj(a, lp["attn"]["wo"])
+            h = apply_norm(cfg.norm, lp["ln2"], x, split=W)
+            if cfg.moe.num_experts:
+                side = "decode"
+                m_dec = _mlp_block(lp, cfg, h[:W], per_row=True)[0]
+                side = "chunk"
+                m_chk = _mlp_block(lp, cfg, h[W:].reshape(B, C, -1))[0]
+                side = "shared"
+                x = x + torch.cat([m_dec, m_chk.reshape(B * C, 1, -1)])
+            else:
+                x = x + mlp_apply(lp["mlp"], h, cfg.activation)
+            ks.append(kc)
+            vs.append(vc)
+            tks.append(ntk)
+            tvs.append(ntv)
+        side = "decode"
+        xd = apply_norm(cfg.norm, params["final_norm"], x[:W])
+        logits = proj(xd[:, 0], unembed(cfg, params)).float()
+        new_state = dict(state, k_tail=torch.stack(tks), v_tail=torch.stack(tvs),
+                         tail_pos=tail_pos)
+        side = "chunk"
+        ck, cv = torch.stack(ks), torch.stack(vs)
+        if wp.shape[0] and not early:
+            write_chunk_pages(state["k_pages"], state["v_pages"], ck, cv, wb, wp)
+    except Exception as e:  # noqa: BLE001 — attributed to its side and raised again
+        raise MixedStepError(side, e) from e
+    return logits, new_state, ck, cv

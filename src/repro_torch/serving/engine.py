@@ -177,6 +177,9 @@ class ServingEngine(EngineCore):
         self._step_prefill_collect = bundle.prefill_collect_fn
         self._step_paged_decode = bundle.paged_decode_fn
         self._step_prefill_chunk = bundle.prefill_chunk_fn
+        # one launch for the decode rows and the prefill chunk of a step
+        # (StepLoop's fused route; None for bundles without it)
+        self._step_mixed = bundle.mixed_step_fn
         # prefill_chunk bounds peak prefill KV at O(chunk): every fresh
         # bucket runs chunk-by-chunk, each completed chunk's blocks landing
         # in pool pages before the next chunk launches.  None -> the
@@ -201,6 +204,13 @@ class ServingEngine(EngineCore):
         self.step_occupancy = self.metrics.gauge(
             "scheduler_step_occupancy",
             "last step's token load as a fraction of max_tokens_per_step",
+        )
+        # lint: allow[metric-drift] the route of each chunk step has no event witness: the events are the reference's, whichever route ran
+        self.chunk_routes = self.metrics.counter(
+            "scheduler_chunk_steps_total",
+            "steps that ran a prefill chunk, by route: 'fused' (one launch with the "
+            "decode rows), else why the chunk ran in its own launch",
+            labels=("route",),
         )
         self.decode_stalls = self.metrics.counter(
             "decode_stall_steps_total",
@@ -324,7 +334,8 @@ class ServingEngine(EngineCore):
         return pool.k_pages, pool.v_pages
 
     def _store_prefix_blocks(
-        self, req: Request, ck, cv, upto: int, *, start: int = 0, pin: bool = True
+        self, req: Request, ck, cv, upto: int, *, start: int = 0, pin: bool = True,
+        reserved: Optional[Dict[int, int]] = None, written: bool = False,
     ) -> List[KVBlock]:
         """Slice a request's KV into reusable pool pages.
 
@@ -345,6 +356,11 @@ class ServingEngine(EngineCore):
         the FIRST chunk onward.  On PoolExhausted the partial pins of THIS
         call are unwound before re-raising (a chunked caller unwinds its
         accumulated chain).
+
+        ``reserved`` maps a block index to the slot ``BlockPool.reserve_pages``
+        took for it (a fused step's chunk); ``written``: the launch wrote
+        the block's bytes into that slot of the pool's own store, so the
+        block adopts it without a copy.
         """
         chain: List[KVBlock] = []
         h = self._chain_root(req)
@@ -376,6 +392,8 @@ class ServingEngine(EngineCore):
                         claim_ids=claim_ids,
                         protected_claims=protected,
                         parent=parent,
+                        page=None if reserved is None else reserved.get(bi),
+                        page_written=written,
                     )
                 if pin:
                     pin_chain((blk,))
@@ -659,21 +677,25 @@ class ServingEngine(EngineCore):
         tail_cap: int,
         tails: Optional[List[Optional[Dict[str, Any]]]] = None,
         pages: Optional[Tuple[Any, Any]] = None,
+        page_tables: Optional[List[List[int]]] = None,
     ) -> Dict[str, Any]:
         """Assemble the paged-decode state on the engine's device: pool pages
         + per-request block tables + in-flight tails (``tails``' tensors
         may already sit there: they are copied on the device).
 
         ``pages`` is the ``_device_pages()`` pair the caller holds for the
-        batch (the pool's own store).
+        batch (the pool's own store).  ``page_tables``, when given, are the
+        rows' tables (a row that joins in a fused step names slots its
+        blocks will adopt); else each row's blocks give its table.
         """
         B = len(blocks_per_req)
         jk, jv = pages if pages is not None else self._device_pages()
         L, KV, _, page, Dh = jk.shape
-        P = _round_up(max((len(bl) for bl in blocks_per_req), default=0), 4)
+        if page_tables is None:
+            page_tables = [self.pool.page_table(bl) for bl in blocks_per_req]
+        P = _round_up(max((len(pt) for pt in page_tables), default=0), 4)
         bt = np.zeros((B, P), np.int32)
-        for i, bl in enumerate(blocks_per_req):
-            pt = self.pool.page_table(bl)
+        for i, pt in enumerate(page_tables):
             bt[i, : len(pt)] = pt
         dev = self.device
         tk = torch.zeros((L, B, tail_cap, KV, Dh), dtype=jk.dtype, device=dev)

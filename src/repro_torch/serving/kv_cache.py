@@ -214,19 +214,23 @@ class BlockPool:
         self.v_pages = torch.zeros(shape, dtype=k.dtype, device=self.device)
         self._free_pages = list(range(self.capacity - 1, -1, -1))
 
-    def _page_in(self, blk: KVBlock, k: torch.Tensor, v: torch.Tensor) -> None:
+    def _page_in(self, blk: KVBlock, k: torch.Tensor, v: torch.Tensor,
+                 page: Optional[int] = None, written: bool = False) -> None:
         """Land a payload in a free page slot; blk.k/v become views of it.
         A payload on another device (a restore staged elsewhere) is copied
-        into the slot: one block's bytes."""
+        into the slot: one block's bytes.  ``page``: a slot taken by
+        ``reserve_pages``; ``written``: a launch has already written the
+        payload's bytes there, so the block adopts the slot as it is."""
         self._ensure_pages(k)
         L, KV, _, bs, Dh = self.k_pages.shape
-        if tuple(k.shape) != (L, bs, KV, Dh) or not self._free_pages:
+        if page is None and (tuple(k.shape) != (L, bs, KV, Dh) or not self._free_pages):
             # shape drift (should not happen within one engine): own arrays
             blk.k, blk.v = k, v
             return
-        pi = self._free_pages.pop()
-        self.k_pages[:, :, pi] = k.permute(0, 2, 1, 3)
-        self.v_pages[:, :, pi] = v.permute(0, 2, 1, 3)
+        pi = self._free_pages.pop() if page is None else page
+        if not written:
+            self.k_pages[:, :, pi] = k.permute(0, 2, 1, 3)
+            self.v_pages[:, :, pi] = v.permute(0, 2, 1, 3)
         blk.page_index = pi
         # zero-copy views back in [L, block_size, KV, Dh] layout
         blk.k = self.k_pages[:, :, pi].permute(0, 2, 1, 3)
@@ -237,6 +241,23 @@ class BlockPool:
             pi = blk.page_index
             blk.detach_payload()
             self._free_pages.append(pi)
+
+    def reserve_pages(self, n: int, shape: Tuple[int, ...], dtype: torch.dtype) -> List[int]:
+        """Take ``n`` free slots for blocks that a launch writes before they
+        are stored (a fused step's chunk): the slots ``add_block`` would
+        take next, in its order.  Emits nothing.  ``shape`` [L, page, KV,
+        Dh] and ``dtype`` shape the store if it does not exist yet.  The
+        caller stores each block with its slot (``add_block(page=)``) or
+        gives the slot back (``release_pages``); ``n`` must not exceed
+        ``free_slots``, since a reservation never evicts."""
+        self._ensure_pages(torch.empty(shape, dtype=dtype, device="meta"))
+        if n > min(self.free_slots, len(self._free_pages)):
+            raise ValueError(f"reserve_pages: {n} slots asked, {self.free_slots} free")
+        return [self._free_pages.pop() for _ in range(n)]
+
+    def release_pages(self, pages: Sequence[int]) -> None:
+        """Give reserved slots back, so the free list is as it was."""
+        self._free_pages.extend(reversed(list(pages)))
 
     def page_table(self, blocks: Sequence[KVBlock]) -> List[int]:
         """Page indices for a block chain (the per-request block table)."""
@@ -270,7 +291,11 @@ class BlockPool:
         protected_claims: Optional[Set[str]] = None,
         evictable_cb=None,
         parent: str = "",
+        page: Optional[int] = None,
+        page_written: bool = False,
     ) -> KVBlock:
+        """Store a full block.  ``page``: a slot from ``reserve_pages``
+        (``page_written``: its bytes are already there, see ``_page_in``)."""
         if self.free_slots <= 0:
             self.evict(1, protected_claims=protected_claims or set(), evictable_cb=evictable_cb)
         blk = KVBlock(
@@ -286,7 +311,7 @@ class BlockPool:
             parent=parent,
         )
         if self._pageable(k, v):
-            self._page_in(blk, k, v)
+            self._page_in(blk, k, v, page, page_written)
         else:
             blk.k, blk.v = k, v
         self._next_id += 1

@@ -8,9 +8,12 @@ step loop (ROADMAP item 1):
 
   * every scheduler step carries ALL live rows (decoding requests and
     prompt-feeding continuations) in ONE mixed ``paged_decode`` launch,
-    plus at most ONE in-flight chunked-prefill launch
+    plus at most ONE in-flight prefill chunk
     (``models/transformer.prefill_chunk``) under a configurable
-    ``max_tokens_per_step`` budget;
+    ``max_tokens_per_step`` budget; beside live rows the chunk rides the
+    rows' launch (``models/transformer.paged_mixed_step``: one launch a
+    step) when its new blocks get free slots without an eviction, and
+    runs in its own launch otherwise;
   * waiting requests are admitted/restored BETWEEN steps (claim-scoped
     admission, restore-before-reuse — the shared EngineCore boundary);
   * a request that completes mid-stream leaves the batch immediately, its
@@ -51,11 +54,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.serving.kv_cache import KVBlock, PoolExhausted, unpin_chain
+from repro_torch.serving.kv_cache import KVBlock, PoolExhausted, chain_hash, unpin_chain
 
 __all__ = [
     "BATCH_PAD",
     "DEFAULT_MAX_TOKENS_PER_STEP",
+    "FusedChunk",
     "PrefillJob",
     "Row",
     "StepLoop",
@@ -122,10 +126,13 @@ class Row:
 
     ``blocks`` arrives PINNED (the chain's ref was taken when it became
     this request's prefix) and is unpinned exactly once when the row
-    exits — completion, refusal, or launch-failure abort.
+    exits — completion, refusal, or launch-failure abort.  A row that
+    joins in a fused step rides its first launch before its blocks are
+    stored: until ``PrefillJob.take_rows`` hands it its chain, ``pages``
+    is its block table (slots its blocks will adopt).
     """
 
-    __slots__ = ("req", "blocks", "plen", "cached", "pos", "feed")
+    __slots__ = ("req", "blocks", "plen", "cached", "pos", "feed", "pages")
 
     def __init__(self, req, blocks: List[KVBlock], cached: int):
         toks = req.tokens
@@ -143,6 +150,7 @@ class Row:
         self.cached = cached
         self.pos = plen  # next absolute launch position
         self.feed = list(feed)
+        self.pages: Optional[List[int]] = None
 
     @property
     def need(self) -> int:
@@ -154,6 +162,25 @@ class Row:
         return not self.feed
 
 
+class FusedChunk:
+    """A chunk planned into a step's fused launch (``PrefillJob.plan_fused``):
+    ``reserved`` maps each bucket row to {block index: slot} for the blocks
+    it stores first, ``slots`` lists the reserved slots in reservation
+    order, ``joining`` holds the rows that join in this launch when the
+    chunk is the job's last (each with its block table after the chunk as
+    ``pages``), and ``operands`` is the chunk's part of the launch
+    (``transformer.paged_mixed_step``'s ``chunk``)."""
+
+    __slots__ = ("reserved", "slots", "joining", "operands", "error")
+
+    def __init__(self, reserved, slots, joining, operands):
+        self.reserved = reserved
+        self.slots = slots
+        self.joining = joining
+        self.operands = operands
+        self.error: Optional[Exception] = None  # the fused launch's, carried to its handling
+
+
 class PrefillJob:
     """At most one in-flight chunked prefill bucket.
 
@@ -163,7 +190,10 @@ class PrefillJob:
     pages between launches, chains pinned as they grow, per-row
     PoolExhausted refusal with allocation attribution.  The step loop
     advances it ONE chunk per scheduler step (budget permitting) so decode
-    rows interleave with prefill instead of stalling behind it.
+    rows interleave with prefill instead of stalling behind it: in its own
+    launch (``advance``), or inside the decode rows' launch
+    (``plan_fused``, then ``commit`` after ``StepLoop._fused_step``'s
+    launch).
     """
 
     def __init__(self, eng, reqs: Sequence[Any]):
@@ -209,19 +239,17 @@ class PrefillJob:
         budget (live bucket rows x chunk length; padding rows are free)."""
         return self.C * len(self.alive)
 
-    def advance(self) -> None:
-        """Run ONE chunk: a [B, C] launch over the pages written so far,
-        then land each row's completed blocks in pool page slots.
+    def _upto(self, i: int) -> int:
+        """End of row ``i``'s full blocks that the next chunk completes."""
+        bs = self.eng.block_size
+        return min(self.lo + self.C, self.lens[i] - self.lens[i] % bs)
 
-        This runs INSIDE a mixed step next to live decode rows, so its
-        host<->device traffic stays small: four small per-chunk operands
-        up, and nothing down — the chunk's (k, v) pair is cut into page
-        slots on the device.  Per-chunk overhead is what decode ITL pays on
-        every contended step."""
+    def _operands(self) -> Dict[str, Any]:
+        """The next chunk's launch operands on the device: its [B, C]
+        tokens and positions, and its prefix's block tables (the pages
+        written so far)."""
         eng = self.eng
-        bs = eng.block_size
         lo, hi = self.lo, self.lo + self.C
-        jk, jv = eng._device_pages()
         bt = np.zeros((self.B, self.P), np.int32)
         for i in range(self.B):
             # padding rows replicate row 0; refused rows keep their (empty)
@@ -231,33 +259,134 @@ class PrefillJob:
             )
             bt[i, : len(pt)] = pt
         dev = eng.device
-        d_bt = torch.from_numpy(bt).to(dev)
-        d_prefix = torch.full((self.B,), lo, dtype=torch.int32, device=dev)
-        d_toks = torch.from_numpy(np.ascontiguousarray(self.tokens[:, lo:hi])).to(dev)
-        d_pos = torch.arange(lo, hi, dtype=torch.int32, device=dev)[None].expand(self.B, self.C)
+        return {
+            "tokens": torch.from_numpy(np.ascontiguousarray(self.tokens[:, lo:hi])).to(dev),
+            "positions": torch.arange(lo, hi, dtype=torch.int32, device=dev)[None].expand(
+                self.B, self.C),
+            "block_tables": torch.from_numpy(bt).to(dev),
+            "prefix_len": torch.full((self.B,), lo, dtype=torch.int32, device=dev),
+        }
+
+    def advance(self) -> None:
+        """Run ONE chunk in its own launch: a [B, C] launch over the pages
+        written so far, then land each row's completed blocks in pool page
+        slots (``commit``).
+
+        This runs INSIDE a mixed step next to live decode rows, so its
+        host<->device traffic stays small: four small per-chunk operands
+        up, and nothing down — the chunk's (k, v) pair is cut into page
+        slots on the device.  Per-chunk overhead is what decode ITL pays on
+        every contended step."""
+        eng = self.eng
+        jk, jv = eng._device_pages()
+        ops = self._operands()
         state = {
             "k_pages": jk,
             "v_pages": jv,
-            "block_tables": d_bt,
-            "prefix_len": d_prefix,
+            "block_tables": ops["block_tables"],
+            "prefix_len": ops["prefix_len"],
         }
         t0 = time.monotonic()
         try:
-            ck, cv = eng._step_prefill_chunk(eng.params, state, d_toks, d_pos)
-            device_sync(dev)
+            ck, cv = eng._step_prefill_chunk(eng.params, state, ops["tokens"], ops["positions"])
+            device_sync(eng.device)
         except Exception as e:  # noqa: BLE001 — launch boundary fails closed
             self.abort("prefill_launch_failure", f"{type(e).__name__}: {e}")
             return
         eng._observe_stage("prefill_chunk", time.monotonic() - t0)
-        # ck/cv: [L, B, C, KV, Dh] on the device — the chunk, not O(S)
+        self.commit(ck, cv)
+
+    def join_rows(self) -> Dict[int, Row]:
+        """The rows that join when the next chunk is the job's last, made
+        before their blocks are stored (``take_rows`` hands them their
+        chains); none otherwise."""
+        if self.lo + self.C < self.S:
+            return {}
+        bs = self.eng.block_size
+        return {i: Row(self.reqs[i], [], self.lens[i] - self.lens[i] % bs) for i in self.alive}
+
+    def plan_fused(self, joining: Dict[int, Row]) -> Optional[FusedChunk]:
+        """Plan the next chunk into the step's fused launch, or return None
+        when the pool would have to evict for its blocks (the chunk then
+        runs in its own launch, as the reference's).  ``joining``: the
+        rows of ``join_rows``; each gets its table after the chunk as
+        ``pages``.
+
+        Walks the blocks the chunk completes as ``commit`` will store them:
+        a block already resident (or stored first by a bucket mate in this
+        chunk) keeps that page; each other block gets a free slot from
+        ``BlockPool.reserve_pages`` — the slot ``add_block`` would take, in
+        its order — which the launch writes and the block adopts at
+        ``commit``.  Reserving emits nothing."""
+        eng = self.eng
+        pool = eng.pool
+        bs = eng.block_size
+        lo = self.lo
+        per_chunk = self.C // bs
+        entries: Dict[int, List[Any]] = {}  # row -> resident pages or new-block numbers
+        first: Dict[str, int] = {}  # chain hash -> new-block number
+        new: List[Tuple[int, int]] = []  # (row, block index), in store order
+        for i in self.alive:
+            req = self.reqs[i]
+            table: List[Any] = list(pool.page_table(self.chains[i]))
+            h = eng._chain_root(req)
+            for bi in range(self._upto(i) // bs):
+                h = chain_hash(h, req.tokens[bi * bs : (bi + 1) * bs])
+                if bi * bs < lo:
+                    continue
+                bid = pool.prefix_index.get(h)
+                blk = pool.blocks.get(bid) if bid is not None else None
+                if blk is not None and blk.chain == h and not blk.partial:
+                    table.append(blk.page_index)
+                elif h in first:
+                    table.append(("new", first[h]))
+                else:
+                    first[h] = len(new)
+                    table.append(("new", len(new)))
+                    new.append((i, bi))
+            entries[i] = table
+        if len(new) > pool.free_slots:
+            return None
+        slots: List[int] = []
+        if new:
+            cfg = eng.cfg
+            shape = (cfg.num_layers, bs, cfg.num_kv_heads, cfg.resolved_head_dim)
+            slots = pool.reserve_pages(len(new), shape, eng.params["embed"].dtype)
+        reserved: Dict[int, Dict[int, int]] = {}
+        for (i, bi), slot in zip(new, slots):
+            reserved.setdefault(i, {})[bi] = slot
+        for i, row in joining.items():
+            row.pages = [slots[e[1]] if isinstance(e, tuple) else e for e in entries[i]]
+        dev = eng.device
+        ops = self._operands()
+        blocks = [i * per_chunk + bi - lo // bs for i, bi in new]
+        ops["write_blocks"] = (None if blocks == list(range(self.B * per_chunk))
+                               else torch.tensor(blocks, dtype=torch.long, device=dev))
+        ops["write_pages"] = torch.tensor(slots, dtype=torch.long, device=dev)
+        ops["rows_join"] = bool(joining)
+        return FusedChunk(reserved, slots, joining, ops)
+
+    def commit(self, ck, cv, fused: Optional[FusedChunk] = None, written: bool = False) -> None:
+        """Land each row's completed blocks of the chunk just launched in
+        pool page slots, then move on to the next chunk.  ck/cv: [L, B, C,
+        KV, Dh] on the device — the chunk, not O(S).  After a fused launch
+        (``fused``) each new block takes its reserved slot, adopting the
+        bytes the launch wrote there when ``written`` (the launch wrote
+        the pool's own store), and any slot left over is given back."""
+        eng = self.eng
+        lo, hi = self.lo, self.lo + self.C
         for i in list(self.alive):
             req = self.reqs[i]
-            upto = min(hi, self.lens[i] - self.lens[i] % bs)
+            upto = self._upto(i)
             if upto <= lo:
                 continue
             try:
                 self.chains[i].extend(
-                    eng._store_prefix_blocks(req, ck[:, i], cv[:, i], upto, start=lo)
+                    eng._store_prefix_blocks(
+                        req, ck[:, i], cv[:, i], upto, start=lo,
+                        reserved=None if fused is None else fused.reserved.get(i, {}),
+                        written=written,
+                    )
                 )
             except PoolExhausted as e:
                 # fail closed mid-prefill: unwind THIS row's pinned chain;
@@ -267,6 +396,9 @@ class PrefillJob:
                 self.chains[i] = []
                 eng._refuse_allocation(req, e)
                 self.alive.remove(i)
+        if fused is not None and fused.slots:
+            taken = {b.page_index for b in eng.pool.blocks.values()}
+            eng.pool.release_pages([p for p in fused.slots if p not in taken])
         self.lo = hi
 
     def abort(self, trigger: str, reason: str) -> None:
@@ -281,9 +413,11 @@ class PrefillJob:
         self.alive = []
         self.lo = self.S
 
-    def take_rows(self) -> List[Row]:
+    def take_rows(self, joining: Optional[Dict[int, Row]] = None) -> List[Row]:
         """Job complete: materialize claims at prefill_complete and hand the
-        surviving rows (pinned chains transfer) to the step loop."""
+        surviving rows (pinned chains transfer) to the step loop.  A row
+        that already rode a fused launch (``joining``) receives its chain
+        in place of its provisional table."""
         eng = self.eng
         bs = eng.block_size
         rows = []
@@ -291,7 +425,12 @@ class PrefillJob:
             req = self.reqs[i]
             n = self.lens[i]
             eng._materialize_claims(req, n - n % bs)
-            rows.append(Row(req, self.chains[i], n - n % bs))
+            row = (joining or {}).get(i)
+            if row is None:
+                row = Row(req, self.chains[i], n - n % bs)
+            else:
+                row.blocks, row.pages = self.chains[i], None
+            rows.append(row)
         self.alive = []
         return rows
 
@@ -299,7 +438,15 @@ class PrefillJob:
 class StepLoop:
     """The unified continuous-batching executor behind ``run_batch``
     (paged mode).  One instance per run_batch call; requests submitted
-    together enter the waiting queue in order and are admitted FIFO."""
+    together enter the waiting queue in order and are admitted FIFO.
+
+    A step that runs a prefill chunk beside live rows runs both as ONE
+    launch (``_fused_step``, ``transformer.paged_mixed_step``) when the
+    chunk's new blocks get free slots without an eviction; any other
+    chunk step runs the reference's launches (the chunk alone, then the
+    decode rows).  The route is chosen before launching and counted on
+    ``scheduler_chunk_steps_total{route}``; the events, tokens and
+    refusals are the reference's on either route."""
 
     def __init__(self, eng, reqs: Sequence[Any]):
         self.eng = eng
@@ -377,6 +524,9 @@ class StepLoop:
             self.rows.extend(Row(req, blocks, cached) for req, blocks, cached in stored)
 
     # ------------------------------------------------------------ step state
+    def _table(self, row: Row) -> List[int]:
+        return row.pages if row.pages is not None else self.eng.pool.page_table(row.blocks)
+
     def _sync_state(self, pages: Tuple[Any, Any]) -> None:
         """(Re)build the batched device state when row membership changed;
         otherwise just swap in the step's ``pages``.
@@ -399,6 +549,8 @@ class StepLoop:
         W = _round_up(len(rows), BATCH_PAD)
         pad = W - len(rows)
         old_index = {id(r): i for i, r in enumerate(self._members)}
+        tables = [self._table(r) for r in rows]
+        tables += [tables[0]] * pad
         blocks_per = [r.blocks for r in rows] + [rows[0].blocks] * pad
         plens = [r.plen for r in rows] + [rows[0].plen] * pad
         if (
@@ -425,10 +577,9 @@ class StepLoop:
                 d_idx,
                 d_fm,
             )
-            P = _round_up(max(len(bl) for bl in blocks_per), 4)
+            P = _round_up(max(len(t) for t in tables), 4)
             bt = np.zeros((W, P), np.int32)
-            for i, bl in enumerate(blocks_per):
-                pt = eng.pool.page_table(bl)
+            for i, pt in enumerate(tables):
                 bt[i, : len(pt)] = pt
             jk, jv = pages
             d_bt = torch.from_numpy(bt).to(eng.device)
@@ -465,7 +616,7 @@ class StepLoop:
                     )
             tails = tails + [tails[0]] * pad  # padding rows replicate row 0
             self._state = eng._make_paged_state(
-                blocks_per, plens, tail_cap, tails=tails, pages=pages
+                blocks_per, plens, tail_cap, tails=tails, pages=pages, page_tables=tables
             )
             # surviving decode rows keep their pre-rebuild logits (a copy,
             # bitwise); rows that have not launched yet are still feeding
@@ -491,33 +642,26 @@ class StepLoop:
         self._pad_pos = rows[0].pos if rows[0].decoding else None
 
     # ------------------------------------------------------------ mixed step
-    def _mixed_step(self, pages: Tuple[Any, Any]) -> Tuple[int, int]:
-        """ONE launch carrying every live row — decode rows consume their
-        argmax, feeding rows consume the next prompt token.  Returns
-        (n_decode, n_feed) row counts for the step accounting."""
-        eng = self.eng
-        # completion check BEFORE launching: a row that already served its
-        # max_new_tokens (e.g. max_new_tokens=0 edge) exits without a launch
-        for row in list(self.rows):
-            if row.decoding and len(row.req.output_tokens) >= row.req.max_new_tokens:
-                self._retire(row)
-        if not self.rows:
-            return (0, 0)
-        self._sync_state(pages)
-        rows = self.rows
-        W = _round_up(len(rows), BATCH_PAD)
+    def _carried_tokens(self) -> np.ndarray:
+        """Every state row's greedy token from the carried logits (zeros
+        while every row feeds)."""
+        W = _round_up(len(self.rows), BATCH_PAD)
         if self._logits is not None:
-            toks = torch.argmax(self._logits, dim=-1).to(torch.int32).cpu().numpy()
-        else:
-            toks = np.zeros(W, np.int32)  # every row is feeding
-        poss = np.zeros(W, np.int32)
-        row0_feeding = bool(rows[0].feed)
+            return torch.argmax(self._logits, dim=-1).to(torch.int32).cpu().numpy()
+        return np.zeros(W, np.int32)
+
+    def _consume(self, toks: np.ndarray):
+        """The step's effect on its rows: a feeding row gives up its next
+        prompt token, a decoding row takes its greedy token ``toks[i]`` as
+        output.  Returns (fed {id(row): token}, finishing [(i, row)] whose
+        feed empties now, n_decode, n_feed)."""
+        fed: Dict[int, int] = {}
         finishing: List[Tuple[int, Row]] = []
         n_feed = n_dec = 0
         now = time.monotonic()
-        for i, row in enumerate(rows):
+        for i, row in enumerate(self.rows):
             if row.feed:
-                toks[i] = row.feed.pop(0)
+                fed[id(row)] = row.feed.pop(0)
                 n_feed += 1
                 if not row.feed:
                     finishing.append((i, row))
@@ -526,10 +670,21 @@ class StepLoop:
                 if row.req.first_token_ts is None:
                     row.req.first_token_ts = now
                 n_dec += 1
+        return fed, finishing, n_dec, n_feed
+
+    def _operands(self, toks: np.ndarray, fed: Dict[int, int], row0_feeding: bool):
+        """The decode launch's (tokens, positions) [W]: fed tokens for
+        feeding rows, ``toks`` for decoding ones, each row at its
+        position; padding rows replicate row 0's launch while it feeds
+        (the _continue_paged feed form), else take their own argmax at a
+        frozen position (the _greedy_decode_loop pad form)."""
+        rows = self.rows
+        toks = toks.copy()
+        poss = np.zeros(len(toks), np.int32)
+        for i, row in enumerate(rows):
+            if id(row) in fed:
+                toks[i] = fed[id(row)]
             poss[i] = row.pos
-        # padding rows replicate row 0's launch while it feeds (the
-        # _continue_paged feed form); once row 0 decodes they take their own
-        # argmax at a frozen position (the _greedy_decode_loop pad form)
         if row0_feeding:
             toks[len(rows) :] = toks[0]
             poss[len(rows) :] = poss[0]
@@ -537,6 +692,35 @@ class StepLoop:
             if self._pad_pos is None:
                 self._pad_pos = rows[0].pos
             poss[len(rows) :] = self._pad_pos
+        return toks, poss
+
+    def _begin_step(self) -> bool:
+        """Completion check BEFORE launching: a row that already served
+        its max_new_tokens (e.g. max_new_tokens=0 edge) exits without a
+        launch.  True when rows are left."""
+        for row in list(self.rows):
+            if row.decoding and len(row.req.output_tokens) >= row.req.max_new_tokens:
+                self._retire(row)
+        return bool(self.rows)
+
+    def _mixed_step(self, pages: Tuple[Any, Any]) -> Tuple[int, int]:
+        """ONE launch carrying every live row — decode rows consume their
+        argmax, feeding rows consume the next prompt token.  Returns
+        (n_decode, n_feed) row counts for the step accounting."""
+        if not self._begin_step():
+            return (0, 0)
+        self._sync_state(pages)
+        toks = self._carried_tokens()
+        row0_feeding = bool(self.rows[0].feed)
+        fed, finishing, n_dec, n_feed = self._consume(toks)
+        self._launch_decode(*self._operands(toks, fed, row0_feeding), finishing)
+        return (n_dec, n_feed)
+
+    def _launch_decode(self, toks: np.ndarray, poss: np.ndarray,
+                       finishing: List[Tuple[int, Row]]) -> None:
+        """The decode rows' own launch, then its commit; a launch failure
+        fails every row closed."""
+        eng = self.eng
         t0 = time.monotonic()
         try:
             lg, state = eng._step_paged_decode(
@@ -548,21 +732,27 @@ class StepLoop:
             device_sync(eng.device)
         except Exception as e:  # noqa: BLE001 — launch boundary fails closed
             reason = f"{type(e).__name__}: {e}"
-            for row in rows:
+            for row in self.rows:
                 unpin_chain(row.blocks)
                 eng._fail_closed_error(
                     row.req, scope="decode_step", trigger="decode_launch_failure",
                     reason=reason,
                 )
-            self.rows = []
-            self._state = None
-            self._logits = None
-            self._members = []
-            return (n_dec, n_feed)
+            self._drop_state()
+            return
         eng._observe_stage("decode_step", time.monotonic() - t0)
+        self._commit_decode(lg, state, finishing)
+
+    def _drop_state(self) -> None:
+        self.rows = []
+        self._state = None
+        self._logits = None
+        self._members = []
+
+    def _commit_decode(self, lg, state, finishing: List[Tuple[int, Row]]) -> None:
         self._state = state
         self._logits = lg
-        for row in rows:
+        for row in self.rows:
             row.pos += 1
         # rows whose feed just emptied: store freshly computed full blocks
         # into pool pages and materialize claims (the prefill_complete
@@ -574,7 +764,131 @@ class StepLoop:
         for row in list(self.rows):
             if row.decoding and len(row.req.output_tokens) >= row.req.max_new_tokens:
                 self._retire(row)
+
+    # ------------------------------------------------------------ fused step
+    def _plan_chunk(self) -> Optional[FusedChunk]:
+        """Choose the route of a step whose chunk runs, before launching,
+        and count it: ``fused`` when the step has live rows, the bundle has
+        the fused entry, no row retires before launching and the chunk's
+        new blocks get free slots without an eviction (slots reserved
+        then); else the chunk runs in its own launch, as the reference."""
+        eng = self.eng
+        plan = None
+        joining = self.job.join_rows()
+        if not self.rows:
+            route = "alone"
+        elif eng._step_mixed is None:
+            route = "no_fused_entry"
+        elif any(r.decoding and len(r.req.output_tokens) >= r.req.max_new_tokens
+                 for r in self.rows + list(joining.values())):
+            # the reference retires such a row before its decode launch,
+            # after the chunk's stores (an empty prompt that asks for no
+            # token joins that way)
+            route = "retiring_row"
+        else:
+            plan = self.job.plan_fused(joining)
+            route = "eviction" if plan is None else "fused"
+        eng.chunk_routes.inc(route=route)
+        return plan
+
+    def _fused_step(self, plan: FusedChunk) -> Tuple[int, int]:
+        """The decode rows and the job's chunk in ONE launch
+        (``transformer.paged_mixed_step``), then the reference's order:
+        the chunk's stores (adopting the reserved slots) and refusals, the
+        joining rows' claims, then the decode rows' feed completion and
+        retirement.  On the job's last chunk its rows join this launch
+        already, their tables naming the reserved slots, as the
+        reference's rows join the decode launch after the chunk's.
+
+        A launch that raises fails closed by the side whose code raised
+        (``transformer.MixedStepError``), never retried as a split step:
+        the chunk side aborts the job (``prefill_launch_failure``) and the
+        decode rows run in their own launch, as after a failed chunk; the
+        decode side runs the chunk in its own launch and commits it, then
+        fails the rows (``decode_launch_failure``); shared code fails both,
+        the chunk's rows first.  Returns (n_decode, n_feed)."""
+        eng, job = self.eng, self.job
+        old_rows = list(self.rows)
+        joining = plan.joining
+        saved = (self._state, self._logits, self._members, self._tail_cap, self._pad_pos)
+        self.rows = old_rows + list(joining.values())
+        pages = eng._device_pages()
+        self._sync_state(pages)
+        toks = self._carried_tokens()
+        row0_feeding = bool(self.rows[0].feed)
+        fed, finishing, n_dec, n_feed = self._consume(toks)
+        d_toks, d_poss = self._operands(toks, fed, row0_feeding)
+        t0 = time.monotonic()
+        try:
+            lg, state, ck, cv = eng._step_mixed(
+                eng.params, self._state, torch.from_numpy(d_toks).to(eng.device),
+                torch.from_numpy(d_poss).to(eng.device), plan.operands,
+            )
+            device_sync(eng.device)
+        except Exception as e:  # noqa: BLE001 — carried to _fail_fused, which fails closed
+            plan.error = e
+        if plan.error is not None:
+            self.rows = old_rows
+            finishing = [(i, row) for i, row in finishing if row in old_rows]
+            n_feed -= len(joining)
+            n_feed += self._fail_fused(plan, pages, saved, fed, row0_feeding, finishing)
+            return (n_dec, n_feed)
+        eng._observe_stage("mixed_step", time.monotonic() - t0)
+        job.commit(ck, cv, plan, written=pages[0] is eng.pool.k_pages)
+        if job.done:
+            job.take_rows(joining)
+            self.job = None
+        # a joining row refused at its store never joined
+        gone = [r for r in joining.values() if r.pages is not None]
+        if gone:
+            self.rows = [r for r in self.rows if r not in gone]
+            finishing = [(i, r) for i, r in finishing if r not in gone]
+            n_feed -= len(gone)
+        self._commit_decode(lg, state, finishing)
         return (n_dec, n_feed)
+
+    def _fail_fused(self, plan: FusedChunk, pages, saved, fed, row0_feeding, finishing) -> int:
+        """Fail a fused launch closed by the side whose code raised
+        (``MixedStepError.side``; anything else is shared code), releasing
+        the reserved slots first.  ``self.rows`` holds the rows that were
+        live before the step.  Returns the rows that joined (they fed in
+        the reference's decode launch)."""
+        from repro_torch.models.transformer import MixedStepError
+
+        eng, job, err = self.eng, self.job, plan.error
+        side = err.side if isinstance(err, MixedStepError) else "shared"
+        if isinstance(err, MixedStepError):
+            err = err.error
+        reason = f"{type(err).__name__}: {err}"
+        eng.pool.release_pages(plan.slots)
+        if side == "chunk":
+            # a failed chunk: the job fails closed and the decode rows run
+            # in their own launch over the state they had before the step
+            job.abort("prefill_launch_failure", reason)
+            self.job = None
+            self._state, self._logits, self._members, self._tail_cap, self._pad_pos = saved
+            self._sync_state(pages)
+            self._launch_decode(*self._operands(self._carried_tokens(), fed, row0_feeding),
+                                finishing)
+            return 0
+        if side == "decode":
+            # the chunk ran before the decode launch in the reference: it
+            # runs in its own launch and commits, its rows join, and every
+            # row then fails with the decode launch
+            job.advance()
+        else:
+            job.abort("prefill_launch_failure", reason)
+        joined = job.take_rows() if job.done else []
+        if job.done:
+            self.job = None
+        self.rows.extend(joined)
+        for row in self.rows:
+            unpin_chain(row.blocks)
+            eng._fail_closed_error(
+                row.req, scope="decode_step", trigger="decode_launch_failure", reason=reason,
+            )
+        self._drop_state()
+        return len(joined)
 
     def _finish_feed(self, idx: int, row: Row) -> None:
         eng = self.eng
@@ -634,6 +948,8 @@ class StepLoop:
             pages = eng._device_pages()
             prefill_tokens = 0
             prefill_rows = 0
+            stalled = bool(self.rows)
+            counts = None
             # chunk side: at most one in-flight prefill chunk per step, only
             # when it fits the budget next to the live rows — unless there
             # are no live rows (livelock guard: an oversized chunk still
@@ -642,20 +958,26 @@ class StepLoop:
                 cost = self.job.chunk_tokens
                 if not self.rows or len(self.rows) + cost <= budget:
                     prefill_rows = len(self.job.alive)
-                    self.job.advance()
                     prefill_tokens = cost
-                    if self.job.done:
-                        self.rows.extend(self.job.take_rows())
-                        self.job = None
-                        # the joined rows feed THIS step and their block
-                        # tables reference the job's freshly stored pages:
-                        # the store exists now even if it did not at the
-                        # step's start
-                        pages = eng._device_pages()
+                    plan = self._plan_chunk()
+                    if plan is not None:
+                        counts = self._fused_step(plan)
+                    else:
+                        self.job.advance()
+                        if self.job.done:
+                            self.rows.extend(self.job.take_rows())
+                            self.job = None
+                            # the joined rows feed THIS step and their block
+                            # tables reference the job's freshly stored
+                            # pages: the store exists now even if it did not
+                            # at the step's start
+                            pages = eng._device_pages()
             # decode side: every live row launches every step — the budget
             # never holds a decode row back (zero decode stalls)
-            stalled = bool(self.rows)
-            n_dec, n_feed = self._mixed_step(pages) if self.rows else (0, 0)
+            if counts is None:
+                stalled = bool(self.rows)
+                counts = self._mixed_step(pages) if self.rows else (0, 0)
+            n_dec, n_feed = counts
             launched_mixed = (n_dec + n_feed) > 0
             if stalled and not launched_mixed and prefill_tokens == 0:
                 # structurally unreachable; counted (and gated to 0 in

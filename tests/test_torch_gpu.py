@@ -1660,3 +1660,215 @@ def test_in_place_store_serves_the_snapshot_bits_full_width(dev):
         got, want = drive(eng), drive(ref)
     assert got["claim"] == want["claim"] and got["offloaded"]
     same(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the fused step (``transformer.paged_mixed_step``) on the card
+# ---------------------------------------------------------------------------
+
+
+def _qwen3_layers(dev, layers):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    bundle = build_model(get_config("qwen3-1.7b").replace(num_layers=layers), device=dev)
+    return bundle, bundle.init_params(torch.Generator().manual_seed(0))
+
+
+def _mixed_scene(cfg, dev, W, B, C, page=4):
+    """A full-width step in bf16: W - 1 decode rows over their pages and
+    tails, a [B, C] chunk at prefix 32 whose completed blocks go to free
+    pages, and a last decode row that joins with the chunk's first row:
+    its table names its prefix pages and the pages the chunk writes, and
+    it replays the prompt's last token (the exact-prefix entry)."""
+    g = torch.Generator().manual_seed(W * 100 + B * 10 + C)
+    L, KV, Dh, V = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim, cfg.vocab_size
+    N, T, P = 256, 40, 24
+    rnd = lambda *s: torch.randn(s, generator=g).to(torch.bfloat16).to(dev)
+    plen = torch.randint(4, 60, (W,), generator=g, dtype=torch.int32)
+    used = torch.randint(0, 8, (W,), generator=g, dtype=torch.int32)
+    bt = torch.zeros((W, P), dtype=torch.int32)
+    for w in range(W - 1):
+        n = -(-int(plen[w]) // page)
+        bt[w, :n] = torch.randperm(128, generator=g)[:n].to(torch.int32)
+    prefix = (128 + torch.arange(B * 8, dtype=torch.int32)).reshape(B, 8)  # 32 tokens a row
+    nblk = C // page
+    dest = (192 + torch.arange(B * nblk)).reshape(B, nblk)
+    n_join = 32 + C
+    bt[W - 1, :8] = prefix[0]
+    bt[W - 1, 8:8 + nblk] = dest[0].to(torch.int32)
+    plen[W - 1], used[W - 1] = n_join - 1, 0
+    tpos = torch.full((W, T), -1, dtype=torch.int32)
+    for w in range(W):
+        tpos[w, : int(used[w])] = plen[w] + torch.arange(int(used[w]), dtype=torch.int32)
+    state = {"k_pages": rnd(L, KV, N, page, Dh), "v_pages": rnd(L, KV, N, page, Dh),
+             "block_tables": bt.to(dev), "prefix_len": plen.to(dev),
+             "k_tail": rnd(L, W, T, KV, Dh), "v_tail": rnd(L, W, T, KV, Dh), "tail_pos": tpos.to(dev)}
+    ctoks = torch.randint(0, V, (B, C), generator=g, dtype=torch.int32)
+    toks = torch.randint(0, V, (W,), generator=g, dtype=torch.int32)
+    toks[W - 1] = ctoks[0, C - 1]
+    cbt = torch.zeros((B, P), dtype=torch.int32)
+    cbt[:, :8] = prefix
+    chunk = {"tokens": ctoks.to(dev),
+             "positions": (32 + torch.arange(C, dtype=torch.int32))[None].expand(B, C).to(dev),
+             "block_tables": cbt.to(dev), "prefix_len": torch.full((B,), 32, dtype=torch.int32,
+                                                                    device=dev),
+             "write_blocks": torch.arange(B * nblk, device=dev),
+             "write_pages": dest.reshape(-1).to(dev), "rows_join": True}
+    return state, toks.to(dev), (plen + used).to(dev), chunk
+
+
+@pytest.mark.parametrize("layers,W,B,C", [(4, 12, 1, 8), (4, 8, 4, 32), (4, 4, 1, 32),
+                                          (4, 16, 1, 8), (4, 4, 4, 8), (28, 12, 1, 8)],
+                         ids=["4L-bench-step", "4L-smoke-chunk", "4L-W4-C32", "4L-W16",
+                              "4L-W4-B4C8", "28L-bench-step"])
+def test_fused_step_gives_the_same_bits_on_card(dev, layers, W, B, C):
+    """Full-width qwen3-1.7b in bf16: one ``paged_mixed_step`` launch
+    against ``prefill_chunk``, the blocks' page writes and
+    ``paged_decode_step`` (what the split step loop runs), bitwise in the
+    logits, tails, tail positions, ``(ck, cv)`` and the page store after
+    the step: the norms reduce each row over the whole flat matrix at once
+    and must give each row its own launch's bits at every row count here.
+    At full depth the launches of each: fused K1 28, K2 28, the GEMM 197
+    (seven products a layer and the LM head); split the GEMM 393."""
+    bundle, params = _qwen3_layers(dev, layers)
+    state, toks, cur, chunk = _mixed_scene(bundle.cfg, dev, W, B, C)
+    split = dict(state, k_pages=state["k_pages"].clone(), v_pages=state["v_pages"].clone())
+    n0 = _launch_counts()
+    ck, cv = bundle.prefill_chunk_fn(
+        params, dict(split, block_tables=chunk["block_tables"], prefix_len=chunk["prefix_len"]),
+        chunk["tokens"], chunk["positions"])
+    nblk = C // 4
+    for blk, p in zip(chunk["write_blocks"].tolist(), chunk["write_pages"].tolist()):
+        b, j = divmod(blk, nblk)
+        split["k_pages"][:, :, p] = ck[:, b, 4 * j:4 * j + 4].permute(0, 2, 1, 3)
+        split["v_pages"][:, :, p] = cv[:, b, 4 * j:4 * j + 4].permute(0, 2, 1, 3)
+    lg, st = bundle.paged_decode_fn(params, split, toks, cur)
+    torch.cuda.synchronize()
+    n1 = _launch_counts()
+    fused = dict(state, k_pages=state["k_pages"].clone(), v_pages=state["v_pages"].clone())
+    flg, fst, fck, fcv = bundle.mixed_step_fn(params, fused, toks, cur, chunk)
+    torch.cuda.synchronize()
+    n2 = _launch_counts()
+    for got, want in ((flg, lg), (fst["k_tail"], st["k_tail"]), (fst["v_tail"], st["v_tail"]),
+                      (fst["tail_pos"], st["tail_pos"]), (fck, ck), (fcv, cv),
+                      (fused["k_pages"], split["k_pages"]), (fused["v_pages"], split["v_pages"])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+    gemm_k1_k2 = lambda a, b: [b[i] - a[i] for i in (5, 2, 3)]  # of ``_launch_counts``
+    assert gemm_k1_k2(n1, n2) == [7 * layers + 1, layers, layers], gemm_k1_k2(n1, n2)
+    assert gemm_k1_k2(n0, n1) == [14 * layers + 1, layers, layers], gemm_k1_k2(n0, n1)
+
+
+def test_decode_stream_under_burst_keeps_its_tokens_on_card(dev):
+    """Full-width qwen3-1.7b at 4 layers, the scheduler bench's engine:
+    ten decode streams alone and beside a burst whose chunks ride fused
+    steps (join steps included) serve the streams the same tokens."""
+    from repro_torch.bench import scheduler
+    from repro_torch.serving.engine import ServingEngine
+
+    bundle, params = _qwen3_layers(dev, 4)
+    toks = {}
+    for burst in ([], [40, 72]):
+        with ServingEngine(bundle, params, block_size=4, device=dev,
+                           **scheduler.ENGINE_KW) as eng:
+            streams = scheduler.submit_streams(eng, dec_new=16)
+            reqs = streams + scheduler.submit_burst(eng, burst)
+            eng.run_batch(reqs)
+            assert all(r.status == "finished" for r in reqs), [r.error for r in reqs]
+            toks[len(burst)] = [r.output_tokens for r in streams]
+            if burst:
+                assert eng.chunk_routes.value(route="fused") > 0
+    assert toks[2] == toks[0]
+
+
+@pytest.mark.parametrize("kernel,side", [("paged_decode", "decode"),
+                                         ("paged_attention", "chunk")], ids=["K1", "K2"])
+def test_kernel_launch_failure_fails_closed_on_card_in_fused_step(dev, kernel, side):
+    """The burst case of ``test_kernel_launch_failure_fails_closed_on_card``:
+    K1's (or K2's) entry point returns CUDA error 98 inside the one fused
+    step (request B's only chunk beside request A's decode row; B joins
+    in that step).  K1: the chunk runs in its own launch and commits, then
+    A and B fail with ``decode_launch_failure``.  K2: B fails with
+    ``prefill_launch_failure`` and A decodes on in its own launches to the
+    end.  Every pin is unwound."""
+    from repro_torch.core.analyzer import check_step_interleave_order, validate_event_sequence
+    from repro_torch.kernels import build
+    from repro_torch.serving.engine import ServingEngine
+
+    lib = build.load(kernel)
+    entry = {"paged_decode": "paged_decode_forward", "paged_attention": "paged_attention_forward"}
+    (pa._decode_lib if kernel == "paged_decode" else pa._lib)()  # argtypes set
+    with ServingEngine(*_reduced_qwen3(dev), block_size=4, device_blocks=64, prefill_chunk=8,
+                       device=dev) as eng:
+        a = eng.submit(tuple(range(100, 112)), max_new_tokens=4)
+        b = eng.submit(tuple(range(300, 308)), max_new_tokens=2)
+        mixed = eng._step_mixed
+
+        def failing_fused(*args):
+            undo = _failing_entry(lib, entry[kernel], 98)
+            try:
+                return mixed(*args)
+            finally:
+                undo()
+
+        eng._step_mixed = failing_fused
+        eng.run_batch([a, b])
+        eng._step_mixed = mixed
+        assert eng.chunk_routes.as_dict().get("fused") == 1
+        if side == "decode":
+            assert a.status == b.status == "error"
+            assert eng.fail_closed_total() == {"decode_launch_failure": 2}
+        else:
+            assert a.status == "finished" and len(a.output_tokens) == 4
+            assert b.status == "error" and "prefill_launch_failure" in b.error
+            assert eng.fail_closed_total() == {"prefill_launch_failure": 1}
+        for r in (a, b):
+            if r.status == "error":
+                assert "kernel launch failed (CUDA error 98)" in r.error
+        assert all(blk.ref == 0 for blk in eng.pool.blocks.values())
+        assert validate_event_sequence(eng.events).passed
+        assert check_step_interleave_order(eng.events).passed
+        fresh = eng.run(eng.submit(tuple(range(500, 516)), max_new_tokens=3))
+        assert fresh.status == "finished" and len(fresh.output_tokens) == 3
+
+
+def test_fused_route_gives_the_same_bits_on_card(dev):
+    """Full-width, full-depth qwen3-1.7b in bf16, the scheduler bench's
+    engine and burst (``--fast`` lengths): the engine with the fused route
+    and the engine without it (``_step_mixed = None``) give every decode
+    launch the same logits, bitwise, and serve the same tokens and page
+    bytes.  Real hidden states reach rows whose sum over the model width
+    rounds otherwise over the flat matrix's rows, which the synthetic
+    scenes of ``test_fused_step_gives_the_same_bits_on_card`` did not: the
+    layer norms reduce each side apart (``layers._row_stat``)."""
+    from repro_torch.bench import scheduler
+    from repro_torch.bench.common import Model
+
+    model = Model(dev)
+    runs = []
+    for fused in (True, False):
+        with model.engine(**scheduler.ENGINE_KW) as eng:
+            logits = []
+
+            def keep(fn):
+                def launch(*args):
+                    out = fn(*args)
+                    logits.append(out[0].clone())
+                    return out
+                return launch
+
+            eng._step_paged_decode = keep(eng._step_paged_decode)
+            eng._step_mixed = keep(eng._step_mixed) if fused else None
+            reqs = scheduler.submit_streams(eng, dec_new=16) + scheduler.submit_burst(eng, [40, 72])
+            eng.run_batch(reqs)
+            runs.append((logits, [r.output_tokens for r in reqs],
+                         (eng.pool.k_pages.clone(), eng.pool.v_pages.clone()),
+                         eng.chunk_routes.value(route="fused")))
+    (la, ta, pa_, fa_), (lb, tb, pb, fb) = runs
+    assert fa_ == 14 and fb == 0
+    assert len(la) == len(lb) == 17
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert torch.equal(x, y), (i, float((x - y).abs().max()))
+    assert ta == tb
+    assert all(torch.equal(x, y) for x, y in zip(pa_, pb))

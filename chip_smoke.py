@@ -26,7 +26,10 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      the MLP's gate/up and down, the tied LM head read in place as
      ``embed.T``) at decode (M = 8), chunk (M = 32) and monolithic (M = 512)
      widths against ``torch.matmul``, each row of the M = 8 and M = 32
-     products bitwise equal to the same rows of the M = 512 product;
+     products bitwise equal to the same rows of the M = 512 product; the
+     row-statistic kernel (the norms' mean of squares, mean and variance
+     in one order per row) at the decode, chunk, qk-norm and monolithic
+     row counts, each row bitwise across them;
      plus the reduced qwen3 model served on the card against the same model
      served on the CPU;
   3. full-width qwen3-1.7b (28 layers, random weights from seed 0) serving 8
@@ -169,6 +172,42 @@ model freed before the next (the depth cuts are printed):
      of ``run_batch`` (``--fast``'s 4 x 8 tokens) and the ITL p99 ratio
      under an admission burst.  Its outputs go to
      ``chiprun_out/paper_gates/``.
+ 20. long contexts, last, at the JAX catalogue's own lengths
+     (``prefill_32k``: 32 x 32,768 tokens, its batch cut to 1;
+     ``decode_32k``'s 128 rows cut to what one card serves beside it), each
+     model at full width and depth, weights from seed 0, engines of
+     block_size 16, prefill_chunk 512 and a 1024-token step budget (the
+     fused step carries a 512-token chunk).  L1, qwen3-1.7b (phase 19's
+     model): (a) fresh prompts of 32,768, 16,384 and 8,192 tokens, then the
+     first prompt's 16,384-token prefix plus 64 fresh tokens (1024 blocks
+     reused; a continuation feeds its uncached tokens a decode step each,
+     the reference's design), 16 new tokens each over a 5120-block pool:
+     every request finished, the reuse, nothing failed closed, walls, TTFT,
+     stage seconds, launches, peak memory, K1 on the four live rows'
+     operands against its plain version and one profiled decode step's
+     busy share; (b) the 32k prompt's first 4096 tokens at prefill_chunk 32
+     and 512, pages and entry logits bitwise; (c) ``prefill_fn`` at B = 1,
+     S = 32,768: K5 exactly once per layer, its layer-0 output held by
+     256-query slices at 0, 16,384 and 32,512 against the plain version,
+     the last logits bitwise those of a cold chunked prefill (whose
+     last-chunk K2 launch is held against its plain version); (d) witness
+     paths A and B on a 32,512-token claim (2032 blocks, a 4096-block pool,
+     a 2048-block host tier), the offload and restore seconds and bytes.
+     L2, h2o-danube-1.8b (24 layers, window 4096), loaded after qwen3 is
+     freed: (a) prompts of 32,768, 12,388, 4,100 and 1,000 tokens, then the
+     12,388 prompt's first 8,192 tokens plus 64, the same checks (K1 and K2
+     mask by the window past 4096); (b) the dense mode over a 4096-slot
+     ring, 32 decode steps each (the ring wraps): K5 exactly 24 launches per
+     prefill (held by slices at 0, 4,096 and 32,512), dense vs paged
+     prefill logits bitwise for the three prompts past the window, the
+     32,768 prompt's greedy tokens equal to the paged run's but near-ties
+     of 2 bf16 spacings, the others' agreement printed (the reference's
+     ring quirk); (c) a 4,112-token claim rejected with nothing registered,
+     witness paths A and B on a 4,080-token claim; (e) ``decode_fn`` at
+     long_500k's position 524,287 over a 4096-slot ring of seeded K/V
+     against the same inputs on the CPU (max |d| 0.25, the same greedy
+     token up to a near-tie).  K1, K2, K3, K5 and the GEMM must launch in
+     each path.
 After phase 2, the card tests that make K1's and K2's launch fail (their
 library entry points return a CUDA error) run in a child pytest: both
 must become fail-closed refusals with every pin unwound.
@@ -186,17 +225,26 @@ two would run it (its 1024 queries at positions 1024-2047 over the 2048
 keys, ``q_offset`` 1024) and as each model rank past the first of
 ``scripts/torch_four_cards.py``'s 2 x 2 and 1 x 4 meshes runs it (2 x 1024
 queries at 1024; 4 x 512 at 512, 1024 and 1536), beside
-scaled_dot_product_attention.  K1, K2, K4 and K5 run at head dims 320,
+scaled_dot_product_attention.  For phase 20 it holds and times K1 over 1
+and 8 rows of 32,768 prefix keys (qwen3) and 8 such rows at h2o-danube's
+G = 4, D 80 under its 4096-key window, K2 on a 512-token chunk after
+32,256 prefix keys without and with the window, K5 over 32,768 tokens
+(qwen3 causal beside SDPA; h2o-danube windowed beside SDPA with a 1 GB
+boolean mask), held by query slices, and the GEMM at M = 32,768 on
+qwen3's five shapes beside ``torch.matmul`` (rows bitwise those of M = 8).
+K1, K2, K4 and K5 run at head dims 320,
 512, 640 and 1024 in bf16 and f32 (their SIMT split routes past the
 256-column tiles) against their plain versions, K5 beside
 scaled_dot_product_attention on whichever backend takes the head dim; the
 kernels' JSON record lists these rows, and the GEMM's rows past its first,
 under their wrapper's name with the wrapper's launch count.
 Every launch count is zeroed
-just before each path of phases 3-19 and read just after it, so the counts
+just before each path of phases 3-20 and read just after it, so the counts
 show each path itself went through its kernels.  The line before the
 kernels' JSON record gives the smoke's wall and each path's.
-The last two lines are the kernels' JSON record and the device JSON line.
+The last two lines are the kernels' JSON record (each wrapper's row with
+its launches in total and by path, then its other rows) and the device
+JSON line.
 """
 from __future__ import annotations
 
@@ -385,13 +433,19 @@ def kernel_phase(gen_seed: int = 0):
         **paged_row("K4 paged_attention", copies, P, K4_LENGTHS),
     )
     results["gemm"], gemm_extra = gemm_rows(dev, g)
+    results["row_stat"], stat_extra = row_stat_rows(dev, g)
     wide_kernel_rows(dev, rnd, gen_seed)
     past_256 = head_dim_past_256_rows(dev, rnd, gen_seed)
     past_256["gemm"] = gemm_extra
-    snapshot_kernel_rows(dev, rnd)
+    past_256["row_stat"] = stat_extra
+    snapshot = snapshot_kernel_rows(dev, rnd)
+    past_256.setdefault("kv_block_copy", []).extend(
+        (label, row) for label, row in snapshot.items() if label.startswith("K3"))
     moe_vlm_kernel_rows(dev, rnd, gen_seed)
     whisper_kernel_rows(rnd)
     sharded_prefill_kernel_row(rnd)
+    for name, extra in long_context_kernel_rows(dev, rnd, gen_seed).items():
+        past_256.setdefault(name, []).extend(extra)
     for name, r in results.items():
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}, library {r['library_ms']})")
@@ -585,8 +639,58 @@ def gemm_rows(dev, g):
 
 
 
+# the norms' row statistics on qwen3-1.7b's serving path (rows, width):
+# ln1/ln2 of a decode step, of a prefill chunk and of a monolithic 32k
+# prefill, and the qk-norm of a 512-token chunk (16 query heads of 128)
+ROW_STAT_SHAPES = {"decode ln": (8, 2048), "chunk ln": (512, 2048), "chunk qk-norm": (8192, 128),
+                   "monolithic ln": (32768, 2048)}
+
+
+def row_stat_rows(dev, g):
+    """The row-statistic kernel (the norms' mean of squares; the layer
+    norm's mean and variance at the chunk shape) against its plain version
+    (f32 tolerance), timed beside the bound of its input (bytes) and, for
+    the mean and the variance, one PyTorch call (``torch.mean``,
+    ``torch.var``; the mean of squares has none); each row of the decode
+    and chunk products bitwise the same row of the monolithic one.
+    Returns (the chunk mean-of-squares row, [(label, row), ...])."""
+    from repro_torch.kernels import row_stat as rs
+
+    x = torch.randn((32768, 2048), generator=g, device=dev) * 3.0
+    full = rs.row_stat(x, "mean_square")
+    for sname, (R, d) in ROW_STAT_SHAPES.items():
+        if d == 2048:
+            part = rs.row_stat(x[-R:], "mean_square")
+            torch.cuda.synchronize()
+            check(torch.equal(part, full[-R:]), f"row_stat {sname}: rows differ from R = 32768")
+    main, extra = None, []
+    for sname, (R, d) in ROW_STAT_SHAPES.items():
+        for stat in (("mean_square", "mean", "var") if sname == "chunk ln" else ("mean_square",)):
+            n = max(2, -(-120_000_000 // (4 * R * d)))
+            copies = [(torch.randn((R, d), generator=g, device=dev),) for _ in range(n)]
+            library = {"mean": lambda t: torch.mean(t, dim=-1, keepdim=True),
+                       "var": lambda t: torch.var(t, dim=-1, keepdim=True, unbiased=False)}
+            label = f"row_stat {stat} {sname} {R} x {d}"
+            row = kernel_row(label, lambda t, s=stat: rs.row_stat(t, s),
+                             lambda t, s=stat: rs.row_stat_ref(t, s), copies, [{}],
+                             4.0 * (R * d + R), (2.0 if stat != "var" else 4.0) * R * d,
+                             library=(library[stat], copies) if stat in library else None,
+                             dtype=torch.float32, peak=H100_F32_FLOPS)
+            if (sname, stat) == ("chunk ln", "mean_square"):
+                main = dict(route="cuda", source="src/repro_torch/kernels/csrc/row_stat.cu",
+                            replaces="none: replaces no TPU kernel (the reference's jnp.mean and "
+                                     "jnp.var in rms_norm and layer_norm)", **row)
+            else:
+                extra.append((label, row))
+            del copies
+    del x, full
+    print("row_stat rows of R = 8 and 512 bitwise those of R = 32768 (the decode, chunk and "
+          "monolithic widths)")
+    return main, extra
+
+
 def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None, timed=None,
-               dtype=torch.bfloat16, peak=H100_BF16_FLOPS):
+               dtype=torch.bfloat16, peak=H100_BF16_FLOPS, iters=30):
     """One kernel at one shape: checked against its plain version on
     ``copies[0]`` under each keyword set of ``variants`` (the tolerance of
     ``dtype``), then timed (profiler device time, under the keywords
@@ -603,14 +707,14 @@ def kernel_row(label, fn, plain, copies, variants, nbytes, flops, library=None, 
         check(within(got, want, dtype), f"{label} {kw} disagrees with its plain version "
                                         f"({errs[-1]})")
     timed = timed or {}
-    ms = time_ms(lambda *a: fn(*a, **timed), copies, breakdown=True)
-    plain_ms = time_ms(lambda *a: plain(*a, **timed), copies, iters=6)
+    ms = time_ms(lambda *a: fn(*a, **timed), copies, iters=iters, breakdown=True)
+    plain_ms = time_ms(lambda *a: plain(*a, **timed), copies, iters=min(iters, 6))
     lib_ms = None
     if library is not None:
         lib_fn, lib_calls = library
         e = max_err(lib_fn(*lib_calls[0]), fn(*copies[0], **timed))
         check(e <= 2e-2, f"{label}: the library yardstick computes another function ({e})")
-        lib_ms = time_ms(lib_fn, lib_calls)
+        lib_ms = time_ms(lib_fn, lib_calls, iters=iters)
     b_ms, b_by = bound(nbytes, flops, peak)
     print(f"{label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
           f"{100 * b_ms / ms:.1f}% of the bound, {nbytes / ms / 1e6:.0f} GB/s, library "
@@ -994,7 +1098,7 @@ def snapshot_kernel_rows(dev, rnd):
     scaled_dot_product_attention with the same causal+window mask given
     explicitly (a boolean mask, which SDPA serves with a non-flash
     kernel); and K3 on one hymba snapshot page of 49,243,140 uint8 bytes
-    (not a multiple of 16: the byte loop), beside ``index_select``."""
+    (4 mod 16: the kernel moves 4-byte words), beside ``index_select``."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kv_block_copy as kbc
 
@@ -1022,14 +1126,15 @@ def snapshot_kernel_rows(dev, rnd):
     got = kbc.kv_block_copy(pages[0], idx)
     torch.cuda.synchronize()
     check(torch.equal(got, pages[0]), "K3 is not an exact copy of a snapshot page")
+    word = math.gcd(HYMBA_SNAPSHOT_BYTES, 16)  # the widest word dividing the page (4)
     calls = [(pg, idx) for pg in pages]
     ms = time_ms(lambda s, i: kbc.kv_block_copy(s, i), calls)
     plain_ms = time_ms(lambda s, i: kbc.kv_block_copy_ref(s, i), calls)
     lib_ms = time_ms(lambda s, i: torch.index_select(s, 0, d_idx), calls)
     b_ms, b_by = bound(2.0 * HYMBA_SNAPSHOT_BYTES + 4, 0.0)
-    rows = {label: row, "K3 hymba-1.5b snapshot page (49,243,140 B, byte loop)": dict(
+    rows = {label: row, "K3 hymba-1.5b snapshot page (49,243,140 B, 4-byte words)": dict(
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, max_abs_err=0.0)}
-    print(f"K3 one hymba-1.5b snapshot page ({HYMBA_SNAPSHOT_BYTES} B, 4 mod 16: byte loop): "
+    print(f"K3 one hymba-1.5b snapshot page ({HYMBA_SNAPSHOT_BYTES} B, 4 mod 16: {word}-byte words): "
           f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
           f"{100 * b_ms / ms:.1f}% of the bound, {2 * HYMBA_SNAPSHOT_BYTES / ms / 1e6:.0f} GB/s, "
           f"library index_select {lib_ms:.4f} ms), exact")
@@ -1340,16 +1445,33 @@ def k4_over_dense_cache(bundle, params, cfg, served_prompt):
           f"K4 disagrees with attention_decode ({e})")
 
 
-def witness_phase(bundle, params, cfg, paths=("A", "B"), engine_kw=None, warm_reference=False):
-    """The claim witness paths at full width: a 256-token claim prefix is
-    materialized and offloaded; A restores it through the page copy (the
-    reuse request's 16 tokens equal a never-offloaded engine's), B fails
-    the same claim's restore and must be refused fail-closed, in order.
-    ``engine_kw`` goes to every engine; ``warm_reference`` has the
-    never-offloaded engine serve the first request too, so that it reuses
-    the prefix as the restored run does (the int8 dense mode, whose reused
-    prefix differs from a cold prefill).  Returns path A's page-store
-    dtype."""
+def _host_top(label, prof, n=6):
+    """The ``n`` functions with the most host self time in a cProfile run."""
+    import pstats
+
+    st = pstats.Stats(prof)
+    top = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:n]
+    print(f"{label}, host self time by function: " + "; ".join(
+        f"{fn[2]} ({Path(fn[0]).name}:{fn[1]}) {tt:.3f} s in {nc} calls"
+        for fn, (_, nc, tt, _, _) in top))
+
+
+def witness_phase(bundle, params, cfg, paths=("A", "B"), engine_kw=None, warm_reference=False,
+                  prefix_len=256, host_trace=False):
+    """The claim witness paths at full width: a ``prefix_len``-token claim
+    prefix (256 unless given) is materialized and offloaded; A restores it
+    through the host tier and the page copy (the reuse request's 16 tokens
+    equal a never-offloaded engine's), B fails the same claim's restore and
+    must be refused fail-closed, in order.  ``engine_kw`` overrides the
+    engines' settings (block_size 16, device_blocks 64); ``warm_reference``
+    has the never-offloaded engine serve the first request too, so that it
+    reuses the prefix as the restored run does (the int8 dense mode, whose
+    reused prefix differs from a cold prefill).  Path A prints the offload's
+    and the restore's seconds and bytes, and with ``host_trace`` where the
+    host spent them (cProfile).  Returns path A's page-store dtype."""
+    import cProfile
+
+    from repro_torch.bench.scheduler import StepTrace
     from repro_torch.core.analyzer import (
         check_failure_outcome_path,
         check_observation_path,
@@ -1360,11 +1482,12 @@ def witness_phase(bundle, params, cfg, paths=("A", "B"), engine_kw=None, warm_re
 
     rng = np.random.default_rng(1)
     V = cfg.vocab_size
-    prefix = tuple(int(t) for t in rng.integers(0, V, 256))
+    prefix = tuple(int(t) for t in rng.integers(0, V, prefix_len))
     first = prefix + tuple(int(t) for t in rng.integers(0, V, 16))
     reuse = prefix + tuple(int(t) for t in rng.integers(0, V, 8))
 
-    kw = dict(block_size=16, device_blocks=64, device=bundle.device, **(engine_kw or {}))
+    kw = dict(block_size=16, device_blocks=64, device=bundle.device)
+    kw.update(engine_kw or {})
     with ServingEngine(bundle, params, **kw) as plain:
         if warm_reference:
             check(plain.run(plain.submit(first, max_new_tokens=16)).status == "finished",
@@ -1382,17 +1505,40 @@ def witness_phase(bundle, params, cfg, paths=("A", "B"), engine_kw=None, warm_re
             r1 = eng.run(eng.submit(first, max_new_tokens=16))
             check(r1.status == "finished" and claim.state == ClaimState.MATERIALIZED,
                   f"path {path}: claim not materialized ({r1.status}, {claim.state})")
+            moved = sum(b.nbytes for b in eng._claim_device_blocks(claim))
+            prof = cProfile.Profile() if host_trace and path == "A" else None
+            torch.cuda.synchronize()
+            t_off = time.monotonic()
+            if prof:
+                prof.enable()
             check(eng.offload_claim(cid, request_id=r1.request_id), f"path {path}: offload failed")
+            torch.cuda.synchronize()
+            t_off = time.monotonic() - t_off
+            if prof:
+                prof.disable()
+                _host_top(f"{cfg.name} offload of the {prefix_len}-token claim", prof)
+                prof = cProfile.Profile()
             check(claim.state == ClaimState.OFFLOADED, f"path {path}: claim not offloaded")
             if path == "B":
                 eng.connector.injection.resident_claim_load_failure = True
                 eng.connector.injection.fail_claim_id = cid
-            r2 = eng.run(eng.submit(reuse, max_new_tokens=16))
+            with StepTrace(eng) as trace:
+                t_reuse = time.monotonic()
+                if prof:
+                    prof.enable()
+                r2 = eng.run(eng.submit(reuse, max_new_tokens=16))
+                torch.cuda.synchronize()
+                t_reuse = time.monotonic() - t_reuse
+                if prof:
+                    prof.disable()
+                    _host_top(f"{cfg.name} reuse request restoring the {prefix_len}-token claim",
+                              prof)
             order = validate_event_sequence(eng.events)
             check(order.passed, f"path {path}: {order.reasons}")
             if path == "A":
                 check(r2.status == "finished", f"path A: reuse request {r2.status} ({r2.error})")
-                check(r2.restored_tokens == 256, f"path A: restored {r2.restored_tokens} tokens")
+                check(r2.restored_tokens == prefix_len,
+                      f"path A: restored {r2.restored_tokens} tokens, not {prefix_len}")
                 check(claim.state == ClaimState.RESTORED, f"path A: claim {claim.state}")
                 check(r2.output_tokens == r_plain.output_tokens,
                       f"path A: restored tokens {r2.output_tokens} != never-offloaded "
@@ -1400,6 +1546,13 @@ def witness_phase(bundle, params, cfg, paths=("A", "B"), engine_kw=None, warm_re
                 check(not eng.fail_closed_total(), f"path A fail-closed: {eng.fail_closed_total()}")
                 verdict = check_observation_path(eng.events, cid, r2.request_id)
                 page_dtype = eng.pool.k_pages.dtype
+                up = trace.totals().get("page_h2d", {"bytes": 0, "s": 0.0, "n": 0})
+                print(f"{cfg.name} witness path A, {prefix_len}-token claim: offload "
+                      f"{moved} B to the host tier in {t_off:.3f} s "
+                      f"({moved / max(t_off, 1e-9) / 1e9:.2f} GB/s); restore {up['bytes']} B "
+                      f"to the card in {up['s']:.3f} s ({up['n']} gathers through K3, "
+                      f"{up['bytes'] / max(up['s'], 1e-9) / 1e9:.2f} GB/s); the reuse request "
+                      f"{t_reuse:.3f} s with its 16 tokens")
             else:
                 check(r2.status == "refused" and r2.output_tokens == [],
                       f"path B: reuse request {r2.status} with {len(r2.output_tokens)} tokens")
@@ -1422,7 +1575,8 @@ def witness_phase(bundle, params, cfg, paths=("A", "B"), engine_kw=None, warm_re
             check(verdict.passed, f"path {path}: {verdict.reasons}")
             print(f"witness path {path} analyzer: {verdict.reasons[0]}")
             outcomes[path] = (r2.status, claim.state.value)
-    print(f"{cfg.name} witness path A: restored 256 tokens, output equals the never-offloaded run "
+    print(f"{cfg.name} witness path A: restored {prefix_len} tokens, output equals the "
+          f"never-offloaded run "
           f"({len(r_plain.output_tokens)} tokens), claim {outcomes['A'][1]}, pages {page_dtype}")
     if "B" in paths:
         print(f"{cfg.name} witness path B: request {outcomes['B'][0]}, claim {outcomes['B'][1]}, "
@@ -2683,6 +2837,690 @@ def conformance_phase(bundle, params, serving_log, serving_metrics, card):
     print(f"conformance phase wall {time.monotonic() - t0:.3f} s (scenarios {t_scen:.3f} s)")
 
 
+# ---------------------------------------------------------------- phase 20
+# Long contexts at the JAX catalogue's own lengths (configs/base.py SHAPES:
+# prefill_32k serves 32 x 32,768 tokens, cut here to one row; decode_32k
+# 128 rows over a 32,768-token cache, cut to the rows one card serves beside
+# it), on full-width full-depth qwen3-1.7b and on h2o-danube-1.8b, whose
+# 4096-key window is the only window of a served transformer.  Engines take
+# the reference's own arguments at these lengths: block_size 16,
+# prefill_chunk 512 and a step budget that holds a 512-token chunk beside
+# the live rows (so the fused step carries C = 512).
+LONG_KW = dict(block_size=16, prefill_chunk=512, max_tokens_per_step=1024)
+LONG_S = 32_768  # prefill_32k's length
+LONG_NEW = 16  # new tokens per served request
+L1_FIRST = (32_768, 16_384, 8_192)  # fresh prompts of the first call
+# the second call: the 32k prompt's first 16,384 tokens (1024 blocks reused) + 64 fresh.
+# A continuation feeds its uncached tokens one decode step each (the reference's
+# design: engine._continue_paged, StepLoop's Row.feed), so 16,384 fresh tokens
+# there would take 16,384 steps, ~18 minutes at ~65 ms a step
+L1_SECOND = (16_384, 64)
+L1_BLOCKS = 5120  # 9.4 GB of qwen3 pages: the first call's 3584 blocks and decode tails
+L1_CHUNK_CHECK = 4096  # (b): the 32k prompt's first 4096 tokens at prefill_chunk 32 and 512
+L1_CLAIM = 32_512  # (d): 2032 blocks of 16
+CLAIM_KW = dict(LONG_KW, device_blocks=4096, host_blocks=2048)
+L2_FIRST = (32_768, 12_388, 4_100, 1_000)
+L2_SECOND = (8_192, 64)  # the 12,388 prompt's first 8192 tokens + 64 fresh
+L2_BLOCKS = 5120  # 5.0 GB of h2o-danube pages
+L2_DENSE_STEPS = 32  # dense decode steps: past a 4096-slot ring's wrap
+K5_SLICE = 256  # queries per slice when K5's plain version checks a 32k prefill
+LONG_500K = 524_288  # long_500k's length: one decode step at its last position
+NEAR_TIE = 2.0  # bf16 spacings between two logits whose greedy order rounding may flip
+
+
+def _long_prompts(V, lens, seed):
+    rng = np.random.default_rng(seed)
+    return [tuple(int(t) for t in rng.integers(0, V, n)) for n in lens]
+
+
+def _spacings(logits, a, b) -> float:
+    """The gap logits[a] - logits[b] in bf16 spacings at logits[a]."""
+    top = float(logits[a])
+    ulp = 2.0 ** (math.floor(math.log2(abs(top))) - 7) if top else 2.0 ** -133
+    return (top - float(logits[b])) / ulp
+
+
+def bitwise_logits(label, la, lb, V):
+    """Two logit vectors of one prompt from two routes: finite, of the
+    vocabulary's shape, and equal bit for bit (the bits contract: one key
+    order, the row-invariant GEMM)."""
+    e = float(np.abs(la - lb).max())
+    print(f"{label}: max|d|={e:.3e} (held at 0), argmax {la.argmax()} vs {lb.argmax()}")
+    check(np.isfinite(la).all() and la.shape == (V,) and lb.shape == (V,), f"{label}: bad logits")
+    check(np.array_equal(la, lb), f"{label}: not bitwise equal ({e})")
+
+
+class Capture:
+    """Wraps one kernel wrapper of a module (``paged_attention``'s K1 or K2,
+    ``flash_attention``'s K5) while open: the call numbered ``at`` (0-based;
+    a layer loop calls it once per layer) runs as usual and ``check`` gets
+    its arguments and output right after, before the store it read moves on.
+    Every other call passes through; the launch counts stay the wrapper's
+    own.  Whatever the check raises (a failed check too) is raised again
+    when the ``with`` closes, not inside the engine's step, whose launch
+    boundary would turn it into a refusal."""
+
+    def __init__(self, module, name, at, check_fn):
+        self.module, self.name, self.at, self.check_fn = module, name, at, check_fn
+        self.n, self.result, self.error = 0, None, None
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+        setattr(self.module, self.name, self)
+        return self
+
+    def __call__(self, *args, **kw):
+        out = self.real(*args, **kw)
+        if self.n == self.at:
+            try:
+                self.result = self.check_fn(args, kw, out)
+            except BaseException as e:  # noqa: BLE001 — raised again at __exit__
+                self.error = e
+        self.n += 1
+        return out
+
+    # the wrapper counts its launches through its module's global name,
+    # which is this object while the capture is open: the count stays the
+    # wrapper's own
+    @property
+    def launches(self):
+        return self.real.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.real.launches = n
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+        if self.error is not None:
+            raise self.error
+
+
+def _plain_check(label, plain, dtype=torch.bfloat16):
+    """A ``Capture`` check: the plain version on the captured operands
+    against the kernel's output, at the dtype's tolerance."""
+
+    def run(args, kw, out):
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        e = max_err(out, want)
+        print(f"{label}: max|d|={e:.3e} against its plain version on the live operands ({kw})")
+        check(within(out, want, dtype), f"{label} disagrees with its plain version ({e})")
+        return e
+
+    return run
+
+
+def _k5_slices_check(label, offsets):
+    """A ``Capture`` check of K5 in a full-length prefill: the kernel's
+    output rows at each query offset against ``flash_attention_ref`` on
+    K5_SLICE queries there, over the keys they may attend (the plain
+    version over all 32,768 queries would hold 68.7 GB of f32 scores)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def run(args, kw, out):
+        q, k, v = args
+        kw = dict(kw)
+        check(kw.pop("q_offset", 0) == 0, f"{label}: a prefill's queries start at position 0")
+        errs = []
+        for o in offsets:
+            n = min(K5_SLICE, q.shape[2] - o)
+            want = fa.flash_attention_ref(q[:, :, o:o + n], k[:, :, :o + n], v[:, :, :o + n],
+                                          q_offset=o, **kw)
+            got = out[:, :, o:o + n]
+            torch.cuda.synchronize()
+            errs.append(max_err(got, want))
+            check(within(got, want, torch.bfloat16),
+                  f"{label}: rows at {o} disagree with the plain version ({errs[-1]})")
+        print(f"{label}: {n}-query slices at q_offset {list(offsets)} over the keys each attends "
+              f"({kw}): max|d| {['%.3e' % e for e in errs]} against flash_attention_ref")
+        return max(errs)
+
+    return run
+
+
+def _launch_counts():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm
+    from repro_torch.kernels import paged_attention as pa
+
+    return {"K1": pa.paged_decode_attention.launches, "K2": pa.paged_prefill_attention.launches,
+            "K5": fa.flash_attention.launches, "GEMM": gemm.gemm.launches}
+
+
+def long_serving(bundle, params, cfg, batches, reused, device_blocks, profile_rows=0):
+    """(a) of both paths: the batches in ``run_batch`` calls, LONG_NEW
+    tokens each; every request finished, the second call reused ``reused``
+    tokens, nothing failed closed.  Prints the wall, each request's TTFT,
+    the stage seconds, K1/K2/GEMM launches and the peak memory.  With
+    ``profile_rows``, the first call's prompts and the second's are
+    submitted once more (all cached: they join as live rows at once), K1's
+    first launch is held against its plain version on those live operands
+    (the longest row at the top of the catalogue's length) and a later decode
+    step runs under the profiler for the card's busy share.  Returns the
+    requests."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.engine import ServingEngine
+
+    name, V = cfg.name, cfg.vocab_size
+    eng = ServingEngine(bundle, params, device_blocks=device_blocks, device=bundle.device,
+                        **LONG_KW)
+    torch.cuda.reset_peak_memory_stats()
+    n0 = _launch_counts()
+    t0 = time.monotonic()
+    reqs, ttft = [], []
+    for batch in batches:
+        rs = [eng.submit(p, max_new_tokens=LONG_NEW) for p in batch]
+        tb = time.monotonic()
+        eng.run_batch(rs)
+        torch.cuda.synchronize()
+        ttft += [(len(r.tokens), None if r.first_token_ts is None else r.first_token_ts - tb)
+                 for r in rs]
+        reqs += rs
+    wall = time.monotonic() - t0
+    n1 = _launch_counts()
+    for r in reqs:
+        check(r.status == "finished", f"{name} {len(r.tokens)} tokens: {r.status} ({r.error})")
+        check(len(r.output_tokens) == LONG_NEW, f"{name}: {len(r.output_tokens)} tokens")
+        check(all(0 <= t < V for t in r.output_tokens), f"{name}: token out of range")
+    got = [r.cached_tokens for r in reqs[len(batches[0]):]]
+    check(got == [reused] * len(got), f"{name}: the second call reused {got}, not {reused}")
+    check(not eng.fail_closed_total(), f"{name} fail-closed outcomes: {eng.fail_closed_total()}")
+    stage = {k: sum(eng.stage_seconds.samples(stage=k))
+             for k in ("prefill_chunk", "decode_step", "mixed_step")}
+    routes = eng.chunk_routes.as_dict()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_out = sum(len(r.output_tokens) for r in reqs)
+    print(f"long serving {name} full width and depth: {len(reqs)} requests of "
+          f"{[len(r.tokens) for r in reqs]} tokens finished, {n_out} tokens in {wall:.3f} s, "
+          f"second call reused {got} tokens; TTFT per request (prompt tokens, s): "
+          + ", ".join(f"{n} {t:.3f}" for n, t in ttft)
+          + f"; peak device memory {peak:.2f} GiB ({device_blocks} blocks of pages, "
+          f"{eng.pool.k_pages.nbytes * 2 / 2**30:.2f} GiB)")
+    print(f"long serving {name} time: wall {wall:.3f} s = decode launches {stage['decode_step']:.3f} "
+          f"s + mixed_step (decode rows and a 512-token chunk in one launch) "
+          f"{stage['mixed_step']:.3f} s + chunks alone {stage['prefill_chunk']:.3f} s + host "
+          f"{wall - sum(stage.values()):.3f} s; chunk routes {json.dumps(routes)}; launches K1 "
+          f"{n1['K1'] - n0['K1']}, K2 {n1['K2'] - n0['K2']}, GEMM {n1['GEMM'] - n0['GEMM']}")
+    if profile_rows:
+        again = [eng.submit(r.tokens, max_new_tokens=4) for r in reqs[:profile_rows]]
+        label = (f"K1 on {name}'s live operands ({profile_rows} rows of "
+                 f"{[len(r.tokens) for r in again]} cached tokens, layer 0)")
+        k1 = Capture(pa, "paged_decode_attention", 0,
+                     _plain_check(label, pa.paged_decode_attention_ref))
+        busy = {}
+        real_step = eng._step_paged_decode
+
+        def step(*args):
+            if len(busy) or k1.n < 2 * cfg.num_layers:  # the third decode launch
+                return real_step(*args)
+            W = int(args[1]["block_tables"].shape[0])
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t = time.monotonic()
+                out = real_step(*args)
+                torch.cuda.synchronize()
+                w = time.monotonic() - t
+            dev_s = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()) / 1e6
+            busy.update(wall=w, busy=dev_s, width=W)
+            return out
+
+        eng._step_paged_decode = step
+        with k1:
+            eng.run_batch(again)
+        eng._step_paged_decode = real_step
+        check(all(r.status == "finished" for r in again),
+              f"{name}: a cached request failed: {[(r.status, r.error) for r in again]}")
+        check(k1.result is not None, f"{name}: K1 launched {k1.n} times on the live rows, its "
+                                     f"first never checked")
+        check(busy, f"{name}: no decode step was profiled")
+        print(f"{name} profiled decode step ({profile_rows} live rows of "
+              f"{[len(r.tokens) for r in again]} tokens, width {busy['width']}): wall "
+              f"{busy['wall'] * 1e3:.3f} ms, device busy {busy['busy'] * 1e3:.3f} ms "
+              f"({100 * busy['busy'] / busy['wall']:.1f}%)")
+    eng.close()
+    return reqs
+
+
+def chunk_invariance_at_length(bundle, params, cfg, prompt):
+    """(b) The 32k prompt's first L1_CHUNK_CHECK tokens at prefill_chunk 32
+    and 512: the same page bytes and entry logits, bitwise."""
+    from repro_torch.serving.engine import ServingEngine
+
+    p = prompt[:L1_CHUNK_CHECK]
+    bs = LONG_KW["block_size"]
+    out = {}
+    for chunk in (32, 512):
+        kw = dict(LONG_KW, prefill_chunk=chunk)
+        t0 = time.monotonic()
+        with ServingEngine(bundle, params, device_blocks=L1_CHUNK_CHECK // bs + 64,
+                           device=bundle.device, **kw) as eng:
+            logits = eng.prefill_logits(p)
+            slots = eng.pool.page_table(eng.pool.lookup_prefix(p, bs))
+            check(len(slots) == len(p) // bs, f"chunk {chunk}: {len(slots)} blocks stored")
+            idx = torch.tensor(slots, device=eng.pool.k_pages.device)
+            out[chunk] = (logits, eng.pool.k_pages[:, :, idx].clone(),
+                          eng.pool.v_pages[:, :, idx].clone(), time.monotonic() - t0)
+    (la, ka, va, ta), (lb, kb, vb, tb) = out[32], out[512]
+    same_pages = torch.equal(ka, kb) and torch.equal(va, vb)
+    print(f"{cfg.name} chunk invariance at length: {len(p)} tokens at prefill_chunk 32 "
+          f"({ta:.3f} s) and 512 ({tb:.3f} s): pages bitwise equal {same_pages} "
+          f"({ka.nbytes * 2} B)")
+    check(same_pages, f"{cfg.name}: pages differ between chunk 32 and 512")
+    bitwise_logits(f"{cfg.name} entry logits, chunk 32 vs 512 at {len(p)} tokens", la, lb,
+                   cfg.vocab_size)
+
+
+def paged_entry_logits(bundle, params, cfg, prompt, k2_label):
+    """A cold paged prefill of ``prompt`` at prefill_chunk 512: its entry
+    logits, with K2's launch on the last chunk's layer 0 held against its
+    plain version on the live operands."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving.engine import ServingEngine
+
+    C, bs = LONG_KW["prefill_chunk"], LONG_KW["block_size"]
+    last = (len(prompt) - len(prompt) % bs - 1) // C  # the chunk that completes the last block
+    k2 = Capture(pa, "paged_prefill_attention", last * cfg.num_layers,
+                 _plain_check(f"{k2_label} (prefix {last * C}, C = {C}, layer 0)",
+                              pa.paged_prefill_attention_ref))
+    t0 = time.monotonic()
+    with ServingEngine(bundle, params, device_blocks=len(prompt) // bs + 64,
+                       device=bundle.device, **LONG_KW) as eng, k2:
+        logits = eng.prefill_logits(prompt)
+    check(k2.result is not None, f"{cfg.name}: K2 never reached the last chunk")
+    print(f"{cfg.name} cold paged prefill of {len(prompt)} tokens at chunk {C}: "
+          f"{time.monotonic() - t0:.3f} s")
+    return logits
+
+
+def monolithic_long_prefill(bundle, params, cfg, prompt, paged_logits):
+    """(c) ``bundle.prefill_fn`` at B = 1, S = LONG_S (prefill_32k's batch of
+    32 cut to 1): K5 once per layer, its layer-0 output held by query slices
+    against the plain version, and the last-position logits bitwise equal
+    to the paged prefill's entry logits (chunked vs monolithic)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    S = len(prompt)
+    tokens = torch.tensor([prompt], dtype=torch.int32, device=bundle.device)
+    k5 = Capture(fa, "flash_attention", 0,
+                 _k5_slices_check(f"K5 in {cfg.name}'s {S}-token prefill (layer 0)",
+                                  (0, S // 2, S - K5_SLICE)))
+    n0 = fa.flash_attention.launches
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with k5:
+        logits, cache = bundle.prefill_fn(params, {"tokens": tokens}, S)
+        torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    n = fa.flash_attention.launches - n0
+    print(f"{cfg.name} monolithic prefill B = 1 x S = {S} (prefill_32k's batch of 32 cut to 1): "
+          f"{secs:.3f} s including the K5 slice check ({S / secs:.0f} tokens/s), K5 launches {n}, "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, cache "
+          f"{(cache['k'].nbytes + cache['v'].nbytes) / 2**30:.2f} GiB")
+    check(n == cfg.num_layers, f"the {S}-token prefill launched K5 {n} times, not "
+                               f"{cfg.num_layers}")
+    check(k5.result is not None, f"{cfg.name}: K5's slices were never checked")
+    check(tuple(logits.shape) == (1, cfg.vocab_size), "monolithic logits shape")
+    bitwise_logits(f"{cfg.name} chunked (K2, chunk 512) vs monolithic (K5) prefill logits, {S} "
+                   "tokens", paged_logits, logits[0].float().cpu().numpy(), cfg.vocab_size)
+    del cache
+
+
+def long_qwen3(bundle, params, cfg):
+    """Path L1: qwen3-1.7b at full width and depth at 32,768 tokens."""
+    V = cfg.vocab_size
+    first = _long_prompts(V, L1_FIRST, 20)
+    second = [first[0][:L1_SECOND[0]] + _long_prompts(V, (L1_SECOND[1],), 21)[0]]
+    t0 = time.monotonic()
+    long_serving(bundle, params, cfg, [first, second], L1_SECOND[0], L1_BLOCKS,
+                 profile_rows=len(first) + len(second))
+    print(f"L1 (a) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    chunk_invariance_at_length(bundle, params, cfg, first[0])
+    print(f"L1 (b) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    paged = paged_entry_logits(bundle, params, cfg, first[0], f"K2 on {cfg.name}'s last chunk")
+    monolithic_long_prefill(bundle, params, cfg, first[0], paged)
+    print(f"L1 (c, e) {time.monotonic() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    witness_phase(bundle, params, cfg, engine_kw=CLAIM_KW, prefix_len=L1_CLAIM, host_trace=True)
+    print(f"L1 (d) {time.monotonic() - t0:.1f} s")
+
+
+def long_danube_dense(bundle, params, cfg, prompts, paged_reqs):
+    """(b) of path L2: the four fresh prompts in the dense mode over a
+    ``min(cache_len, window)`` ring, L2_DENSE_STEPS tokens each (the ring
+    slot wraps); each prefill is K5 over the whole prompt under the window
+    (num_layers launches per prefill, its layer-0 output held by query
+    slices on the longest prompt); the prefill logits against the paged
+    engine's (K2 under the window) bitwise; the greedy tokens of the
+    prompt that is a multiple of the ring against the paged run's up to
+    near-ties of NEAR_TIE bf16 spacings (judged on the dense logits); the
+    others' agreement printed (the reference's ring quirk)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serving.engine import ServingEngine
+
+    V, window, L = cfg.vocab_size, cfg.sliding_window, cfg.num_layers
+    eng = ServingEngine(bundle, params, device_blocks=L2_BLOCKS, cache_len=window,
+                        decode_mode="dense", device=bundle.device, **LONG_KW)
+    ring = eng.bundle.make_cache(1, eng.cache_len)["k"].shape[2]
+    check(ring == window, f"{cfg.name}: dense ring of {ring} slots, not {window}")
+    k5_per_prefill, logits_seq = [], []
+    real_prefill, real_decode, k5_fn = eng._step_prefill, eng._step_decode, fa.flash_attention
+
+    def prefill(*args):
+        n = k5_fn.launches
+        lg, cache = real_prefill(*args)
+        k5_per_prefill.append(k5_fn.launches - n)
+        if len(k5_per_prefill) == 1:
+            logits_seq.append(lg[0].float().cpu())
+        return lg, cache
+
+    def decode(*args):
+        lg, cache = real_decode(*args)
+        logits_seq.append(lg[0].float().cpu())  # row 0: the first prompt's
+        return lg, cache
+
+    eng._step_prefill, eng._step_decode = prefill, decode
+    k5 = Capture(fa, "flash_attention", 0,
+                 _k5_slices_check(f"K5 in {cfg.name}'s {len(prompts[0])}-token dense prefill "
+                                  f"(layer 0, window {window})",
+                                  (0, window, len(prompts[0]) - K5_SLICE)))
+    reqs = [eng.submit(p, max_new_tokens=L2_DENSE_STEPS) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    with k5:
+        eng.run_batch(reqs)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    eng._step_prefill, eng._step_decode = real_prefill, real_decode
+    for r in reqs:
+        check(r.status == "finished", f"{cfg.name} dense {len(r.tokens)}: {r.status} ({r.error})")
+        check(len(r.output_tokens) == L2_DENSE_STEPS, f"{cfg.name} dense: {len(r.output_tokens)}")
+    check(not eng.fail_closed_total(), f"{cfg.name} dense: {eng.fail_closed_total()}")
+    check(k5_per_prefill == [L] * len(prompts),
+          f"{cfg.name} dense prefills launched K5 {k5_per_prefill} times, not {L} each")
+    check(k5.result is not None, f"{cfg.name}: K5's slices were never checked")
+    stage = {k: sum(eng.stage_seconds.samples(stage=k)) for k in ("prefill", "decode_step")}
+    print(f"{cfg.name} dense serving over a {ring}-slot ring: {len(reqs)} requests of "
+          f"{[len(r.tokens) for r in reqs]} tokens x {L2_DENSE_STEPS} tokens in {wall:.3f} s = "
+          f"prefills (K5 under window {window}) {stage['prefill']:.3f} s + decode steps "
+          f"{stage['decode_step']:.3f} s + host {wall - sum(stage.values()):.3f} s; K5 launches per "
+          f"prefill {k5_per_prefill}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for r, pr in zip(reqs, paged_reqs):
+        n = min(len(pr.output_tokens), len(r.output_tokens))
+        same = next((i for i in range(n) if r.output_tokens[i] != pr.output_tokens[i]), n)
+        if len(r.tokens) % ring:
+            print(f"{cfg.name} {len(r.tokens)} tokens (not a multiple of the ring): dense and paged "
+                  f"greedy tokens equal for the first {same} of {n} (printed, not held: the "
+                  f"reference's prefill leaves its trailing {ring} positions in slots 0..{ring - 1})")
+            continue
+        gap = None if same == n else _spacings(logits_seq[same], r.output_tokens[same],
+                                               pr.output_tokens[same])
+        print(f"{cfg.name} {len(r.tokens)} tokens (a multiple of the ring): dense and paged greedy "
+              f"tokens equal for the first {same} of {n}"
+              + ("" if gap is None else f", then a near-tie of {gap:.2f} bf16 spacings on the dense "
+                                        f"logits (limit {NEAR_TIE:g})"))
+        check(gap is None or gap <= NEAR_TIE,
+              f"{cfg.name}: dense and paged greedy tokens differ beyond a near-tie at {same}")
+    eng.close()
+
+
+def window_claims(bundle, params, cfg):
+    """(c) of path L2: a claim one block past the window raises
+    ``ClaimRejected`` and registers nothing; one a block inside it is
+    accepted and runs witness paths A and B."""
+    from repro_torch.core.claims import ClaimMode, ClaimRejected
+    from repro_torch.serving.engine import ServingEngine
+
+    window, bs = cfg.sliding_window, LONG_KW["block_size"]
+    deep = _long_prompts(cfg.vocab_size, (window + bs,), 23)[0]
+    with ServingEngine(bundle, params, device_blocks=64, device=bundle.device, **LONG_KW) as eng:
+        try:
+            eng.accept_claim(deep, ClaimMode.OFFLOADABLE)
+            fail(f"{cfg.name}: a {len(deep)}-token claim past the {window}-key window was accepted")
+        except ClaimRejected as e:
+            reason = str(e)
+        check(not eng.events.named("resident_claim_accepted"),
+              f"{cfg.name}: the rejected claim registered an acceptance")
+        check(not eng.registry.all_claims(), f"{cfg.name}: the rejected claim was registered")
+    print(f"{cfg.name} claim of {len(deep)} tokens past the {window}-key window: ClaimRejected "
+          f"({reason}), no resident_claim_accepted")
+    witness_phase(bundle, params, cfg, engine_kw=dict(LONG_KW, device_blocks=2 * window // bs,
+                                                      host_blocks=window // bs),
+                  prefix_len=window - bs, host_trace=True)
+
+
+def long_500k_position(bundle, params, cfg):
+    """(e) of path L2: ``decode_fn`` at B = 1 at long_500k's last position
+    (cur_pos LONG_500K - 1) on a window-slot ring whose slots hold the
+    positions LONG_500K - window .. LONG_500K - 1 with seeded K/V, against
+    the same inputs on the CPU (plain attention in both, as in the
+    reference): max |d| 0.25 (the smoke's cross-graph bf16 limit) and the
+    same greedy token up to a near-tie."""
+    from repro_torch.models.registry import build_model
+
+    window, L, KV, D = cfg.sliding_window, cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator().manual_seed(500)
+    kv = lambda: torch.randn((L, 1, window, KV, D), generator=g).to(torch.bfloat16)
+    pos = torch.arange(LONG_500K - window, LONG_500K, dtype=torch.int32)
+    ring = torch.empty(window, dtype=torch.int32)
+    ring[(pos % window).long()] = pos  # position p in ring slot p % window
+    cache = {"k": kv(), "v": kv(), "pos": ring[None]}
+    tok = torch.tensor([int(torch.randint(0, cfg.vocab_size, (1,), generator=g))], dtype=torch.int32)
+    cur = torch.tensor([LONG_500K - 1], dtype=torch.int32)
+    out = {}
+    for dev, b, p in ((bundle.device, bundle, params),
+                      ("cpu", build_model(cfg, device="cpu"), _to(params, "cpu"))):
+        t0 = time.monotonic()
+        lg, new = b.decode_fn(p, _to(cache, dev), tok.to(dev), cur.to(dev))
+        out[dev] = (lg[0].float().cpu(), new["pos"].cpu(), time.monotonic() - t0)
+        del p
+    (lc, pc, tc), (lh, ph, th) = out[bundle.device], out["cpu"]
+    e = max_err(lc, lh)
+    a, b_ = int(lc.argmax()), int(lh.argmax())
+    gap = 0.0 if a == b_ else _spacings(lh, b_, a)
+    print(f"{cfg.name} decode at long_500k's position {LONG_500K - 1} over a {window}-slot ring "
+          f"(positions {LONG_500K - window}..{LONG_500K - 1}): card vs CPU logits max|d|={e:.3e} "
+          f"(limit 0.25), argmax {a} vs {b_}"
+          + (f" (a gap of {gap:.2f} bf16 spacings)" if a != b_ else "")
+          + f"; ring slots written equal {torch.equal(pc, ph)}; {tc:.3f} s card, {th:.3f} s CPU")
+    check(bool(torch.isfinite(lc).all()) and tuple(lc.shape) == (cfg.vocab_size,),
+          f"{cfg.name}: long_500k logits")
+    check(torch.equal(pc, ph), f"{cfg.name}: the ring's positions differ between card and CPU")
+    check(e <= 0.25 and gap <= NEAR_TIE, f"{cfg.name}: long_500k decode disagrees ({e}, {gap})")
+
+
+def long_danube(bundle, params, cfg):
+    """Path L2: h2o-danube-1.8b at full width and depth past its window."""
+    V = cfg.vocab_size
+    first = _long_prompts(V, L2_FIRST, 22)
+    second = [first[1][:L2_SECOND[0]] + _long_prompts(V, (L2_SECOND[1],), 24)[0]]
+    t0 = time.monotonic()
+    paged = long_serving(bundle, params, cfg, [first, second], L2_SECOND[0], L2_BLOCKS,
+                         profile_rows=len(first))
+    print(f"L2 (a) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    long_danube_dense(bundle, params, cfg, first, paged[:len(first)])
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.serving.engine import ServingEngine
+
+    for p in first[:3]:  # past the window: K5 against K2, both masking by it
+        paged_lg = paged_entry_logits(bundle, params, cfg, p, f"K2 on {cfg.name}'s last chunk "
+                                      f"of {len(p)} (window {cfg.sliding_window})")
+        with ServingEngine(bundle, params, device_blocks=len(p) // LONG_KW["block_size"] + 64,
+                           cache_len=cfg.sliding_window, decode_mode="dense",
+                           device=bundle.device, **LONG_KW) as d:
+            bitwise_logits(f"{cfg.name} dense (K5) vs paged (K2) prefill logits under the "
+                           f"{cfg.sliding_window}-key window, {len(p)} tokens",
+                           d.prefill_logits(p), paged_lg, V)
+    print(f"L2 (b, d) {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    window_claims(bundle, params, cfg)
+    print(f"L2 (c) {time.monotonic() - t0:.1f} s")
+    long_500k_position(bundle, params, cfg)
+
+
+def _windowed_keys(plen, t_used, window):
+    """Keys a decode row at position plen + t_used - 1 attends under a
+    window (prefix keys and used tail slots)."""
+    return sum(min(p + t, window) if window else p + t for p, t in zip(plen, t_used))
+
+
+def _flash_by_slices(q, k, v, *, causal=True, window=0, step=512):
+    """``flash_attention_ref`` over query slices of ``step`` rows, each over
+    the keys up to its last row (one call over 32,768 queries would hold
+    the f32 scores of every query at once)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    S = q.shape[2]
+    return torch.cat([fa.flash_attention_ref(q[:, :, o:o + step], k[:, :, :o + step],
+                                             v[:, :, :o + step], causal=causal, window=window,
+                                             q_offset=o) for o in range(0, S, step)], dim=2)
+
+
+def long_flash_row(label, rnd, H, KV, D, window):
+    """K5 over one 32,768-token prompt (B 1, causal, ``window``), the
+    operands [B, S, H, D] views as the model hands them: held against the
+    plain version on K5_SLICE-query slices at the start, middle and end;
+    timed beside the plain version over 512-query slices and SDPA (K/V
+    repeated to every query head beforehand, untimed; under a window with
+    a boolean [S, S] mask of 1 GB)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    S = LONG_S
+    act = lambda n: rnd(1, S, n, D).transpose(1, 2)
+    copies = [(act(H), act(KV), act(KV)) for _ in range(2)]
+    kw = dict(causal=True, window=window)
+    err = _k5_slices_check(label, (0, window or S // 2, S - K5_SLICE))(
+        copies[0], kw, fa.flash_attention(*copies[0], **kw))
+    ms = time_ms(lambda *a: fa.flash_attention(*a, **kw), copies, iters=10, breakdown=True)
+    plain_ms = time_ms(lambda *a: _flash_by_slices(*a, **kw), copies[:1], iters=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rep = [(q, k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1))
+           for q, k, v in copies]
+    if window:
+        pos = torch.arange(S, device=copies[0][0].device)
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        lib = lambda q, k, v: sdpa(q, k, v, attn_mask=mask)
+        pairs = int(mask.sum())
+    else:
+        lib = lambda q, k, v: sdpa(q, k, v, is_causal=True)
+        pairs = S * (S + 1) // 2
+    e = max_err(lib(*rep[0]), fa.flash_attention(*copies[0], **kw))
+    check(e <= 2e-2, f"{label}: SDPA computes another function ({e})")
+    library_ms = time_ms(lib, rep, iters=5)
+    del rep
+    b_ms, b_by = bound(2.0 * (2 * H * S * D + 2 * KV * S * D), 4.0 * H * D * pairs)
+    print(f"{label}: {ms:.4f} ms (plain over 512-query slices {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by}, {100 * b_ms / ms:.1f}% of the bound, SDPA {library_ms:.4f} ms, "
+          f"{ms / library_ms:.2f}x of it), {pairs} attended pairs, max|d|={err:.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                max_abs_err=err)
+
+
+def long_context_kernel_rows(dev, rnd, gen_seed):
+    """Phase 20's kernels at its shapes, each against its plain version and
+    timed with its bound: K1 over 1 and 8 rows of 32,768 prefix keys
+    (qwen3; decode_32k's 128 rows cut to 8: 1.07 GB of one layer's pages,
+    30 GB over 28 layers) and over 8 such rows at h2o-danube's G = 4, D 80
+    under its 4096-key window; K2 on a 512-token chunk after 32,256 prefix
+    keys (qwen3 without a window, h2o-danube with it); K5 over 32,768
+    tokens (qwen3 causal, h2o-danube under the window); the GEMM at M =
+    32,768 on qwen3's five shapes, beside ``torch.matmul``, its first and
+    last 8 rows bitwise those of an M = 8 product.  Returns {wrapper name:
+    [(label, row), ...]} for the kernels' JSON record."""
+    from repro_torch.kernels import gemm
+    from repro_torch.kernels import paged_attention as pa
+
+    rows = {}
+    add = lambda name, label, row: rows.setdefault(name, []).append((label, row))
+    no_window = [dict(window=0, softcap=0.0)]
+    for W in (1, 8):
+        plen, t_used = [LONG_S] * W, T_USED[:W]
+        copies, P = _decode_copies(rnd, dev, gen_seed + 40 + W, 8, 2, 128, plen, t_used, n=2)
+        label = f"K1 qwen3 {W} x {LONG_S} keys + tail" + (" (decode_32k's 128 rows cut to 8)"
+                                                          if W == 8 else "")
+        add("paged_decode_attention", label, decode_row(label, copies, P, plen, t_used,
+                                                        variants=no_window))
+        del copies
+    window = 4096
+    plen, t_used = [LONG_S] * 8, T_USED
+    copies, P = _decode_copies(rnd, dev, gen_seed + 50, 8, 4, 80, plen, t_used, n=2)
+    keys = _windowed_keys(plen, t_used, window)
+    label = f"K1 h2o-danube 8 x {LONG_S} keys, G 4, D 80, window {window}"
+    nbytes = (2 * 8 * 8 * 4 * 80 + 2 * keys * 8 * 80) * 2 + (8 * P + 2 * 8 + 8 * 24) * 4
+    add("paged_decode_attention", label, kernel_row(
+        label, pa.paged_decode_attention, pa.paged_decode_attention_ref, copies,
+        [dict(window=window)], nbytes, 4.0 * keys * 8 * 4 * 80, timed=dict(window=window)))
+    del copies
+
+    C, prefix = 512, LONG_S - 512
+    copies, P = _prefill_copies(rnd, dev, gen_seed + 51, 8, 2, C, 128, [prefix], n=2)
+    label = f"K2 qwen3 C {C} after {prefix} prefix keys"
+    add("paged_prefill_attention", label, prefill_row(label, copies, P, [prefix],
+                                                      variants=no_window))
+    del copies
+    copies, P = _prefill_copies(rnd, dev, gen_seed + 52, 8, 4, C, 80, [prefix], n=2)
+    pairs = C * window  # every chunk query attends its last 4096 positions
+    nbytes = (2 * 8 * 4 * C * 80 + 2 * (window - 1) * 8 * 80 + 2 * 8 * C * 80) * 2 + (P + 1) * 4
+    label = f"K2 h2o-danube C {C} after {prefix} prefix keys, G 4, D 80, window {window}"
+    add("paged_prefill_attention", label, kernel_row(
+        label, pa.paged_prefill_attention, pa.paged_prefill_attention_ref, copies,
+        [dict(window=window)], nbytes, 4.0 * pairs * 8 * 4 * 80, timed=dict(window=window)))
+    del copies
+
+    add("flash_attention", f"K5 qwen3 S {LONG_S} causal (16/8 heads, D 128)",
+        long_flash_row(f"K5 qwen3 S {LONG_S} causal (16/8 heads, D 128)", rnd, 16, 8, 128, 0))
+    add("flash_attention", f"K5 h2o-danube S {LONG_S} window {window} (32/8 heads, D 80)",
+        long_flash_row(f"K5 h2o-danube S {LONG_S} window {window} (32/8 heads, D 80)", rnd, 32,
+                       8, 80, window))
+    torch.cuda.empty_cache()
+
+    g = torch.Generator(device=dev).manual_seed(gen_seed + 53)
+    M = LONG_S
+    for sname, (K, N) in GEMM_SHAPES.items():
+        if sname.startswith("LM head"):
+            w = (torch.randn((N, K), generator=g, device=dev) * 0.02).bfloat16().T
+        else:
+            w = (torch.randn((K, N), generator=g, device=dev) / K ** 0.5).bfloat16()
+        x = (0.5 * torch.randn((M, K), generator=g, device=dev)).bfloat16()
+        full = gemm.gemm(x, w)
+        same = torch.equal(gemm.gemm(x[:8], w), full[:8]) and torch.equal(gemm.gemm(x[-8:], w),
+                                                                           full[-8:])
+        # against the plain version 4096 rows at a time (the tied head's
+        # product is 10 GB in bf16)
+        err = 0.0
+        for r in range(0, M, 4096):
+            want = gemm.gemm_ref(x[r:r + 4096], w)
+            torch.cuda.synchronize()
+            err = max(err, max_err(full[r:r + 4096], want))
+            check(within(full[r:r + 4096], want, torch.bfloat16),
+                  f"GEMM {sname} M = {M}: rows {r}.. disagree with the plain version ({err})")
+        torch.cuda.synchronize()
+        check(same, f"GEMM {sname}: rows at M = {M} differ from the same rows at M = 8")
+        del full, want
+        label = f"GEMM M={M} {sname} {K}x{N}"
+        nbytes, flops = 2.0 * (M * K + K * N + M * N), 2.0 * M * N * K
+        ms = time_ms(gemm.gemm, [(x, w)], iters=10, breakdown=True)
+        plain_ms = time_ms(gemm.gemm_ref, [(x, w)], iters=6)
+        library_ms = time_ms(torch.matmul, [(x, w)], iters=10)  # the plain version's own call
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"{label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+              f"{100 * b_ms / ms:.1f}% of the bound, library torch.matmul {library_ms:.4f} ms, "
+              f"{ms / library_ms:.2f}x of it), max|d|={err:.3e}")
+        add("gemm", label, dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                library_ms=library_ms, max_abs_err=err))
+        del x, w
+        torch.cuda.empty_cache()
+    print(f"GEMM rows at M = {M}: the first and last 8 rows bitwise those of M = 8, every shape")
+    return rows
+
+
 T_START = time.monotonic()
 
 
@@ -2696,6 +3534,7 @@ def main() -> None:
     from repro_torch.kernels import gemm
     from repro_torch.kernels import kv_block_copy as kbc
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import row_stat as rs
     from repro_torch.models.registry import build_model
 
     # float32 references stay full float32 (no TF32 in matmuls or cuDNN)
@@ -2755,6 +3594,7 @@ def main() -> None:
         "flash_attention": fa.flash_attention,
         "paged_attention": pa.paged_attention,
         "gemm": gemm.gemm,
+        "row_stat": rs.row_stat,
     }
 
     def drive(name, fn, *args):
@@ -2848,7 +3688,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     from repro_torch.bench.common import Model
 
-    model = Model()  # full-width qwen3-1.7b, seed 0, on the card
+    model = Model()  # full-width qwen3-1.7b, seed 0 (phase 3's weights), on the card
     drive("paper gates: tables", paper_tables, model)
     drive("paper gates: chaos", paper_chaos, model)
     ratios = dict(drive("paper gates: radix", paper_radix, model))
@@ -2857,7 +3697,14 @@ def main() -> None:
     ratios.update(drive("paper gates: ceilings", paper_ceilings, model))
     drive("paper gates: bench kernels", paper_kernels, model)
     speed_verdicts(ratios, card)
+    # phase 20: long contexts, on phase 19's qwen3-1.7b, then h2o-danube-1.8b
+    drive("long contexts: qwen3-1.7b", long_qwen3, model.bundle, model.params, model.cfg)
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, bundle, params = load_model("h2o-danube-1.8b")
+    drive("long contexts: h2o-danube-1.8b", long_danube, bundle, params, cfg)
+    del bundle, params
     for name in ("paper gates: tables", "paper gates: chaos", "paper gates: radix"):
         for k in ("paged_decode_attention", "paged_prefill_attention"):
             check(counts[name][k] > 0, f"{name} never launched {k}")
@@ -2890,6 +3737,11 @@ def main() -> None:
         check(counts["conformance"][k] > 0, f"the conformance phase never launched {k}")
     for name in ("paged serving", "dense serving", "paper gates: radix", "paper gates: ceilings"):
         check(counts[name]["gemm"] > 0, f"{name} never launched the GEMM")
+        check(counts[name]["row_stat"] > 0, f"{name} never launched the row-statistic kernel")
+    for name in ("long contexts: qwen3-1.7b", "long contexts: h2o-danube-1.8b"):
+        for k in ("paged_decode_attention", "paged_prefill_attention", "kv_block_copy",
+                  "flash_attention", "gemm", "row_stat"):
+            check(counts[name][k] > 0, f"{name} never launched {k}")
     check(kbc.gather_payloads.plain_copies == plain_before, "a payload gather took the plain copy")
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}
 
@@ -2899,9 +3751,10 @@ def main() -> None:
     record = []
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
+    by_path = {name: {path: c[name] for path, c in counts.items() if c[name]} for name in wrappers}
     for name in wrappers:
         r = dict(name=name, **kernels[name], launches=launches[name])
-        record.append({k: r[k] for k in keys})
+        record.append(dict({k: r[k] for k in keys}, launches_by_path=by_path[name]))
         # the same wrapper's SIMT route past head_dim 256: its rows, with the
         # wrapper's launch count (no served model has a head past 256)
         for label, row in past_256.get(name, []):

@@ -13,6 +13,14 @@ Where the bf16 differences exceed the reference benches' tolerances, the
 f32 run tells rounding (differences near f32's precision) from a wrong
 page or a wrong mask (differences that stay large).
 
+``--long`` runs the three route pairs at length instead, in bf16 only,
+each held at 0 (the script exits 1 otherwise): full-width qwen3-1.7b on
+a 32,768-token prompt (prefill_32k's length) and h2o-danube-1.8b on a
+12,388-token prompt past its 4096-key window (warm: a prefix 16-20 tokens
+short of the prompt served first, its continuation fed token by token;
+dense: the K5 prefill, over a ring of the window for h2o-danube;
+monolithic: ``prefill_chunk=0``; the paged side chunks of 512).
+
 ``--trace`` runs the three route pairs once more in bf16 with every
 norm, projection, rotary embedding and attention output recorded, row by
 row with its absolute position, and prints for each pair the first op
@@ -23,8 +31,8 @@ residual stream), so a residual that differs is not blamed on the norm;
 ``rope`` rows are the q and k rows after the rotary embedding, so the
 decoded tail's K/V rows are held against the cold chunk's.
 
-    PYTHONPATH=src python3 scripts/torch_route_parity.py [--trace]            # the card, full width
-    PYTHONPATH=src python3 scripts/torch_route_parity.py --device cpu --reduced [--trace]
+    PYTHONPATH=src python3 scripts/torch_route_parity.py [--trace | --long]   # the card, full width
+    PYTHONPATH=src python3 scripts/torch_route_parity.py --device cpu --reduced [--trace | --long]
 """
 import argparse
 import contextlib
@@ -233,13 +241,58 @@ def fused_vs_split(model: Model) -> dict:
     }
 
 
+# (arch, prompt tokens) of the pairs at length; --reduced cuts the lengths
+LONG_PAIRS = (("qwen3-1.7b", 32_768), ("h2o-danube-1.8b", 12_388))
+
+
+def long_pairs(device, reduced: bool) -> dict:
+    """The three route pairs at LONG_PAIRS' lengths in bf16: max |d| of the
+    prefill logits, warm vs cold, dense vs paged, chunked vs monolithic."""
+    import numpy as np
+
+    out = {}
+    for arch, S in LONG_PAIRS:
+        S = S // 16 if reduced else S
+        model = Model(device, reduced=reduced, arch=arch)
+        window = model.cfg.sliding_window
+        prompt = tuple(int(t) for t in np.random.default_rng(S).integers(0, model.cfg.vocab_size, S))
+        kw = dict(block_size=16, device_blocks=S // 16 + 64, prefill_chunk=512,
+                  max_tokens_per_step=1024)
+
+        def logits(tokens=prompt, **extra):
+            with model.engine(**{**kw, **extra}) as eng:
+                return eng.prefill_logits(tokens)
+
+        cold = logits()
+        with model.engine(**kw) as eng:
+            eng.prefill_logits(prompt[:S - 16 - S % 16])
+            warm = eng.prefill_logits(prompt)
+        dense = logits(decode_mode="dense", cache_len=window or S + 1)
+        mono = logits(prefill_chunk=0)
+        d = lambda a, b: float(np.abs(a - b).max())
+        out[arch] = {"tokens": S, "window": window, "warm_vs_cold": d(warm, cold),
+                     "dense_vs_paged": d(dense, cold), "chunked_vs_monolithic": d(cold, mono)}
+        print(f"route parity at length {arch} " + json.dumps(out[arch]), flush=True)
+        del model
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None, help="default: the CUDA card")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--trace", action="store_true", help="also trace the three pairs op by op (bf16)")
+    ap.add_argument("--long", action="store_true",
+                    help="the pairs at 32,768 tokens and past a window instead (bf16, held at 0)")
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32
+    if args.long:
+        out = long_pairs(args.device, args.reduced)
+        bad = {a: r for a, r in out.items()
+               if any(r[k] for k in ("warm_vs_cold", "dense_vs_paged", "chunked_vs_monolithic"))}
+        if bad and args.device != "cpu":  # the CPU's plain routes are not bitwise across routes
+            sys.exit(f"a route pair at length differs in bf16: {bad}")
+        return
     model = Model(args.device, reduced=args.reduced)
     out = {"card": model.describe()["card"]}
     with tempfile.TemporaryDirectory() as tmp:

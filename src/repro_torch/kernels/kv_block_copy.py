@@ -6,7 +6,8 @@ kernel (``csrc/kv_block_copy.cu``) and its plain PyTorch version.
 whole pages).  Every offload and restore job moves its block payloads
 through ``gather_payloads``: two launches (k and v) per job.  It is bound by
 bytes — each byte is read once and written once with no arithmetic — so the
-kernel copies 16-byte vectors and spreads every page over a row of CTAs.
+kernel moves the widest word (16, 8, 4, 2 or 1 bytes) that divides the page
+size and both base addresses and spreads every page over a row of CTAs.
 
 Dispatch: a source that requires grad raises on either device
 (``guard.refuse_grad``: the kernel has no backward); a CPU tensor goes to

@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gemm_lib
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import row_stat as row_stat_lib
 from repro_torch.sharding.rules import as_replicated, placements, split_dim
 
 DEFAULT_DTYPE = torch.bfloat16
@@ -268,40 +269,36 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=DEFAULT_DTYPE):
 # ---------------------------------------------------------------------------
 
 
-def _row_stat(stat, t, split):
-    """``stat(t)``, a reduction over the last dim; with ``split`` the rows
-    ``t[:split]`` and ``t[split:]`` are reduced apart and stacked again.  On
-    the card a row's sum over the model width takes another order when
-    the reduction covers another number of rows (the kernel spreads a row
-    over more threads when there are fewer rows), so a fused launch
-    (``transformer.paged_mixed_step``) reduces each side over the rows its
-    own launch would: the same bits."""
-    if split is None:
-        return stat(t)
-    return torch.cat([stat(t[:split]), stat(t[split:])])
+def _stat(t, stat: str):
+    """A norm's row statistic over the last dim.  Plain f32 tensors on the
+    card under ``torch.no_grad`` (the serving paths) take the row-statistic
+    kernel (``kernels/row_stat.py``): one reduction order per row whatever
+    the number of rows, so a decode step, a prefill chunk and a fused
+    launch of both (``transformer.paged_mixed_step``) norm a row to the
+    same bits; a library reduction spreads a row over more threads when
+    fewer rows ride with it.  With grad enabled (training, even on an input
+    that needs none, as the frames a whisper step norms), DTensors and the
+    CPU keep the library reduction (``row_stat_ref``): the training
+    forward runs no kernel, as the reference's runs no Pallas kernel."""
+    if (not torch.is_grad_enabled() and not is_dtensor(t) and t.device.type == "cuda"
+            and t.dtype == torch.float32):
+        return row_stat_lib.row_stat(t, stat)
+    return row_stat_lib.row_stat_ref(t, stat)
 
 
-def _mean(t):
-    return torch.mean(t, dim=-1, keepdim=True)
-
-
-def _var(t):
-    return torch.var(t, dim=-1, keepdim=True, unbiased=False)
-
-
-def rms_norm(x, weight, eps: float = 1e-6, *, split=None):
-    """RMS norm over the last dim; ``split``: see ``_row_stat``."""
+def rms_norm(x, weight, eps: float = 1e-6):
+    """RMS norm over the last dim (its statistic: ``_stat``)."""
     xf = x.float()
-    var = _row_stat(_mean, xf * xf, split)
+    var = _stat(xf, "mean_square")
     out = xf * torch.rsqrt(var + eps)
     return (out * weight.float()).to(x.dtype)
 
 
-def layer_norm(x, weight, bias, eps: float = 1e-5, *, split=None):
-    """Layer norm over the last dim; ``split``: see ``_row_stat``."""
+def layer_norm(x, weight, bias, eps: float = 1e-5):
+    """Layer norm over the last dim (its statistics: ``_stat``)."""
     xf = x.float()
-    mu = _row_stat(_mean, xf, split)
-    var = _row_stat(_var, xf, split)
+    mu = _stat(xf, "mean")
+    var = _stat(xf, "var")
     out = (xf - mu) * torch.rsqrt(var + eps)
     return (out * weight.float() + bias.float()).to(x.dtype)
 
@@ -313,10 +310,10 @@ def make_norm(cfg_norm: str, dim: int, *, lead=(), device=None):
     return {"w": w, "b": torch.zeros_like(w)}
 
 
-def apply_norm(cfg_norm: str, p, x, *, split=None):
+def apply_norm(cfg_norm: str, p, x):
     if cfg_norm == "rmsnorm":
-        return rms_norm(x, p["w"], split=split)
-    return layer_norm(x, p["w"], p["b"], split=split)
+        return rms_norm(x, p["w"])
+    return layer_norm(x, p["w"], p["b"])
 
 
 # ---------------------------------------------------------------------------

@@ -566,11 +566,9 @@ def paged_mixed_step(params, cfg, state, tokens, cur_pos, chunk):
     decode rows only.
 
     Bits: every projection runs the row-invariant GEMM, attention and the
-    MoE run per side, the layer norms reduce each side's rows apart
-    (``layers._row_stat``: on the card a row's sum over the model width
-    took another order over the flat matrix's rows), and the rest is
-    elementwise or, as the qk-norm over heads, a reduction whose order
-    stayed the same, so every logit, tail and ``(ck, cv)`` row has the
+    MoE run per side, every norm's row statistic runs the row-statistic
+    kernel (``layers._stat``: one order per row whatever the rows beside
+    it), and the rest is elementwise, so every logit, tail and ``(ck, cv)`` row has the
     bits its own launch gives it (held on the card by
     ``tests/test_torch_gpu.py -k "fused_step or fused_route"``).  An MoE
     layer runs its MLP per side, with the groups of the two launches: each
@@ -597,7 +595,7 @@ def paged_mixed_step(params, cfg, state, tokens, cur_pos, chunk):
         for i, lp in enumerate(layer_params(params["layers"], cfg.num_layers)):
             kp, vp = state["k_pages"][i], state["v_pages"][i]
             side = "shared"
-            h = apply_norm(cfg.norm, lp["ln1"], x, split=W)
+            h = apply_norm(cfg.norm, lp["ln1"], x)
             q, k, v = attn_qkv(lp["attn"], cfg, h, pos)  # [W + B*C, 1, heads, Dh]
             kc, vc = k[W:].reshape(B, C, KV, Dh), v[W:].reshape(B, C, KV, Dh)
             if early:
@@ -618,7 +616,7 @@ def paged_mixed_step(params, cfg, state, tokens, cur_pos, chunk):
             side = "shared"
             a = torch.cat([a_dec.reshape(W, 1, -1), a_chk.reshape(B * C, 1, -1)])
             x = x + proj(a, lp["attn"]["wo"])
-            h = apply_norm(cfg.norm, lp["ln2"], x, split=W)
+            h = apply_norm(cfg.norm, lp["ln2"], x)
             if cfg.moe.num_experts:
                 side = "decode"
                 m_dec = _mlp_block(lp, cfg, h[:W], per_row=True)[0]

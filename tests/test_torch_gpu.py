@@ -36,6 +36,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm
 from repro_torch.kernels import kv_block_copy as kbc
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import row_stat as rs
 
 pytestmark = pytest.mark.gpu
 
@@ -159,7 +160,8 @@ def test_paged_prefill_kernel_matches_plain(dev, dtype, B, KV, G, D, page, P, N,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
 @pytest.mark.parametrize("shape", [(16, 8, 2, 32), (32, 448, 8, 128), (5, 3, 1, 3)])
 def test_kv_block_copy_kernel_is_exact(dev, dtype, shape):
-    """The last shape is not a multiple of 16 bytes: the byte loop."""
+    """The last shape is not a multiple of 16 bytes: the kernel moves
+    4-byte words (float32, int32) or 2-byte words (bfloat16)."""
     g = torch.Generator(device=dev).manual_seed(0)
     if dtype == torch.int32:
         src = torch.randint(0, 1 << 30, shape, generator=g, device=dev, dtype=dtype)
@@ -872,10 +874,10 @@ def test_flash_attention_empty_row_kernel_matches_plain(dev, dtype):
 @pytest.mark.parametrize("nbytes", [49_243_140, 1_000_003, 22_356_816])
 def test_kv_block_copy_snapshot_payloads(dev, nbytes):
     """Snapshot payloads are one flat uint8 page each: 49,243,140 bytes
-    (a full-width hymba-1.5b snapshot, 4 mod 16: the byte loop) and an odd
-    size take the byte loop, a multiple of 16 (an xlstm-350m snapshot,
-    22,356,816 bytes) the vector path; every copy is
-    exact, through gather_payloads as the offload connector calls it."""
+    (a full-width hymba-1.5b snapshot, 4 mod 16: 4-byte words), an odd
+    size (1-byte words) and a multiple of 16 (an xlstm-350m snapshot,
+    22,356,816 bytes: 16-byte words); every copy is exact, through
+    gather_payloads as the offload connector calls it."""
     g = torch.Generator().manual_seed(nbytes)
     payload = torch.randint(0, 256, (nbytes,), generator=g, dtype=torch.uint8)
     n0, plain = kbc.kv_block_copy.launches, kbc.gather_payloads.plain_copies
@@ -1841,7 +1843,8 @@ def test_fused_route_gives_the_same_bits_on_card(dev):
     bytes.  Real hidden states reach rows whose sum over the model width
     rounds otherwise over the flat matrix's rows, which the synthetic
     scenes of ``test_fused_step_gives_the_same_bits_on_card`` did not: the
-    layer norms reduce each side apart (``layers._row_stat``)."""
+    norms' row statistics run the row-statistic kernel (``layers._stat``),
+    one order per row whatever the rows beside it."""
     from repro_torch.bench import scheduler
     from repro_torch.bench.common import Model
 
@@ -1872,3 +1875,182 @@ def test_fused_route_gives_the_same_bits_on_card(dev):
         assert torch.equal(x, y), (i, float((x - y).abs().max()))
     assert ta == tb
     assert all(torch.equal(x, y) for x, y in zip(pa_, pb))
+
+
+# ---------------------------------------------------------------------------
+# long contexts: the kernels at 32k keys, the GEMM at M = 32,768, chunk
+# invariance at length, and K3 on pages and addresses off the 16-byte grid
+# ---------------------------------------------------------------------------
+
+LONG = 32_768
+
+
+@pytest.mark.parametrize("window", [0, 4096])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K5"])
+def test_long_context_kernels_match_plain_on_card(dev, kernel, window):
+    """bf16 at h2o-danube-1.8b's head shape (G = 4, D 80, two kv heads
+    here), without and with its 4096-key window: K1 over two rows of
+    32,768 and 32,700 prefix keys plus tails, K2 on a 512-token chunk after
+    32,256 prefix keys, K5 over 32,768 causal tokens held by 256-query
+    slices at the start, the window's edge and the end (the plain version
+    over every query would hold 34 GB of f32 scores)."""
+    rng = np.random.default_rng(28)
+    bf = torch.bfloat16
+    if kernel == "K1":
+        args = _decode_args(rng, bf, dev, [LONG, LONG - 68], [3, 24], KV=2, G=4, D=80)
+        got = pa.paged_decode_attention(*args, window=window)
+        _close(got, pa.paged_decode_attention_ref(*args, window=window), bf)
+    elif kernel == "K2":
+        args = _prefill_args(rng, bf, dev, [LONG - 512], LONG // 16, KV=2, G=4, C=512, D=80)
+        got = pa.paged_prefill_attention(*args, window=window)
+        _close(got, pa.paged_prefill_attention_ref(*args, window=window), bf)
+    else:
+        g = torch.Generator(device=dev).manual_seed(28)
+        q = torch.randn((1, LONG, 8, 80), generator=g, device=dev).to(bf).transpose(1, 2)
+        k, v = (torch.randn((1, LONG, 2, 80), generator=g, device=dev).to(bf).transpose(1, 2)
+                for _ in range(2))
+        n0 = fa.flash_attention.launches
+        got = fa.flash_attention(q, k, v, causal=True, window=window)
+        assert fa.flash_attention.launches == n0 + 1
+        for o in (0, window or LONG // 2, LONG - 256):
+            want = fa.flash_attention_ref(q[:, :, o:o + 256], k[:, :, :o + 256], v[:, :, :o + 256],
+                                          causal=True, window=window, q_offset=o)
+            _close(got[:, :, o:o + 256], want, bf)
+
+
+@pytest.mark.parametrize("K,N", GEMM_SHAPES, ids=[f"{k}x{n}" for k, n in GEMM_SHAPES])
+def test_gemm_rows_at_32k_equal_their_m8_rows_on_card(dev, K, N):
+    """Row invariance at length: the GEMM's rows of an M = 32,768 product
+    (a monolithic 32k prefill's projections) are bitwise those of M = 8
+    products of the same rows, at the start, the middle and the end."""
+    g = torch.Generator(device=dev).manual_seed(K * 7 + N)
+    x = (0.5 * torch.randn((LONG, K), generator=g, device=dev)).bfloat16()
+    if N > 100_000:
+        w = (torch.randn((N, K), generator=g, device=dev) * 0.02).bfloat16().T
+    else:
+        w = (torch.randn((K, N), generator=g, device=dev) / K ** 0.5).bfloat16()
+    full = gemm.gemm(x, w)
+    for r in (0, LONG // 2 - 4, LONG - 8):
+        part = gemm.gemm(x[r:r + 8], w)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[r:r + 8]), f"rows {r}..{r + 7}"
+    _close(full[-64:], x[-64:] @ w, torch.bfloat16)
+
+
+def test_long_prompt_pages_do_not_depend_on_the_chunk_on_card(dev):
+    """Full-width qwen3-1.7b at 4 of its 28 layers in bf16: a 32,768-token
+    prompt at ``prefill_chunk`` 32 and 512 stores bitwise equal pages and
+    gives bitwise equal entry logits."""
+    from repro_torch.serving.engine import ServingEngine
+
+    bundle, params = _qwen3_layers(dev, 4)
+    prompt = tuple(int(t) for t in np.random.default_rng(32).integers(0, 151936, LONG))
+    out = []
+    for chunk in (32, 512):
+        with ServingEngine(bundle, params, block_size=16, device_blocks=LONG // 16 + 64,
+                           prefill_chunk=chunk, max_tokens_per_step=1024, device=dev) as eng:
+            logits = eng.prefill_logits(prompt)
+            slots = eng.pool.page_table(eng.pool.lookup_prefix(prompt, 16))
+            idx = torch.tensor(slots, device=dev)
+            out.append((logits, eng.pool.k_pages[:, :, idx].clone(),
+                        eng.pool.v_pages[:, :, idx].clone(), len(slots)))
+    (la, ka, va, na), (lb, kb, vb, nb) = out
+    assert na == nb == LONG // 16
+    assert torch.equal(ka, kb) and torch.equal(va, vb)
+    assert np.array_equal(la, lb)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("page_bytes", [16 * 1000 + 4, 16 * 1000 + 2, 16 * 1000 + 1, 16 * 1000 + 8])
+def test_kv_block_copy_unaligned_pages_on_card(dev, page_bytes, offset):
+    """K3 on uint8 pages of 4, 2, 1 and 8 mod 16 bytes whose source starts
+    ``offset`` bytes past an aligned address, gathered in orders that put
+    source and destination pages on different word offsets (odd pages,
+    reversed, one page repeated): bitwise the plain version's (the kernel
+    moves the widest word dividing the page size and both addresses)."""
+    N = 9
+    g = torch.Generator(device=dev).manual_seed(page_bytes + offset)
+    buf = torch.randint(0, 256, (N * page_bytes + 16,), generator=g, device=dev, dtype=torch.uint8)
+    src = buf[offset: offset + N * page_bytes].view(N, page_bytes)
+    assert src.is_contiguous() and src.data_ptr() % 16 == offset % 16
+    for idx in ([1, 3, 5, 7], list(range(N - 1, -1, -1)), [4, 4, 0, 4], [8]):
+        n0 = kbc.kv_block_copy.launches
+        got = kbc.kv_block_copy(src, idx)
+        assert kbc.kv_block_copy.launches == n0 + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, kbc.kv_block_copy_ref(src, torch.tensor(idx)))
+
+
+@pytest.mark.parametrize("S", [4096, 16384, 32768])
+def test_routes_give_the_same_bits_at_length_on_card(dev, S):
+    """K1, K2 and K5 give the same query over the same 32k keys the same
+    bits (``tests/torch_route_scenes.py``, pages of 16): the last 16
+    positions of an S-token sequence as a chunk after S - 16 prefix keys,
+    as decode steps with their tails, and inside the whole causal
+    sequence."""
+    from torch_route_scenes import rows, scene
+
+    sc = scene(S, S - 16, 16, 2, 128, page=16, seed=S, dtype=torch.bfloat16, device=dev)
+    out = (fa.flash_attention(*sc["flash"]["args"], causal=True),
+           pa.paged_prefill_attention(*sc["chunk"]["args"]),
+           pa.paged_decode_attention(*sc["decode"]["args"]))
+    f, c, d = rows(sc, *out)
+    torch.cuda.synchronize()
+    assert torch.equal(c, f), f"K2 differs from K5 by {float((c.float() - f.float()).abs().max())}"
+    assert torch.equal(d, f), f"K1 differs from K5 by {float((d.float() - f.float()).abs().max())}"
+
+
+# ---------------------------------------------------------------------------
+# the norms' row statistics: one order per row whatever the rows beside it
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("stat", ["mean", "mean_square", "var"])
+@pytest.mark.parametrize("d", [2048, 128, 2047])
+def test_row_stat_rows_do_not_depend_on_the_rows_on_card(dev, stat, d):
+    """Each row's statistic is bitwise the same for 1 to 4096 rows (a
+    decode step, a chunk, a prefill), off the 16-byte grid too (the scalar
+    loads: the same adds in the same order), and within 1e-5 of the plain
+    version; a width that is not a multiple of 4 takes the scalar loads."""
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = 3.0 * torch.randn((4096, d), generator=g, device=dev)
+    n0 = rs.row_stat.launches
+    full = rs.row_stat(x, stat)
+    assert rs.row_stat.launches == n0 + 1 and full.shape == (4096, 1)
+    _close(full, rs.row_stat_ref(x, stat), torch.float32)
+    for R in (1, 3, 4, 8, 32, 512, 4095):
+        assert torch.equal(rs.row_stat(x[-R:], stat), full[-R:]), f"R = {R}"
+    buf = torch.empty(8 * d + 1, device=dev)
+    shifted = buf[1:].view(8, d)  # 4 bytes past an aligned address
+    shifted.copy_(x[:8])
+    assert torch.equal(rs.row_stat(shifted, stat), full[:8])
+    strided = x[:8].t().contiguous().t()  # copied contiguous by the wrapper
+    assert torch.equal(rs.row_stat(strided, stat), full[:8])
+
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_norm_rows_do_not_depend_on_the_rows_on_card(dev, norm):
+    """``layers.apply_norm`` in bf16 at qwen3-1.7b's width: the rows of a
+    4-row decode batch are bitwise those of the same rows in a 512-row
+    chunk and a 32,768-row prefill."""
+    from repro_torch.models.layers import apply_norm, make_norm
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    p = make_norm(norm, 2048, device=dev)
+    x = (2.0 * torch.randn((LONG, 2048), generator=g, device=dev)).bfloat16()
+    n0 = rs.row_stat.launches
+    with torch.no_grad():
+        full = apply_norm(norm, p, x)
+        for R in (4, 512):
+            assert torch.equal(apply_norm(norm, p, x[-R:]), full[-R:]), f"R = {R}"
+    assert rs.row_stat.launches > n0
+
+
+def test_row_stat_refuses_grad_and_other_dtypes_on_card(dev):
+    x = torch.randn((4, 64), device=dev, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rs.row_stat(x, "mean")
+    with pytest.raises(TypeError):
+        rs.row_stat(x.detach().bfloat16(), "mean")
+    with pytest.raises(ValueError):
+        rs.row_stat(x.detach(), "median")

@@ -126,7 +126,14 @@ model freed before the next (the depth cuts are printed):
      run's; the checkpoint's bytes and save seconds, sync and async); (d)
      one training step each of whisper-small (full depth, 2 x 1500 frames +
      448 tokens), hymba-1.5b (4 layers, 2 x 512), xlstm-350m (8 layers,
-     2 x 256) and phi-3-vision-4.2b (4 layers, 576 patches + 64 tokens).
+     2 x 256) and phi-3-vision-4.2b (4 layers, 576 patches + 64 tokens),
+     and for the MoE archs the reference's budget (``optimizer_for``: int8
+     first moments, bf16 second; ``microbatches_for``: 8) with grok-1-314b's
+     one-layer ``loss_and_grads`` at full width on this card, the
+     unsharded reference of ``scripts/torch_four_cards.py --cases
+     train_moe`` (16 x 4096 tokens, every expert with room for every
+     token, one row a micro-batch: a finite loss within 0.5 of an untrained
+     model's, its peak printed).
      The training forward is the reference's (plain chunked attention
      under rematerialization): no kernel may launch in (a), (b) or (d).
  18. distribution, on a one-rank NCCL group (a 1 x 1 ``data, model``
@@ -1969,8 +1976,11 @@ def train_other_families():
     """(d) One ``Trainer`` step of every other family the card holds, at
     full width (depth cuts printed), seeded frontend embeddings beside the
     tokens where the family takes them: losses and grad norms finite.  The
-    MoE configs train on the CPU only: the training state of one
-    full-width layer exceeds the card (printed)."""
+    MoE configs: the reference's budget printed, and grok-1-314b's one-layer
+    ``loss_and_grads`` on this card (``one_card_moe_grads``, shared with the
+    four-card case's check (b))."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_four_cards as fc
     from repro_torch.configs import get_config
     from repro_torch.models.registry import build_model
     from repro_torch.training.data import DataConfig
@@ -1981,9 +1991,32 @@ def train_other_families():
     for name in ("grok-1-314b", "arctic-480b"):
         cfg = get_config(name)
         per_layer = cfg.replace(num_layers=1).param_count() - cfg.replace(num_layers=0).param_count()
-        print(f"{name} trains on the CPU only: one full-width layer holds {per_layer / 1e9:.3f} B "
-              f"params, {20 * per_layer / 1e9:.1f} GB of training state at 20 bytes each (f32 "
-              f"masters, m and v, bf16 casts and grads, f32 grads), over the card's {card_gb:.1f} GB")
+        opt, n_micro = fc.moe_train_setup(name)
+        print(f"{name} trains with the reference's budget: optimizer_for -> {opt.state_dtype} "
+              f"first moments (per-256 f32 scales) and bf16 second moments, microbatches_for -> "
+              f"{n_micro} micro-batches; one full-width layer holds {per_layer / 1e9:.3f} B "
+              f"params, {15 * per_layer / 1e9:.1f} GB of training state at 15 bytes each (f32 master 4, "
+              f"int8 m ~1, bf16 v 2, bf16 leaf 2, f32 grad sum 4, bf16 grad 2) against the card's "
+              f"{card_gb:.1f} GB: sharded over four cards by scripts/torch_four_cards.py --cases "
+              f"train_moe")
+    sz = fc.sizes(False)
+    cfg = fc.moe_cfg("grok-1-314b", sz, layers=1, room=True)
+    batch = fc.moe_data(cfg, sz)[0]
+    rows = batch["tokens"].shape[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = fc.one_card_moe_grads(cfg, batch, rows, torch.device("cuda", 0))
+    want = fc.untrained_loss(cfg)
+    check(math.isfinite(got["loss"]) and math.isfinite(got["grad_norm"])
+          and abs(got["loss"] - want) <= 0.5 and got["kernel_launches"] == 0,
+          f"grok-1-314b one-layer loss_and_grads: {got}")
+    print(f"grok-1-314b full width, 1 of 64 layers, capacity factor {cfg.moe.capacity_factor:g}: "
+          f"loss_and_grads over {rows} x {batch['tokens'].shape[1]} tokens in {got['n_micro']} "
+          f"micro-batches ({got['leaf_bytes'] / 1e9:.2f} GB of bf16 leaves, no f32 masters) in "
+          f"{got['seconds']:.3f} s: loss {got['loss']:.4f} (untrained {want:.4f}), grad norm "
+          f"{got['grad_norm']:.4f}, {got['kernel_launches']} kernel launches, peak "
+          f"{got['peak_bytes'] / 1e9:.2f} GB")
+    del got
     for name, (layers, B, S, n_front) in OTHER_FAMILIES.items():
         gc.collect()
         torch.cuda.empty_cache()

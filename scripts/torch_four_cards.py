@@ -4,6 +4,7 @@ KV-aware router over one serving replica per card.
 
     python3 scripts/torch_four_cards.py                      # every case, 4 ranks on 4 cards
     python3 scripts/torch_four_cards.py --cases router       # the router alone
+    python3 scripts/torch_four_cards.py --cases train_moe    # MoE training at full width
     python3 scripts/torch_four_cards.py --world 2            # 2 x 1 and 1 x 2 meshes
     python3 scripts/torch_four_cards.py --device cpu --reduced --save DIR   # 4 gloo ranks
 
@@ -57,6 +58,19 @@ card (``launch.mesh.init_group``: rank r on ``cuda:r``).  Fewer cards than
              go first), and held at ``--reduced``; with every expert given
              room for every token (capacity factor E / k, the same weights
              and tokens) it is held as the prefill.
+  train_moe  ``build_cell``'s train step of grok-1-314b (2 of 64 layers; ep,
+             a2a and tp on (1, world), auto on (2, world / 2)) and
+             arctic-480b (1 of 35; ep on (1, world)) at full width, with
+             the full configs' int8 first moments and 8 micro-batches
+             (``build_cell``'s ``opt_cfg`` and ``n_micro``: a depth cut
+             would change both), 3 steps of 16 x 4096 tokens at lr 3e-5:
+             finite losses starting untrained, grok's one-layer sharded step
+             against ``one_card_moe_grads`` on rank 0's card, the strategies
+             and meshes against each other (every expert with room for
+             every token), the moments' dtypes, no kernel launch on any
+             rank, and each rank's step peak within 15% of the dry run of
+             the same cell (``launch.dryrun`` in subprocesses beside the
+             ranks).  See ``case_train_moe``.
 
 For each case rank 0 records the step's seconds (median of the runs after
 the first) beside the one-card step's, every rank its
@@ -80,9 +94,11 @@ kernels' device time in one profiled step (``torch.profiler``).
              every card that served, K3 for the witness's card.
 
 ``--reduced`` runs the reduced configs at small sizes (train 4 x 32
-tokens, prefill 4 x 64, decode 8 rows over 64 slots).  The MoE layer runs
-in float32 on the CPU (held to 1e-6), bf16 on the cards; the attention
-case in float32 everywhere.  Writes ``<out>/summary.json``; ``--save DIR``
+tokens, prefill 4 x 64, decode 8 rows over 64 slots, train_moe one layer
+at 16 x 128 with grok's four runs that give every expert room).
+The MoE layer runs in float32 on the CPU (held to 1e-6), bf16 on the
+cards; the attention case in float32 everywhere.  Writes
+``<out>/summary.json``; ``--save DIR``
 also writes rank 0's inputs and outputs of the mesh cases as numpy
 (``DIR/four_cards.npz``, the CPU tests' input).  The program exits 1 if any
 case misses its limit or any rank fails, and catches nothing that would let
@@ -94,6 +110,7 @@ import argparse
 import gc
 import json
 import math
+import os
 import socket
 import statistics
 import subprocess
@@ -109,7 +126,7 @@ import torch.multiprocessing as mp
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-MESH_CASES = ("train", "prefill", "decode", "attention", "psum", "moe", "grok")
+MESH_CASES = ("train", "prefill", "decode", "attention", "psum", "moe", "grok", "train_moe")
 CASES = MESH_CASES + ("router",)
 JOIN_TIMEOUT_S = 1800
 ROUTER_SPREAD = 1  # routed_reuse's worker i sits on card (i + 1) % world: w0 off the current card
@@ -117,11 +134,13 @@ ROUTER_SPREAD = 1  # routed_reuse's worker i sits on card (i + 1) % world: w0 of
 
 def sizes(reduced: bool) -> dict:
     """The cases' shapes: full width, or the CPU tests' reduced sizes."""
-    if reduced:
-        return dict(train=(4, 32), prefill=(4, 64), decode=(8, 64, 16, 4), grok=(2, 64),
-                    grok_layers=None)
-    return dict(train=(4, 4096), prefill=(4, 2048), decode=(8, 4096, 64, 4), grok=(2, 512),
-                grok_layers=4)
+    if reduced:  # train_moe: one layer (its 8 micro-batches are gloo-latency bound)
+        return dict(reduced=True, train=(4, 32), prefill=(4, 64), decode=(8, 64, 16, 4),
+                    grok=(2, 64), grok_layers=None, train_moe=(16, 128),
+                    moe_layers={"grok-1-314b": 1, "arctic-480b": 1})
+    return dict(reduced=False, train=(4, 4096), prefill=(4, 2048), decode=(8, 4096, 64, 4),
+                grok=(2, 512), grok_layers=4, train_moe=(16, 4096),
+                moe_layers={"grok-1-314b": 2, "arctic-480b": 1})
 
 
 TRAIN_STEPS, TRAIN_LR = 3, 3e-5
@@ -724,8 +743,353 @@ def case_grok(r: Rank) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# MoE training: the reference's build_cell train step at full width
+# ---------------------------------------------------------------------------
+
+# (arch, mesh key, MoE strategy, every expert with room for every token)
+MOE_RUNS = (("grok-1-314b", "tp", "ep", False),
+            ("grok-1-314b", "tp", "ep", True),
+            ("grok-1-314b", "tp", "a2a", True),
+            ("grok-1-314b", "tp", "tp", True),
+            ("grok-1-314b", "dp", "auto", True),
+            ("arctic-480b", "tp", "ep", False))
+MOE_HOLD = 5e-3  # relative: strategies, meshes and the one-card grad norm (bf16, f32 index_add_)
+MOE_ONE_CARD_LOSS = 1e-3  # relative: the sharded one-layer step's first loss against one card
+PEAK_HOLD = 0.15  # a rank's step peak against the dry run's prediction
+
+
+def moe_cfg(arch: str, sz: dict, *, layers=None, room: bool = False):
+    """The config a train_moe run trains: full width (``--reduced``: the
+    reduced config) cut to the case's depth, ``layers`` cutting further;
+    ``room`` gives every expert room for every token (capacity factor E /
+    k), so no token drops whatever the grouping and the rounding."""
+    from repro_torch.configs import get_config, reduced
+
+    cfg = get_config(arch)
+    cfg = (reduced(cfg) if sz["reduced"] else cfg).replace(num_layers=sz["moe_layers"][arch])
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    if room:
+        E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+        cfg = cfg.replace(moe=replace(cfg.moe, capacity_factor=E / k))
+    return cfg
+
+
+def moe_train_setup(arch: str):
+    """The full config's optimizer (int8 first moments) and micro-batch
+    count (8), at the case's lr: both key on the full config's parameter
+    count, which the depth cut would change."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import microbatches_for, optimizer_for
+
+    full_cfg = get_config(arch)
+    return (replace(optimizer_for(full_cfg), lr=TRAIN_LR, warmup_steps=2),
+            microbatches_for(full_cfg))
+
+
+def untrained_loss(cfg) -> float:
+    """An untrained model's loss: ln V + sigma^2 / 2 for logits of std
+    sigma = 0.02 sqrt(d) (phase 17's criterion, ``PERF.md`` section 2)."""
+    return math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+
+
+def kernel_launches() -> int:
+    """Launches of every kernel wrapper so far (K1-K5, the GEMM, the row
+    statistic): a training step must add none."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm, row_stat
+    from repro_torch.kernels import kv_block_copy as kbc
+    from repro_torch.kernels import paged_attention as pa
+
+    return sum(w.launches for w in (pa.paged_decode_attention, pa.paged_prefill_attention,
+                                    pa.paged_attention, kbc.kv_block_copy, fa.flash_attention,
+                                    gemm.gemm, row_stat.row_stat))
+
+
+def one_card_moe_grads(cfg, batch: dict, n_micro: int, device) -> dict:
+    """The unsharded ``loss_and_grads`` of ``cfg`` (seed-0 weights drawn on
+    ``device``) over ``batch`` (numpy) in ``n_micro`` micro-batches: the
+    train_moe case's one-card reference (b) and smoke phase 17 (d).  The
+    leaves are the bf16 casts of the f32 masters, drawn as bf16: the masters
+    themselves are not held (grok-1-314b at one layer: 13 GB of leaves, 26
+    GB of f32 grads and 13 GB of bf16 grads in flight; f32 masters would add
+    26 GB).  Returns the loss, the grad norm (before clipping), seconds,
+    the device's peak bytes, kernel launches and the leaves' bytes."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.step import loss_and_grads
+    from repro_torch.training.tree import leaves
+
+    dev = torch.device(device)
+    bundle = build_model(cfg, device=dev)
+    params = bundle.init_params(torch.Generator().manual_seed(0))
+    tensors = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    k0, t0 = kernel_launches(), time.monotonic()
+    loss, grads = loss_and_grads(bundle, params, tensors, n_micro)
+    out = {"loss": float(loss), "grad_norm": float(global_norm(grads))}
+    if cuda:
+        torch.cuda.synchronize(dev)
+    out.update(seconds=time.monotonic() - t0, kernel_launches=kernel_launches() - k0,
+               peak_bytes=torch.cuda.max_memory_allocated(dev) if cuda else None,
+               leaf_bytes=sum(t.numel() * t.element_size() for t in leaves(params)),
+               n_micro=n_micro, layers=cfg.num_layers, tokens=list(batch["tokens"].shape))
+    return out
+
+
+def _master(t, spec, mesh):
+    """This rank's shard of the f32 master of a bf16 leaf every rank drew:
+    the shard is cut first, so no full f32 copy is made, and it owns its
+    storage (a shard of a contiguous leaf may be a view of it)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.rules import distribute
+
+    d = distribute(t, spec, mesh)
+    loc = d.to_local()
+    loc = loc.float() if loc.is_floating_point() else loc.clone()
+    return DTensor.from_local(loc, mesh, d.placements, run_check=False, shape=d.shape,
+                              stride=d.stride())
+
+
+def _zero_opt_state(cell, dev):
+    """``init_opt_state`` of the cell's masters made shard by shard: the
+    moments are zeros (an int8 moment of zeros has zero scales)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.sharding.rules import local_shape, placements
+    from repro_torch.training.tree import map_tree
+
+    specs, meta = next((s, m) for name, s, m in cell.arg_layout if name == "opt_state")
+
+    def zero(spec, like):
+        loc = torch.zeros(local_shape(tuple(like.shape), spec, cell.mesh), dtype=like.dtype,
+                          device=dev)
+        return DTensor.from_local(loc, cell.mesh, placements(spec, cell.mesh), run_check=False,
+                                  shape=like.shape, stride=like.stride())
+
+    return map_tree(zero, specs, meta)
+
+
+def _moments(params, opt) -> dict:
+    """(e): every first moment int8 with one f32 scale per 256 elements of
+    its (padded) last dim, every second moment bf16; m's bytes against
+    f32's (global shapes)."""
+    from repro_torch.training.tree import leaves_with_paths
+
+    ok, m_bytes, f32_bytes = True, 0, 0
+    for path, p in leaves_with_paths(params):
+        m, v = opt["m"], opt["v"]
+        for k in path:
+            m, v = m[k], v[k]
+        q, sc = m["q"], m["scale"]
+        n = p.shape[-1]
+        ok &= (q.dtype == torch.int8 and sc.dtype == torch.float32 and v.dtype == torch.bfloat16
+               and q.shape[-1] == n + (-n) % 256 and sc.shape[-1] * 256 == q.shape[-1]
+               and tuple(q.shape[:-1]) == tuple(p.shape[:-1]) == tuple(sc.shape[:-1]))
+        m_bytes += q.numel() + 4 * sc.numel()
+        f32_bytes += 4 * p.numel()
+    return {"ok": bool(ok), "m_bytes": m_bytes, "m_f32_bytes": f32_bytes,
+            "m_ratio": m_bytes / f32_bytes}
+
+
+def moe_data(cfg, sz) -> list:
+    from repro_torch.training.data import DataConfig, SyntheticLM
+
+    B, S = sz["train_moe"]
+    data = SyntheticLM(DataConfig(cfg.vocab_size, S, B))
+    return [data.batch_at(i) for i in range(TRAIN_STEPS)]
+
+
+def _moe_train_run(r: Rank, arch: str, cfg, mesh_key: str, strategy: str, data: list,
+                   steps: int, measure: bool, save=None) -> dict:
+    """``steps`` sharded train steps of ``cfg`` from the seed-0 masters:
+    losses, grad norms, seconds, this rank's peak over the steps, the
+    moments after the first step and the kernel launches; ``measure`` adds
+    a counted and a profiled step."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import steps as st
+    from repro_torch.sharding.rules import full
+    from repro_torch.training.tree import map_tree
+
+    opt_cfg, n_micro = moe_train_setup(arch)
+    B, S = r.sz["train_moe"]
+    mesh = r.meshes[mesh_key]
+    cell = st.build_cell(arch, "train_4k", mesh, cfg=cfg, moe_strategy=strategy,
+                         opt_cfg=opt_cfg, n_micro=n_micro,
+                         shape=ShapeSpec("train_4k", S, B, "train"))
+    init = cell.bundle.init_params(torch.Generator().manual_seed(0))
+    if save:
+        r.save_tree(save, init)
+    params = map_tree(lambda s, t: _master(t, s, mesh), cell.arg_layout[0][1], init)
+    del init
+    opt = _zero_opt_state(cell, r.dev)
+    r.free()
+    if not r.cpu:  # the steps' own peak, past the full leaves the shards were cut from
+        torch.cuda.reset_peak_memory_stats(r.dev)
+    k0 = kernel_launches()
+    got, secs, moments = [], [], None
+    for i in range(steps):
+        batch = st.distribute_argument(
+            cell, "batch", {k: torch.from_numpy(v).to(r.dev) for k, v in data[i].items()})
+        (params, opt, m), dt = r.timed(lambda: st.run_cell(cell, (params, opt, batch)), 1)
+        got.append({"loss": float(full(m["loss"])), "grad_norm": float(full(m["grad_norm"]))})
+        secs.append(dt[0])
+        if i == 0:
+            moments = _moments(params, opt)
+    rec = {"arch": arch, "mesh": r.mesh_name(mesh_key), "strategy": strategy,
+           "capacity_factor": cfg.moe.capacity_factor, "layers": cfg.num_layers,
+           "tokens": [B, S], "n_micro": n_micro, "state_dtype": opt_cfg.state_dtype,
+           "sharded": got, "sharded_step_s": secs,
+           "sharded_step_s_median": _median_after_first(secs), "moments": moments,
+           "step_peak_bytes": None if r.cpu else torch.cuda.max_memory_allocated(r.dev)}
+    if measure:
+        (params, opt, _), rec["collectives"] = r.counted(
+            lambda: st.run_cell(cell, (params, opt, batch)))
+        (params, opt, _), rec["profiled"] = r.profile(
+            lambda: st.run_cell(cell, (params, opt, batch)))
+    rec["kernel_launches"] = kernel_launches() - k0
+    del params, opt, cell, batch
+    r.free()
+    return rec
+
+
+def moe_run_label(arch: str, mesh: str, strategy: str, room: bool) -> str:
+    return f"{arch} {strategy} {mesh}" + (" room" if room else "")
+
+
+def _worst(a: list, b: list) -> float:
+    return max(max(rel(x["loss"], y["loss"]), rel(x["grad_norm"], y["grad_norm"]))
+               for x, y in zip(a, b))
+
+
+def case_train_moe(r: Rank) -> dict:
+    """grok-1-314b and arctic-480b through ``build_cell``'s train step at
+    full width, cut in depth (2 of 64 and 1 of 35 layers), with the full
+    configs' int8 first moments and 8 micro-batches, 3 steps of 16 x 4096
+    ``SyntheticLM`` tokens (TRAIN_4K's length; its global batch of 256 cut
+    to 16: two rows a micro-batch, since DTensor's matmul cannot flatten a
+    one-row micro-batch sharded over 'data', and on 2 x 2 one local row).
+
+    Reckoned per rank before the first run (15 bytes a parameter: f32
+    master 4, int8 m ~1, bf16 v 2, bf16 compute leaf 2, f32 grad
+    accumulator 4, bf16 grad in flight 2): grok on 1 x 4 (ep, 2 experts a
+    rank) holds 2.87 B params (its 2.42 B of experts, attention,
+    embedding and head quartered), ~43 GB, on 2 x 2 one layer's 4 experts
+    all-gathered over 'data' besides (4.8 GB); arctic on 1 x 4 (ep, 32
+    experts a rank) 3.52 B, ~53 GB.  The dry run's prediction for each
+    run is made beside it (``main``) and each rank's step peak is held
+    within 15% of it.
+
+    Held: (a) every loss and grad norm finite, the first loss within 0.5 of
+    an untrained model's; (b) grok at one layer: the sharded step on 1 x
+    world against ``one_card_moe_grads`` on rank 0's card with every expert
+    given room for every token (its micro-batches one row each: two rows of
+    8192 tokens would not fit beside the grads), first loss 1e-3 and grad
+    norm 5e-3 relative; at the model's capacity (the sharded run's
+    micro-batches) recorded, not held; (c) ep, a2a and tp on 1 x world, (d)
+    2 x (world / 2) against 1 x world, all with room, within 5e-3
+    relative; (e) int8 m with per-256 f32 scales and bf16 v after the first
+    step, m's bytes about a quarter of f32's; no kernel launch on any
+    rank.  Recorded: (g) step seconds, collective bytes and NCCL device
+    time."""
+    opt_cfg, n_micro = moe_train_setup("grok-1-314b")
+    B, S = r.sz["train_moe"]
+    rec = {"optimizer": {a: moe_train_setup(a)[0].state_dtype for a in ("grok-1-314b",
+                                                                        "arctic-480b")},
+           "n_micro": n_micro, "tokens": [B, S], "runs": {}}
+    if r.rank == 0:
+        print(f"[rank 0] train_moe: optimizer_for(get_config(arch)) -> state_dtype "
+              f"{rec['optimizer']}, microbatches_for(get_config(arch)) -> {n_micro}, "
+              f"{B} x {S} tokens, lr {TRAIN_LR:g}", flush=True)
+    # at --reduced the runs the CPU tests hold against the reference (every
+    # expert with room); grok at its capacity factor and arctic run at full
+    # width (``tests/test_torch_moe_train.py`` holds arctic's reduced step)
+    runs = [run for run in MOE_RUNS if run[3] or not r.opts["reduced"]]
+    data = {a: moe_data(moe_cfg(a, r.sz), r.sz) for a in {run[0] for run in runs}}
+    for arch, batches in data.items():
+        for i, b in enumerate(batches):
+            for k, v in b.items():
+                r.save(f"train_moe/{arch}/batch{i}/{k}", torch.from_numpy(v))
+    saved = set()
+    for arch, key, strategy, room in runs:
+        cfg = moe_cfg(arch, r.sz, room=room)
+        label = moe_run_label(arch, r.mesh_name(key), strategy, room)
+        save = None if arch in saved else f"train_moe/{arch}/masters"
+        saved.add(arch)
+        run = _moe_train_run(r, arch, cfg, key, strategy, data[arch], TRAIN_STEPS, not r.cpu,
+                             save)
+        rec["runs"][label] = run
+        got = run["sharded"]
+        r.check(run["kernel_launches"] == 0,
+                f"train_moe {label}: {run['kernel_launches']} kernel launches on this rank")
+        if r.rank == 0:
+            want = untrained_loss(cfg)
+            finite = all(math.isfinite(g["loss"]) and math.isfinite(g["grad_norm"]) for g in got)
+            r.check(finite and abs(got[0]["loss"] - want) <= 0.5,
+                    f"train_moe {label} ({cfg.num_layers} layers, capacity factor "
+                    f"{cfg.moe.capacity_factor:g}): losses {[round(g['loss'], 5) for g in got]}, "
+                    f"grad norms {[round(g['grad_norm'], 4) for g in got]}, finite {finite}; first "
+                    f"loss within 0.5 of an untrained model's {want:.4f}; step s "
+                    f"{run['sharded_step_s_median']:.3f}")
+            mo = run["moments"]
+            r.check(mo["ok"] and (r.opts["reduced"] or mo["m_ratio"] <= 0.26),
+                    f"train_moe {label}: after step 1 m int8 with per-256 f32 scales, v bf16: "
+                    f"{mo['ok']}; m {mo['m_bytes']} bytes, {mo['m_ratio']:.4f} of f32's")
+        torch.distributed.barrier()
+
+    if r.rank == 0:  # (c), (d)
+        runs = rec["runs"]
+        mesh = r.mesh_name("tp")
+        ep = runs[moe_run_label("grok-1-314b", mesh, "ep", True)]["sharded"]
+        for other in (moe_run_label("grok-1-314b", mesh, "a2a", True),
+                      moe_run_label("grok-1-314b", mesh, "tp", True),
+                      moe_run_label("grok-1-314b", r.mesh_name("dp"), "auto", True)):
+            w = _worst(runs[other]["sharded"], ep)
+            r.check(w <= MOE_HOLD, f"train_moe {other} against grok ep {mesh} room: losses and "
+                                   f"grad norms within {w:.3e} relative (limit {MOE_HOLD:g})")
+
+    # (b): one layer, sharded on 1 x world against rank 0's card alone
+    rec["one_layer"] = {}
+    for room in (True,) if r.opts["reduced"] else (True, False):
+        cfg1 = moe_cfg("grok-1-314b", r.sz, layers=1, room=room)
+        one = _moe_train_run(r, "grok-1-314b", cfg1, "tp", "ep", data["grok-1-314b"], 1, False)
+        r.check(one["kernel_launches"] == 0,
+                f"train_moe one layer: {one['kernel_launches']} kernel launches on this rank")
+        torch.distributed.barrier()
+        if r.rank == 0:
+            # with room, one row a micro-batch (memory); at the model's
+            # capacity, the sharded run's micro-batches (the same groups)
+            ref = one_card_moe_grads(cfg1, data["grok-1-314b"][0],
+                                     B if room else n_micro, r.dev)
+            r.free()
+            got = one["sharded"][0]
+            dl, dg = rel(got["loss"], ref["loss"]), rel(got["grad_norm"], ref["grad_norm"])
+            one.update(one_card=ref, loss_rel=dl, grad_norm_rel=dg)
+            msg = (f"train_moe grok one layer, capacity factor {cfg1.moe.capacity_factor:g}: "
+                   f"sharded ep {r.mesh_name('tp')} loss {got['loss']:.6f}, grad norm "
+                   f"{got['grad_norm']:.5f} vs one card ({ref['n_micro']} micro-batches, "
+                   f"{ref['seconds']:.2f} s, peak {(ref['peak_bytes'] or 0) / 1e9:.2f} GB, "
+                   f"{ref['kernel_launches']} launches) {ref['loss']:.6f}, "
+                   f"{ref['grad_norm']:.5f}: relative {dl:.3e} / {dg:.3e}")
+            if room:
+                r.check(dl <= MOE_ONE_CARD_LOSS and dg <= MOE_HOLD
+                        and ref["kernel_launches"] == 0,
+                        msg + f" (limits {MOE_ONE_CARD_LOSS:g} / {MOE_HOLD:g})")
+            else:
+                print(f"[rank 0] recorded, not held: {msg}", flush=True)
+        rec["one_layer"]["room" if room else "model_capacity"] = one
+        torch.distributed.barrier()
+    return rec
+
+
 RANK_CASES = {"train": case_train, "prefill": case_prefill, "decode": case_decode,
-              "attention": case_attention, "psum": case_psum, "moe": case_moe, "grok": case_grok}
+              "attention": case_attention, "psum": case_psum, "moe": case_moe, "grok": case_grok,
+              "train_moe": case_train_moe}
 
 
 def rank_main(rank: int, world: int, port: int, opts: dict) -> None:
@@ -764,7 +1128,7 @@ def rank_main(rank: int, world: int, port: int, opts: dict) -> None:
 def _rank_view(tree):
     """What differs by rank: model rank, K5 launches and query offsets."""
     keys = ("model_rank", "k5_launches", "q_offsets", "slice_start", "profiled",
-            "step_peak_bytes")
+            "step_peak_bytes", "kernel_launches")
     out = {}
     for k, v in tree.items():
         if k in keys:
@@ -774,6 +1138,54 @@ def _rank_view(tree):
             if sub:
                 out[k] = sub
     return out
+
+
+def start_moe_dryruns(opts: dict) -> list:
+    """The dry run of each train_moe run's cell (``launch.dryrun``: the same
+    config, mesh, strategy, batch, optimizer and micro-batches on a fake
+    group of ``--world`` ranks, meta tensors, on the CPU), each in a
+    subprocess started now, beside the ranks: [(label, process, its JSON)]."""
+    B = sizes(False)["train_moe"][0]
+    out = Path(opts["out"]) / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    procs = []
+    for i, (arch, key, strategy, room) in enumerate(MOE_RUNS):
+        data, model = (2, opts["world"] // 2) if key == "dp" else (1, opts["world"])
+        cfg = moe_cfg(arch, sizes(False), room=room)
+        label = moe_run_label(arch, f"{data} x {model}", strategy, room)
+        cell_out = out / str(i)
+        cell_out.mkdir(parents=True, exist_ok=True)
+        log = open(cell_out / "log.txt", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               "train_4k", "--mesh", f"{data}x{model}", "--global-batch", str(B), "--layers",
+               str(cfg.num_layers), "--capacity-factor", repr(cfg.moe.capacity_factor),
+               "--moe-strategy", strategy, "--out", str(cell_out), "--force"]
+        procs.append((label, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env),
+                      cell_out / f"{data}x{model}" / f"{arch}__train_4k.json"))
+    return procs
+
+
+def moe_peaks(procs: list, ranks: list) -> tuple:
+    """(f): each train_moe run's per-rank step peak against its dry run's
+    ``peak_bytes_per_device``; (records, checks)."""
+    recs, checks = {}, []
+    for label, proc, path in procs:
+        proc.wait(timeout=JOIN_TIMEOUT_S)
+        dry = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        pred = dry.get("memory", {}).get("peak_bytes_per_device")
+        got = [rec["cases"]["train_moe"]["runs"][label]["step_peak_bytes"] for rec in ranks]
+        gaps = [None if pred is None else (g - pred) / pred for g in got]
+        recs[label] = {"dryrun_status": dry["status"], "predicted_peak_bytes": pred,
+                       "step_peak_bytes_by_rank": got, "gap": gaps}
+        ok = pred is not None and all(abs(g) <= PEAK_HOLD for g in gaps)
+        msg = (f"train_moe {label}: step peaks {[round(g / 1e9, 2) for g in got]} GB by rank "
+               f"against the dry run's {pred / 1e9 if pred else float('nan'):.2f} GB "
+               f"(status {dry['status']}): gaps "
+               f"{[None if x is None else round(x, 4) for x in gaps]} "
+               f"(limit {PEAK_HOLD:g})")
+        checks.append({"ok": ok, "msg": msg})
+        print(f"[train_moe] {'ok  ' if ok else 'MISS'} {msg}", flush=True)
+    return recs, checks
 
 
 def run_ranks(opts: dict) -> list:
@@ -1024,15 +1436,28 @@ def main(argv=None) -> int:
     summary = {"card": card, "world": args.world, "reduced": args.reduced,
                "torch": torch.__version__, "cases": {}, "peak_bytes_by_rank": {}}
     checks = []
-    if any(c in RANK_CASES for c in cases):
-        ranks = run_ranks(opts)
-        for rec in ranks:
-            checks += rec["checks"]
-            summary["peak_bytes_by_rank"][f"rank{rec['rank']}"] = rec["peak_bytes"]
-        summary["cases"] = ranks[0]["cases"]
-        summary["per_rank"] = {f"rank{rec['rank']}": {"device": rec["device"],
-                                                      **_rank_view(rec["cases"])}
-                               for rec in ranks}
+    # (f)'s predictions, on the CPU beside the ranks (on the cards only: the
+    # reduced configs have no dry run, and the CPU keeps no peak)
+    dryruns = (start_moe_dryruns(opts) if on_cards and not args.reduced and "train_moe" in cases
+               else [])
+    try:
+        if any(c in RANK_CASES for c in cases):
+            ranks = run_ranks(opts)
+            for rec in ranks:
+                checks += rec["checks"]
+                summary["peak_bytes_by_rank"][f"rank{rec['rank']}"] = rec["peak_bytes"]
+            summary["cases"] = ranks[0]["cases"]
+            summary["per_rank"] = {f"rank{rec['rank']}": {"device": rec["device"],
+                                                          **_rank_view(rec["cases"])}
+                                   for rec in ranks}
+            if dryruns:
+                summary["cases"]["train_moe"]["peaks"], more = moe_peaks(dryruns, ranks)
+                checks += more
+    finally:
+        for _, p, _ in dryruns:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     if "router" in cases:
         router = router_case(opts)
         checks += router.pop("checks")

@@ -7,6 +7,8 @@ with the analytic roofline (the JAX package's ``launch/dryrun.py``).
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both [--subprocess]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k \
       --mesh 2x2 --global-batch 4    # a small (data x model) mesh, the batch cut
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch grok-1-314b --shape train_4k \
+      --mesh 1x4 --global-batch 16 --layers 2 --capacity-factor 4   # depth cut too
 
 Each cell writes results/torch/dryrun/<mesh>/<arch>__<shape>.json with the
 reference's keys where they mean something here: ``status``, ``chips``,
@@ -31,7 +33,9 @@ What differs from the reference, and why:
     (``roofline.analysis.LiveBytes``: each storage an op returns counted
     once, from the op until the storage dies).  Eager torch frees a
     temporary when its last reference goes, where XLA's assignment may
-    reuse or keep it, so the two peaks need not agree.  The budget is the
+    reuse or keep it, so the two peaks need not agree.  A shard moved
+    from one dim to another takes the cards' all-to-all, not the CPU
+    mesh's all-gather (``alltoall_as_on_cards``).  The budget is the
     H100's 80 GiB (``fits_80GiB``); the reference's 16 GiB ``fits_16GiB``
     is its TPU's and is not carried over.
 
@@ -71,12 +75,41 @@ def init_fake_group(world_size: int) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world_size)
 
 
+def alltoall_as_on_cards() -> None:
+    """DTensor moves a tensor from one dim's shards to another's with an
+    all-to-all on cards, but on a CPU mesh (gloo has none) with an
+    all-gather of the whole tensor and a chunk of it.  The fake group's
+    mesh is a CPU mesh, so the dry run takes the cards' route: the
+    all-to-all op, whose meta kernel returns the shard (NCCL's own buffers
+    are not the allocator's)."""
+    import torch
+    from torch.distributed.tensor import _collective_utils as cu
+    from torch.distributed.tensor import placement_types as pt
+
+    if getattr(cu.shard_dim_alltoall, "as_on_cards", False):
+        return
+    gloo_route = cu.shard_dim_alltoall
+
+    def card_route(input, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(input, gather_dim, shard_dim,
+                                                     mesh.get_group(mesh_dim).group_name)
+
+    card_route.as_on_cards = True
+    cu.shard_dim_alltoall = card_route
+    if getattr(pt, "shard_dim_alltoall", None) is gloo_route:
+        pt.shard_dim_alltoall = card_route
+
+
 def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
              moe_strategy: str = "auto", attn_sharding: str = "gather_kv",
-             kv_dtype: str = "bf16", global_batch: Optional[int] = None) -> dict:
+             kv_dtype: str = "bf16", global_batch: Optional[int] = None,
+             layers: Optional[int] = None, capacity_factor: Optional[float] = None) -> dict:
     """One cell.  ``mesh_kind``: ``single`` (16 x 16), ``multi`` (2 x 16 x
     16) or ``DxM``, a (data, model) debug mesh of D * M fake ranks;
-    ``global_batch`` cuts the shape's batch (the four-card runs' cells)."""
+    ``global_batch`` cuts the shape's batch (the four-card runs' cells),
+    ``layers`` the depth (a train cell keeps the full config's optimizer
+    and micro-batch count) and ``capacity_factor`` replaces the MoE
+    config's."""
     import torch
 
     from repro_torch.configs import SHAPES_BY_NAME, get_config
@@ -93,6 +126,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
     from repro_torch.roofline.analytic import cell_flops, cell_hbm_bytes
 
     set_attn_sharding(attn_sharding)
+    alltoall_as_on_cards()
     t0 = time.monotonic()
     if mesh_kind in ("single", "multi"):
         chips = 512 if mesh_kind == "multi" else 256
@@ -109,9 +143,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
     record = {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "chips": chips,
               "global_batch": shape.global_batch,
               "status": "ok"}
+    full_cfg = get_config(arch)
+    cfg = full_cfg if layers is None else full_cfg.replace(num_layers=layers)
+    if capacity_factor is not None:
+        cfg = cfg.replace(moe=replace(cfg.moe, capacity_factor=capacity_factor))
+    record.update(layers=cfg.num_layers, capacity_factor=cfg.moe.capacity_factor)
     try:
         cell = steps.build_cell(arch, shape_name, mesh, moe_strategy=moe_strategy,
-                                kv_cache_dtype=kv_dtype, shape=shape)
+                                kv_cache_dtype=kv_dtype, shape=shape, cfg=cfg,
+                                opt_cfg=steps.optimizer_for(full_cfg),
+                                n_micro=steps.microbatches_for(full_cfg))
     except steps.CellSkipped as e:
         record.update(status="skipped", reason=str(e))
         out_path.parent.mkdir(parents=True, exist_ok=True)
@@ -128,7 +169,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
         [o for o in (outs if isinstance(outs, tuple) else (outs,))
          if isinstance(o, (dict, torch.Tensor))])
 
-    cfg = get_config(arch)
     if kv_dtype != "bf16":
         cfg = cfg.replace(kv_cache_dtype=kv_dtype)
     aflops = cell_flops(cfg, shape)
@@ -158,6 +198,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, out_path: Path,
         moe_strategy=moe_strategy,
         attn_sharding=attn_sharding,
         micro_batches=cell.n_micro,
+        optimizer_state_dtype=cell.opt_cfg.state_dtype if cell.opt_cfg else None,
     )
     out_path.parent.mkdir(parents=True, exist_ok=True)
     out_path.write_text(json.dumps(record, indent=1))
@@ -188,6 +229,10 @@ def main() -> int:
     ap.add_argument("--attn-sharding", default="gather_kv",
                     choices=["chunked_seq", "gather_kv", "heads"])
     ap.add_argument("--kv-dtype", default="bf16", choices=["bf16", "int8"])
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (a train cell keeps the full config's optimizer)")
+    ap.add_argument("--capacity-factor", type=float, default=None,
+                    help="replace the MoE config's capacity factor")
     ap.add_argument("--out", default="results/torch/dryrun")
     ap.add_argument("--subprocess", action="store_true",
                     help="run each cell in a fresh interpreter")
@@ -220,8 +265,11 @@ def main() -> int:
                        "--shape", shape_name, "--mesh", mesh_kind, "--out", args.out,
                        "--moe-strategy", args.moe_strategy, "--attn-sharding",
                        args.attn_sharding, "--kv-dtype", args.kv_dtype, "--force"]
-                if args.global_batch:
-                    cmd += ["--global-batch", str(args.global_batch)]
+                for flag, val in (("--global-batch", args.global_batch),
+                                  ("--layers", args.layers),
+                                  ("--capacity-factor", args.capacity_factor)):
+                    if val is not None:
+                        cmd += [flag, str(val)]
                 r = subprocess.run(cmd, timeout=3600)
                 if r.returncode != 0:
                     failures += 1
@@ -232,7 +280,8 @@ def main() -> int:
                 continue
             try:
                 run_cell(arch, shape_name, mesh_kind, out_path, args.moe_strategy,
-                         args.attn_sharding, args.kv_dtype, args.global_batch)
+                         args.attn_sharding, args.kv_dtype, args.global_batch, args.layers,
+                         args.capacity_factor)
             except Exception as e:  # recorded as an error: it is a bug to fix
                 failures += 1
                 out_path.write_text(json.dumps({

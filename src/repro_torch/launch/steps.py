@@ -109,10 +109,13 @@ def _opt_meta(params_meta, opt_cfg: AdamWConfig):
 
 def build_cell(arch: str, shape_name: str, mesh, *, moe_strategy: str = "auto",
                kv_cache_dtype: str = "bf16", cfg=None, shape=None,
-               opt_cfg: Optional[AdamWConfig] = None) -> Cell:
+               opt_cfg: Optional[AdamWConfig] = None, n_micro: Optional[int] = None) -> Cell:
     """The cell's step and argument layout.  ``cfg`` / ``shape`` override
     the named config and shape (a reduced config, a cut batch), ``opt_cfg``
-    the optimizer (default ``optimizer_for(cfg)``)."""
+    the optimizer (default ``optimizer_for(cfg)``) and ``n_micro`` the
+    micro-batch count (default ``microbatches_for(cfg)``): both key on
+    ``cfg.param_count()``, so a config cut in depth passes its full
+    config's choice here to train as the full config does."""
     cfg = cfg or get_config(arch)
     if kv_cache_dtype != "bf16":
         cfg = cfg.replace(kv_cache_dtype=kv_cache_dtype)
@@ -140,7 +143,7 @@ def build_cell(arch: str, shape_name: str, mesh, *, moe_strategy: str = "auto",
         master_meta = map_tree(_f32, param_meta)
         opt_cfg = opt_cfg or optimizer_for(cfg)
         o_specs = opt_state_pspecs(p_specs, master_meta, opt_cfg, mesh)
-        n_micro = microbatches_for(cfg)
+        n_micro = n_micro or microbatches_for(cfg)
         train_step = make_train_step(bundle, opt_cfg, n_micro=n_micro, mesh=mesh,
                                      p_specs=p_specs, o_specs=o_specs)
         layout = (("params", p_specs, master_meta),

@@ -181,6 +181,15 @@ def embed_tokens(params, cfg, tokens, extra_embeds=None):
     return x
 
 
+def _dim0_shards(t) -> int:
+    """The ranks a DTensor's dim 0 is split over."""
+    n = 1
+    for i, p in enumerate(t.placements):
+        if p.is_shard() and p.dim == 0:
+            n *= t.device_mesh.size(i)
+    return n
+
+
 def _mlp_block(lp, cfg, h, *, per_row: bool = False, mesh=None, moe_strategy: str = "auto"):
     """The layer's MLP on h [B, S, d]: the dense MLP, or the MoE over all
     B * S tokens as one dispatch (``per_row``: one dispatch per row), plus
@@ -197,6 +206,8 @@ def _mlp_block(lp, cfg, h, *, per_row: bool = False, mesh=None, moe_strategy: st
         tokens = hold_grad_layout(unshard_dims(h, (1,))).reshape(B * S, d)  # [B, S] flattened
         m, aux = moe_lib.moe_apply_sharded(lp["moe"], tokens, cfg, mesh,
                                            dp_axes=dp, tp_axis="model", strategy=moe_strategy)
+        if B % _dim0_shards(m):  # a2a's token split cuts a row: no [B, S] view of it
+            m = m.redistribute(mesh, tokens.placements)
     else:
         groups = h if per_row else h.reshape(1, B * S, d)
         m, aux = moe_lib.moe_apply_grouped(lp["moe"], groups, cfg)

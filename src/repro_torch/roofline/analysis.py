@@ -62,6 +62,9 @@ _KINDS = {
     "reduce_scatter_tensor": "reduce-scatter",
     "reduce_scatter_tensor_coalesced": "reduce-scatter",
     "all_to_all_single": "all-to-all",
+    # DTensor's own op moving a shard from one dim to another (NCCL's
+    # all-to-all; the dry run takes it too, ``launch.dryrun``)
+    "shard_dim_alltoall": "all-to-all",
 }
 
 
@@ -86,7 +89,7 @@ class CollectiveCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
-        if func.namespace == "_c10d_functional":
+        if func.namespace in ("_c10d_functional", "_dtensor"):
             kind = _KINDS.get(func.__name__.split(".")[0])
             if kind is not None:
                 self.counts[kind] += 1

@@ -13,9 +13,15 @@ Params are f32 masters; the model computes in bf16 casts of them.  The
 update follows the reference op for op in f32 (``b1 ** step`` and the
 warm-up included), under ``torch.no_grad``, and writes the new params and
 moments into the given tensors (the reference donates its buffers to the
-jitted step the same way).  Leaves of rank 3 or more update one slice of
-the leading (layer) axis at a time, as the reference's ``jax.lax.map``
-does, to bound the f32 temporaries to one layer's worth.
+jitted step the same way).  Eager torch keeps each op's f32 temporary of
+the whole operand, where XLA fuses the chain, so a leaf updates in slices
+of its leading axes of at most ``UPDATE_CHUNK`` elements (the reference's
+``jax.lax.map`` over layers bounds it to one layer; one layer of 32
+arctic-480b experts is 1.1 B elements).  Every op is elementwise or works
+within a 256-element block of the last dim, so the slices give the whole
+leaf's bits.  A DTensor leaf updates on its local shards when its last dim
+is not sharded (an int8 moment's scales then lie beside their blocks);
+otherwise on DTensors, one layer at a time.
 ``opt_state_pspecs`` lays the moments out like their parameters (an int8
 moment's ``q`` keeps the parameter's spec, its ``scale`` drops the last
 dim's axis), as spec trees of ``repro_torch.sharding.rules``.
@@ -28,10 +34,11 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.rules import split_dim
+from repro_torch.sharding.rules import full, split_dim
 from repro_torch.training.tree import leaves, map_tree
 
 QBLOCK = 256
+UPDATE_CHUNK = 1 << 26  # elements of a leaf updated at once
 
 
 @dataclass(frozen=True)
@@ -132,6 +139,40 @@ def _slice(mom, i):
     return {k: v[i] for k, v in mom.items()} if isinstance(mom, dict) else mom[i]
 
 
+def _chunks(p, g, m, v):
+    """(p, g, m, v) in slices of the leading axes of at most
+    ``UPDATE_CHUNK`` elements (rows of one leading index, or runs of them);
+    the last dim is never cut."""
+    if p.ndim < 2 or p.numel() <= UPDATE_CHUNK:
+        yield p, g, m, v
+        return
+    per = p.numel() // p.shape[0]
+    if per > UPDATE_CHUNK:
+        for i in range(p.shape[0]):
+            yield from _chunks(p[i], g[i], _slice(m, i), _slice(v, i))
+        return
+    n = UPDATE_CHUNK // per
+    for i in range(0, p.shape[0], n):
+        sl = slice(i, i + n)
+        yield p[sl], g[sl], _slice(m, sl), _slice(v, sl)
+
+
+def _local(t):
+    return t.to_local() if hasattr(t, "device_mesh") else t
+
+
+def _on_shards(p, g) -> bool:
+    """Whether a DTensor leaf may update on its local shards: the grad laid
+    out as the param, and the last dim not split over an axis of more than
+    one rank."""
+    from torch.distributed.tensor import Shard
+
+    if tuple(g.placements) != tuple(p.placements):
+        return False
+    return not any(isinstance(pl, Shard) and pl.dim % p.ndim == p.ndim - 1
+                   and p.device_mesh.size(i) > 1 for i, pl in enumerate(p.placements))
+
+
 @torch.no_grad()
 def adamw_update(grads, opt_state, params, config: AdamWConfig):
     """One AdamW step; returns (params, opt_state, metrics).  ``params``
@@ -150,7 +191,7 @@ def adamw_update(grads, opt_state, params, config: AdamWConfig):
     bc2 = 1.0 - torch.tensor(b2, **f32) ** stepf
     sd = config.state_dtype
 
-    def leaf_update(p, g, m, v):
+    def leaf_update(p, g, m, v, clip, lr, bc1, bc2):
         g = g.float() * clip
         mf = _read_moment(m, p, sd, "m")
         vf = _read_moment(v, p, sd, "v")
@@ -163,14 +204,22 @@ def adamw_update(grads, opt_state, params, config: AdamWConfig):
         _write_moment(m, mf, sd, "m")
         _write_moment(v, vf, sd, "v")
 
+    # the update's scalars as plain tensors, for the leaves that update on
+    # their local shards
+    local = {"clip": full(clip), "lr": full(lr), "bc1": full(bc1), "bc2": full(bc2)}
+
     def upd(p, g, m, v):
-        # layer-stacked leaves update one layer at a time (the reference's
-        # lax.map): the f32 chain keeps ~10 temporaries of the leaf's size
-        if p.ndim >= 3 and p.shape[0] > 1:
-            for i in range(p.shape[0]):
-                leaf_update(p[i], g[i], _slice(m, i), _slice(v, i))
-        else:
-            leaf_update(p, g, m, v)
+        if hasattr(p, "device_mesh") and not _on_shards(p, g):
+            # one layer at a time, on DTensors (the reference's lax.map)
+            if p.ndim >= 3 and p.shape[0] > 1:
+                for i in range(p.shape[0]):
+                    leaf_update(p[i], g[i], _slice(m, i), _slice(v, i), clip, lr, bc1, bc2)
+            else:
+                leaf_update(p, g, m, v, clip, lr, bc1, bc2)
+            return
+        p, g, m, v = (map_tree(_local, t) for t in (p, g, m, v))
+        for args in _chunks(p, g, m, v):
+            leaf_update(*args, **local)
 
     map_tree(upd, params, grads, opt_state["m"], opt_state["v"])
     new_state = {"m": opt_state["m"], "v": opt_state["v"], "step": step}

@@ -42,6 +42,14 @@ def _take_grad(leaf: torch.Tensor) -> torch.Tensor:
     return g.float()
 
 
+def _add_grad(acc: torch.Tensor, leaf: torch.Tensor) -> None:
+    """``acc += leaf.grad`` in f32 (the sum ``acc + grad.float()`` rounds
+    to), releasing the compute-type grad."""
+    g, leaf.grad = leaf.grad, None
+    if g is not None:
+        acc.add_(g)
+
+
 def _micro(t: torch.Tensor, i: int, n: int) -> torch.Tensor:
     """Micro-batch ``i`` of ``n``: rows ``[i*b/n, (i+1)*b/n)`` of ``t``'s
     rows (a DTensor's local rows, as a DTensor of the same placements)."""
@@ -73,10 +81,12 @@ def loss_and_grads(bundle, params, batch: Dict[str, torch.Tensor], n_micro: int 
     for i in range(n_micro):
         loss = bundle.loss_fn(compute, map_tree(lambda t, i=i: _micro(t, i, n_micro), batch))
         loss.backward()
-        g = map_tree(_take_grad, compute)
         loss_sum = loss.detach() if loss_sum is None else loss_sum + loss.detach()
-        grads = g if grads is None else map_tree(torch.add, grads, g)
-    return loss_sum / n_micro, map_tree(lambda t: t / n_micro, grads)
+        if grads is None:
+            grads = map_tree(_take_grad, compute)
+        else:  # in place, leaf by leaf: one f32 tree beside the compute-type grads
+            map_tree(_add_grad, grads, compute)
+    return loss_sum / n_micro, map_tree(lambda t: t.div_(n_micro), grads)
 
 
 def apply_grads(grads, params, opt_state, opt_cfg: AdamWConfig, *, mesh=None, p_specs=None,

@@ -31,7 +31,8 @@
   norms 5e-3 relative, measured 1.0e-3 and 1.2e-3); one reduced-grok ``a2a`` step (5e-3;
   measured 1.2e-3: each rank dispatches its own tokens with its own
   capacity); ``Trainer(mesh=)`` resuming its checkpoint onto placements
-  and re-meshing.
+  and re-meshing.  (The MoE train step with the full configs' int8
+  moments and 8 micro-batches: ``tests/test_torch_moe_train.py``.)
 * The dry run: one cell in a subprocess, and the committed sweep
   (``results/torch/dryrun/``: 33 ok and 7 skipped per mesh, no error).
 * Without a mesh every touched entry point is bitwise what it was:

@@ -24,6 +24,12 @@ gloo ranks held against the JAX package.
   grok's prefill cell on 1 x 4 (2e-2, measured 8.4e-3), and
   ``compressed_psum`` against the reference's ``quantize``/``dequantize``
   of each member's shard summed in group order (relative 1e-6, measured 0).
+  The train_moe case runs in a spawn of its own, with its reference in a
+  JAX subprocess of its own: reduced grok at one layer with room for
+  every token (int8 first moments, 8 micro-batches, 16 x 128 tokens; ep,
+  a2a and tp on 1 x 4, auto on 2 x 2) against the reference's ``build_cell`` step on the
+  same mesh and strategy (losses 5e-3, measured 2.3e-4; grad norms 5e-3
+  relative, measured 2.2e-3).
 """
 import ast
 import contextlib
@@ -46,6 +52,7 @@ from repro_torch.launch import mesh as mesh_mod
 
 ROOT = Path(__file__).resolve().parents[1]
 PROGRAM = ROOT / "scripts" / "torch_four_cards.py"
+FOUR_CASES = ("train", "prefill", "decode", "attention", "psum", "moe", "grok", "router")
 
 
 def _env(**kw):
@@ -319,30 +326,113 @@ np.savez(sys.argv[2], **out)
 """
 
 
+_JAX_MOE_REF = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+from dataclasses import replace
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config, reduced
+from repro.configs.base import ShapeSpec
+from repro.launch import steps
+from repro.launch.mesh import make_debug_mesh
+from repro.models.registry import build_model
+from repro.training.optimizer import AdamWConfig, init_opt_state
+
+z = dict(np.load(sys.argv[1]))
+out = {}
+
+
+def tree(prefix, like):
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(f"{path}/{k}", v) for k, v in node.items()}
+        return jnp.asarray(z[path], node.dtype)
+    return walk(prefix, like)
+
+
+def jitted(cell):
+    return jax.jit(cell.step_fn, in_shardings=cell.in_shardings, out_shardings=cell.out_shardings)
+
+
+m22, m14 = make_debug_mesh(2, 2), make_debug_mesh(1, 4)
+L = z["train_moe/grok-1-314b/masters/layers/ln1/w"].shape[0]  # the program's depth
+gb = build_model(reduced(get_config("grok-1-314b")).replace(num_layers=L))
+
+# the reduced grok's build_cell train step with the full config's int8 first
+# moments and 8 micro-batches, every expert with room for every token, on
+# the program's meshes and strategies
+moe_opt = AdamWConfig(lr=3e-5, warmup_steps=2, state_dtype="int8")
+
+
+def room(cfg):
+    E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+    return cfg.replace(moe=replace(cfg.moe, capacity_factor=E / k))
+
+
+steps.get_config = lambda a: room(reduced(get_config(a)).replace(num_layers=L))
+steps.optimizer_for = lambda cfg: moe_opt
+steps.microbatches_for = lambda cfg: 8
+B, S = z["train_moe/grok-1-314b/batch0/tokens"].shape
+steps.SHAPES_BY_NAME["train_m"] = ShapeSpec("train_m", S, B, "train")
+gm = tree("train_moe/grok-1-314b/masters",
+          jax.tree.map(lambda s: jax.ShapeDtypeStruct(s.shape, jnp.float32),
+                       jax.eval_shape(gb.init_params, jax.random.PRNGKey(0))))
+for label, mesh, strategy in (("ep 1 x 4", m14, "ep"), ("a2a 1 x 4", m14, "a2a"),
+                              ("tp 1 x 4", m14, "tp"), ("auto 2 x 2", m22, "auto")):
+    f = jitted(steps.build_cell("grok-1-314b", "train_m", mesh, moe_strategy=strategy))
+    params, opt = gm, init_opt_state(gm, moe_opt)
+    losses, norms = [], []
+    with mesh:
+        for i in range(3):
+            pre = f"train_moe/grok-1-314b/batch{i}/"
+            params, opt, m = f(params, opt, {k[len(pre):]: z[k] for k in z if k.startswith(pre)})
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    out[f"train_moe/{label}/loss"], out[f"train_moe/{label}/grad_norm"] = (np.array(losses),
+                                                                         np.array(norms))
+np.savez(sys.argv[2], **out)
+"""
+
+
 @pytest.fixture(scope="module")
 def four(tmp_path_factory):
-    """The program's every case at ``--device cpu --reduced`` (one spawn of
-    four gloo ranks), then the reference in one JAX subprocess on the
-    saved inputs: (exit code, summary, the program's saved arrays, the
-    reference's arrays, the program's output)."""
-    out = tmp_path_factory.mktemp("four_cards")
+    """The program's every case but train_moe at ``--device cpu
+    --reduced`` (one spawn of four gloo ranks), then the reference in one
+    JAX subprocess on the saved inputs: (exit code, summary, the program's
+    saved arrays, the reference's arrays, the program's output)."""
+    return _program_and_reference(tmp_path_factory.mktemp("four_cards"), FOUR_CASES, _JAX_REF)
+
+
+@pytest.fixture(scope="module")
+def four_moe(tmp_path_factory):
+    """The train_moe case at ``--device cpu --reduced`` in a spawn of its
+    own (its 8 micro-batches of gloo collectives would crowd the other
+    cases out of ``four``'s timeout on a loaded host), then its reference
+    in a JAX subprocess of its own: as ``four``."""
+    return _program_and_reference(tmp_path_factory.mktemp("four_cards_moe"), ("train_moe",),
+                                  _JAX_MOE_REF)
+
+
+def _program_and_reference(out, cases, reference):
     proc = subprocess.run([sys.executable, str(PROGRAM), "--device", "cpu", "--reduced",
-                           "--out", str(out), "--save", str(out)],
+                           "--cases", ",".join(cases), "--out", str(out), "--save", str(out)],
                           capture_output=True, text=True, timeout=300,
                           env=_env(OMP_NUM_THREADS="1"))
     summary = json.loads((out / "summary.json").read_text())
-    subprocess.run([sys.executable, "-c", _JAX_REF, str(out / "four_cards.npz"),
+    subprocess.run([sys.executable, "-c", reference, str(out / "four_cards.npz"),
                     str(out / "jax.npz")], check=True, timeout=300, env=_env(JAX_PLATFORMS="cpu"))
     return (proc.returncode, summary, dict(np.load(out / "four_cards.npz")),
             dict(np.load(out / "jax.npz")), proc.stdout[-4000:] + proc.stderr[-4000:])
 
 
-def test_program_holds_every_case_on_four_gloo_ranks(four):
-    rc, summary, *_, log = four
-    assert rc == 0 and summary["ok"], log
-    assert set(summary["cases"]) == {"train", "prefill", "decode", "attention", "psum", "moe",
-                                     "grok", "router"}
-    assert summary["cases"]["prefill"]["1 x 4"]["argmax_equal"]
+def test_program_holds_every_case_on_four_gloo_ranks(four, four_moe):
+    cases = set()
+    for rc, summary, *_, log in (four, four_moe):
+        assert rc == 0 and summary["ok"], log
+        cases |= set(summary["cases"])
+    assert cases == {"train", "prefill", "decode", "attention", "psum", "moe", "grok",
+                     "train_moe", "router"}
+    assert four[1]["cases"]["prefill"]["1 x 4"]["argmax_equal"]
 
 
 def test_train_matches_reference(four):
@@ -402,6 +492,24 @@ def test_grok_prefill_matches_reference(four):
     got = saved["grok/1 x 4/logits"]
     np.testing.assert_allclose(got, ref["grok"], rtol=0, atol=2e-2)
     assert (got.argmax(-1) == ref["grok"].argmax(-1)).all()
+
+
+@pytest.mark.parametrize("run", ["ep 1 x 4", "a2a 1 x 4", "tp 1 x 4", "auto 2 x 2"])
+def test_train_moe_matches_reference(four_moe, run):
+    """The program's reduced grok train_moe runs (one layer) with room for
+    every token (int8 first moments, 8 micro-batches, 16 x 128 tokens) against the
+    reference's ``build_cell`` step on the same mesh and strategy: three
+    losses within 5e-3 and grad norms within 5e-3 relative."""
+    _, summary, _, ref, _ = four_moe
+    strategy, mesh = run.split(" ", 1)
+    label = f"grok-1-314b {strategy} {mesh} room"
+    run_rec = summary["cases"]["train_moe"]["runs"][label]
+    assert run_rec["state_dtype"] == "int8" and run_rec["n_micro"] == 8
+    got = run_rec["sharded"]
+    for g, loss, norm in zip(got, ref[f"train_moe/{run}/loss"], ref[f"train_moe/{run}/grad_norm"],
+                             strict=True):
+        assert abs(g["loss"] - loss) < 5e-3, (g, loss)
+        assert abs(g["grad_norm"] - norm) / norm < 5e-3, (g, norm)
 
 
 def test_router_over_four_replicas(four):

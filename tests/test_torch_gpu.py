@@ -1331,7 +1331,7 @@ def test_four_cards_every_case_holds(four_cards):
     rc, summary, log = four_cards
     assert rc == 0 and summary["ok"], log
     assert set(summary["cases"]) == {"train", "prefill", "decode", "attention", "psum", "moe",
-                                     "grok", "router"}
+                                     "grok", "train_moe", "router"}
 
 
 def test_four_cards_k5_offsets_per_rank(four_cards):

@@ -310,3 +310,48 @@ def card_worker(rank, out_dir):
             res["moe"][strategy] = (float((out.full_tensor().float() - want.float()).abs().max()),
                                     abs(float(a.full_tensor()) - float(aux)))
     _save(out_dir, rank, res)
+
+
+def moe_train_worker(rank, out_dir, arch, mesh_names, masters_np, batches_np, strategies):
+    """Three sharded train steps of the reduced ``arch`` on each ``DxM``
+    mesh of ``mesh_names`` for each MoE strategy: every expert with room
+    for every token (capacity factor E / k) and the full config's
+    optimizer (int8 first moments) and micro-batch count (8), passed as
+    ``build_cell``'s overrides; rank 0 saves {mesh: {strategy: record}}."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ShapeSpec, get_config, reduced
+    from repro_torch.launch import steps as st
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.params import params_from_jax
+    from repro_torch.sharding.rules import full
+    from repro_torch.training.optimizer import init_opt_state
+
+    full_cfg = get_config(arch)
+    cfg = reduced(full_cfg)
+    E, k = cfg.moe.num_experts, cfg.moe.experts_per_token
+    cfg = cfg.replace(moe=replace(cfg.moe, capacity_factor=E / k))
+    B, S = batches_np[0]["tokens"].shape
+    out = {}
+    for mesh_name, strategy in ((m, s) for m in mesh_names for s in strategies):
+        data, model = (int(n) for n in mesh_name.split("x"))
+        mesh = make_debug_mesh(data, model, device="cpu")
+        cell = st.build_cell(arch, "train_t", mesh, cfg=cfg, moe_strategy=strategy,
+                             opt_cfg=st.optimizer_for(full_cfg),
+                             n_micro=st.microbatches_for(full_cfg),
+                             shape=ShapeSpec("train_t", seq_len=S, global_batch=B, kind="train"))
+        masters = params_from_jax(masters_np, "cpu")
+        params = st.distribute_argument(cell, "params", masters)
+        opt_state = st.distribute_argument(cell, "opt_state",
+                                           init_opt_state(masters, cell.opt_cfg))
+        rec = []
+        for batch_np in batches_np:
+            batch = st.distribute_argument(
+                cell, "batch", {k: torch.from_numpy(v) for k, v in batch_np.items()})
+            params, opt_state, m = st.run_cell(cell, (params, opt_state, batch))
+            rec.append({k: float(full(v)) for k, v in m.items()})
+        out.setdefault(mesh_name, {})[strategy] = {
+            "metrics": rec, "state_dtype": cell.opt_cfg.state_dtype, "n_micro": cell.n_micro,
+            "m_dtype": str(opt_state["m"]["embed"]["q"].dtype)}
+    if rank == 0:
+        _save(out_dir, rank, out)

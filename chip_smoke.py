@@ -27,9 +27,13 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      ``embed.T``) at decode (M = 8), chunk (M = 32) and monolithic (M = 512)
      widths against ``torch.matmul``, each row of the M = 8 and M = 32
      products bitwise equal to the same rows of the M = 512 product; the
-     row-statistic kernel (the norms' mean of squares, mean and variance
-     in one order per row) at the decode, chunk, qk-norm and monolithic
-     row counts, each row bitwise across them;
+     norm kernel (each rms_norm / layer_norm in one launch, one order per
+     row) at qwen3-1.7b's decode, chunk, qk-norm and monolithic row counts
+     and at grok-1-314b's and arctic-480b's widths (6144, 7168: the rows
+     read again for each pass), bitwise the route it replaced (the
+     statistic's order written out in torch ops, then torch's elementwise
+     chain) and each row bitwise across the row counts of its width, beside
+     F.rms_norm / F.layer_norm;
      plus the reduced qwen3 model served on the card against the same model
      served on the CPU;
   3. full-width qwen3-1.7b (28 layers, random weights from seed 0) serving 8
@@ -440,11 +444,11 @@ def kernel_phase(gen_seed: int = 0):
         **paged_row("K4 paged_attention", copies, P, K4_LENGTHS),
     )
     results["gemm"], gemm_extra = gemm_rows(dev, g)
-    results["row_stat"], stat_extra = row_stat_rows(dev, g)
+    results["norm"], norm_extra = norm_rows(dev, g)
     wide_kernel_rows(dev, rnd, gen_seed)
     past_256 = head_dim_past_256_rows(dev, rnd, gen_seed)
     past_256["gemm"] = gemm_extra
-    past_256["row_stat"] = stat_extra
+    past_256["norm"] = norm_extra
     snapshot = snapshot_kernel_rows(dev, rnd)
     past_256.setdefault("kv_block_copy", []).extend(
         (label, row) for label, row in snapshot.items() if label.startswith("K3"))
@@ -646,53 +650,93 @@ def gemm_rows(dev, g):
 
 
 
-# the norms' row statistics on qwen3-1.7b's serving path (rows, width):
-# ln1/ln2 of a decode step, of a prefill chunk and of a monolithic 32k
-# prefill, and the qk-norm of a 512-token chunk (16 query heads of 128)
-ROW_STAT_SHAPES = {"decode ln": (8, 2048), "chunk ln": (512, 2048), "chunk qk-norm": (8192, 128),
-                   "monolithic ln": (32768, 2048)}
+# the norms of the served models (rows, width): qwen3-1.7b's ln1/ln2 of a
+# decode step, of a prefill chunk and of a monolithic 32k prefill, and the
+# qk-norm of a 512-token chunk (16 query heads of 128); then the widths past
+# 2048, where the kernel reads a row again for each pass instead of holding
+# it in registers: grok-1-314b's 6144 and arctic-480b's 7168 (decode and
+# chunk)
+NORM_SHAPES = {"decode ln": (8, 2048), "chunk ln": (512, 2048), "chunk qk-norm": (8192, 128),
+               "monolithic ln": (32768, 2048), "grok-1-314b decode ln": (8, 6144),
+               "grok-1-314b chunk ln": (512, 6144), "arctic-480b decode ln": (8, 7168),
+               "arctic-480b chunk ln": (512, 7168)}
+NORM_EPS = {"rms": 1e-6, "layer": 1e-5}
 
 
-def row_stat_rows(dev, g):
-    """The row-statistic kernel (the norms' mean of squares; the layer
-    norm's mean and variance at the chunk shape) against its plain version
-    (f32 tolerance), timed beside the bound of its input (bytes) and, for
-    the mean and the variance, one PyTorch call (``torch.mean``,
-    ``torch.var``; the mean of squares has none); each row of the decode
-    and chunk products bitwise the same row of the monolithic one.
-    Returns (the chunk mean-of-squares row, [(label, row), ...])."""
-    from repro_torch.kernels import row_stat as rs
+def norm_weights(d, g, dev):
+    """A bf16 norm weight in [0.25, 0.6] (it keeps the outputs below 4, where
+    a bf16 spacing is within the yardstick check's 2e-2) and a bias."""
+    w = (0.25 + 0.35 * torch.rand((d,), generator=g, device=dev)).bfloat16()
+    return w, (0.1 * torch.randn((d,), generator=g, device=dev)).bfloat16()
 
-    x = torch.randn((32768, 2048), generator=g, device=dev) * 3.0
-    full = rs.row_stat(x, "mean_square")
-    for sname, (R, d) in ROW_STAT_SHAPES.items():
-        if d == 2048:
-            part = rs.row_stat(x[-R:], "mean_square")
+
+def norm_rows(dev, g):
+    """The norm kernel in bf16 (the RMS norm at every shape of NORM_SHAPES,
+    the layer norm at the chunk) against its plain version (bf16
+    tolerance) and bitwise against the route it replaced
+    (``replaced_route``: the statistic's order in torch ops, then torch's
+    elementwise chain), timed beside the bound of its input (bytes: x and y
+    once, the weight and bias once; operations at f32's peak) and one
+    PyTorch call (``F.rms_norm`` / ``F.layer_norm``); at each width, every
+    row of the smaller row counts bitwise the same row of the largest.
+    Returns (the chunk RMS row, [(label, row), ...])."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import norm as nm
+
+    for d in sorted({d for _, d in NORM_SHAPES.values()}):
+        Rs = sorted({R for R, e in NORM_SHAPES.values() if e == d})
+        w, b = norm_weights(d, g, dev)
+        x = torch.randn((Rs[-1], d), generator=g, device=dev).bfloat16()
+        for kind in NORM_EPS:
+            bias = b if kind == "layer" else None
+            full = nm.norm(x, w, bias, kind=kind, eps=NORM_EPS[kind])
+            route = nm.replaced_route(x, w, bias, kind=kind, eps=NORM_EPS[kind])
             torch.cuda.synchronize()
-            check(torch.equal(part, full[-R:]), f"row_stat {sname}: rows differ from R = 32768")
+            check(torch.equal(full, route), f"norm {kind} {Rs[-1]} x {d}: not bitwise the route "
+                                            f"it replaced ({max_err(full, route)})")
+            for R in Rs[:-1]:
+                part = nm.norm(x[-R:], w, bias, kind=kind, eps=NORM_EPS[kind])
+                torch.cuda.synchronize()
+                check(torch.equal(part, full[-R:]), f"norm {kind} {R} x {d}: rows differ from "
+                                                    f"R = {Rs[-1]}")
+        del x, full, route
     main, extra = None, []
-    for sname, (R, d) in ROW_STAT_SHAPES.items():
-        for stat in (("mean_square", "mean", "var") if sname == "chunk ln" else ("mean_square",)):
+    for sname, (R, d) in NORM_SHAPES.items():
+        w, b = norm_weights(d, g, dev)
+        for kind in (("rms", "layer") if sname == "chunk ln" else ("rms",)):
             n = max(2, -(-120_000_000 // (4 * R * d)))
-            copies = [(torch.randn((R, d), generator=g, device=dev),) for _ in range(n)]
-            library = {"mean": lambda t: torch.mean(t, dim=-1, keepdim=True),
-                       "var": lambda t: torch.var(t, dim=-1, keepdim=True, unbiased=False)}
-            label = f"row_stat {stat} {sname} {R} x {d}"
-            row = kernel_row(label, lambda t, s=stat: rs.row_stat(t, s),
-                             lambda t, s=stat: rs.row_stat_ref(t, s), copies, [{}],
-                             4.0 * (R * d + R), (2.0 if stat != "var" else 4.0) * R * d,
-                             library=(library[stat], copies) if stat in library else None,
-                             dtype=torch.float32, peak=H100_F32_FLOPS)
-            if (sname, stat) == ("chunk ln", "mean_square"):
-                main = dict(route="cuda", source="src/repro_torch/kernels/csrc/row_stat.cu",
-                            replaces="none: replaces no TPU kernel (the reference's jnp.mean and "
-                                     "jnp.var in rms_norm and layer_norm)", **row)
+            copies = [(torch.randn((R, d), generator=g, device=dev).bfloat16(),) for _ in range(n)]
+            eps = NORM_EPS[kind]
+            if kind == "rms":
+                fn = lambda t: nm.norm(t, w, kind="rms", eps=1e-6)
+                plain = lambda t: nm.norm_ref(t, w, kind="rms", eps=1e-6)
+                lib = lambda t: F.rms_norm(t, (d,), w, eps=1e-6)
+            else:
+                fn = lambda t: nm.norm(t, w, b, kind="layer", eps=1e-5)
+                plain = lambda t: nm.norm_ref(t, w, b, kind="layer", eps=1e-5)
+                lib = lambda t: F.layer_norm(t, (d,), w, b, eps=1e-5)
+            got = fn(*copies[0])
+            route = nm.replaced_route(*copies[0], w, b if kind == "layer" else None, kind=kind,
+                                      eps=eps)
+            torch.cuda.synchronize()
+            check(torch.equal(got, route), f"norm {kind} {sname}: not bitwise the route it "
+                                           "replaced")
+            label = f"norm {kind} {sname} {R} x {d}"
+            row = kernel_row(label, fn, plain, copies, [{}],
+                             2.0 * (2 * R * d + (2 if kind == "layer" else 1) * d),
+                             (4.0 if kind == "rms" else 7.0) * R * d, library=(lib, copies),
+                             peak=H100_F32_FLOPS)
+            if (sname, kind) == ("chunk ln", "rms"):
+                main = dict(route="cuda", source="src/repro_torch/kernels/csrc/norm.cu",
+                            replaces="none: replaces no TPU kernel (the reference's jnp.mean, "
+                                     "jnp.var and rsqrt in rms_norm and layer_norm)", **row)
             else:
                 extra.append((label, row))
             del copies
-    del x, full
-    print("row_stat rows of R = 8 and 512 bitwise those of R = 32768 (the decode, chunk and "
-          "monolithic widths)")
+    print("norm rows: each width's smaller row counts bitwise the same rows of its largest "
+          "(widths " + ", ".join(str(d) for d in sorted({d for _, d in NORM_SHAPES.values()}))
+          + "), each bitwise the route it replaced")
     return main, extra
 
 
@@ -3567,7 +3611,7 @@ def main() -> None:
     from repro_torch.kernels import gemm
     from repro_torch.kernels import kv_block_copy as kbc
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import row_stat as rs
+    from repro_torch.kernels import norm as nm
     from repro_torch.models.registry import build_model
 
     # float32 references stay full float32 (no TF32 in matmuls or cuDNN)
@@ -3627,7 +3671,7 @@ def main() -> None:
         "flash_attention": fa.flash_attention,
         "paged_attention": pa.paged_attention,
         "gemm": gemm.gemm,
-        "row_stat": rs.row_stat,
+        "norm": nm.norm,
     }
 
     def drive(name, fn, *args):
@@ -3770,10 +3814,17 @@ def main() -> None:
         check(counts["conformance"][k] > 0, f"the conformance phase never launched {k}")
     for name in ("paged serving", "dense serving", "paper gates: radix", "paper gates: ceilings"):
         check(counts[name]["gemm"] > 0, f"{name} never launched the GEMM")
-        check(counts[name]["row_stat"] > 0, f"{name} never launched the row-statistic kernel")
+    # every serving path norms on the card; the training paths norm with
+    # grad (the plain version), the sharded phase on DTensors, and the
+    # kernel bench runs attention kernels alone
+    no_norm = ("training qwen3-1.7b", "restart drill", "training other families", "distribution",
+               "paper gates: bench kernels")
+    for name in counts:
+        if name not in no_norm:
+            check(counts[name]["norm"] > 0, f"{name} never launched the norm kernel")
     for name in ("long contexts: qwen3-1.7b", "long contexts: h2o-danube-1.8b"):
         for k in ("paged_decode_attention", "paged_prefill_attention", "kv_block_copy",
-                  "flash_attention", "gemm", "row_stat"):
+                  "flash_attention", "gemm", "norm"):
             check(counts[name][k] > 0, f"{name} never launched {k}")
     check(kbc.gather_payloads.plain_copies == plain_before, "a payload gather took the plain copy")
     launches = {k: sum(c[k] for c in counts.values()) for k in wrappers}

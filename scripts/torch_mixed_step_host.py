@@ -8,7 +8,9 @@ blocks of 4, full-width qwen3-1.7b from seed 0 in bf16.
 For each launch: the median wall of ``--reps`` launches (each ends in a
 synchronise, as the step loop's), and, from ``torch.profiler``'s CPU
 activity over three launches, the host ops per launch and the ops with
-the most host self time.  The wall here is what a step's stage seconds
+the most host self time; on the card also its device kernels per launch
+(the CUDA activity of the same three launches) and those of the norm
+kernel among them.  The wall here is what a step's stage seconds
 read; it is host dispatch wherever the card sits idle (``PERF.md`` §5).
 
 Then the host ops the fused launch adds to the decode rows' own launch,
@@ -123,25 +125,33 @@ def main() -> None:
             fn()
             sync()
             walls.append(time.perf_counter() - t0)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
             for _ in range(3):
                 fn()
             sync()
         avg = prof.key_averages()
         ops = [e for e in avg if e.key.startswith("aten::")]
+        kernels = [e for e in avg if e.device_type == torch.autograd.DeviceType.CUDA]
         top = sorted(ops, key=lambda e: e.self_cpu_time_total, reverse=True)[: args.top]
         counts[name] = {e.key: e.count / 3 for e in ops}
         out[name] = {
             "wall_ms_median": statistics.median(walls) * 1e3,
             "wall_ms_min": min(walls) * 1e3,
             "aten_ops_per_launch": sum(e.count for e in ops) / 3,
+            "device_kernels_per_launch": sum(e.count for e in kernels) / 3,
+            "norm_kernels_per_launch": sum(e.count for e in kernels if "norm" in e.key) / 3,
             "top_self_cpu": [{"op": e.key, "per_launch": e.count / 3,
                               "self_cpu_us_per_launch": e.self_cpu_time_total / 3}
                              for e in top],
         }
         print(f"{name}: wall median {out[name]['wall_ms_median']:.3f} ms (min "
               f"{out[name]['wall_ms_min']:.3f}), aten ops a launch "
-              f"{out[name]['aten_ops_per_launch']:.0f}")
+              f"{out[name]['aten_ops_per_launch']:.0f}, device kernels a launch "
+              f"{out[name]['device_kernels_per_launch']:.0f} (norm kernels "
+              f"{out[name]['norm_kernels_per_launch']:.0f})")
         for t in out[name]["top_self_cpu"]:
             print(f"    {t['op']:<40} x{t['per_launch']:<6.0f} {t['self_cpu_us_per_launch']:9.1f} us")
     print("mixed step host " + json.dumps({k: out[k]["wall_ms_median"] for k in launches}))

@@ -41,7 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gemm_lib
 from repro_torch.kernels import paged_attention as pa
-from repro_torch.kernels import row_stat as row_stat_lib
+from repro_torch.kernels import norm as norm_lib
 from repro_torch.sharding.rules import as_replicated, placements, split_dim
 
 DEFAULT_DTYPE = torch.bfloat16
@@ -269,38 +269,34 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype=DEFAULT_DTYPE):
 # ---------------------------------------------------------------------------
 
 
-def _stat(t, stat: str):
-    """A norm's row statistic over the last dim.  Plain f32 tensors on the
-    card under ``torch.no_grad`` (the serving paths) take the row-statistic
-    kernel (``kernels/row_stat.py``): one reduction order per row whatever
-    the number of rows, so a decode step, a prefill chunk and a fused
-    launch of both (``transformer.paged_mixed_step``) norm a row to the
-    same bits; a library reduction spreads a row over more threads when
-    fewer rows ride with it.  With grad enabled (training, even on an input
-    that needs none, as the frames a whisper step norms), DTensors and the
-    CPU keep the library reduction (``row_stat_ref``): the training
-    forward runs no kernel, as the reference's runs no Pallas kernel."""
-    if (not torch.is_grad_enabled() and not is_dtensor(t) and t.device.type == "cuda"
-            and t.dtype == torch.float32):
-        return row_stat_lib.row_stat(t, stat)
-    return row_stat_lib.row_stat_ref(t, stat)
+def _norm_kernel(x) -> bool:
+    """Whether a norm takes the norm kernel (``kernels/norm.py``): tensors
+    on the card under ``torch.no_grad`` (the serving paths; the kernel
+    takes bf16 and f32 and raises on another dtype).  The device test is
+    made here as well as in ``norm``: the dry run's meta tensors take the
+    plain version, which the wrapper, refusing any device but the CPU and
+    the card, would not give them.
+    The kernel gives every row one reduction order whatever the number of
+    rows, so a decode step, a prefill chunk and a fused launch of both
+    (``transformer.paged_mixed_step``) norm a row to the same bits; a
+    library reduction spreads a row over more threads when fewer rows ride
+    with it.  With grad enabled (training, even on an input that needs
+    none, as the frames a whisper step norms), DTensors and the CPU take
+    the plain version (``norm_ref``): the training forward runs no kernel,
+    as the reference's runs no Pallas kernel."""
+    return not torch.is_grad_enabled() and not is_dtensor(x) and x.device.type == "cuda"
 
 
 def rms_norm(x, weight, eps: float = 1e-6):
-    """RMS norm over the last dim (its statistic: ``_stat``)."""
-    xf = x.float()
-    var = _stat(xf, "mean_square")
-    out = xf * torch.rsqrt(var + eps)
-    return (out * weight.float()).to(x.dtype)
+    """RMS norm over the last dim, in ``x``'s dtype (route: ``_norm_kernel``)."""
+    route = norm_lib.norm if _norm_kernel(x) else norm_lib.norm_ref
+    return route(x, weight, kind="rms", eps=eps)
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
-    """Layer norm over the last dim (its statistics: ``_stat``)."""
-    xf = x.float()
-    mu = _stat(xf, "mean")
-    var = _stat(xf, "var")
-    out = (xf - mu) * torch.rsqrt(var + eps)
-    return (out * weight.float() + bias.float()).to(x.dtype)
+    """Layer norm over the last dim, in ``x``'s dtype (route: ``_norm_kernel``)."""
+    route = norm_lib.norm if _norm_kernel(x) else norm_lib.norm_ref
+    return route(x, weight, bias, kind="layer", eps=eps)
 
 
 def make_norm(cfg_norm: str, dim: int, *, lead=(), device=None):

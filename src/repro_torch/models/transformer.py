@@ -577,8 +577,8 @@ def paged_mixed_step(params, cfg, state, tokens, cur_pos, chunk):
     decode rows only.
 
     Bits: every projection runs the row-invariant GEMM, attention and the
-    MoE run per side, every norm's row statistic runs the row-statistic
-    kernel (``layers._stat``: one order per row whatever the rows beside
+    MoE run per side, every norm runs the norm kernel
+    (``layers._norm_kernel``: one order per row whatever the rows beside
     it), and the rest is elementwise, so every logit, tail and ``(ck, cv)`` row has the
     bits its own launch gives it (held on the card by
     ``tests/test_torch_gpu.py -k "fused_step or fused_route"``).  An MoE

@@ -36,7 +36,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm
 from repro_torch.kernels import kv_block_copy as kbc
 from repro_torch.kernels import paged_attention as pa
-from repro_torch.kernels import row_stat as rs
+from repro_torch.kernels import norm as nm
 
 pytestmark = pytest.mark.gpu
 
@@ -1162,7 +1162,7 @@ def test_int8_offload_and_restore_launch_k3(dev):
 def _launch_counts():
     return (fa.flash_attention.launches, kbc.kv_block_copy.launches,
             pa.paged_decode_attention.launches, pa.paged_prefill_attention.launches,
-            pa.paged_attention.launches, gemm.gemm.launches)
+            pa.paged_attention.launches, gemm.gemm.launches, nm.norm.launches)
 
 
 def test_training_step_on_card_matches_cpu(dev):
@@ -1376,7 +1376,7 @@ def test_routes_give_the_same_bits_on_card(dev, D, G, start):
     out = (fa.flash_attention(*sc["flash"]["args"], causal=True, **kw),
            pa.paged_prefill_attention(*sc["chunk"]["args"], **kw),
            pa.paged_decode_attention(*sc["decode"]["args"], **kw))
-    assert [b - a for a, b in zip(counts, _launch_counts())] == [1, 0, 1, 1, 0, 0]
+    assert [b - a for a, b in zip(counts, _launch_counts())] == [1, 0, 1, 1, 0, 0, 0]
     _close(out[0], fa.flash_attention_ref(*sc["flash"]["args"], causal=True, **kw), torch.bfloat16)
     _close(out[1], pa.paged_prefill_attention_ref(*sc["chunk"]["args"], **kw), torch.bfloat16)
     _close(out[2], pa.paged_decode_attention_ref(*sc["decode"]["args"], **kw), torch.bfloat16)
@@ -2001,56 +2001,149 @@ def test_routes_give_the_same_bits_at_length_on_card(dev, S):
 
 
 # ---------------------------------------------------------------------------
-# the norms' row statistics: one order per row whatever the rows beside it
+# the norms (``kernels/norm.py``): one launch a norm, bitwise the route it
+# replaced, one order per row whatever the rows beside it
 # ---------------------------------------------------------------------------
 
+NORM_EPS = {"rms": 1e-6, "layer": 1e-5}
+NORM_ROWS = (1, 3, 8, 512, 4095, LONG)
 
-@pytest.mark.parametrize("stat", ["mean", "mean_square", "var"])
-@pytest.mark.parametrize("d", [2048, 128, 2047])
-def test_row_stat_rows_do_not_depend_on_the_rows_on_card(dev, stat, d):
-    """Each row's statistic is bitwise the same for 1 to 4096 rows (a
-    decode step, a chunk, a prefill), off the 16-byte grid too (the scalar
-    loads: the same adds in the same order), and within 1e-5 of the plain
-    version; a width that is not a multiple of 4 takes the scalar loads."""
-    g = torch.Generator(device=dev).manual_seed(d)
-    x = 3.0 * torch.randn((4096, d), generator=g, device=dev)
-    n0 = rs.row_stat.launches
-    full = rs.row_stat(x, stat)
-    assert rs.row_stat.launches == n0 + 1 and full.shape == (4096, 1)
-    _close(full, rs.row_stat_ref(x, stat), torch.float32)
-    for R in (1, 3, 4, 8, 32, 512, 4095):
-        assert torch.equal(rs.row_stat(x[-R:], stat), full[-R:]), f"R = {R}"
-    buf = torch.empty(8 * d + 1, device=dev)
-    shifted = buf[1:].view(8, d)  # 4 bytes past an aligned address
+
+def _norm_args(dev, kind, dtype, wshape, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = (1.0 + 0.5 * torch.randn(wshape, generator=g, device=dev)).to(dtype)
+    b = (0.5 * torch.randn(wshape, generator=g, device=dev)).to(dtype) if kind == "layer" else None
+    return g, w, b
+
+
+def _norm_route(x, w, b, kind):
+    """The route the kernel replaced, on the card (``replaced_route``: the
+    statistic in the kernel's order, the lane sums, the xor tree and the
+    division as torch f32 ops, then torch's elementwise chain)."""
+    return nm.replaced_route(x, w, b, kind=kind, eps=NORM_EPS[kind])
+
+
+def _norm(x, w, b, kind):
+    return nm.norm(x, w, b, kind=kind, eps=NORM_EPS[kind])
+
+
+def _bits(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    return torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.parametrize("d", [2048, 128, 2047, 768, 5120, 7168])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_norm_is_bitwise_the_route_it_replaces_on_card(dev, kind, dtype, d):
+    """The kernel against the route it replaced, bitwise, for the last R
+    rows of a 32,768-row input at each R of NORM_ROWS (so each row's bits do
+    not depend on R), 4 bytes off the vector boundary (the scalar loads) and
+    strided (copied contiguous by the wrapper): widths of qwen3-1.7b, its
+    qk-norm, an odd one, whisper-small, stablelm-12b and arctic-480b (read
+    twice: past the register budget); within the plain version's tolerance
+    of ``torch.mean`` / ``torch.var``'s route."""
+    g, w, b = _norm_args(dev, kind, dtype, (d,), d)
+    x = (3.0 * torch.randn((LONG, d), generator=g, device=dev)).to(dtype)
+    want = _norm_route(x, w, b, kind)
+    n0 = nm.norm.launches
+    for R in NORM_ROWS:
+        same, err = _bits(_norm(x[-R:], w, b, kind), want[-R:])
+        assert same, f"R = {R}: max|d| {err}"
+    assert nm.norm.launches == n0 + len(NORM_ROWS)
+    buf = torch.empty(8 * d + 2, dtype=dtype, device=dev)
+    off = 4 // buf.element_size()
+    shifted = buf[off:off + 8 * d].view(8, d)
     shifted.copy_(x[:8])
-    assert torch.equal(rs.row_stat(shifted, stat), full[:8])
-    strided = x[:8].t().contiguous().t()  # copied contiguous by the wrapper
-    assert torch.equal(rs.row_stat(strided, stat), full[:8])
+    assert shifted.data_ptr() % 16 == 4
+    assert _bits(_norm(shifted, w, b, kind), want[:8])[0]
+    strided = x[:8].t().contiguous().t()
+    assert not strided.is_contiguous() and _bits(_norm(strided, w, b, kind), want[:8])[0]
+    _close(want, nm.norm_ref(x, w, b, kind=kind, eps=NORM_EPS[kind]), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["rms", "layer"])
+def test_norm_per_head_weight_is_bitwise_the_route_on_card(dev, kind, dtype):
+    """xlstm-350m's per-head ``hnorm`` [nh 4, dh 256] over [B, S, nh, dh]
+    as its scan hands it (a transpose: copied contiguous), row r taking
+    weight row r mod nh, bitwise the route; and a weight of another dtype
+    than x (bf16 weights over f32 rows, as the scan's f32 states meet them)."""
+    g, w, b = _norm_args(dev, kind, dtype, (4, 256), 11)
+    x = (2.0 * torch.randn((37, 3, 4, 256), generator=g, device=dev)).to(dtype).transpose(0, 1)
+    same, err = _bits(_norm(x, w, b, kind), _norm_route(x, w, b, kind))
+    assert same, err
+    wb = w.bfloat16()
+    bb = b.bfloat16() if b is not None else None
+    same, err = _bits(_norm(x.float(), wb, bb, kind), _norm_route(x.float(), wb, bb, kind))
+    assert same, err
+
+
+def test_norm_rsqrt_is_torch_rsqrt_on_card(dev):
+    """The kernel's ``rsqrtf`` against ``torch.rsqrt`` over every positive
+    normal float32 (2^31 - 2^24 values, in chunks of 2^27): 0 differ, so the
+    statistic's ``rsqrt(stat + eps)`` (always a positive normal) is the
+    plain chain's."""
+    lo, hi, step = 0x00800000, 0x7F800000, 1 << 27
+    differ = 0
+    for start in range(lo, hi, step):
+        v = torch.arange(start, min(start + step, hi), dtype=torch.int32, device=dev)
+        v = v.view(torch.float32)
+        differ += int((nm.rsqrt_probe(v).view(torch.int32)
+                       != torch.rsqrt(v).view(torch.int32)).sum())
+    assert differ == 0
 
 
 @pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
 def test_norm_rows_do_not_depend_on_the_rows_on_card(dev, norm):
     """``layers.apply_norm`` in bf16 at qwen3-1.7b's width: the rows of a
     4-row decode batch are bitwise those of the same rows in a 512-row
-    chunk and a 32,768-row prefill."""
+    chunk and a 32,768-row prefill, each in one launch."""
     from repro_torch.models.layers import apply_norm, make_norm
 
     g = torch.Generator(device=dev).manual_seed(7)
     p = make_norm(norm, 2048, device=dev)
     x = (2.0 * torch.randn((LONG, 2048), generator=g, device=dev)).bfloat16()
-    n0 = rs.row_stat.launches
+    n0 = nm.norm.launches
     with torch.no_grad():
         full = apply_norm(norm, p, x)
         for R in (4, 512):
             assert torch.equal(apply_norm(norm, p, x[-R:]), full[-R:]), f"R = {R}"
-    assert rs.row_stat.launches > n0
+    assert nm.norm.launches == n0 + 3
 
 
-def test_row_stat_refuses_grad_and_other_dtypes_on_card(dev):
+def test_norm_refuses_grad_dtype_and_weight_shape_on_card(dev):
+    """A grad-requiring input, an unsupported dtype of x, the weight or the
+    bias, a weight that is not a suffix of x's shape and a weight on another
+    device raise before any launch."""
     x = torch.randn((4, 64), device=dev, requires_grad=True)
+    w = torch.ones((64,), device=dev)
+    n0 = nm.norm.launches
     with pytest.raises(RuntimeError, match="no backward"):
-        rs.row_stat(x, "mean")
+        nm.norm(x, w, kind="rms", eps=1e-6)
+    x = x.detach()
     with pytest.raises(TypeError):
-        rs.row_stat(x.detach().bfloat16(), "mean")
+        nm.norm(x.half(), w, kind="rms", eps=1e-6)
+    with pytest.raises(TypeError):
+        nm.norm(x, w.double(), kind="rms", eps=1e-6)
+    with pytest.raises(TypeError):
+        nm.norm(x, w, w.bfloat16(), kind="layer", eps=1e-5)
+    with pytest.raises(ValueError, match="not a suffix"):
+        nm.norm(x, torch.ones((32,), device=dev), kind="rms", eps=1e-6)
+    with pytest.raises(ValueError, match="not a suffix"):
+        nm.norm(x, torch.ones((2, 64), device=dev), kind="rms", eps=1e-6)
     with pytest.raises(ValueError):
-        rs.row_stat(x.detach(), "median")
+        nm.norm(x, w.cpu(), kind="rms", eps=1e-6)
+    assert nm.norm.launches == n0
+
+
+def test_norm_launches_113_in_a_qwen3_decode_step_on_card(dev):
+    """One full-width, full-depth qwen3-1.7b decode launch runs 113 norm
+    kernels (``ln1``, ``ln2``, ``q_norm`` and ``k_norm`` in 28 layers, then
+    the final norm), one a norm."""
+    bundle, params = _qwen3_layers(dev, 28)
+    state, toks, cur, _ = _mixed_scene(bundle.cfg, dev, 8, 1, 8)
+    n0 = nm.norm.launches
+    bundle.paged_decode_fn(params, state, toks, cur)
+    torch.cuda.synchronize()
+    assert nm.norm.launches - n0 == 4 * 28 + 1

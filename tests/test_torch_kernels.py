@@ -546,7 +546,7 @@ def test_paged_prefill_tiled_model_matches_jax(dtype, G, C):
 @pytest.mark.parametrize(
     "header,users",
     [
-        ("common.cuh", {"paged_attention", "paged_decode", "flash_attention", "gemm"}),
+        ("common.cuh", {"paged_attention", "paged_decode", "flash_attention", "gemm", "norm"}),
         ("tensor_core.cuh", {"paged_attention", "paged_decode", "flash_attention", "wgmma_probe"}),
         ("split_merge.cuh", {"paged_attention", "paged_decode", "flash_attention"}),
         ("attention_split.cuh", {"paged_attention", "paged_decode", "flash_attention"}),

@@ -21,11 +21,10 @@ error, output tokens and cached/restored counts, claim states, refcounts):
   bf16 rounding boundary rounds either way, so the logits move with the
   positions (measured max |d| 1.2e-3 at 524,287, 5.3e-4 at 65,535, 2.5e-7
   at 32,767); the RoPE angles and their sines are bitwise equal there;
-* within the port: chunk 8 against 64 bitwise in float32 under the window;
-* the norms' row statistic (``kernels/row_stat.py``, whose kernel gives a
-  row one reduction order on every route): its plain version, and the
-  port's ``rms_norm``/``layer_norm`` through it, against the JAX package's
-  within 1e-6 in float32.
+* within the port: chunk 8 against 64 bitwise in float32 under the window.
+
+The norms (one reduction order per row on every route) are held against
+the JAX package in ``tests/test_torch_norm.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -44,7 +43,6 @@ from repro_torch.configs import get_config as t_get_config
 from repro_torch.configs import reduced as t_reduced
 from repro_torch.core import analyzer as t_analyzer
 from repro_torch.core.claims import ClaimMode, ClaimRejected, ClaimState
-from repro_torch.kernels import row_stat as rs
 from repro_torch.models.registry import build_model
 from repro_torch.params import params_from_jax
 from repro_torch.serving.engine import ServingEngine
@@ -260,41 +258,3 @@ def test_chunk_size_invariance_under_the_window_bitwise(dpkgs):
     assert na == nb == 50
     assert np.array_equal(la, lb)
     assert np.array_equal(ka, kb) and np.array_equal(va, vb)
-
-
-@pytest.mark.parametrize("stat", ["mean", "mean_square", "var"])
-def test_row_stat_plain_matches_jax(stat):
-    """The statistic the norms take (over widths 2048 and 128, rows of
-    several magnitudes) against ``jnp.mean`` / ``jnp.var``, float32."""
-    x = np.random.default_rng(40).normal(size=(6, 4, 2048)).astype(np.float32) * 3.0
-    for a in (x, x[..., :128].copy()):
-        want = {"mean": lambda t: jnp.mean(t, axis=-1, keepdims=True),
-                "mean_square": lambda t: jnp.mean(t * t, axis=-1, keepdims=True),
-                "var": lambda t: jnp.var(t, axis=-1, keepdims=True)}[stat](jnp.asarray(a))
-        got = rs.row_stat(torch.from_numpy(a), stat)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
-    with pytest.raises(RuntimeError, match="no backward"):
-        rs.row_stat(torch.ones((2, 8), requires_grad=True), stat)
-    with pytest.raises(ValueError):
-        rs.row_stat(torch.ones((2, 8)), "median")
-
-
-@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
-def test_norms_through_the_row_statistic_match_jax(norm):
-    """``layers.apply_norm`` on the CPU (the row statistic's plain version)
-    against the JAX package's ``rms_norm`` / ``layer_norm``, float32."""
-    import repro.models.layers as jl
-    import repro_torch.models.layers as tl
-
-    rng = np.random.default_rng(41)
-    x = rng.normal(size=(3, 5, 256)).astype(np.float32) * 2.0
-    w = rng.normal(size=(256,)).astype(np.float32)
-    b = rng.normal(size=(256,)).astype(np.float32)
-    if norm == "rmsnorm":
-        want = jl.rms_norm(jnp.asarray(x), jnp.asarray(w))
-        got = tl.apply_norm(norm, {"w": torch.from_numpy(w)}, torch.from_numpy(x))
-    else:
-        want = jl.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
-        got = tl.apply_norm(norm, {"w": torch.from_numpy(w), "b": torch.from_numpy(b)},
-                            torch.from_numpy(x))
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)

@@ -29,8 +29,10 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      products bitwise equal to the same rows of the M = 512 product; the
      norm kernel (each rms_norm / layer_norm in one launch, one order per
      row) at qwen3-1.7b's decode, chunk, qk-norm and monolithic row counts
-     and at grok-1-314b's and arctic-480b's widths (6144, 7168: the rows
-     read again for each pass), bitwise the route it replaced (the
+     and at the widths past qwen3's (decode 8 and chunk 512 rows at
+     h2o-danube-1.8b's 2560, phi-3-vision-4.2b's 3072, deepseek-7b's 4096,
+     stablelm-12b's 5120, grok-1-314b's 6144 and arctic-480b's 7168: the
+     rows past 2048 read again for each pass), bitwise the route it replaced (the
      statistic's order written out in torch ops, then torch's elementwise
      chain) and each row bitwise across the row counts of its width, beside
      F.rms_norm / F.layer_norm;
@@ -146,12 +148,14 @@ model freed before the next (the depth cuts are printed):
      and depth, 4 x 4096 tokens, lr 3e-5, three sharded steps on DTensors
      against ``Trainer.train_step`` from the same seed-0 masters and
      batches (losses and grad norms within 1e-3 relative), step seconds
-     beside the unsharded ones; (b) a sharded prefill cell at 4 x 2048
+     beside the unsharded ones; (b) sharded prefill cells at 1 x 32,768
+     tokens (qwen3-1.7b, then h2o-danube-1.8b under its 4096-key window)
      against ``prefill_fn`` (max |d| 0.25, the same argmax) whose sharded
-     attention body launches K5 once per layer (28); (c) a sharded decode
-     cell, 8 rows over 4096 slots, 4 steps, against ``decode_fn`` (max
-     |d| 0.25, greedy tokens equal but near-ties of 2 bf16 spacings,
-     the four-card program's rule); (d)
+     attention body launches K5 once per layer (28, 24); (c) a sharded
+     decode cell of qwen3-1.7b, 2 rows over 32,768 slots after a
+     32,764-token prompt, 4 steps (the last fills the last slot), against
+     ``decode_fn`` (max |d| 0.25, greedy tokens equal but near-ties of 2
+     bf16 spacings, the four-card program's rule); (d)
      ``compressed_psum`` on a 2048 x 151936 f32 leaf, bitwise
      ``compress_roundtrip``, its bytes against bf16's; (e)
      ``moe_apply_sharded`` ep, tp and a2a on one full-width grok-1-314b
@@ -236,7 +240,12 @@ two would run it (its 1024 queries at positions 1024-2047 over the 2048
 keys, ``q_offset`` 1024) and as each model rank past the first of
 ``scripts/torch_four_cards.py``'s 2 x 2 and 1 x 4 meshes runs it (2 x 1024
 queries at 1024; 4 x 512 at 512, 1024 and 1536), beside
-scaled_dot_product_attention.  For phase 20 it holds and times K1 over 1
+scaled_dot_product_attention; and K5 at each model rank's slice of that
+program's 32,768-token ``prefill_32k`` case past the first (2 x 16,384
+queries at 16,384; 4 x 8192 at 8192, 16,384 and 24,576), qwen3-1.7b's
+heads and h2o-danube-1.8b's (G 4, D 80, window 4096), each held against
+its plain version and bitwise against the same rows of one unsharded
+32,768-query call, beside SDPA under the same boolean mask.  For phase 20 it holds and times K1 over 1
 and 8 rows of 32,768 prefix keys (qwen3) and 8 such rows at h2o-danube's
 G = 4, D 80 under its 4096-key window, K2 on a 512-token chunk after
 32,256 prefix keys without and with the window, K5 over 32,768 tokens
@@ -455,6 +464,7 @@ def kernel_phase(gen_seed: int = 0):
     moe_vlm_kernel_rows(dev, rnd, gen_seed)
     whisper_kernel_rows(rnd)
     sharded_prefill_kernel_row(rnd)
+    past_256.setdefault("flash_attention", []).extend(sharded_32k_kernel_rows(rnd))
     for name, extra in long_context_kernel_rows(dev, rnd, gen_seed).items():
         past_256.setdefault(name, []).extend(extra)
     for name, r in results.items():
@@ -654,10 +664,15 @@ def gemm_rows(dev, g):
 # decode step, of a prefill chunk and of a monolithic 32k prefill, and the
 # qk-norm of a 512-token chunk (16 query heads of 128); then the widths past
 # 2048, where the kernel reads a row again for each pass instead of holding
-# it in registers: grok-1-314b's 6144 and arctic-480b's 7168 (decode and
-# chunk)
+# it in registers (decode and chunk): h2o-danube-1.8b's 2560, phi-3-vision-
+# 4.2b's 3072, deepseek-7b's 4096, stablelm-12b's 5120, grok-1-314b's 6144
+# and arctic-480b's 7168
 NORM_SHAPES = {"decode ln": (8, 2048), "chunk ln": (512, 2048), "chunk qk-norm": (8192, 128),
-               "monolithic ln": (32768, 2048), "grok-1-314b decode ln": (8, 6144),
+               "monolithic ln": (32768, 2048), "h2o-danube-1.8b decode ln": (8, 2560),
+               "h2o-danube-1.8b chunk ln": (512, 2560), "phi-3-vision-4.2b decode ln": (8, 3072),
+               "phi-3-vision-4.2b chunk ln": (512, 3072), "deepseek-7b decode ln": (8, 4096),
+               "deepseek-7b chunk ln": (512, 4096), "stablelm-12b decode ln": (8, 5120),
+               "stablelm-12b chunk ln": (512, 5120), "grok-1-314b decode ln": (8, 6144),
                "grok-1-314b chunk ln": (512, 6144), "arctic-480b decode ln": (8, 7168),
                "arctic-480b chunk ln": (512, 7168)}
 NORM_EPS = {"rms": 1e-6, "layer": 1e-5}
@@ -1074,9 +1089,12 @@ def whisper_kernel_rows(rnd):
     return rows
 
 
+FOUR_CARD_PREFILL = (4, 2048)  # scripts/torch_four_cards.py's prefill case
+
+
 def sharded_prefill_kernel_row(rnd):
-    """K5 at the shape phase 18's sharded prefill hands it on the 1 x 1
-    mesh: qwen3-1.7b's 4 x 2048 tokens, 16 query heads over 8 kv heads,
+    """K5 at the shape the four-card program's prefill case hands it on
+    each card (phase 18's before it ran at 32,768): qwen3-1.7b's 4 x 2048 tokens, 16 query heads over 8 kv heads,
     D 128, causal, q as a view of the [B, S, H, D] activations and k, v of
     [B, S, KV, D], against its plain version and beside
     scaled_dot_product_attention (``enable_gqa``).  The sharded prefill's
@@ -1088,7 +1106,7 @@ def sharded_prefill_kernel_row(rnd):
     from repro_torch.kernels import flash_attention as fa
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    B, S, H, KV, D = *DIST_PREFILL, 16, 8, 128
+    B, S, H, KV, D = *FOUR_CARD_PREFILL, 16, 8, 128
     act = lambda n: rnd(B, S, n, D).transpose(1, 2)
     copies = [(act(H), act(KV), act(KV)) for _ in range(4)]
     lib = (lambda q, k, v: sdpa(q, k, v, is_causal=True, enable_gqa=True), copies)
@@ -1134,6 +1152,85 @@ def sharded_prefill_kernel_row(rnd):
                            4.0 * b * H * D * pairs, library=lib, timed=kw)
             print("sharded prefill kernel row: " + json.dumps({label: r}))
     return row
+
+
+def sharded_32k_kernel_rows(rnd):
+    """K5 at what each model rank past the first hands it in
+    ``scripts/torch_four_cards.py``'s prefill_32k case (4 x 32,768 tokens):
+    on 2 x 2 the second half of 2 rows' queries (2 x 16,384 at 16,384), on
+    1 x 4 the last three quarters of 4 rows' (4 x 8192 at 8192, 16,384 and
+    24,576), each over all 32,768 keys, for qwen3-1.7b (16/8 heads, D 128,
+    causal) and h2o-danube-1.8b (32/8, D 80, window 4096).  q is the rank's
+    shard of [B, S, H, D] as the sharded body hands it.  Each row is held
+    against the plain version on K5_SLICE-query slices at its start,
+    middle and end, and bitwise against the same rows of one unsharded
+    call over all 32,768 queries (one key order by absolute position);
+    timed beside its bound over the pairs its mask keeps, the plain
+    version over 512-query slices and SDPA under the same boolean mask (K/V
+    repeated to every query head beforehand, untimed).  Returns [(label,
+    row), ...] for the kernels' JSON record."""
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    S, rows = LONG_S, []
+    for arch, H, KV, D, window in (("qwen3-1.7b", 16, 8, 128, 0),
+                                   ("h2o-danube-1.8b", 32, 8, 80, 4096)):
+        kw = dict(causal=True, window=window)
+        for b, ranks in ((2, 2), (4, 4)):
+            Sq = S // ranks
+            q = rnd(b, S, H, D)
+            k, v = rnd(b, S, KV, D).transpose(1, 2), rnd(b, S, KV, D).transpose(1, 2)
+            whole = fa.flash_attention(q.transpose(1, 2), k, v, **kw)
+            rep = (k.repeat_interleave(H // KV, 1), v.repeat_interleave(H // KV, 1))
+            for off in range(Sq, S, Sq):
+                qs = q[:, off:off + Sq].contiguous().transpose(1, 2)
+                kws = dict(kw, q_offset=off)
+                got = fa.flash_attention(qs, k, v, **kws)
+                torch.cuda.synchronize()
+                label = (f"K5 {arch} prefill_32k, model rank {off // Sq} of {ranks} ({b} x {Sq} "
+                         f"queries at {off} over {S} keys, {H}/{KV} heads, D {D}"
+                         + (f", window {window}" if window else ", causal") + ")")
+                check(torch.equal(got, whole[:, :, off:off + Sq]),
+                      f"{label}: not bitwise the same rows of the unsharded call "
+                      f"({max_err(got, whole[:, :, off:off + Sq])})")
+                errs = []
+                for o in (0, Sq // 2, Sq - K5_SLICE):
+                    n = K5_SLICE
+                    want = fa.flash_attention_ref(qs[:, :, o:o + n], k[:, :, :off + o + n],
+                                                  v[:, :, :off + o + n], q_offset=off + o, **kw)
+                    torch.cuda.synchronize()
+                    errs.append(max_err(got[:, :, o:o + n], want))
+                    check(within(got[:, :, o:o + n], want, torch.bfloat16),
+                          f"{label}: rows at {off + o} disagree with the plain version "
+                          f"({errs[-1]})")
+                del got, want
+                p = off + torch.arange(Sq, device="cuda")[:, None]
+                keep = p >= torch.arange(S, device="cuda")
+                if window:
+                    keep &= p - torch.arange(S, device="cuda") < window
+                pairs = int(keep.sum())
+                lib = lambda q_, k_, v_, keep=keep: sdpa(q_, k_, v_, attn_mask=keep)
+                e = max_err(lib(qs, *rep), fa.flash_attention(qs, k, v, **kws))
+                check(e <= 2e-2, f"{label}: SDPA computes another function ({e})")
+                copies = [(qs, k, v)]
+                ms = time_ms(lambda *a: fa.flash_attention(*a, **kws), copies, iters=10)
+                plain_ms = time_ms(lambda *a: _flash_by_slices(*a, q_offset=off, **kw), copies,
+                                   iters=1)
+                library_ms = time_ms(lib, [(qs, *rep)], iters=5)
+                b_ms, b_by = bound(2.0 * (2 * b * H * Sq * D + 2 * b * KV * S * D),
+                                   4.0 * b * H * D * pairs)
+                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                           library_ms=library_ms, max_abs_err=max(errs))
+                print(f"{label}: {ms:.4f} ms (plain over 512-query slices {plain_ms:.4f} ms, "
+                      f"bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of the bound, SDPA "
+                      f"{library_ms:.4f} ms, {ms / library_ms:.2f}x of it), {pairs} kept pairs a "
+                      f"row and head, bitwise the unsharded call's rows, max|d|={max(errs):.3e}")
+                print("sharded prefill kernel row: " + json.dumps({label: row}))
+                rows.append((label, row))
+                del qs, keep
+            del q, k, v, whole, rep
+            torch.cuda.empty_cache()
+    return rows
 
 
 # hymba-1.5b's full-width snapshot after an 1100-token prefix: ring k and v
@@ -2105,8 +2202,13 @@ WIDE_DEPTH = {"stablelm-12b": 10, "deepseek-7b": 8}
 # run in subprocesses started at the smoke's beginning (CPU only: the fake
 # backend cannot share this process's default group with NCCL).
 DIST_STEPS = 3
-DIST_PREFILL = (4, 2048)  # PREFILL_32K's 32 x 32768 cut: its cache alone is ~120 GB at 28 layers
-DIST_DECODE = (8, 4096, 4)  # rows, cache slots, steps (DECODE_32K's 128 x 32768 cut)
+# PREFILL_32K's 32 x 32,768 tokens cut to 1 row (qwen3-1.7b's cache: 3.76 GB
+# a side; the shape's 32 rows would hold ~120 GB at 28 layers)
+DIST_PREFILL = (1, 32768)
+# rows, cache slots, steps: DECODE_32K's 128 rows over 32,768 slots cut to 2
+# (7.5 GB of cache, ~22.5 GB during an unsharded step, which keeps its input
+# cache and stacks a new one); the prompt fills the cache to slots - steps
+DIST_DECODE = (2, 32768, 4)
 DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("qwen3-1.7b", "decode_32k", "single"),
                 ("grok-1-314b", "train_4k", "multi"))
 _CHILDREN = []
@@ -2220,32 +2322,19 @@ def _f32_tree(tree):
     return tree.float() if tree.is_floating_point() else tree
 
 
-def sharded_serving(mesh):
-    """(b) A sharded prefill cell at 4 x 2048 tokens against the unsharded
-    ``prefill_fn`` (phase 5's tolerance: max |d| 0.25, the same argmax per
-    row); its attention body must launch K5 once per layer.  (c) A sharded
-    decode cell of 8 rows over a 4096-slot cache, 4 steps, against the
-    unsharded ``decode_fn`` from the same cache: max |d| 0.25, and every
-    greedy token equal but near-ties (``scripts/torch_four_cards.py``'s
-    ``greedy_held``: the DTensor cell keeps ``x @ w``, the unsharded step
-    runs the row-invariant GEMM, and the two round differently)."""
-    sys.path.insert(0, str(ROOT / "scripts"))
-    import torch_four_cards as fc
-    from repro_torch.configs import ShapeSpec, get_config
+def sharded_prefill_check(mesh, arch, bundle, params, cfg, rng):
+    """(b) One sharded prefill cell of ``arch`` at DIST_PREFILL against the
+    unsharded ``prefill_fn``: logits max |d| 0.25 and the same argmax, K5
+    once per layer, the cache's k beside."""
+    from repro_torch.configs import ShapeSpec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps as st
-    from repro_torch.models.registry import build_model
     from repro_torch.sharding.rules import full
 
-    cfg = get_config("qwen3-1.7b")
     V = cfg.vocab_size
-    bundle = build_model(cfg)
-    params = bundle.init_params(torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(18)
     B, S = DIST_PREFILL
     tokens = torch.from_numpy(rng.integers(0, V, (B, S)).astype(np.int32)).cuda()
-    cell = st.build_cell("qwen3-1.7b", "prefill_32k", mesh,
-                         shape=ShapeSpec("prefill_32k", S, B, "prefill"))
+    cell = st.build_cell(arch, "prefill_32k", mesh, shape=ShapeSpec("prefill_32k", S, B, "prefill"))
     pd = st.distribute_argument(cell, "params", params)
     bd = st.distribute_argument(cell, "batch", {"tokens": tokens})
     n0 = fa.flash_attention.launches
@@ -2263,17 +2352,48 @@ def sharded_serving(mesh):
     e = max_err(logits_s, logits_u)
     same = bool((logits_s.argmax(-1) == logits_u.argmax(-1)).all())
     ek = max_err(full(cache_s["k"]), cache_u["k"])
-    print(f"sharded prefill {B} x {S} tokens: logits max|d| {e:.3e} vs the unsharded prefill_fn "
-          f"(limit 0.25), argmax equal {same}, cache k max|d| {ek:.3e}; K5 launches {k5} "
-          f"({cfg.num_layers} per call); {t_sharded:.3f} s sharded, {t_plain:.3f} s unsharded")
+    print(f"sharded prefill {arch} {B} x {S} tokens: logits max|d| {e:.3e} vs the unsharded "
+          f"prefill_fn (limit 0.25), argmax equal {same}, cache k ({cache_u['k'].shape[2]} slots) "
+          f"max|d| {ek:.3e}; K5 launches {k5} ({cfg.num_layers} per call); {t_sharded:.3f} s "
+          f"sharded, {t_plain:.3f} s unsharded")
     check(bool(torch.isfinite(logits_s).all()) and tuple(logits_s.shape) == (B, V),
-          "sharded prefill logits")
-    check(e <= 0.25 and same, f"sharded prefill disagrees ({e})")
-    check(k5 == cfg.num_layers, f"the sharded prefill launched K5 {k5} times, not {cfg.num_layers}")
-    del cell, pd, bd, cache_s, cache_u, logits_s, logits_u
+          f"sharded prefill {arch} logits")
+    check(e <= 0.25 and same, f"sharded prefill {arch} disagrees ({e})")
+    check(k5 == cfg.num_layers,
+          f"the sharded prefill of {arch} launched K5 {k5} times, not {cfg.num_layers}")
+
+
+def sharded_serving(mesh):
+    """(b) Sharded prefill cells at 1 x 32,768 tokens against the unsharded
+    ``prefill_fn`` (phase 5's tolerance: max |d| 0.25, the same argmax per
+    row), qwen3-1.7b and then h2o-danube-1.8b under its 4096-key window;
+    each attention body must launch K5 once per layer.  (c) A sharded
+    decode cell of qwen3-1.7b, 2 rows over 32,768 slots after a
+    32,764-token prompt, 4 steps, against the unsharded ``decode_fn`` from
+    the same cache: max |d| 0.25, and every greedy token equal but
+    near-ties (``scripts/torch_four_cards.py``'s ``greedy_held``: the
+    DTensor cell keeps ``x @ w``, the unsharded step runs the
+    row-invariant GEMM, and the two round differently)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import torch_four_cards as fc
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import steps as st
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import full
+
+    cfg = get_config("qwen3-1.7b")
+    V = cfg.vocab_size
+    bundle = build_model(cfg)
+    params = bundle.init_params(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(18)
+    sharded_prefill_check(mesh, "qwen3-1.7b", bundle, params, cfg, rng)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     rows, slots, steps = DIST_DECODE
-    prompt = torch.from_numpy(rng.integers(0, V, (rows, 64)).astype(np.int32)).cuda()
+    plen = slots - steps
+    prompt = torch.from_numpy(rng.integers(0, V, (rows, plen)).astype(np.int32)).cuda()
+    torch.cuda.reset_peak_memory_stats()
     logits, cache = bundle.prefill_fn(params, {"tokens": prompt}, slots)
     cell = st.build_cell("qwen3-1.7b", "decode_32k", mesh,
                          shape=ShapeSpec("decode_32k", slots, rows, "decode"))
@@ -2282,7 +2402,7 @@ def sharded_serving(mesh):
     worst, ts, tu, flips = 0.0, [], [], []
     for i in range(steps):
         tok = logits.argmax(-1).to(torch.int32)
-        pos = torch.full((rows,), 64 + i, dtype=torch.int32, device=tok.device)
+        pos = torch.full((rows,), plen + i, dtype=torch.int32, device=tok.device)
         args = (pd, cd, st.distribute_argument(cell, "tokens", tok),
                 st.distribute_argument(cell, "cur_pos", pos))
         torch.cuda.synchronize()
@@ -2299,11 +2419,18 @@ def sharded_serving(mesh):
         flips += [dict(f, step=i) for f in fc.greedy_report(ls, logits)["flips"]]
         check(fc.greedy_held({"flips": flips}),
               f"sharded decode step {i}: a greedy token differs beyond a near-tie: {flips}")
-    print(f"sharded decode {rows} rows over {slots} slots, {steps} steps: logits max|d| "
-          f"{worst:.3e} vs decode_fn (limit 0.25); greedy tokens equal but {len(flips)} of "
-          f"{rows * steps} near-ties (limit {fc.NEAR_TIE} bf16 spacings): {flips}; step s sharded "
-          f"{[round(t, 4) for t in ts]}, unsharded {[round(t, 4) for t in tu]}")
+    print(f"sharded decode {rows} rows over {slots} slots after a {plen}-token prompt, {steps} "
+          f"steps (the last at slot {plen + steps - 1}): logits max|d| {worst:.3e} vs decode_fn "
+          f"(limit 0.25); greedy tokens equal but {len(flips)} of {rows * steps} near-ties (limit "
+          f"{fc.NEAR_TIE} bf16 spacings): {flips}; step s sharded {[round(t, 4) for t in ts]}, "
+          f"unsharded {[round(t, 4) for t in tu]}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     check(worst <= 0.25, f"sharded decode disagrees ({worst})")
+    del bundle, params, pd, cd, cache, logits, ls, cell, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, bundle, params = load_model("h2o-danube-1.8b")
+    sharded_prefill_check(mesh, "h2o-danube-1.8b", bundle, params, cfg, rng)
+    del bundle, params
 
 
 def compressed_psum_check(mesh):
@@ -3448,16 +3575,18 @@ def _windowed_keys(plen, t_used, window):
     return sum(min(p + t, window) if window else p + t for p, t in zip(plen, t_used))
 
 
-def _flash_by_slices(q, k, v, *, causal=True, window=0, step=512):
+def _flash_by_slices(q, k, v, *, causal=True, window=0, step=512, q_offset=0):
     """``flash_attention_ref`` over query slices of ``step`` rows, each over
     the keys up to its last row (one call over 32,768 queries would hold
-    the f32 scores of every query at once)."""
+    the f32 scores of every query at once); the queries start at position
+    ``q_offset``."""
     from repro_torch.kernels import flash_attention as fa
 
-    S = q.shape[2]
-    return torch.cat([fa.flash_attention_ref(q[:, :, o:o + step], k[:, :, :o + step],
-                                             v[:, :, :o + step], causal=causal, window=window,
-                                             q_offset=o) for o in range(0, S, step)], dim=2)
+    S, o0 = q.shape[2], q_offset
+    return torch.cat([fa.flash_attention_ref(q[:, :, o:o + step], k[:, :, :o0 + o + step],
+                                             v[:, :, :o0 + o + step], causal=causal,
+                                             window=window, q_offset=o0 + o)
+                      for o in range(0, S, step)], dim=2)
 
 
 def long_flash_row(label, rnd, H, KV, D, window):

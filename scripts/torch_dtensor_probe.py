@@ -4,6 +4,12 @@ layouts) and the model frames that issued it.
 
     PYTHONPATH=src python3 scripts/torch_dtensor_probe.py 2x2 qwen3-1.7b,grok-1-314b [train,prefill,decode]
     PYTHONPATH=src python3 scripts/torch_dtensor_probe.py 2x2x2 hymba-1.5b     # (pod, data, model)
+    PYTHONPATH=src python3 scripts/torch_dtensor_probe.py 1x4 qwen3-1.7b decode --collectives
+
+``--collectives`` also prints every collective a cell issues: its kind, its
+result's shape and dtype, and the model frames that issued it (the op whose
+arguments DTensor redistributed).  ``--batch N`` sets the cells' global
+batch (default 16; 1 is a one-row batch).
 
 Meta tensors on a ``fake`` process group: no memory, no data, only
 DTensor's sharding rules, which differ between torch versions, so run it
@@ -48,7 +54,29 @@ class FirstFailingOp(TorchDispatchMode):
             raise
 
 
+class Collectives(TorchDispatchMode):
+    """Prints each functional collective with the model frames under it."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func.namespace in ("_c10d_functional", "_dtensor") and func.__name__.split(".")[0] in (
+                "all_gather_into_tensor", "all_reduce", "reduce_scatter_tensor",
+                "all_to_all_single", "shard_dim_alltoall"):
+            frames = [f"{f.filename.split('src/')[-1]}:{f.lineno} {f.name}"
+                      for f in traceback.extract_stack() if "repro_torch/models" in f.filename]
+            print(f"   {func.__name__.split('.')[0]} {tuple(out.shape)} {out.dtype} "
+                  f"<- {' < '.join(reversed(frames[-2:]))}", flush=True)
+        return out
+
+
 def main() -> int:
+    trace = "--collectives" in sys.argv
+    batch = 16
+    if "--batch" in sys.argv:
+        i = sys.argv.index("--batch")
+        batch = int(sys.argv[i + 1])
+        del sys.argv[i:i + 2]
+    sys.argv = [a for a in sys.argv if a != "--collectives"]
     dims = tuple(int(x) for x in sys.argv[1].split("x"))
     names = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
     init_fake_group(int(torch.tensor(dims).prod()))
@@ -58,12 +86,13 @@ def main() -> int:
     for arch in sys.argv[2].split(","):
         cfg = reduced(get_config(arch))
         for kind in kinds:
-            shape = ShapeSpec(f"{kind}_probe", seq_len=32, global_batch=16, kind=kind)
+            shape = ShapeSpec(f"{kind}_probe", seq_len=32, global_batch=batch, kind=kind)
             opt = AdamWConfig(state_dtype="int8") if cfg.moe.num_experts else None
             try:
                 cell = steps.build_cell(arch, shape.name, mesh, cfg=cfg, shape=shape, opt_cfg=opt)
-                with FirstFailingOp():
-                    steps.run_cell(cell, steps.cell_arguments(cell))
+                args = steps.cell_arguments(cell)
+                with FirstFailingOp(), Collectives() if trace else FirstFailingOp():
+                    steps.run_cell(cell, args)
                 print(f"OK {sys.argv[1]} {arch} {kind}", flush=True)
             except Exception as e:  # reported, then the next cell
                 failed += 1

@@ -2,9 +2,10 @@
 """The port's sharded steps over NCCL with one rank per card, and the
 KV-aware router over one serving replica per card.
 
-    python3 scripts/torch_four_cards.py                      # every case, 4 ranks on 4 cards
+    python3 scripts/torch_four_cards.py                      # all but the 32k cases, 4 cards
     python3 scripts/torch_four_cards.py --cases router       # the router alone
     python3 scripts/torch_four_cards.py --cases train_moe    # MoE training at full width
+    python3 scripts/torch_four_cards.py --cases prefill_32k,decode_32k   # the 32k cells
     python3 scripts/torch_four_cards.py --world 2            # 2 x 1 and 1 x 2 meshes
     python3 scripts/torch_four_cards.py --device cpu --reduced --save DIR   # 4 gloo ranks
 
@@ -58,6 +59,23 @@ card (``launch.mesh.init_group``: rank r on ``cuda:r``).  Fewer cards than
              go first), and held at ``--reduced``; with every expert given
              room for every token (capacity factor E / k, the same weights
              and tokens) it is held as the prefill.
+  prefill_32k  ``prefill_32k``'s cell of qwen3-1.7b (28 layers, 16/8 heads, D
+             128) and h2o-danube-1.8b (24 layers, 32/8 heads, D 80, window
+             4096) at full width and depth, 4 x 32,768 tokens (the shape's
+             batch of 32 cut to 4), on both meshes: held as ``prefill``,
+             with K5's ``q_offset`` model rank x 32,768 / model ranks, and
+             the cache each rank returns (h2o-danube's: the 4096-slot ring)
+             equal as ``full()`` to the one-card cache within 0.25.
+  decode_32k ``decode_32k``'s cell of both models, 4 rows over 32,768 slots
+             (the shape's 128 rows cut to 4) after a 32,764-token prompt, 4
+             steps (the last fills the last slot; h2o-danube's positions
+             pass its 4096-slot ring), on both meshes, with bf16 weights and
+             with them in float32: held as ``decode``; each step's
+             all-gather bytes per device below a quarter of the rank's K+V
+             cache shard.  Both 32k cases record each rank's step peak
+             against the dry run of the same cell (``launch.dryrun`` in
+             subprocesses beside the ranks; the bf16 decode held within
+             15%) and its collectives beside the dry run's.
   train_moe  ``build_cell``'s train step of grok-1-314b (2 of 64 layers; ep,
              a2a and tp on (1, world), auto on (2, world / 2)) and
              arctic-480b (1 of 35; ep on (1, world)) at full width, with
@@ -95,7 +113,10 @@ kernels' device time in one profiled step (``torch.profiler``).
 
 ``--reduced`` runs the reduced configs at small sizes (train 4 x 32
 tokens, prefill 4 x 64, decode 8 rows over 64 slots, train_moe one layer
-at 16 x 128 with grok's four runs that give every expert room).
+at 16 x 128 with grok's four runs that give every expert room,
+prefill_32k 4 x 64 and decode_32k 4 rows over 64 slots after a 60-token
+prompt: the reduced h2o-danube's 16-key window reaches into the previous
+rank's query slice on both meshes, and its decode passes the 16-slot ring).
 The MoE layer runs in float32 on the CPU (held to 1e-6), bf16 on the
 cards; the attention case in float32 everywhere.  Writes
 ``<out>/summary.json``; ``--save DIR``
@@ -126,8 +147,12 @@ import torch.multiprocessing as mp
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 
-MESH_CASES = ("train", "prefill", "decode", "attention", "psum", "moe", "grok", "train_moe")
+MESH_CASES = ("train", "prefill", "decode", "attention", "psum", "moe", "grok", "train_moe",
+              "prefill_32k", "decode_32k")
+LONG_CASES = ("prefill_32k", "decode_32k")
+LONG_ARCHS = ("qwen3-1.7b", "h2o-danube-1.8b")
 CASES = MESH_CASES + ("router",)
+DEFAULT_CASES = tuple(c for c in CASES if c not in LONG_CASES)  # the 32k cases: by name
 JOIN_TIMEOUT_S = 1800
 ROUTER_SPREAD = 1  # routed_reuse's worker i sits on card (i + 1) % world: w0 off the current card
 
@@ -137,10 +162,14 @@ def sizes(reduced: bool) -> dict:
     if reduced:  # train_moe: one layer (its 8 micro-batches are gloo-latency bound)
         return dict(reduced=True, train=(4, 32), prefill=(4, 64), decode=(8, 64, 16, 4),
                     grok=(2, 64), grok_layers=None, train_moe=(16, 128),
-                    moe_layers={"grok-1-314b": 1, "arctic-480b": 1})
+                    moe_layers={"grok-1-314b": 1, "arctic-480b": 1},
+                    prefill_32k=(4, 64), decode_32k=(4, 64, 60, 4))
+    # the 32k cells: prefill_32k's batch of 32 and decode_32k's 128 rows cut
+    # to 4 (decode: ~15 GB of qwen3's cache, ~45 GB during a one-card step)
     return dict(reduced=False, train=(4, 4096), prefill=(4, 2048), decode=(8, 4096, 64, 4),
                 grok=(2, 512), grok_layers=4, train_moe=(16, 4096),
-                moe_layers={"grok-1-314b": 2, "arctic-480b": 1})
+                moe_layers={"grok-1-314b": 2, "arctic-480b": 1},
+                prefill_32k=(4, 32768), decode_32k=(4, 32768, 32764, 4))
 
 
 TRAIN_STEPS, TRAIN_LR = 3, 3e-5
@@ -244,6 +273,23 @@ class Rank:
         return out, {"nccl_ms": sum(dt(e) for e in ev if "nccl" in e.key.lower()),
                      "k5_ms": sum(dt(e) for e in k5), "k5_calls": sum(e.count for e in k5),
                      "device_ms": sum(dt(e) for e in ev)}
+
+    def step_peak(self, fn, args):
+        """``fn()`` once: (result, the step's own peak bytes on this card:
+        the shards of ``args`` plus the most the step allocated at once
+        beside what was allocated before it, the dry run's ``peak``; None
+        on the CPU)."""
+        from repro_torch.launch.steps import argument_bytes_per_device
+
+        if self.cpu:
+            return fn(), None
+        self.sync()
+        before = torch.cuda.memory_allocated(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        out = fn()
+        self.sync()
+        return out, (torch.cuda.max_memory_allocated(self.dev) - before
+                     + argument_bytes_per_device(args))
 
     def counted(self, fn):
         from repro_torch.roofline.analysis import CollectiveCounter
@@ -406,11 +452,14 @@ class OffsetSpy:
 
 
 def _sharded_prefill(r: Rank, name: str, arch: str, cfg, params, bundle, tokens, mesh_key,
-                     runs: int = 3, hold: bool = True) -> dict:
+                     runs: int = 3, hold: bool = True, long: bool = False) -> dict:
     """A sharded prefill cell against ``bundle.prefill_fn`` on rank 0's
     card: logits, K5 launches and query offsets per rank, times; for an
     MoE model the MoE dispatches of both runs compared layer by layer.
-    ``hold=False`` records the logits' agreement without holding it."""
+    ``hold=False`` records the logits' agreement without holding it.
+    ``long`` (the 32k cells) adds the step's own peak on each rank and the
+    cache each rank returns, gathered layer by layer (``full()``), against
+    the one-card cache: max |d| <= 0.25 per side, the positions equal."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps as st
@@ -428,7 +477,7 @@ def _sharded_prefill(r: Rank, name: str, arch: str, cfg, params, bundle, tokens,
     with OffsetSpy() as spy, DispatchSpy() as kept:
         (logits, _), coll = r.counted(step)
     k5 = fa.flash_attention.launches - n0
-    (logits, _), secs = r.timed(step, runs - 1)
+    (logits, cache), secs = r.timed(step, runs - 1)
     _, prof = r.profile(step)
     logits = full(logits)
     tp_n = dict(zip(mesh.mesh_dim_names, mesh.shape))["model"]
@@ -438,19 +487,27 @@ def _sharded_prefill(r: Rank, name: str, arch: str, cfg, params, bundle, tokens,
            "model_rank": m_rank, "k5_launches": k5, "q_offsets": sorted(set(spy.offsets)),
            "sharded_step_s_median": statistics.median(secs), "collectives": coll,
            "profiled": prof}
+    del cache
+    if long:
+        (_, cache), rec["step_peak_bytes"] = r.step_peak(step, (pd, bd))
     if not r.cpu:  # on the CPU the body is the plain attention: no kernel, no spy
         r.check(k5 == cfg.num_layers and spy.offsets == [want_off] * cfg.num_layers,
-                f"{name} on {rec['mesh']}: model rank {m_rank} launched K5 {k5} times "
+                f"{name} {cfg.name} on {rec['mesh']}: model rank {m_rank} launched K5 {k5} times "
                 f"({cfg.num_layers} layers) with q_offset {sorted(set(spy.offsets))} (expected "
                 f"{want_off})")
-    r.save(f"{name}/{rec['mesh']}/logits", logits)
+    r.save(f"{name}/{arch}/{rec['mesh']}/logits" if long else f"{name}/{rec['mesh']}/logits",
+           logits)
     del cell, pd, bd
     r.free()
     torch.distributed.barrier()
+    want_cache = None
     if r.rank == 0:
         with DispatchSpy() as kept1:
-            (want, _), usecs = r.timed(lambda: bundle.prefill_fn(params, {"tokens": tokens}, S), 1)
-        _, more = r.timed(lambda: bundle.prefill_fn(params, {"tokens": tokens}, S), runs - 1)
+            (want, want_cache), usecs = r.timed(
+                lambda: bundle.prefill_fn(params, {"tokens": tokens}, S), 1)
+        if not long:
+            want_cache = None
+        _, more = r.timed(lambda: bundle.prefill_fn(params, {"tokens": tokens}, S)[0], runs - 1)
         e = max_err(logits, want)
         greedy = greedy_report(logits, want)
         same = greedy_held(greedy)
@@ -470,22 +527,58 @@ def _sharded_prefill(r: Rank, name: str, arch: str, cfg, params, bundle, tokens,
             r.check(ok and e <= 0.25 and same, msg)
         else:
             print(f"[rank 0] recorded, not held: {msg}", flush=True)
+    if long:
+        _cache_against_one_card(r, name, cfg, rec, cache, want_cache)
+        del cache, want_cache
+        r.free()
     torch.distributed.barrier()
     return rec
 
 
-def _qwen(r: Rank):
+def _cache_against_one_card(r: Rank, name: str, cfg, rec: dict, cache, want) -> None:
+    """The sharded prefill's cache gathered one layer at a time (every rank
+    joins each gather) against rank 0's one-card cache ``want``."""
+    from repro_torch.sharding.rules import full
+
+    rec["cache_shard_bytes"] = sum(_local_bytes(cache[k]) for k in ("k", "v"))
+    errs = {}
+    for key in ("k", "v"):
+        errs[key] = 0.0
+        for i in range(cfg.num_layers):
+            got = full(cache[key][i])
+            if want is not None:
+                errs[key] = max(errs[key], max_err(got, want[key][i]))
+            del got
+    pos = full(cache["pos"])
+    if want is not None:
+        same_pos = torch.equal(pos.to(want["pos"].dtype), want["pos"])
+        slots = want["k"].shape[2]
+        rec.update(cache_max_abs=errs, cache_pos_equal=same_pos, cache_slots=slots)
+        r.check(max(errs.values()) <= 0.25 and same_pos,
+                f"{name} {cfg.name} on {rec['mesh']}: the cache every rank returns ({slots} slots, "
+                f"{cfg.num_layers} layers) as full() against the one-card cache: k max|d| "
+                f"{errs['k']:.3e}, v {errs['v']:.3e} (limit 0.25), positions equal {same_pos}")
+
+
+def _local_bytes(t) -> int:
+    loc = t.to_local() if hasattr(t, "to_local") else t
+    return loc.numel() * loc.element_size()
+
+
+def _model(r: Rank, arch: str = "qwen3-1.7b"):
+    """``arch`` at full width and depth (``--reduced``: its reduced config)
+    with its seed-0 weights on this rank's device."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models.registry import build_model
 
-    cfg = get_config("qwen3-1.7b")
+    cfg = get_config(arch)
     cfg = reduced(cfg) if r.opts["reduced"] else cfg
     bundle = build_model(cfg, device=r.dev)
     return cfg, bundle, bundle.init_params(torch.Generator().manual_seed(0))
 
 
 def case_prefill(r: Rank) -> dict:
-    cfg, bundle, params = _qwen(r)
+    cfg, bundle, params = _model(r)
     r.save_tree("qwen/params", params)
     B, S = r.sz["prefill"]
     rng = np.random.default_rng(18)
@@ -504,7 +597,7 @@ def case_decode(r: Rank) -> dict:
     difference is bf16 rounding."""
     from repro_torch.training.tree import map_tree
 
-    cfg, bundle, params = _qwen(r)
+    cfg, bundle, params = _model(r)
     rec = {"bfloat16": _decode(r, cfg, bundle, params)}
     params = map_tree(_f32, params)
     r.free()
@@ -512,61 +605,151 @@ def case_decode(r: Rank) -> dict:
     return rec
 
 
+def _cut(r: Rank, case: str, what: str) -> None:
+    if r.rank == 0:
+        from repro_torch.configs import SHAPES_BY_NAME
+
+        shape = SHAPES_BY_NAME[case]
+        print(f"[rank 0] {case}: {what} (the shape's {shape.global_batch} x {shape.seq_len} cut "
+              f"in its batch{'; --reduced' if r.opts['reduced'] else ''})", flush=True)
+
+
+def case_prefill_32k(r: Rank) -> dict:
+    """``prefill_32k``'s cell of each of LONG_ARCHS on both meshes (see the
+    module's docstring)."""
+    B, S = r.sz["prefill_32k"]
+    _cut(r, "prefill_32k", f"{B} x {S} tokens")
+    rec = {}
+    for j, arch in enumerate(LONG_ARCHS):
+        cfg, bundle, params = _model(r, arch)
+        r.save_tree(f"{arch}/params", params)
+        rng = np.random.default_rng(30 + j)
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32))
+        tokens = tokens.to(r.dev)
+        r.save(f"prefill_32k/{arch}/tokens", tokens)
+        rec[arch] = {r.mesh_name(key): _sharded_prefill(r, "prefill_32k", arch, cfg, params,
+                                                        bundle, tokens, key, runs=2, long=True)
+                     for key in ("dp", "tp")}
+        del bundle, params, tokens
+        r.free()
+    return rec
+
+
+def case_decode_32k(r: Rank) -> dict:
+    """``decode_32k``'s cell of each of LONG_ARCHS on both meshes, with bf16
+    weights and with them in float32: each (arch, weights) prefills its
+    prompt once on every rank (the one-card cache, kept on the host between
+    the meshes: 15 GB of qwen3's at full size), then ``_decode`` on each
+    mesh from it."""
+    from repro_torch.training.tree import map_tree
+
+    rows, slots, plen, steps = r.sz["decode_32k"]
+    _cut(r, "decode_32k", f"{rows} rows over {slots} slots after a {plen}-token prompt, "
+                          f"{steps} steps")
+    rec = {}
+    for j, arch in enumerate(LONG_ARCHS):
+        cfg, bundle, params = _model(r, arch)
+        r.save_tree(f"{arch}/params", params)
+        rng = np.random.default_rng(40 + j)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, plen)).astype(np.int32))
+        prompt = prompt.to(r.dev)
+        r.save(f"decode_32k/{arch}/prompt", prompt)
+        rec[arch] = {}
+        for dt in ("bfloat16", "float32"):
+            if dt == "float32":
+                params = map_tree(_f32, params)
+                r.free()
+            logits, cache = bundle.prefill_fn(params, {"tokens": prompt}, slots)
+            host = {k: v.cpu() for k, v in cache.items()}
+            del cache
+            r.free()
+            rec[arch][dt] = {
+                r.mesh_name(key): _decode(r, cfg, bundle, params, arch=arch, mesh_key=key,
+                                          size="decode_32k", prefilled=(logits, host),
+                                          save_as=f"decode_32k/{arch}/{r.mesh_name(key)}")
+                for key in ("dp", "tp")}
+            del logits, host
+        del bundle, params
+        r.free()
+    return rec
+
+
 def _f32(t):
     return t.float() if t.is_floating_point() else t
 
 
-def _decode(r: Rank, cfg, bundle, params, limit: float = 0.25) -> dict:
+def _decode(r: Rank, cfg, bundle, params, limit: float = 0.25, *, arch: str = "qwen3-1.7b",
+            mesh_key: str = "dp", size: str = "decode", prefilled=None,
+            save_as: str = "decode") -> dict:
+    """``steps`` sharded decode steps of ``size``'s rows and slots on
+    ``mesh_key``'s mesh against ``bundle.decode_fn`` from the same cache,
+    each fed the one-card step's greedy tokens.  ``prefilled``: the
+    prompt's (logits, cache), the cache possibly on the host; by default
+    the prompt is drawn here and prefilled.  Records each rank's step peak
+    and collectives; ``decode_32k`` also holds the step's all-gather bytes
+    below a quarter of this rank's K+V cache shard."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.launch import steps as st
     from repro_torch.sharding.rules import full
 
     dtype = str(params["embed"].dtype).removeprefix("torch.")
-    rows, slots, plen, steps = r.sz["decode"]
-    rng = np.random.default_rng(19)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, plen)).astype(np.int32))
-    prompt = prompt.to(r.dev)
-    r.save("decode/prompt", prompt)
-    logits, cache = bundle.prefill_fn(params, {"tokens": prompt}, slots)
-    mesh = r.meshes["dp"]
-    cell = st.build_cell("qwen3-1.7b", "decode_32k", mesh, cfg=cfg,
+    rows, slots, plen, steps = r.sz[size]
+    if prefilled is None:
+        rng = np.random.default_rng(19)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, plen)).astype(np.int32))
+        prompt = prompt.to(r.dev)
+        r.save(f"{save_as}/prompt", prompt)
+        logits, cache = bundle.prefill_fn(params, {"tokens": prompt}, slots)
+    else:
+        logits, cache = prefilled[0], {k: v.to(r.dev) for k, v in prefilled[1].items()}
+    mesh = r.meshes[mesh_key]
+    cell = st.build_cell(arch, "decode_32k", mesh, cfg=cfg,
                          shape=ShapeSpec("decode_32k", slots, rows, "decode"))
     pd = st.distribute_argument(cell, "params", params)
     cd = st.distribute_argument(cell, "cache", cache)
+    shard = sum(_local_bytes(cd[k]) for k in ("k", "v"))
     worst, greedy, secs, usecs = 0.0, [], [], []
     for i in range(steps):
         tok = logits.argmax(-1).to(torch.int32)
         pos = torch.full((rows,), plen + i, dtype=torch.int32, device=r.dev)
         if dtype == "bfloat16":
-            r.save(f"decode/tokens{i}", tok)
+            r.save(f"{save_as}/tokens{i}", tok)
         args = (pd, cd, st.distribute_argument(cell, "tokens", tok),
                 st.distribute_argument(cell, "cur_pos", pos))
         (ls, cd), dt = r.timed(lambda: st.run_cell(cell, args), 1)
         secs += dt
         ls = full(ls)
         if dtype == "bfloat16":
-            r.save(f"decode/logits{i}", ls)
+            r.save(f"{save_as}/logits{i}", ls)
         (logits, cache), dt = r.timed(lambda: bundle.decode_fn(params, cache, tok, pos), 1)
         usecs += dt
         worst = max(worst, max_err(ls, logits))
         greedy.append(greedy_report(ls, logits))
-    # the last step again: once counted, once profiled
+    # the last step again: once counted, once profiled, once for its peak
     _, coll = r.counted(lambda: st.run_cell(cell, args))
     _, prof = r.profile(lambda: st.run_cell(cell, args))
+    _, peak = r.step_peak(lambda: st.run_cell(cell, args), args)
     equal = sum(g["equal"] for g in greedy)
     flips = [dict(f, step=i) for i, g in enumerate(greedy) for f in g["flips"]]
-    rec = {"mesh": r.mesh_name("dp"), "dtype": dtype, "rows": rows, "slots": slots,
-           "steps": steps, "max_abs": worst, "limit": limit, "greedy_equal": equal,
-           "greedy_flips": flips, "sharded_step_s_median": _median_after_first(secs),
+    rec = {"mesh": r.mesh_name(mesh_key), "dtype": dtype, "rows": rows, "slots": slots,
+           "cache_slots": int(cd["k"].shape[2]), "prompt": plen, "steps": steps,
+           "max_abs": worst, "limit": limit, "greedy_equal": equal, "greedy_flips": flips,
+           "sharded_step_s_median": _median_after_first(secs),
            "one_card_step_s_median": _median_after_first(usecs), "collectives": coll,
-           "profiled": prof}
+           "profiled": prof, "step_peak_bytes": peak, "cache_shard_bytes": shard}
+    label = f"{size} {cfg.name} {dtype} weights {rows} rows over {slots} slots"
     if r.rank == 0:
         held = worst <= limit and greedy_held({"flips": flips})
-        r.check(held, f"decode {cfg.name} {dtype} weights {rows} rows over {slots} slots, {steps} "
-                      f"steps on {rec['mesh']}: logits max|d| {worst:.3e} vs one card (limit "
-                      f"{limit:g}); greedy tokens equal {equal}/{rows * steps}, differing only at "
-                      f"near-ties of <= {NEAR_TIE:g} bf16 spacings ({flips}); step s "
-                      f"{rec['sharded_step_s_median']:.4f} vs {rec['one_card_step_s_median']:.4f}")
+        r.check(held, f"{label}, {steps} steps on {rec['mesh']}: logits max|d| {worst:.3e} vs one "
+                      f"card (limit {limit:g}); greedy tokens equal {equal}/{rows * steps}, "
+                      f"differing only at near-ties of <= {NEAR_TIE:g} bf16 spacings ({flips}); "
+                      f"step s {rec['sharded_step_s_median']:.4f} vs "
+                      f"{rec['one_card_step_s_median']:.4f}")
+    if size == "decode_32k" and not r.opts["reduced"]:  # no gather of the sequence-sharded
+        ag = coll["all-gather"]["bytes"]  # cache (a reduced cache is smaller than the activations)
+        r.check(ag < shard / 4, f"{label} on {rec['mesh']}: a step's all-gathers move {ag} B per "
+                                f"device, below a quarter of this rank's K+V cache shard "
+                                f"({shard} B)")
     del cell, pd, cd, cache
     r.free()
     return rec
@@ -1089,7 +1272,8 @@ def case_train_moe(r: Rank) -> dict:
 
 RANK_CASES = {"train": case_train, "prefill": case_prefill, "decode": case_decode,
               "attention": case_attention, "psum": case_psum, "moe": case_moe, "grok": case_grok,
-              "train_moe": case_train_moe}
+              "train_moe": case_train_moe, "prefill_32k": case_prefill_32k,
+              "decode_32k": case_decode_32k}
 
 
 def rank_main(rank: int, world: int, port: int, opts: dict) -> None:
@@ -1128,7 +1312,7 @@ def rank_main(rank: int, world: int, port: int, opts: dict) -> None:
 def _rank_view(tree):
     """What differs by rank: model rank, K5 launches and query offsets."""
     keys = ("model_rank", "k5_launches", "q_offsets", "slice_start", "profiled",
-            "step_peak_bytes", "kernel_launches")
+            "step_peak_bytes", "kernel_launches", "cache_shard_bytes", "collectives")
     out = {}
     for k, v in tree.items():
         if k in keys:
@@ -1140,6 +1324,18 @@ def _rank_view(tree):
     return out
 
 
+def _start_dryrun(out: Path, arch: str, shape: str, mesh: str, batch: int, *extra):
+    """``launch.dryrun`` of one cell in a subprocess started now; (process,
+    the path of its JSON)."""
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    log = open(out / "log.txt", "w")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+           "--mesh", mesh, "--global-batch", str(batch), *extra, "--out", str(out), "--force"]
+    return (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env),
+            out / mesh / f"{arch}__{shape}.json")
+
+
 def start_moe_dryruns(opts: dict) -> list:
     """The dry run of each train_moe run's cell (``launch.dryrun``: the same
     config, mesh, strategy, batch, optimizer and micro-batches on a fake
@@ -1147,22 +1343,70 @@ def start_moe_dryruns(opts: dict) -> list:
     subprocess started now, beside the ranks: [(label, process, its JSON)]."""
     B = sizes(False)["train_moe"][0]
     out = Path(opts["out"]) / "dryrun"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
     procs = []
     for i, (arch, key, strategy, room) in enumerate(MOE_RUNS):
         data, model = (2, opts["world"] // 2) if key == "dp" else (1, opts["world"])
         cfg = moe_cfg(arch, sizes(False), room=room)
         label = moe_run_label(arch, f"{data} x {model}", strategy, room)
-        cell_out = out / str(i)
-        cell_out.mkdir(parents=True, exist_ok=True)
-        log = open(cell_out / "log.txt", "w")
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
-               "train_4k", "--mesh", f"{data}x{model}", "--global-batch", str(B), "--layers",
-               str(cfg.num_layers), "--capacity-factor", repr(cfg.moe.capacity_factor),
-               "--moe-strategy", strategy, "--out", str(cell_out), "--force"]
-        procs.append((label, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, env=env),
-                      cell_out / f"{data}x{model}" / f"{arch}__train_4k.json"))
+        procs.append((label, *_start_dryrun(
+            out / str(i), arch, "train_4k", f"{data}x{model}", B, "--layers",
+            str(cfg.num_layers), "--capacity-factor", repr(cfg.moe.capacity_factor),
+            "--moe-strategy", strategy)))
     return procs
+
+
+def start_long_dryruns(opts: dict) -> list:
+    """The dry run of each 32k run's cell (both archs at full depth, the
+    case's batch, each mesh) in a subprocess started now, beside the ranks:
+    [((case, arch, mesh label), process, its JSON)]."""
+    out = Path(opts["out"]) / "dryrun_32k"
+    sz = sizes(False)
+    procs = []
+    for case in (c for c in LONG_CASES if c in opts["cases"]):
+        for arch in LONG_ARCHS:
+            for data, model in ((2, opts["world"] // 2), (1, opts["world"])):
+                procs.append(((case, arch, f"{data} x {model}"), *_start_dryrun(
+                    out / f"{case}__{arch}__{data}x{model}", arch, case, f"{data}x{model}",
+                    sz[case][0])))
+    return procs
+
+
+def long_peaks(procs: list, ranks: list) -> tuple:
+    """Each 32k run's per-rank step peak and collectives beside its dry
+    run's: the bf16 decode's peaks held within PEAK_HOLD, the rest (the
+    prefill, the f32-weight decode, which the bf16 dry run does not model)
+    recorded.  (records, checks)."""
+    recs, checks = {}, []
+    for (case, arch, mesh), proc, path in procs:
+        proc.wait(timeout=JOIN_TIMEOUT_S)
+        dry = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        pred = dry.get("memory", {}).get("peak_bytes_per_device")
+        for dt in ("bfloat16",) if case == "prefill_32k" else ("bfloat16", "float32"):
+            if case == "prefill_32k":
+                got = [rec["cases"][case][arch][mesh] for rec in ranks]
+            else:
+                got = [rec["cases"][case][arch][dt][mesh] for rec in ranks]
+            peaks = [g["step_peak_bytes"] for g in got]
+            gaps = [None if pred is None else (p - pred) / pred for p in peaks]
+            label = f"{case} {arch} {mesh}" + (f" {dt} weights" if case == "decode_32k" else "")
+            recs[label] = {"dryrun_status": dry["status"], "predicted_peak_bytes": pred,
+                           "step_peak_bytes_by_rank": peaks, "gap": gaps,
+                           "collectives_by_rank": [g["collectives"] for g in got],
+                           "dryrun_collectives": dry.get("collectives"),
+                           "dryrun_memory": dry.get("memory")}
+            held = case == "decode_32k" and dt == "bfloat16"
+            ok = pred is not None and (not held or all(abs(g) <= PEAK_HOLD for g in gaps))
+            msg = (f"{label}: step peaks {[round(p / 1e9, 3) for p in peaks]} GB by rank against "
+                   f"the dry run's {pred / 1e9 if pred else float('nan'):.3f} GB (status "
+                   f"{dry['status']}): gaps {[None if x is None else round(x, 4) for x in gaps]} "
+                   + (f"(limit {PEAK_HOLD:g})" if held else "(recorded)")
+                   + f"; all-gather GB by rank "
+                   f"{[round(g['collectives']['all-gather']['bytes'] / 1e9, 4) for g in got]} vs "
+                   f"the dry run's "
+                   f"{(dry.get('collectives') or {}).get('all-gather', {}).get('bytes', 0) / 1e9:.4f}")
+            checks.append({"ok": ok, "msg": msg})
+            print(f"[32k] {'ok  ' if ok else 'MISS'} {msg}", flush=True)
+    return recs, checks
 
 
 def moe_peaks(procs: list, ranks: list) -> tuple:
@@ -1400,7 +1644,8 @@ def main(argv=None) -> int:
     ap.add_argument("--world", type=int, default=4)
     ap.add_argument("--device", default=None, help="cpu: gloo ranks on the host (default: cards)")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--cases", default=",".join(CASES))
+    ap.add_argument("--cases", default=",".join(DEFAULT_CASES),
+                    help=f"comma-separated, of {CASES} (default: all but {LONG_CASES})")
     ap.add_argument("--out", default=str(ROOT / "results" / "torch" / "four_cards"))
     ap.add_argument("--save", default=None, help="directory for rank 0's inputs and outputs")
     args = ap.parse_args(argv)
@@ -1440,6 +1685,8 @@ def main(argv=None) -> int:
     # reduced configs have no dry run, and the CPU keeps no peak)
     dryruns = (start_moe_dryruns(opts) if on_cards and not args.reduced and "train_moe" in cases
                else [])
+    long_dryruns = (start_long_dryruns(opts) if on_cards and not args.reduced
+                    and any(c in LONG_CASES for c in cases) else [])
     try:
         if any(c in RANK_CASES for c in cases):
             ranks = run_ranks(opts)
@@ -1453,8 +1700,11 @@ def main(argv=None) -> int:
             if dryruns:
                 summary["cases"]["train_moe"]["peaks"], more = moe_peaks(dryruns, ranks)
                 checks += more
+            if long_dryruns:
+                summary["long_32k_peaks"], more = long_peaks(long_dryruns, ranks)
+                checks += more
     finally:
-        for _, p, _ in dryruns:
+        for _, p, _ in dryruns + long_dryruns:
             if p.poll() is None:
                 p.kill()
                 p.wait()

@@ -188,7 +188,10 @@ def proj(x, w):
     if is_dtensor(x):
         if x.ndim <= 2:
             return x @ w
-        return hold_grad_layout(unshard_dims(x, range(1, x.ndim - 1)) @ w)
+        # a one-row batch sharded over a one-rank axis is replicated too:
+        # DTensor refuses to flatten a sharded dim of size 1 into the next
+        first = 0 if x.shape[0] == 1 else 1
+        return hold_grad_layout(unshard_dims(x, range(first, x.ndim - 1)) @ w)
     if (not is_dtensor(w) and x.dtype == w.dtype == torch.bfloat16 and w.ndim == 2
             and not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad))):
         return gemm_lib.gemm(x, w)
@@ -821,7 +824,22 @@ def slot_update(cache, value, slot):
     S = cache.shape[1]
     hit = torch.arange(S, device=cache.device)[None, :] == slot[:, None]  # [B, S]
     hit = hit.reshape(hit.shape + (1,) * (cache.ndim - 2))
+    if is_dtensor(cache):
+        hit, value = _laid_like(hit, cache), _laid_like(value, cache)
     return torch.where(hit, value.to(cache.dtype), cache)
+
+
+def _laid_like(t, cache):
+    """``t`` (a mask or a new row broadcast against ``cache``) laid out as
+    the sharded cache: its shards on the dims ``t`` holds whole, each size-1
+    dim replicated.  Without it DTensor may lay the select out as the new
+    row (its heads sharded over 'model' by the projection: torch 2.11 does)
+    and gather the sequence-sharded cache to match, every step."""
+    from torch.distributed.tensor import Replicate
+
+    t = as_replicated(t, cache.device_mesh)
+    want = [Replicate() if p.is_shard() and t.shape[p.dim] == 1 else p for p in cache.placements]
+    return t.redistribute(cache.device_mesh, want)
 
 
 def attn_decode_layer(p, cfg, x, cache_k, cache_v, kv_positions, cur_pos, slot, *, use_rope=True):

@@ -48,7 +48,7 @@ Without a mesh each entry point is what it was.
 from __future__ import annotations
 
 from functools import partial
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -233,15 +233,12 @@ def _layer(lp, x, cfg, positions, *, contiguous: bool = False, remat: bool = Fal
     x = x + a
     h = apply_norm(cfg.norm, lp["ln2"], x)
     m, aux = _mlp_block(lp, cfg, h, mesh=mesh, moe_strategy=moe_strategy)
-    x = constrain_activations(x + m, mesh)
-    if mesh is not None:
-        kv = tuple(constrain_activations(t, mesh) for t in kv)
-    return x, aux, kv
+    return constrain_activations(x + m, mesh), aux, kv
 
 
 def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
-                   contiguous: bool = False, remat: bool = False, mesh=None,
-                   moe_strategy: str = "auto"):
+                   keep: Optional[int] = None, contiguous: bool = False, remat: bool = False,
+                   mesh=None, moe_strategy: str = "auto"):
     """Run the layer stack.  x: [B, S, d] embedded inputs.  ``contiguous``
     states that ``positions`` are ``arange(S)`` in every row, which the
     card's flash-attention kernel requires (``attn_prefill_layer``).
@@ -250,8 +247,11 @@ def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
 
     Returns (hidden [B, S, d], aux, cache_kv or None): aux is the MoE
     layers' aux loss summed (f32 0 for a dense stack); cache_kv is (k, v)
-    stacked [L, B, S, KV, Dh].  ``mesh``: the sharded layer (see the module
-    docstring).
+    stacked [L, B, S, KV, Dh], or of the trailing ``keep`` positions.
+    ``mesh``: the sharded layer (see the module docstring); each layer's
+    k, v are cut to ``keep`` while their sequence is whole and then laid
+    out sequence-sharded over 'model' (cutting the sharded sequence
+    afterwards would gather all of it, inside the slice).
     """
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ks, vs = [], []
@@ -263,8 +263,10 @@ def forward_hidden(params, cfg, x, positions, *, collect_cache: bool = False,
         else:
             x, aux_l, (k_, v_) = _layer(lp, x, cfg, positions, contiguous=contiguous, **sharding)
             if collect_cache:
-                ks.append(k_)
-                vs.append(v_)
+                if keep is not None:
+                    k_, v_ = k_[:, k_.shape[1] - keep:], v_[:, v_.shape[1] - keep:]
+                ks.append(constrain_activations(k_, mesh))
+                vs.append(constrain_activations(v_, mesh))
         if aux_l is not None:
             aux = aux + aux_l
     cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
@@ -311,6 +313,11 @@ def dequantize_kv(q, scale, dtype=DEFAULT_DTYPE):
     return (q.to(dtype) * scale.to(dtype)[..., None]).to(dtype)
 
 
+def cache_slots(cfg, cache_len: int) -> int:
+    """A dense cache's slots: ``cache_len``, or the window's ring."""
+    return min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+
+
 def make_cache(cfg, batch: int, cache_len: int, dtype=DEFAULT_DTYPE, device: DeviceLike = None):
     """Dense decode cache: ``k``/``v`` [L, B, Sc, KV, Dh] and ``pos`` [B, Sc]
     (-1 = unwritten), with ``Sc = min(cache_len, window)`` for sliding-window
@@ -320,7 +327,7 @@ def make_cache(cfg, batch: int, cache_len: int, dtype=DEFAULT_DTYPE, device: Dev
     ``device`` names the CPU."""
     device = resolve_device(device, allow_meta=True)
     L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    Sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+    Sc = cache_slots(cfg, cache_len)
     cache = {"pos": torch.full((batch, Sc), -1, dtype=torch.int32, device=device)}
     if cfg.kv_cache_dtype == "int8":
         for key in ("k", "v"):
@@ -351,23 +358,23 @@ def prefill(params, cfg, batch, cache_len: int, *, mesh=None, moe_strategy: str 
     ``p % Sc`` that decode later writes; the JAX package does the same)."""
     x, positions = _embed_prompt(params, cfg, batch)
     B, St = positions.shape
-    x, _, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, contiguous=True,
-                                    mesh=mesh, moe_strategy=moe_strategy)
+    # the trailing `keep` positions of the prefill KV go into the cache
+    keep = min(cache_slots(cfg, cache_len), St)
+    x, _, (ck, cv) = forward_hidden(params, cfg, x, positions, collect_cache=True, keep=keep,
+                                    contiguous=True, mesh=mesh, moe_strategy=moe_strategy)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     logits = proj(x[:, -1], unembed(cfg, params)).float()
     if mesh is not None:
         return logits, _sharded_prefill_cache(cfg, ck, cv, positions, cache_len)
     cache = make_cache(cfg, B, cache_len, device=x.device)
-    keep = min(cache["k"].shape[2], St)
-    # write the trailing `keep` positions of the prefill KV into the cache
     if cfg.kv_cache_dtype == "int8":
         for key, kv in (("k", ck), ("v", cv)):
-            qv, sc = quantize_kv(kv[:, :, St - keep :])
+            qv, sc = quantize_kv(kv)
             cache[key][:, :, :keep] = qv
             cache[f"{key}_scale"][:, :, :keep] = sc
     else:
-        cache["k"][:, :, :keep] = ck[:, :, St - keep :]
-        cache["v"][:, :, :keep] = cv[:, :, St - keep :]
+        cache["k"][:, :, :keep] = ck
+        cache["v"][:, :, :keep] = cv
     cache["pos"][:, :keep] = positions[:, St - keep :]
     return logits, cache
 
@@ -411,17 +418,21 @@ def decode_step(params, cfg, cache, tokens, cur_pos, *, mesh=None, moe_strategy:
 
 
 def _sharded_prefill_cache(cfg, ck, cv, positions, cache_len: int):
-    """``prefill``'s cache from DTensor K/V [L, B, St, KV, Dh]: the trailing
-    ``keep`` positions in slots ``0..keep-1`` and the rest unwritten, as
-    ``prefill`` writes them (``layers.pad_to``).  bf16 caches only."""
+    """``prefill``'s cache from DTensor K/V [L, B, S, KV, Dh] of the
+    prompt's positions [B, St] (S = St, or the trailing ``keep`` positions
+    already cut, as ``prefill`` collects them): the trailing ``keep`` in
+    slots ``0..keep-1`` and the rest unwritten, as ``prefill`` writes them
+    (``layers.pad_to``).  bf16 caches only."""
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError("a sharded int8 prefill cache is not ported")
-    St = ck.shape[2]
-    Sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+    St = positions.shape[1]
+    Sc = cache_slots(cfg, cache_len)
     keep = min(Sc, St)
+    if ck.shape[2] != keep:
+        ck, cv = ck[:, :, ck.shape[2] - keep :], cv[:, :, cv.shape[2] - keep :]
     return {
-        "k": pad_to(ck[:, :, St - keep :], Sc, 2, 0),
-        "v": pad_to(cv[:, :, St - keep :], Sc, 2, 0),
+        "k": pad_to(ck, Sc, 2, 0),
+        "v": pad_to(cv, Sc, 2, 0),
         "pos": pad_to(positions[:, St - keep :].to(torch.int32), Sc, 1, -1),
     }
 

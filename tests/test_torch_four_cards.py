@@ -30,6 +30,17 @@ gloo ranks held against the JAX package.
   a2a and tp on 1 x 4, auto on 2 x 2) against the reference's ``build_cell`` step on the
   same mesh and strategy (losses 5e-3, measured 2.3e-4; grad norms 5e-3
   relative, measured 2.2e-3).
+* The 32k cells' cases (``prefill_32k``, ``decode_32k``) at their reduced
+  sizes in a spawn of their own, qwen3-1.7b and h2o-danube-1.8b (its
+  16-key window reaching into the previous rank's query slice, its decode
+  passing the 16-slot ring) on 2 x 2 and 1 x 4, against the reference's
+  ``build_cell`` cells on the same meshes: prefill logits within 2e-2
+  (measured max 6.6e-3); each of 4 decode steps from the reference's own
+  prefill of the program's 60-token prompt, fed the program's tokens,
+  within 2e-2 (measured max 8.6e-3); the same argmax but where the
+  reference's two logits lie within that 2e-2 (measured gaps 0 to 4.9e-3).
+* The sharded decode's cache update keeps the cache's layout: a step's
+  all-gather bytes do not grow with the cache's slots, on a fake group.
 """
 import ast
 import contextlib
@@ -53,6 +64,8 @@ from repro_torch.launch import mesh as mesh_mod
 ROOT = Path(__file__).resolve().parents[1]
 PROGRAM = ROOT / "scripts" / "torch_four_cards.py"
 FOUR_CASES = ("train", "prefill", "decode", "attention", "psum", "moe", "grok", "router")
+LONG_CASES = ("prefill_32k", "decode_32k")
+LONG_RUNS = [(a, m) for a in ("qwen3-1.7b", "h2o-danube-1.8b") for m in ("2 x 2", "1 x 4")]
 
 
 def _env(**kw):
@@ -394,6 +407,60 @@ np.savez(sys.argv[2], **out)
 """
 
 
+_JAX_LONG_REF = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_config, reduced
+from repro.configs.base import ShapeSpec
+from repro.launch import steps
+from repro.launch.mesh import make_debug_mesh
+from repro.models.registry import build_model
+
+z = dict(np.load(sys.argv[1]))
+out = {}
+
+
+def tree(prefix, like):
+    def walk(path, node):
+        if isinstance(node, dict):
+            return {k: walk(f"{path}/{k}", v) for k, v in node.items()}
+        return jnp.asarray(z[path], node.dtype)
+    return walk(prefix, like)
+
+
+def jitted(cell):
+    return jax.jit(cell.step_fn, in_shardings=cell.in_shardings, out_shardings=cell.out_shardings)
+
+
+steps.get_config = lambda a: reduced(get_config(a))
+B, S = z["prefill_32k/qwen3-1.7b/tokens"].shape
+rows, plen = z["decode_32k/qwen3-1.7b/prompt"].shape
+slots = plen + 4  # the prompt fills the cache to slots - steps
+steps.SHAPES_BY_NAME["prefill_r"] = ShapeSpec("prefill_r", S, B, "prefill")
+steps.SHAPES_BY_NAME["decode_r"] = ShapeSpec("decode_r", slots, rows, "decode")
+meshes = (("2 x 2", make_debug_mesh(2, 2)), ("1 x 4", make_debug_mesh(1, 4)))
+for arch in ("qwen3-1.7b", "h2o-danube-1.8b"):
+    b = build_model(reduced(get_config(arch)))
+    p = tree(f"{arch}/params", jax.eval_shape(b.init_params, jax.random.PRNGKey(0)))
+    for label, mesh in meshes:
+        with mesh:
+            logits, _ = jitted(steps.build_cell(arch, "prefill_r", mesh))(
+                p, {"tokens": z[f"prefill_32k/{arch}/tokens"]})
+        out[f"prefill_32k/{arch}/{label}"] = np.asarray(logits, np.float32)
+    _, cache0 = b.prefill_fn(p, {"tokens": jnp.asarray(z[f"decode_32k/{arch}/prompt"])}, slots)
+    for label, mesh in meshes:
+        f = jitted(steps.build_cell(arch, "decode_r", mesh))
+        cache = cache0
+        with mesh:
+            for i in range(4):
+                tok = jnp.asarray(z[f"decode_32k/{arch}/{label}/tokens{i}"])
+                logits, cache = f(p, cache, tok, jnp.full(tok.shape, plen + i, jnp.int32))
+                out[f"decode_32k/{arch}/{label}/{i}"] = np.asarray(logits, np.float32)
+np.savez(sys.argv[2], **out)
+"""
+
+
 @pytest.fixture(scope="module")
 def four(tmp_path_factory):
     """The program's every case but train_moe at ``--device cpu
@@ -411,6 +478,15 @@ def four_moe(tmp_path_factory):
     in a JAX subprocess of its own: as ``four``."""
     return _program_and_reference(tmp_path_factory.mktemp("four_cards_moe"), ("train_moe",),
                                   _JAX_MOE_REF)
+
+
+@pytest.fixture(scope="module")
+def four_long(tmp_path_factory):
+    """The 32k cells' cases at their reduced sizes (one spawn of four gloo
+    ranks), then their reference in a JAX subprocess of its own: as
+    ``four``."""
+    return _program_and_reference(tmp_path_factory.mktemp("four_cards_32k"), LONG_CASES,
+                                  _JAX_LONG_REF)
 
 
 def _program_and_reference(out, cases, reference):
@@ -433,6 +509,176 @@ def test_program_holds_every_case_on_four_gloo_ranks(four, four_moe):
     assert cases == {"train", "prefill", "decode", "attention", "psum", "moe", "grok",
                      "train_moe", "router"}
     assert four[1]["cases"]["prefill"]["1 x 4"]["argmax_equal"]
+
+
+def test_32k_cases_hold_on_four_gloo_ranks(four_long):
+    """Every check of both 32k cases holds at reduced size: logits and
+    greedy tokens against one card, each rank's cache against the one-card
+    cache (h2o-danube's the ring of its window)."""
+    rc, summary, *_, log = four_long
+    assert rc == 0 and summary["ok"], log
+    assert set(summary["cases"]) == set(LONG_CASES)
+    pre = summary["cases"]["prefill_32k"]
+    assert pre["h2o-danube-1.8b"]["1 x 4"]["cache_slots"] == 16
+    assert all(pre[a][m]["cache_pos_equal"] for a, m in LONG_RUNS)
+    dec = summary["cases"]["decode_32k"]
+    assert {dec[a][dt][m]["steps"] for a, m in LONG_RUNS for dt in ("bfloat16", "float32")} == {4}
+    assert dec["h2o-danube-1.8b"]["bfloat16"]["2 x 2"]["cache_slots"] == 16
+
+
+def _greedy_held(got, want, tol=2e-2):
+    """Every row's argmax equal, or the two tokens' reference logits within
+    ``tol`` of each other: a tie at the logits' own tolerance, which either
+    package's bf16 rounding may break its own way (the program's
+    ``greedy_held`` in absolute terms).  Returns (held, the differing rows'
+    gaps)."""
+    ga, wa = got.argmax(-1), want.argmax(-1)
+    gaps = [float(want[r, wa[r]] - want[r, ga[r]]) for r in np.nonzero(ga != wa)[0]]
+    return all(g <= tol for g in gaps), gaps
+
+
+@pytest.mark.parametrize("arch,mesh", LONG_RUNS)
+def test_prefill_32k_matches_reference(four_long, arch, mesh):
+    """The reduced prefill_32k cell's logits against the reference's
+    ``build_cell`` cell on the same mesh: 2e-2 (measured max 6.6e-3)."""
+    _, _, saved, ref, _ = four_long
+    got, want = saved[f"prefill_32k/{arch}/{mesh}/logits"], ref[f"prefill_32k/{arch}/{mesh}"]
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
+    held, gaps = _greedy_held(got, want)
+    assert held, gaps
+
+
+@pytest.mark.parametrize("arch,mesh", LONG_RUNS)
+def test_decode_32k_matches_reference(four_long, arch, mesh):
+    """Four reduced decode_32k steps (the prompt fills the cache to slots -
+    steps; h2o-danube's positions pass its ring) against the reference's
+    cell on the same mesh from its own prefill, fed the program's tokens:
+    2e-2 (measured max 8.6e-3)."""
+    _, _, saved, ref, _ = four_long
+    for i in range(4):
+        got, want = saved[f"decode_32k/{arch}/{mesh}/logits{i}"], ref[f"decode_32k/{arch}/{mesh}/{i}"]
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
+        held, gaps = _greedy_held(got, want)
+        assert held, (i, gaps)
+
+
+_GATHERS = """
+import json, sys
+import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import ShapeSpec, get_config, reduced
+from repro_torch.launch import steps
+from repro_torch.launch.dryrun import init_fake_group
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models import layers
+from repro_torch.roofline.analysis import CollectiveCounter
+from repro_torch.sharding.rules import distribute
+
+init_fake_group(4)
+out = {}
+# every all-gather, DTensor's own inside an op too (CollectiveCounter sees
+# only those issued at the Python level)
+gathered, real = [], funcol.all_gather_single
+
+
+def spy(t, *a, **kw):
+    gathered.append(real(t, *a, **kw))
+    return gathered[-1]
+
+
+funcol.all_gather_single = spy
+for dims in ((2, 2), (1, 4)):
+    mesh = make_mesh(dims, ("data", "model"), device="cpu")
+    # slot_update with the new row's heads sharded over 'model', as the
+    # projection leaves them: the cache keeps its sequence sharding
+    k = distribute(torch.randn(4, 32, 4, 16), (("data",), "model", None, None), mesh)
+    row = distribute(torch.randn(4, 1, 4, 16), (("data",), None, "model", None), mesh)
+    with implicit_replication():
+        new = layers.slot_update(k, row, torch.full((4,), 5))
+    out[f"{dims} slot_update"] = [str(p) for p in new.placements] == [str(p) for p in k.placements]
+    for arch in ("qwen3-1.7b", "h2o-danube-1.8b"):
+        cfg = reduced(get_config(arch)).replace(sliding_window=0)
+        for slots in (64, 256):
+            cell = steps.build_cell(arch, "d", mesh, cfg=cfg,
+                                    shape=ShapeSpec("d", slots, 4, "decode"))
+            args = steps.cell_arguments(cell)
+            with CollectiveCounter() as c:
+                _, cache = steps.run_cell(cell, args)
+            out[f"{dims} {arch} {slots}"] = [c.bytes["all-gather"],
+                                             str(cache["k"].placements)]
+        cfg = reduced(get_config(arch))
+        cell = steps.build_cell(arch, "p", mesh, cfg=cfg, shape=ShapeSpec("p", 64, 4, "prefill"))
+        gathered.clear()
+        steps.run_cell(cell, steps.cell_arguments(cell))
+        out[f"{dims} {arch} prefill"] = [list(t.shape) for t in gathered if t.ndim == 5]
+print(json.dumps(out))
+"""
+
+
+def test_sharded_steps_gather_no_cache():
+    """On a fake group of four ranks (meta tensors), the decode cell's
+    all-gather bytes per device are the same over 64 and 256 cache slots
+    (nothing of the sequence-sharded cache is gathered) and the new cache
+    keeps the input's layout; ``slot_update`` keeps the cache's placements
+    when the new row comes with its heads sharded over 'model' (torch 2.11
+    laid such a select out as the row and gathered the cache, every step).
+    The prefill cell gathers no stacked [L, B, S, KV, Dh] K/V: h2o-danube's
+    ring once cut its trailing 16 positions out of the sequence-sharded
+    stack, which DTensor did by gathering all of it inside the slice."""
+    proc = subprocess.run([sys.executable, "-c", _GATHERS], capture_output=True, text=True,
+                          timeout=300, env=_env(OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for dims in ("(2, 2)", "(1, 4)"):
+        assert got[f"{dims} slot_update"]
+        for arch in ("qwen3-1.7b", "h2o-danube-1.8b"):
+            (small, lay), (large, lay2) = got[f"{dims} {arch} 64"], got[f"{dims} {arch} 256"]
+            assert small == large and lay == lay2 and "Shard(dim=2)" in lay, got
+            assert got[f"{dims} {arch} prefill"] == [], got
+
+
+_ONE_ROW = """
+import socket, sys
+import numpy as np, torch
+from repro_torch.configs import ShapeSpec, get_config, reduced
+from repro_torch.launch import steps
+from repro_torch.launch.mesh import init_group, make_debug_mesh
+from repro_torch.models.registry import build_model
+from repro_torch.sharding.rules import full
+
+with socket.socket() as s:
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+init_group("gloo", rank=0, world_size=1, port=port)
+mesh = make_debug_mesh(1, 1, device="cpu")
+for arch in ("qwen3-1.7b", "h2o-danube-1.8b"):
+    cfg = reduced(get_config(arch))
+    cell = steps.build_cell(arch, "p", mesh, cfg=cfg, shape=ShapeSpec("p", 64, 1, "prefill"))
+    params = cell.bundle.init_params(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 64)))
+    tokens = tokens.to(torch.int32)
+    args = (steps.distribute_argument(cell, "params", params),
+            steps.distribute_argument(cell, "batch", {"tokens": tokens}))
+    logits, cache = steps.run_cell(cell, args)
+    want, want_cache = build_model(cfg, device="cpu").prefill_fn(params, {"tokens": tokens}, 64)
+    print(arch, float((full(logits) - want).abs().max()),
+          float((full(cache["k"]).float() - want_cache["k"].float()).abs().max()))
+"""
+
+
+def test_one_row_sharded_prefill():
+    """A one-row prefill cell (smoke phase 18's 1 x 32,768 on its 1 x 1
+    mesh) on a one-rank gloo group, reduced: the batch dim is sharded over
+    the one-rank 'data' axis, which DTensor refused to flatten in the
+    projections; the logits and the cache's k against the unsharded
+    prefill within the bf16 tolerance 2e-2 (measured 0 on the CPU)."""
+    proc = subprocess.run([sys.executable, "-c", _ONE_ROW], capture_output=True, text=True,
+                          timeout=300, env=_env(OMP_NUM_THREADS="1"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rows = [line.split() for line in proc.stdout.strip().splitlines()]
+    assert [r[0] for r in rows] == ["qwen3-1.7b", "h2o-danube-1.8b"]
+    assert all(float(r[1]) <= 2e-2 and float(r[2]) <= 2e-2 for r in rows), rows
 
 
 def test_train_matches_reference(four):

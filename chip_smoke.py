@@ -223,14 +223,44 @@ model freed before the next (the depth cuts are printed):
      against the same inputs on the CPU (max |d| 0.25, the same greedy
      token up to a near-tie).  K1, K2, K3, K5 and the GEMM must launch in
      each path.
+ 21. the recurrent families' long cells (``repro_torch.bench.long_recurrent``,
+     which ``scripts/torch_long_recurrent.py`` runs at 32,768 tokens), last:
+     hymba-1.5b at full width and depth, then xlstm-350m at full width and
+     8 of 24 layers (one group, printed as a cut), weights from seed 0,
+     hymba at 4,096 tokens and xlstm at 2,048 (prefill_32k's 32,768 cut
+     for the smoke's time: 4x hymba's 1024-key window, 4x xlstm's
+     512-token prefix of phase 11):
+     (a) ``prefill_fn`` over 4 rows (the catalogue's 32 cut), row 0 held
+     against (b)'s B = 1 materialization (bitwise recorded; otherwise the
+     first op whose row 0 differs by batch width is named); (b) a claim
+     over row 0's prefix through ``SnapshotEngine``: 4 requests x 16 tokens
+     served from the snapshot on the card, then offloaded (K3) and restored
+     (K3) with the same tokens (path A, the port's analyzer), and a second
+     engine, handed path A's snapshot, refuses its injected restore
+     failure in order (path B); (c) ``decode_fn`` over decode_32k's 128
+     rows tiled from (a)'s states at the prompt's length, 4 steps, the
+     first held against the CPU on 4 rows and 4 rows against B = 1
+     decodes (bitwise recorded); (d) one decode at
+     long_500k's position 524,287 (hymba over a 1024-slot ring of seeded
+     K/V beside (a)'s SSM state, xlstm from (a)'s state: its decode never
+     reads the position) against the CPU, then ``build_cell(arch,
+     "long_500k")`` on a one-rank NCCL mesh against the unsharded step.
+     Each card-vs-CPU and sharded-vs-unsharded pair holds max |d| 0.25 with
+     the served bf16 weights (greedy flips recorded: hymba's bf16 logits
+     move ~0.28 between bf16 and f32 weights on one CPU) and 1e-2 with
+     float32 copies of the weights and state on both sides, every greedy token equal
+     up to a near-tie of 2 bf16 spacings.  K3, the GEMM and the norm kernel
+     must launch in each path, K5 in hymba's.
 After phase 2, the card tests that make K1's and K2's launch fail (their
 library entry points return a CUDA error) run in a child pytest: both
 must become fail-closed refusals with every pin unwound.
 Phase 2 also holds K1, K2, K4 and K5 at stablelm-12b's head_dim 160, K1 and
 K2 at 16 query heads per kv head, K2 and K5 at head_dim 256, K5 at a bf16
 head_dim of 24, K1, K2, K4 and K5 at a bf16 head_dim of 100 (zero-padded
-to 104 by the wrappers), K5 at hymba-1.5b's prefill shape and K3 on one
-hymba snapshot page against their plain versions, and K1, K2 and K5 at the
+to 104 by the wrappers), K5 at hymba-1.5b's prefill shapes (phase 10's
+1 x 1100, phase 21's 4 x 4,096 and 1 x 32,768) and K3 on one snapshot page
+of hymba, of xlstm and of phase 21's 8-layer xlstm against their plain
+versions, and K1, K2 and K5 at the
 served shapes of phases 12-14 (G = 6 with soft-cap 30, G = 7, head_dim 96),
 K5 at whisper-small's shapes of phase 16 (the non-causal encoder over
 4 x 1500 frames, the decoder's causal self-attention over 4 x 64 tokens,
@@ -259,8 +289,9 @@ scaled_dot_product_attention on whichever backend takes the head dim; the
 kernels' JSON record lists these rows, and the GEMM's rows past its first,
 under their wrapper's name with the wrapper's launch count.
 Every launch count is zeroed
-just before each path of phases 3-20 and read just after it, so the counts
-show each path itself went through its kernels.  The line before the
+just before each path of phases 3-21 and read just after it, so the counts
+show each path itself went through its kernels (phase 21: each arch's
+cells are one path).  The line before the
 kernels' JSON record gives the smoke's wall and each path's.
 The last two lines are the kernels' JSON record (each wrapper's row with
 its launches in total and by path, then its other rows) and the device
@@ -459,8 +490,9 @@ def kernel_phase(gen_seed: int = 0):
     past_256["gemm"] = gemm_extra
     past_256["norm"] = norm_extra
     snapshot = snapshot_kernel_rows(dev, rnd)
-    past_256.setdefault("kv_block_copy", []).extend(
-        (label, row) for label, row in snapshot.items() if label.startswith("K3"))
+    for label, row in snapshot.items():
+        past_256.setdefault("kv_block_copy" if label.startswith("K3") else "flash_attention",
+                            []).append((label, row))
     moe_vlm_kernel_rows(dev, rnd, gen_seed)
     whisper_kernel_rows(rnd)
     sharded_prefill_kernel_row(rnd)
@@ -1233,61 +1265,78 @@ def sharded_32k_kernel_rows(rnd):
     return rows
 
 
-# hymba-1.5b's full-width snapshot after an 1100-token prefix: ring k and v
-# (2 x 32 x 1024 x 5 x 64 bf16), SSM h (32 x 3200 x 16 f32), conv (32 x 3 x
-# 3200 bf16), pos (1024 int32) and the logits (32001 f32): 4 mod 16 bytes
-HYMBA_SNAPSHOT_BYTES = 49_243_140
+# the snapshot pages K3 moves, in bytes (a B = 1 state and its f32 logits,
+# whatever the prefix's length): phases 10-11 and scripts/
+# torch_long_recurrent.py at full depth, phase 21's xlstm at LR_DEPTH's 8
+# layers.  hymba-1.5b's: ring k and v (2 x 32 x 1024 x 5 x 64 bf16), SSM h
+# (32 x 3200 x 16 f32), conv (32 x 3 x 3200 bf16), pos (1024 int32) and the
+# logits (32001 f32), 4 mod 16 bytes
+SNAPSHOT_PAGES = {"hymba-1.5b": 49_243_140, "xlstm-350m": 22_356_816,
+                  "xlstm-350m at 8 layers": 7_586_416}
 
 
 def snapshot_kernel_rows(dev, rnd):
     """The two kernels of the snapshot path at their served shapes: K5 at
-    hymba-1.5b's prefill (B 1, 25 query heads over 5 kv heads, S 1100,
-    D 64, causal, window 1024: keys past the window masked), beside
+    hymba-1.5b's prefill (25 query heads over 5 kv heads, D 64, causal,
+    window 1024: keys past the window masked) over B 1 x S 1100 (phase 10)
+    and over phase 21's (a) rows (4 x 4,096), beside
     scaled_dot_product_attention with the same causal+window mask given
     explicitly (a boolean mask, which SDPA serves with a non-flash
-    kernel); and K3 on one hymba snapshot page of 49,243,140 uint8 bytes
-    (4 mod 16: the kernel moves 4-byte words), beside ``index_select``."""
+    kernel); and K3 on one snapshot page of each of ``SNAPSHOT_PAGES``
+    (``snapshot_page_row``).  Returns {label: row}."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import kv_block_copy as kbc
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    H, KV, S, D, W = 25, 5, 1100, 64, 1024
-    act = lambda n: rnd(1, S, n, D).transpose(1, 2)
-    copies = [(act(H), act(KV), act(KV)) for _ in range(8)]
-    pos = torch.arange(S, device=dev)
-    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
-    pairs = int(mask.sum())  # the (query, key) pairs this input attends
-    lib = (lambda q, k, v: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), copies)
-    label = "K5 hymba-1.5b prefill (25/5 heads, S 1100, D 64, window 1024)"
-    kw = dict(causal=True, window=W)
-    row = kernel_row(label, lambda *a: fa.flash_attention(*a, **kw),
-                     lambda *a: fa.flash_attention_ref(*a, **kw), copies, [{}],
-                     2.0 * (2 * H * S * D + 2 * KV * S * D), 4.0 * H * D * pairs, library=lib)
-    print(f"{label}: library_ms is scaled_dot_product_attention with an explicit boolean "
-          f"causal+window mask (a non-flash SDPA kernel); {pairs} attended pairs")
+    H, KV, D, W = 25, 5, 64, 1024
+    rows = {}
+    for B, S in ((1, 1100), (LR_ROWS, LR_LEN["hymba-1.5b"])):
+        act = lambda n: rnd(B, S, n, D).transpose(1, 2)
+        copies = [(act(H), act(KV), act(KV)) for _ in range(8 if B == 1 else 4)]
+        pos = torch.arange(S, device=dev)
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+        pairs = B * int(mask.sum())  # the (query, key) pairs this input attends
+        lib = (lambda q, k, v: sdpa(q, k, v, attn_mask=mask, enable_gqa=True), copies)
+        label = (f"K5 hymba-1.5b prefill (25/5 heads, S {S}, D 64, window 1024)" if B == 1 else
+                 f"K5 hymba-1.5b phase 21 prefill ({B} x {S}, 25/5 heads, D 64, window 1024)")
+        kw = dict(causal=True, window=W)
+        rows[label] = kernel_row(label, lambda *a: fa.flash_attention(*a, **kw),
+                                 lambda *a: fa.flash_attention_ref(*a, **kw), copies, [{}],
+                                 2.0 * B * (2 * H * S * D + 2 * KV * S * D), 4.0 * H * D * pairs,
+                                 library=lib)
+        print(f"{label}: library_ms is scaled_dot_product_attention with an explicit boolean "
+              f"causal+window mask (a non-flash SDPA kernel); {pairs} attended pairs")
+        del copies, mask
+    for arch, nbytes in SNAPSHOT_PAGES.items():
+        rows.update(snapshot_page_row(dev, arch, nbytes))
+    print("snapshot kernel rows: " + json.dumps(rows))
+    return rows
+
+
+def snapshot_page_row(dev, arch, nbytes):
+    """K3 on one ``nbytes``-byte uint8 snapshot page of ``arch``, exact,
+    timed beside its plain version and ``index_select``: {label: row}."""
+    from repro_torch.kernels import kv_block_copy as kbc
 
     g = torch.Generator(device=dev).manual_seed(9)
-    pages = [torch.randint(0, 256, (1, HYMBA_SNAPSHOT_BYTES, 1, 1), generator=g, device=dev,
-                           dtype=torch.uint8) for _ in range(3)]
+    pages = [torch.randint(0, 256, (1, nbytes, 1, 1), generator=g, device=dev, dtype=torch.uint8)
+             for _ in range(3)]
     idx = torch.zeros(1, dtype=torch.int32)
     d_idx = idx.to(dev)
     got = kbc.kv_block_copy(pages[0], idx)
     torch.cuda.synchronize()
-    check(torch.equal(got, pages[0]), "K3 is not an exact copy of a snapshot page")
-    word = math.gcd(HYMBA_SNAPSHOT_BYTES, 16)  # the widest word dividing the page (4)
+    check(torch.equal(got, pages[0]), f"K3 is not an exact copy of a {arch} snapshot page")
+    word = math.gcd(nbytes, 16)  # the widest word dividing the page
     calls = [(pg, idx) for pg in pages]
     ms = time_ms(lambda s, i: kbc.kv_block_copy(s, i), calls)
     plain_ms = time_ms(lambda s, i: kbc.kv_block_copy_ref(s, i), calls)
     lib_ms = time_ms(lambda s, i: torch.index_select(s, 0, d_idx), calls)
-    b_ms, b_by = bound(2.0 * HYMBA_SNAPSHOT_BYTES + 4, 0.0)
-    rows = {label: row, "K3 hymba-1.5b snapshot page (49,243,140 B, 4-byte words)": dict(
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, max_abs_err=0.0)}
-    print(f"K3 one hymba-1.5b snapshot page ({HYMBA_SNAPSHOT_BYTES} B, 4 mod 16: {word}-byte words): "
-          f"{ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
-          f"{100 * b_ms / ms:.1f}% of the bound, {2 * HYMBA_SNAPSHOT_BYTES / ms / 1e6:.0f} GB/s, "
+    b_ms, b_by = bound(2.0 * nbytes + 4, 0.0)
+    label = f"K3 {arch} snapshot page ({nbytes:,} B, {word}-byte words)"
+    print(f"{label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}, "
+          f"{100 * b_ms / ms:.1f}% of the bound, {2 * nbytes / ms / 1e6:.0f} GB/s, "
           f"library index_select {lib_ms:.4f} ms), exact")
-    print("snapshot kernel rows: " + json.dumps(rows))
-    return rows
+    return {label: dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                        max_abs_err=0.0)}
 
 
 def reduced_parity_phase():
@@ -3636,7 +3685,8 @@ def long_context_kernel_rows(dev, rnd, gen_seed):
     30 GB over 28 layers) and over 8 such rows at h2o-danube's G = 4, D 80
     under its 4096-key window; K2 on a 512-token chunk after 32,256 prefix
     keys (qwen3 without a window, h2o-danube with it); K5 over 32,768
-    tokens (qwen3 causal, h2o-danube under the window); the GEMM at M =
+    tokens (qwen3 causal, h2o-danube and hymba-1.5b under their windows:
+    the shapes of phases 20-21 and scripts/torch_long_recurrent.py); the GEMM at M =
     32,768 on qwen3's five shapes, beside ``torch.matmul``, its first and
     last 8 rows bitwise those of an M = 8 product.  Returns {wrapper name:
     [(label, row), ...]} for the kernels' JSON record."""
@@ -3685,6 +3735,8 @@ def long_context_kernel_rows(dev, rnd, gen_seed):
     add("flash_attention", f"K5 h2o-danube S {LONG_S} window {window} (32/8 heads, D 80)",
         long_flash_row(f"K5 h2o-danube S {LONG_S} window {window} (32/8 heads, D 80)", rnd, 32,
                        8, 80, window))
+    label = f"K5 hymba-1.5b S {LONG_S} window 1024 (25/5 heads, D 64)"  # phase 21's prefill
+    add("flash_attention", label, long_flash_row(label, rnd, 25, 5, 64, 1024))
     torch.cuda.empty_cache()
 
     g = torch.Generator(device=dev).manual_seed(gen_seed + 53)
@@ -3725,6 +3777,50 @@ def long_context_kernel_rows(dev, rnd, gen_seed):
         torch.cuda.empty_cache()
     print(f"GEMM rows at M = {M}: the first and last 8 rows bitwise those of M = 8, every shape")
     return rows
+
+
+# ---------------------------------------------------------------- phase 21
+# The recurrent families' long cells at a cut of prefill_32k's length (the
+# same functions scripts/torch_long_recurrent.py runs at 32,768 tokens).
+# hymba at 4x its window; xlstm's per-token loop takes ~5 ms a token at 8
+# layers, and each of its cells (a) and (b) prefills the prompt once
+LR_LEN = {"hymba-1.5b": 4096, "xlstm-350m": 2048}
+LR_ROWS = 4  # (a)'s 32 rows
+LR_B1_ROWS = 4  # (c)'s rows held against B = 1 decodes, of 128
+# xlstm's per-token loop takes ~13 ms a token at 24 layers: one group of 8
+# layers (7 mLSTM + 1 sLSTM) keeps every block type at full width
+LR_DEPTH = {"xlstm-350m": 8}
+LR_WHY = ("the smoke's time: scripts/torch_long_recurrent.py runs the same cells at 32,768 tokens, "
+          "(a) at the rows one card holds and (c) every row against B = 1")
+
+
+def long_recurrent(bundle, params, cfg):
+    """Phase 21 for one arch on a one-rank NCCL mesh (built and torn down
+    here, as phase 18 tears its own down)."""
+    import torch.distributed as dist
+
+    from repro_torch.bench import long_recurrent as lr
+    from repro_torch.launch.mesh import init_group, make_debug_mesh
+
+    init_group("nccl", rank=0, world_size=1, port=_free_port())
+    try:
+        rec = lr.run_cells(bundle, params, cfg, LR_LEN[cfg.name], rows=LR_ROWS,
+                           b1_rows=LR_B1_ROWS, mesh=make_debug_mesh(1, 1), why=LR_WHY)
+    finally:
+        dist.destroy_process_group()
+    a, b, c, d = rec["prefill"], rec["claim"], rec["decode"], rec["long_500k"]
+    page = cfg.name + (f" at {cfg.num_layers} layers" if cfg.name in LR_DEPTH else "")
+    check(b["payload_bytes"] == SNAPSHOT_PAGES[page], f"{page}'s snapshot is {b['payload_bytes']} "
+          f"B, phase 2 held K3 on a page of {SNAPSHOT_PAGES[page]} B")
+    print(f"{cfg.name} long cells at {LR_LEN[cfg.name]} tokens: (a) {a['rows']} rows "
+          f"{a['wall_s']:.3f} s, peak {a['peak_gib']:.2f} GiB, row 0 against B = 1 bitwise "
+          f"{b['row0_vs_b1']['bitwise']}; (b) {b['payload_bytes']} B snapshot, materialized "
+          f"{b['materialize_s']:.3f} s, offload {b['offload_s']:.3f} s, path A wall "
+          f"{b['path_a']['wall_s']:.3f} s (restore {b['path_a']['restore_s']:.3f} s); (c) "
+          f"{c['rows']} rows, step ms {[round(t, 2) for t in c['step_ms']]}, B = 1 bitwise "
+          f"{c['b1']['bitwise']}, card vs CPU {c['cpu']['max_abs_err']:.3e}; (d) card vs CPU "
+          f"{d['cpu']['max_abs_err']:.3e}, one-rank build_cell {d['sharded']['max_abs_err']:.3e}; "
+          f"{len(rec['checks'])} checks held")
 
 
 T_START = time.monotonic()
@@ -3911,6 +4007,15 @@ def main() -> None:
     cfg, bundle, params = load_model("h2o-danube-1.8b")
     drive("long contexts: h2o-danube-1.8b", long_danube, bundle, params, cfg)
     del bundle, params
+    for name in ("hymba-1.5b", "xlstm-350m"):  # phase 21
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg, bundle, params = load_model(name, LR_DEPTH.get(name))
+        drive(f"long recurrent: {name}", long_recurrent, bundle, params, cfg)
+        del bundle, params
+        need = ["kv_block_copy", "gemm", "norm"] + (["flash_attention"] if cfg.sliding_window else [])
+        for k in need:
+            check(counts[f"long recurrent: {name}"][k] > 0, f"long recurrent: {name} never launched {k}")
     for name in ("paper gates: tables", "paper gates: chaos", "paper gates: radix"):
         for k in ("paged_decode_attention", "paged_prefill_attention"):
             check(counts[name][k] > 0, f"{name} never launched {k}")

@@ -9,7 +9,9 @@ layouts) and the model frames that issued it.
 ``--collectives`` also prints every collective a cell issues: its kind, its
 result's shape and dtype, and the model frames that issued it (the op whose
 arguments DTensor redistributed).  ``--batch N`` sets the cells' global
-batch (default 16; 1 is a one-row batch).
+batch (default 16; 1 is a one-row batch), ``--micro N`` a train cell's
+micro-batch count (default the config's; the batch's rows give one-row
+micro-batches).
 
 Meta tensors on a ``fake`` process group: no memory, no data, only
 DTensor's sharding rules, which differ between torch versions, so run it
@@ -76,6 +78,11 @@ def main() -> int:
         i = sys.argv.index("--batch")
         batch = int(sys.argv[i + 1])
         del sys.argv[i:i + 2]
+    micro = None
+    if "--micro" in sys.argv:
+        i = sys.argv.index("--micro")
+        micro = int(sys.argv[i + 1])
+        del sys.argv[i:i + 2]
     sys.argv = [a for a in sys.argv if a != "--collectives"]
     dims = tuple(int(x) for x in sys.argv[1].split("x"))
     names = ("data", "model") if len(dims) == 2 else ("pod", "data", "model")
@@ -89,7 +96,8 @@ def main() -> int:
             shape = ShapeSpec(f"{kind}_probe", seq_len=32, global_batch=batch, kind=kind)
             opt = AdamWConfig(state_dtype="int8") if cfg.moe.num_experts else None
             try:
-                cell = steps.build_cell(arch, shape.name, mesh, cfg=cfg, shape=shape, opt_cfg=opt)
+                cell = steps.build_cell(arch, shape.name, mesh, cfg=cfg, shape=shape, opt_cfg=opt,
+                                        n_micro=micro)
                 args = steps.cell_arguments(cell)
                 with FirstFailingOp(), Collectives() if trace else FirstFailingOp():
                     steps.run_cell(cell, args)

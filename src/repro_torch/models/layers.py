@@ -588,8 +588,13 @@ def attention_decode(q, k_cache, v_cache, *, kv_positions, cur_pos, window: int 
     G = H // KV
     scale = 1.0 / math.sqrt(D)
     dt = torch.promote_types(q.dtype, k_cache.dtype)
-    # the einsums flatten (b, k): keep the heads whole
-    q, k_cache, v_cache = (unshard_dims(t, (2,)) for t in (q, k_cache, v_cache))
+    # the einsums flatten (b, k): keep the heads whole, and a one-row batch
+    # sharded over a one-rank axis too (DTensor refuses to reshape a sharded
+    # dim of size 1), as ``proj`` does
+    whole = (0, 2) if B == 1 else (2,)
+    q, k_cache, v_cache = (unshard_dims(t, whole) for t in (q, k_cache, v_cache))
+    if B == 1:  # the mask's rows meet the scores' in the second einsum
+        kv_positions, cur_pos = unshard_dims(kv_positions, (0,)), unshard_dims(cur_pos, (0,))
     qg = split_dim(q, 2, (KV, G)).permute(0, 2, 3, 1, 4)  # [B, KV, G, 1, D]
     kb = k_cache.permute(0, 2, 1, 3)  # [B, KV, S, D]
     vb = v_cache.permute(0, 2, 1, 3)

@@ -2147,3 +2147,126 @@ def test_norm_launches_113_in_a_qwen3_decode_step_on_card(dev):
     bundle.paged_decode_fn(params, state, toks, cur)
     torch.cuda.synchronize()
     assert nm.norm.launches - n0 == 4 * 28 + 1
+
+
+# ------------------------------------------- the recurrent families' long cells
+def test_flash_attention_hymba_32k_window_matches_plain_by_slices(dev):
+    """K5 at hymba-1.5b's prefill over 32,768 queries (25 query heads over
+    5, D 64, causal, window 1024; the [1, S, H, D] views the model hands
+    it) against its plain version over 512-query slices, every row."""
+    S, H, KV, D, W, step = 32_768, 25, 5, 64, 1024, 512
+    g = torch.Generator(device=dev).manual_seed(21)
+    act = lambda n: torch.randn((1, S, n, D), generator=g, device=dev).bfloat16().transpose(1, 2)
+    q, k, v = act(H), act(KV), act(KV)
+    n0 = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal=True, window=W)
+    assert fa.flash_attention.launches == n0 + 1
+    for o in range(0, S, step):  # each slice over the keys up to its last row
+        want = fa.flash_attention_ref(q[:, :, o:o + step], k[:, :, :o + step],
+                                      v[:, :, :o + step], causal=True, window=W, q_offset=o)
+        _close(got[:, :, o:o + step], want, torch.bfloat16)
+
+
+@pytest.fixture(scope="module", params=["hymba-1.5b", "xlstm-350m"])
+def recurrent_full_width(request, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models.registry import build_model
+
+    cfg = get_config(request.param)
+    bundle = build_model(cfg, device=dev)
+    params = bundle.init_params(torch.Generator().manual_seed(0))
+    yield cfg, bundle, params
+    del bundle, params
+    torch.cuda.empty_cache()
+
+
+def test_long_recurrent_prefill_rows_bitwise_across_batch_widths(recurrent_full_width):
+    """Cell (a) at a short length, full width and depth: row 0 of a 4-row
+    ``prefill_fn`` over 256 tokens (rows 1-3 other tokens) gives the logits
+    and every state leaf of a B = 1 prefill of that row, bit for bit."""
+    from repro_torch.bench import long_recurrent as lr
+
+    cfg, bundle, params = recurrent_full_width
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 256)).astype(np.int32)).cuda()
+    cache_len = cfg.sliding_window or 1
+    lg4, st4 = bundle.prefill_fn(params, {"tokens": toks}, cache_len)
+    lg1, st1 = bundle.prefill_fn(params, {"tokens": toks[:1]}, cache_len)
+    assert torch.equal(lg4[:1], lg1)
+    cmp = lr.compare_states(bundle, lr.take_rows(bundle, st4, [0]), st1)
+    assert cmp["bitwise"], cmp
+
+
+def _decode_rows_scene(recurrent_full_width):
+    """Cell (c) at a short length: 8 rows tiled from a 2-row prefill's
+    states (256 tokens), each with its own next token, one decode step at
+    8 rows and each row's step at B = 1: (cfg, bundle, params, prefill
+    state, tokens, (logits, state) at 8 rows, [(logits, state)] at B = 1)."""
+    from repro_torch.bench import long_recurrent as lr
+
+    cfg, bundle, params = recurrent_full_width
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 256)).astype(np.int32)).cuda()
+    _, st = bundle.prefill_fn(params, {"tokens": toks}, cfg.sliding_window or 1)
+    state = lr.take_rows(bundle, st, [r % 2 for r in range(8)])
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, 8).astype(np.int32)).cuda()
+    pos = torch.full((8,), 256, dtype=torch.int32, device=tok.device)
+    many = bundle.decode_fn(params, state, tok, pos)
+    ones = [bundle.decode_fn(params, lr.take_rows(bundle, state, [r]), tok[r:r + 1], pos[r:r + 1])
+            for r in range(8)]
+    return cfg, bundle, params, st, tok, many, ones
+
+
+def _f32_distance(a, b) -> float:
+    """The largest |a - b| over b's largest magnitude, over the float32
+    leaves of two B = 1 states."""
+    from repro_torch.serving.snapshot_engine import _flatten
+
+    return max(float((x - y).abs().max()) / float(y.abs().max())
+               for (_, x), (_, y) in zip(_flatten(a), _flatten(b)) if y.dtype == torch.float32)
+
+
+def test_long_recurrent_decode_rows_across_batch_widths(recurrent_full_width):
+    """Each row of an 8-row decode step against B = 1 decodes (the scene of
+    ``_decode_rows_scene``).  The rows are not bitwise across batch widths
+    on the card (ROADMAP Queue 3), so this holds what a fault that mixes
+    rows would break: each row's float32 state is at least 4x nearer its
+    own B = 1 decode than the B = 1 decode of a row with the other prompt's
+    state (measured on the card: xlstm's own distance 8.4e-3 of the
+    leaf's magnitude, ``mlstm/C``), its logits within the smoke's bf16
+    limit of its own; and the first op whose row 0 differs between a B = 1
+    step and 8 copies of the row is an f32 cuBLAS product of the
+    recurrences (the mLSTM / sLSTM step's batched products, the SSM's
+    ``dt`` projection or scan product), never a kernel's route."""
+    from repro_torch.bench import long_recurrent as lr
+
+    cfg, bundle, params, st, tok, (lg8, st8), ones = _decode_rows_scene(recurrent_full_width)
+    for r in range(8):
+        row = lr.take_rows(bundle, st8, [r])
+        own, other = _f32_distance(row, ones[r][1]), _f32_distance(row, ones[r ^ 1][1])
+        print(f"{cfg.name} row {r}: f32 state distance to its own B = 1 decode {own:.3e}, to "
+              f"the other prompt's {other:.3e}")
+        assert 4 * own <= other, (r, own, other)
+        assert float((lg8[r:r + 1] - ones[r][0]).abs().max()) <= lr.LOGITS_LIMIT, r
+    run = lr.Run(bundle, params, cfg, 256, log=lambda _: None)
+    first = lr.trace_decode(run, st, tok)
+    if first["op"] is not None:
+        assert first["op"] in ("aten.bmm.default", "aten.mm.default", "aten.addmm.default"), first
+        assert any(fn in f for f in first["frames"]
+                   for fn in ("_mlstm_step", "_slstm_step", "_scan_step", "_ssm_coeffs")), first
+
+
+def test_long_recurrent_decode_rows_bitwise_across_batch_widths(recurrent_full_width):
+    """Row-against-batch equality for cell (c): each row of the 8-row step
+    gives the logits and every state leaf of its B = 1 decode, bit for bit.
+    FAILS on the card today: an open fault of the port, ROADMAP Queue 3
+    (the recurrences' f32 cuBLAS products change kernels with the batch
+    count; by inference, bf16 activations after them then round the other
+    way and carry the difference to later layers); a
+    repair that gives each row one reduction order turns it green."""
+    from repro_torch.bench import long_recurrent as lr
+
+    _, bundle, _, _, _, (lg8, st8), ones = _decode_rows_scene(recurrent_full_width)
+    for r in range(8):
+        cmp = lr.compare_states(bundle, lr.take_rows(bundle, st8, [r]), ones[r][1])
+        assert torch.equal(lg8[r:r + 1], ones[r][0]) and cmp["bitwise"], (r, cmp)

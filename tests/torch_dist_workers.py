@@ -355,3 +355,61 @@ def moe_train_worker(rank, out_dir, arch, mesh_names, masters_np, batches_np, st
             "m_dtype": str(opt_state["m"]["embed"]["q"].dtype)}
     if rank == 0:
         _save(out_dir, rank, out)
+
+
+def one_row_decode_worker(rank, out_dir):
+    """Decode cells at global batch 1 on a one-rank (data, model) mesh,
+    reduced configs with float32 parameters drawn from seed 0: qwen3-1.7b
+    and hymba-1.5b at a 64-slot cache after a 60-token prompt, and
+    hymba-1.5b's ``long_500k`` cell at position 524,287 over its 16-slot
+    ring of seeded K/V beside the prompt's SSM state.  Saves each cell's
+    logits beside the unsharded ``decode_fn``'s on the same inputs, and the
+    placements of the distributed cache's leaves."""
+    from repro_torch.configs import ShapeSpec, get_config, reduced
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.sharding.rules import full
+    from repro_torch.training.tree import leaves
+
+    mesh = make_debug_mesh(1, 1, device="cpu")
+    out = {}
+    for arch, shape_name in (("qwen3-1.7b", "decode_32k"), ("hymba-1.5b", "decode_32k"),
+                             ("hymba-1.5b", "long_500k")):
+        cfg = reduced(get_config(arch))
+        bundle = build_model(cfg, device="cpu")
+        params = _tree_f32(bundle.init_params(torch.Generator().manual_seed(0)))
+        g = torch.Generator().manual_seed(7)
+        prompt = torch.randint(0, cfg.vocab_size, (1, 60), generator=g, dtype=torch.int32)
+        if shape_name == "long_500k":
+            W = cfg.sliding_window
+            _, cache = bundle.prefill_fn(params, {"tokens": prompt}, W)
+            pos = torch.arange(524_288 - W, 524_288, dtype=torch.int32)
+            ring = torch.empty(W, dtype=torch.int32)
+            ring[(pos % W).long()] = pos
+            kv = lambda: torch.randn(cache["k"].shape, generator=g).to(cache["k"].dtype)
+            cache = dict(cache, k=kv(), v=kv(), pos=ring[None])
+            cur = torch.tensor([524_287], dtype=torch.int32)
+            cell = steps.build_cell(arch, shape_name, mesh, cfg=cfg)
+        else:
+            _, cache = bundle.prefill_fn(params, {"tokens": prompt}, 64)
+            cur = torch.tensor([60], dtype=torch.int32)
+            cell = steps.build_cell(arch, shape_name, mesh, cfg=cfg,
+                                    shape=ShapeSpec("decode_one_row", 64, 1, "decode"))
+        tok = torch.tensor([5], dtype=torch.int32)
+        want, _ = bundle.decode_fn(params, cache, tok, cur)
+        cd = steps.distribute_argument(cell, "cache", cache)
+        args = (steps.distribute_argument(cell, "params", params), cd,
+                steps.distribute_argument(cell, "tokens", tok),
+                steps.distribute_argument(cell, "cur_pos", cur))
+        got, _ = steps.run_cell(cell, args)
+        out[f"{arch} {shape_name}"] = {
+            "got": full(got).detach(), "want": want,
+            "placements": sorted({str(p) for t in leaves(cd) for p in t.placements})}
+    _save(out_dir, rank, out)
+
+
+def _tree_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_f32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree

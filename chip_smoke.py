@@ -35,7 +35,14 @@ Phases, each stopping the run with a non-zero exit at its first failed check:
      rows past 2048 read again for each pass), bitwise the route it replaced (the
      statistic's order written out in torch ops, then torch's elementwise
      chain) and each row bitwise across the row counts of its width, beside
-     F.rms_norm / F.layer_norm;
+     F.rms_norm / F.layer_norm; the row-invariant f32 contraction kernel
+     at each of the recurrences' five sites (xlstm-350m's q . C, q . n and
+     the sLSTM's four recurrent products side by side, hymba-1.5b's scan
+     h . C_t and dt projection) at decode_32k's 128 rows and at the dt
+     projection of phase 21's 4 x 4,096-token prefill, bitwise its order
+     written out in torch ops (``contract.ordered_contract``), within
+     gamma_K sum_k |x_k w_kj| of ``torch.matmul`` and each row's bits
+     those of the same row at 8 rows, beside ``torch.matmul``;
      plus the reduced qwen3 model served on the card against the same model
      served on the CPU;
   3. full-width qwen3-1.7b (28 layers, random weights from seed 0) serving 8
@@ -231,7 +238,7 @@ model freed before the next (the depth cuts are printed):
      for the smoke's time: 4x hymba's 1024-key window, 4x xlstm's
      512-token prefix of phase 11):
      (a) ``prefill_fn`` over 4 rows (the catalogue's 32 cut), row 0 held
-     against (b)'s B = 1 materialization (bitwise recorded; otherwise the
+     bitwise against (b)'s B = 1 materialization (where it is not, the
      first op whose row 0 differs by batch width is named); (b) a claim
      over row 0's prefix through ``SnapshotEngine``: 4 requests x 16 tokens
      served from the snapshot on the card, then offloaded (K3) and restored
@@ -239,8 +246,8 @@ model freed before the next (the depth cuts are printed):
      engine, handed path A's snapshot, refuses its injected restore
      failure in order (path B); (c) ``decode_fn`` over decode_32k's 128
      rows tiled from (a)'s states at the prompt's length, 4 steps, the
-     first held against the CPU on 4 rows and 4 rows against B = 1
-     decodes (bitwise recorded); (d) one decode at
+     first held against the CPU on 4 rows and 4 rows bitwise against
+     B = 1 decodes; (d) one decode at
      long_500k's position 524,287 (hymba over a 1024-slot ring of seeded
      K/V beside (a)'s SSM state, xlstm from (a)'s state: its decode never
      reads the position) against the CPU, then ``build_cell(arch,
@@ -249,8 +256,8 @@ model freed before the next (the depth cuts are printed):
      the served bf16 weights (greedy flips recorded: hymba's bf16 logits
      move ~0.28 between bf16 and f32 weights on one CPU) and 1e-2 with
      float32 copies of the weights and state on both sides, every greedy token equal
-     up to a near-tie of 2 bf16 spacings.  K3, the GEMM and the norm kernel
-     must launch in each path, K5 in hymba's.
+     up to a near-tie of 2 bf16 spacings.  K3, the GEMM, the norm kernel and
+     the contraction kernel must launch in each path, K5 in hymba's.
 After phase 2, the card tests that make K1's and K2's launch fail (their
 library entry points return a CUDA error) run in a child pytest: both
 must become fail-closed refusals with every pin unwound.
@@ -485,10 +492,12 @@ def kernel_phase(gen_seed: int = 0):
     )
     results["gemm"], gemm_extra = gemm_rows(dev, g)
     results["norm"], norm_extra = norm_rows(dev, g)
+    results["contract"], contract_extra = contract_rows(dev, g)
     wide_kernel_rows(dev, rnd, gen_seed)
     past_256 = head_dim_past_256_rows(dev, rnd, gen_seed)
     past_256["gemm"] = gemm_extra
     past_256["norm"] = norm_extra
+    past_256["contract"] = contract_extra
     snapshot = snapshot_kernel_rows(dev, rnd)
     for label, row in snapshot.items():
         past_256.setdefault("kv_block_copy" if label.startswith("K3") else "flash_attention",
@@ -784,6 +793,75 @@ def norm_rows(dev, g):
     print("norm rows: each width's smaller row counts bitwise the same rows of its largest "
           "(widths " + ", ".join(str(d) for d in sorted({d for _, d in NORM_SHAPES.values()}))
           + "), each bitwise the route it replaced")
+    return main, extra
+
+
+# The recurrences' f32 contractions at full width, (a's shape, b's shape):
+# xlstm-350m's mLSTM q . C and q . n (4 heads of 256, a matrix a row and
+# head), its sLSTM's four recurrent products side by side (a matrix a head),
+# hymba-1.5b's scan h . C_t (d_inner 3200, N 16, a matrix a batch row) and
+# its dt projection (dt rank 100 -> 3200, one matrix), at decode_32k's 128
+# rows; then the dt projection of phase 21's 4 x 4,096-token prefill
+CONTRACT_SHAPES = {
+    "xlstm-350m mLSTM q.C decode 128 rows": ((128, 4, 1, 256), (128, 4, 256, 256)),
+    "xlstm-350m mLSTM q.n decode 128 rows": ((128, 4, 1, 256), (128, 4, 256, 1)),
+    "xlstm-350m sLSTM recurrent decode 128 rows": ((128, 4, 1, 256), (4, 256, 1024)),
+    "hymba-1.5b SSM h.C_t decode 128 rows": ((128, 3200, 16), (128, 16, 1)),
+    "hymba-1.5b SSM dt decode 128 rows": ((128, 1, 100), (100, 3200)),
+    "hymba-1.5b SSM dt prefill 4 x 4096": ((4, 4096, 100), (100, 3200)),
+}
+
+
+def contract_rows(dev, g):
+    """The contraction kernel at each shape of CONTRACT_SHAPES: bitwise
+    ``ordered_contract`` (its order in torch ops), every element within
+    gamma_K sum_k |x_k w_kj| (gamma_K = K 2^-24) of ``torch.matmul`` (its
+    plain version, and the library call), the first 8 rows' bits those of
+    the whole call; timed beside ``torch.matmul`` and the bound of its
+    input (bytes: x, each matrix and y once, 4 bytes an element;
+    operations: 2 R K J at f32's peak).  Copies add up past the 50 MB L2.
+    Returns (the mLSTM q.C row, [(label, row), ...] for the others)."""
+    from repro_torch.kernels import contract as ct
+
+    main, extra = None, []
+    for label, (sa, sb) in CONTRACT_SHAPES.items():
+        per_row = len(sb) == len(sa)  # b's batch is a's: a matrix a row
+        n_in = math.prod(sa) + math.prod(sb)
+        n = max(2, -(-120_000_000 // (4 * n_in)))
+        copies = [(torch.randn(sa, generator=g, device=dev), torch.randn(sb, generator=g, device=dev))
+                  for _ in range(n)]
+        a, b = copies[0]
+        got = ct.contract(a, b)
+        lib = torch.matmul(a, b)
+        ordered = ct.ordered_contract(a, b)
+        part = ct.contract(a[:8], b[:8] if per_row else b)
+        gamma = ct.sum_bound(a, b)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ordered), f"contract {label}: not bitwise its ordered sum "
+                                         f"({max_err(got, ordered)})")
+        check(bool(((got.double() - lib.double()).abs() <= gamma).all()),
+              f"contract {label}: past gamma_K of torch.matmul ({max_err(got, lib)})")
+        check(torch.equal(part, got[:8]), f"contract {label}: 8 rows differ from the whole call")
+        e = max_err(got, lib)
+        del got, lib, ordered, part, gamma
+        ms = time_ms(ct.contract, copies, breakdown=True)
+        plain_ms = time_ms(ct.contract_ref, copies, iters=6)
+        lib_ms = time_ms(torch.matmul, copies)
+        R, K, J = math.prod(sa[:-1]), sa[-1], sb[-1]
+        b_ms, b_by = bound(4.0 * (n_in + R * J), 2.0 * R * K * J, H100_F32_FLOPS)
+        print(f"contract {label}: {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by}, {100 * b_ms / ms:.1f}% of the bound, torch.matmul {lib_ms:.4f} ms), "
+              f"max|d| against torch.matmul {e:.3e}, bitwise the ordered sum")
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                   max_abs_err=e)
+        if main is None:
+            main = dict(route="cuda", source="src/repro_torch/kernels/csrc/contract.cu",
+                        replaces="none: replaces no TPU kernel (the reference's einsums and @ "
+                                 "in the mLSTM, sLSTM and SSM steps)", **row)
+        else:
+            extra.append((label, row))
+        del copies, a, b
+    print("contract rows: bitwise the ordered sum at every shape, 8 rows bitwise the whole call's")
     return main, extra
 
 
@@ -3832,6 +3910,7 @@ def main() -> None:
         raise SystemExit(2)
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels import contract as ct
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
     from repro_torch.kernels import kv_block_copy as kbc
@@ -3897,6 +3976,7 @@ def main() -> None:
         "paged_attention": pa.paged_attention,
         "gemm": gemm.gemm,
         "norm": nm.norm,
+        "contract": ct.contract,
     }
 
     def drive(name, fn, *args):
@@ -3943,6 +4023,8 @@ def main() -> None:
         drive(f"{name} snapshot serving", snapshot_phase, bundle, params, cfg, prefix_len)
         check(counts[f"{name} snapshot serving"]["kv_block_copy"] > 0,
               f"{name} offload/restore never launched K3")
+        check(counts[f"{name} snapshot serving"]["contract"] > 0,
+              f"{name} snapshot serving never launched the contraction kernel")
         del bundle, params
     for name in ("grok-1-314b", "arctic-480b", "phi-3-vision-4.2b"):
         gc.collect()
@@ -4013,7 +4095,8 @@ def main() -> None:
         cfg, bundle, params = load_model(name, LR_DEPTH.get(name))
         drive(f"long recurrent: {name}", long_recurrent, bundle, params, cfg)
         del bundle, params
-        need = ["kv_block_copy", "gemm", "norm"] + (["flash_attention"] if cfg.sliding_window else [])
+        need = ["kv_block_copy", "gemm", "norm", "contract"] + (
+            ["flash_attention"] if cfg.sliding_window else [])
         for k in need:
             check(counts[f"long recurrent: {name}"][k] > 0, f"long recurrent: {name} never launched {k}")
     for name in ("paper gates: tables", "paper gates: chaos", "paper gates: radix"):

@@ -979,15 +979,15 @@ def untrained_loss(cfg) -> float:
 
 def kernel_launches() -> int:
     """Launches of every kernel wrapper so far (K1-K5, the GEMM, the
-    norms): a training step must add none."""
+    norms, the contractions): a training step must add none."""
+    from repro_torch.kernels import contract, gemm, norm
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import gemm, norm
     from repro_torch.kernels import kv_block_copy as kbc
     from repro_torch.kernels import paged_attention as pa
 
     return sum(w.launches for w in (pa.paged_decode_attention, pa.paged_prefill_attention,
                                     pa.paged_attention, kbc.kv_block_copy, fa.flash_attention,
-                                    gemm.gemm, norm.norm))
+                                    gemm.gemm, norm.norm, contract.contract))
 
 
 def one_card_moe_grads(cfg, batch: dict, n_micro: int, device) -> dict:

@@ -14,10 +14,10 @@ reduced config (``device="cpu"``).  Each failed check raises
 (a) ``prefill_fn`` over ``rows`` x ``seq_len`` tokens (the catalogue's 32
     rows, cut to what the card holds: hymba's SSM coefficients ``dA`` and
     ``dBx`` are [B, S, d_inner, N] f32 each, the reference's layout); row 0
-    is the claim's prefix.  Its logits and state are held against (b)'s
-    B = 1 materialization of that prefix: bitwise is recorded, and where
-    the rows differ the first op whose row 0 differs by batch width is
-    named (``first_row_variant_op``).
+    is the claim's prefix.  Its logits and state are held bitwise against
+    (b)'s B = 1 materialization of that prefix; where the rows differ, the
+    first op whose row 0 differs by batch width is named
+    (``first_row_variant_op``) before the check fails.
 (b) A ResidentClaim over the prefix through ``SnapshotEngine``: the
     materialized snapshot serves 4 requests (the prefix + 2 fresh tokens,
     16 new tokens each) while it is on the device, is offloaded (K3), and
@@ -30,7 +30,7 @@ reduced config (``device="cpu"``).  Each failed check raises
     from (a)'s row states, each with its own next token, at position
     ``seq_len``, 4 steps: the first step held against the CPU on a subset
     of rows (max |d| 0.25, the same greedy token up to a near-tie of 2 bf16
-    spacings) and each row against a B = 1 decode of it (bitwise recorded).
+    spacings) and each row held bitwise against a B = 1 decode of it.
 (d) One decode at ``long_500k``'s last position 524,287 at B = 1: hymba
     over a window-slot ring of seeded K/V holding the window's last
     positions beside (a)'s SSM state; xlstm from (a)'s state (its decode
@@ -275,17 +275,19 @@ def first_row_variant_op(fn: Callable, one, many, rows: int) -> Dict[str, Any]:
     return {"op": None, "index": None, "of": len(a.names), "frames": []}
 
 
-def _report_rows(run: Run, name: str, bitwise: bool, err: float, trace: Callable[[], Dict]):
-    """Records whether rows are bitwise equal across batch widths; where
-    they are not, the first op that makes them differ."""
-    rec = {"bitwise": bitwise, "max_abs_err": err}
+def _report_rows(run: Run, name: str, bitwise: bool, err: float, trace: Callable[[], Dict],
+                 into: Dict[str, Any]) -> None:
+    """Holds rows bitwise equal across batch widths (the bits contract:
+    since the recurrences' contractions run on the row-invariant kernel).
+    Where they are not, the first op that makes them differ is recorded in
+    ``into`` with the rows' numbers before the check fails."""
+    into.update(bitwise=bitwise, max_abs_err=err)
     if not bitwise:
-        rec["first_row_variant_op"] = trace()
-        run.log(f"row-variant: {run.cfg.name} {name}: max|d| {err:.3e}; first op whose row 0 "
-                f"differs by batch width: {rec['first_row_variant_op']}")
-    else:
-        run.log(f"{run.cfg.name} {name}: bitwise equal")
-    return rec
+        into["first_row_variant_op"] = trace()
+    run.check(f"{name} bitwise", bitwise,
+              "every logit and state leaf equal" if bitwise else
+              f"max|d| {err:.3e}; first op whose row 0 differs by batch width: "
+              f"{into['first_row_variant_op']}")
 
 
 # ---------------------------------------------------------------- (a) prefill
@@ -385,10 +387,10 @@ def snapshot_claim(run: Run) -> Dict[str, Any]:
         st = compare_states(run.bundle, row0, snap["state"])
         bitwise = torch.equal(lg, snap["logits"]) and st["bitwise"]
         err = max(_max_err(lg, snap["logits"]), st["max_abs_err"])
-        rec["row0_vs_b1"] = dict(_report_rows(run, "(a) row 0 against the B = 1 materialization",
-                                              bitwise, err, lambda: trace_prefill(run)),
-                                 state=st, logits_max_abs_err=_max_err(lg, snap["logits"]),
+        rec["row0_vs_b1"] = dict(state=st, logits_max_abs_err=_max_err(lg, snap["logits"]),
                                  logits_flips=near_tie_flips(lg, snap["logits"]))
+        _report_rows(run, "(a) row 0 against the B = 1 materialization", bitwise, err,
+                     lambda: trace_prefill(run), rec["row0_vs_b1"])
         del row0
         kept = eng.serve_batch(prompts, max_new_tokens=CLAIM_NEW)  # the snapshot on the device
         run.check("(b) served on the device", [r.status for r in kept] == ["finished"] * len(kept)
@@ -456,11 +458,13 @@ def snapshot_claim(run: Run) -> Dict[str, Any]:
     return rec
 
 
-def trace_prefill(run: Run) -> Dict[str, Any]:
+def trace_prefill(run: Run, rows: Optional[int] = None, tokens: int = TRACE_TOKENS
+                  ) -> Dict[str, Any]:
     """The first op whose row 0 differs between a B = 1 prefill and one of
-    (a)'s width, over the prefix's first TRACE_TOKENS tokens."""
-    n = min(TRACE_TOKENS, run.S)
-    rows = run.a_logits.shape[0]
+    ``rows`` copies of it (default (a)'s width), over the prefix's first
+    ``tokens`` tokens."""
+    n = min(tokens, run.S)
+    rows = run.a_logits.shape[0] if rows is None else rows
     one = torch.tensor([run.prefix[:n]], dtype=torch.int32, device=run.dev)
     cache_len = run.cfg.sliding_window or 1
     out = first_row_variant_op(
@@ -512,18 +516,18 @@ def decode_rows(run: Run, rows: int = DECODE_ROWS, steps: int = DECODE_STEPS,
             worst = max(worst, _max_err(one, first[r:r + 1]))
     if n1 < rows:
         run.cut("(c) rows held against a B = 1 decode", rows, n1, "the smoke's time")
-    rec["b1"] = dict(_report_rows(run, f"(c) {n1} rows against B = 1 decodes", equal, worst,
-                                  lambda: trace_decode(run, s_in, t_in)), rows=n1)
+    rec["b1"] = {"rows": n1}
+    _report_rows(run, f"(c) {n1} rows against B = 1 decodes", equal, worst,
+                 lambda: trace_decode(run, s_in, t_in), rec["b1"])
     run.log(f"{cfg.name} (c) decode {rows} rows at position {S}: step ms {[round(t, 3) for t in ts]}, "
             f"peak {rec['peak_gib']} GiB")
     del state, cur
     return rec
 
 
-def trace_decode(run: Run, state, tok) -> Dict[str, Any]:
+def trace_decode(run: Run, state, tok, rows: int = 8) -> Dict[str, Any]:
     """The first op whose row 0 differs between a B = 1 decode step and one
-    of 8 copies of that row."""
-    rows = 8
+    of ``rows`` copies of that row."""
     b = run.bundle
     pos = torch.full((1,), run.S, dtype=torch.int32, device=run.dev)
     one = take_rows(b, state, [0])
@@ -652,6 +656,7 @@ def run_cells(bundle, params, cfg, seq_len: int = SEQ_LEN, *, rows: Optional[int
 def launches() -> Dict[str, int]:
     """Every kernel wrapper's launch count (read, never reset: a caller's
     own counts stay whole)."""
+    from repro_torch.kernels import contract
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gemm
     from repro_torch.kernels import kv_block_copy as kbc
@@ -663,7 +668,8 @@ def launches() -> Dict[str, int]:
             "kv_block_copy": kbc.kv_block_copy.launches,
             "flash_attention": fa.flash_attention.launches,
             "paged_attention": pa.paged_attention.launches,
-            "gemm": gemm.gemm.launches, "norm": norm.norm.launches}
+            "gemm": gemm.gemm.launches, "norm": norm.norm.launches,
+            "contract": contract.contract.launches}
 
 
 def snapshot_bytes(bundle) -> int:

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 SOURCES = ("paged_attention", "paged_decode", "kv_block_copy", "flash_attention", "gemm", "norm",
-           "wgmma_probe")
+           "contract", "wgmma_probe")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels import contract as contract_lib
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm as gemm_lib
 from repro_torch.kernels import paged_attention as pa
@@ -300,6 +301,22 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     """Layer norm over the last dim, in ``x``'s dtype (route: ``_norm_kernel``)."""
     route = norm_lib.norm if _norm_kernel(x) else norm_lib.norm_ref
     return route(x, weight, bias, kind="layer", eps=eps)
+
+
+def f32_contract(a, b, plain=torch.matmul):
+    """``torch.matmul(a, b)`` of the recurrences' f32 contractions (the
+    mLSTM's q against C and n, the sLSTM's h against its recurrent matrices,
+    the SSM's h against C_t and its dt projection).  Operands that take the
+    norm kernel (``_norm_kernel``: on the card, under ``torch.no_grad``, not
+    DTensors) take the row-invariant contraction kernel
+    (``kernels/contract.py``), so a recurrent row's bits do not depend on the
+    rows beside it; training, DTensors, meta tensors and the CPU take
+    ``plain`` (``torch.matmul``, or the site's own expression), unchanged.
+    The local shards inside ``sharded_recurrent_scan``'s body are plain
+    tensors, so a sharded serving step takes the kernel too."""
+    if _norm_kernel(a):
+        return contract_lib.contract(a, b)
+    return plain(a, b)
 
 
 def make_norm(cfg_norm: str, dim: int, *, lead=(), device=None):

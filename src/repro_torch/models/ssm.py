@@ -24,6 +24,7 @@ from repro_torch.models.layers import (
     chunked_recurrent_scan,
     constrain,
     dense_init,
+    f32_contract,
     mesh_axes,
     proj,
     shard_if,
@@ -92,7 +93,9 @@ def _ssm_coeffs(p, cfg, xc, mesh=None):
     coef = coef.float()  # slices, not torch.split: see ssm_forward's xi, z
     dt_r, Bmat, Cmat = (coef[..., :dt_rank], coef[..., dt_rank : dt_rank + N],
                         coef[..., dt_rank + N :])
-    dt = softplus(proj(dt_r, p["w_dt"].float()) + p["dt_bias"])  # [B, S, di]
+    # the f32 dt projection [B, S, di]: the row-invariant contraction kernel
+    # on the card (a decode's M is the row count), else ``proj`` as before
+    dt = softplus(f32_contract(dt_r, p["w_dt"].float(), plain=proj) + p["dt_bias"])
     if mesh is not None and "model" in mesh.mesh_dim_names:
         dt = _constrain_channels(dt, mesh)
         b = (shard_if(mesh, xc.shape[0], mesh_axes(mesh)[0]), None, None)
@@ -106,7 +109,7 @@ def _ssm_coeffs(p, cfg, xc, mesh=None):
 def _scan_step(h, inp):
     dA_t, dBx_t, C_t = inp
     h = dA_t * h + dBx_t
-    y = torch.matmul(h, C_t[:, :, None])[..., 0]  # einsum("bdn,bn->bd")
+    y = f32_contract(h, C_t[:, :, None])[..., 0]  # einsum("bdn,bn->bd")
     return h, y
 
 

@@ -32,8 +32,10 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import contract as contract_lib
 from repro_torch.models.layers import (
     DEFAULT_DTYPE,
+    _norm_kernel,
     apply_norm,
     chunked_cross_entropy,
     chunked_recurrent_scan,
@@ -41,6 +43,7 @@ from repro_torch.models.layers import (
     constrain_activations,
     dense_init,
     embed_init,
+    f32_contract,
     full_local,
     is_dtensor,
     make_norm,
@@ -97,9 +100,11 @@ def _mlstm_step(state, q, k, v, log_i, log_f):
     kv = k[..., :, None] * v[..., None, :]  # [B, nh, dh, dh]
     C = decay[..., None, None] * C + inp[..., None, None] * kv
     n = decay[..., None] * n + inp[..., None] * k
-    qr = q[..., None, :]  # the two contractions as batched products (einsum's, less host work)
-    num = torch.matmul(qr, C)[..., 0, :]
-    den = torch.maximum(torch.abs(torch.matmul(qr, n[..., :, None])[..., 0, 0]), torch.exp(-m_new))
+    # the two contractions as batched products (einsum's, less host work), on
+    # the row-invariant kernel on the card (``layers.f32_contract``)
+    qr = q[..., None, :]
+    num = f32_contract(qr, C)[..., 0, :]
+    den = torch.maximum(torch.abs(f32_contract(qr, n[..., :, None])[..., 0, 0]), torch.exp(-m_new))
     h = num / den[..., None]
     return {"C": C, "n": n, "m": m_new}, h
 
@@ -227,16 +232,29 @@ def slstm_state(cfg, batch: int, *, lead=(), device=None):
     }
 
 
+_GATES = ("ri", "rf", "rz", "ro")
+
+
 def _slstm_step(R, fb, nh, st, xi, xf, xz, xo):
     """xi/xf/xz/xo: [B, d] pre-activations from the input projections;
-    R: the four recurrent matrices [nh, dh, dh] in float32."""
+    R: the four recurrent matrices [nh, dh, dh] in float32, and (serving)
+    ``R["all"]``, the four side by side [nh, dh, 4 dh].  On the card without
+    grad the four products ``einsum("bhd,hde->bhe")`` are one launch of the
+    contraction kernel over ``R["all"]`` (each element's k order is that of
+    its own product); elsewhere four ``torch.matmul``, as before (one
+    product over the stacked matrices rounds some CPU rows otherwise)."""
     B, d = xi.shape
-    h = st["h"].reshape(B, nh, 1, d // nh)
-    rec = lambda w: torch.matmul(h, w).reshape(B, d)  # einsum("bhd,hde->bhe")
-    i_raw = xi + rec(R["ri"])
-    f_raw = xf + rec(R["rf"]) + fb
-    z = torch.tanh(xz + rec(R["rz"]))
-    o = torch.sigmoid(xo + rec(R["ro"]))
+    dh = d // nh
+    h = st["h"].reshape(B, nh, 1, dh)
+    if _norm_kernel(h):
+        rec4 = contract_lib.contract(h, R["all"]).view(B, nh, 4, dh)
+        pre = lambda x, g: (x.view(B, nh, dh) + rec4[:, :, g]).view(B, d)
+    else:
+        pre = lambda x, g: x + torch.matmul(h, R[_GATES[g]]).reshape(B, d)
+    i_raw = pre(xi, 0)
+    f_raw = pre(xf, 1) + fb
+    z = torch.tanh(pre(xz, 2))
+    o = torch.sigmoid(pre(xo, 3))
     log_i, log_f = i_raw, F.logsigmoid(f_raw)
     f_m = log_f + st["m"]
     m_new = torch.maximum(f_m, log_i)
@@ -254,7 +272,7 @@ def slstm_forward(p, cfg, x, state, mesh=None):
     xn = apply_norm(cfg.norm, p["ln"], x)
     pre = [_seq_replicated(proj(xn, p[w]).float(), mesh).movedim(1, 0)
            for w in ("wi", "wf", "wz", "wo")]
-    R = {w: p[w].float() for w in ("ri", "rf", "rz", "ro")}  # the per-step casts, hoisted
+    R = {w: p[w].float() for w in _GATES}  # the per-step casts, hoisted
     if mesh is not None:  # the step's weights, as every rank's full local copies
         dp, _ = mesh_axes(mesh)
         split = [a in dp and shard_if(mesh, B, dp) is not None for a in mesh.mesh_dim_names]
@@ -262,6 +280,8 @@ def slstm_forward(p, cfg, x, state, mesh=None):
         fb = full_local(p["fb"], mesh, split)
     else:
         fb = p["fb"]
+    if not torch.is_grad_enabled():  # the serving steps' one contraction a token
+        R["all"] = torch.cat([R[w] for w in _GATES], dim=-1)
     state, hs = _scan(lambda st, inp: _slstm_step(R, fb, nh, st, *inp), state, tuple(pre),
                       cfg, mesh, (False,) * 4)
     h = hs.transpose(0, 1).reshape(B, S, nh, d // nh)

@@ -26,12 +26,16 @@ grad-requiring CUDA input, and ``Trainer`` on the card by default, none of
 them launching a kernel.  The page store: the pool's own tensors on the
 card through a ``run_batch``, a host-tier restore landing bitwise in its
 slot there, and full-width qwen3-1.7b serving the same bits whether its
-live states read the one store or a clone of it.
+live states read the one store or a clone of it.  The recurrences' f32
+contraction kernel is held bitwise to its order written out in torch ops
+(``contract.ordered_contract``) and within gamma_K of ``torch.matmul``,
+and full-width hymba-1.5b and xlstm-350m rows bitwise across batch widths.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import contract as ct
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm
 from repro_torch.kernels import kv_block_copy as kbc
@@ -2180,20 +2184,23 @@ def recurrent_full_width(request, dev):
     torch.cuda.empty_cache()
 
 
-def test_long_recurrent_prefill_rows_bitwise_across_batch_widths(recurrent_full_width):
+@pytest.mark.parametrize("rows", [4, 32])
+def test_long_recurrent_prefill_rows_bitwise_across_batch_widths(recurrent_full_width, rows):
     """Cell (a) at a short length, full width and depth: row 0 of a 4-row
-    ``prefill_fn`` over 256 tokens (rows 1-3 other tokens) gives the logits
-    and every state leaf of a B = 1 prefill of that row, bit for bit."""
+    and of a 32-row ``prefill_fn`` over 256 tokens (the other rows other
+    tokens; 32 is prefill_32k's width, where xlstm's rows parted on cuBLAS)
+    gives the logits and every state leaf of a B = 1 prefill of that row,
+    bit for bit."""
     from repro_torch.bench import long_recurrent as lr
 
     cfg, bundle, params = recurrent_full_width
     rng = np.random.default_rng(3)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 256)).astype(np.int32)).cuda()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, 256)).astype(np.int32)).cuda()
     cache_len = cfg.sliding_window or 1
-    lg4, st4 = bundle.prefill_fn(params, {"tokens": toks}, cache_len)
+    lgn, stn = bundle.prefill_fn(params, {"tokens": toks}, cache_len)
     lg1, st1 = bundle.prefill_fn(params, {"tokens": toks[:1]}, cache_len)
-    assert torch.equal(lg4[:1], lg1)
-    cmp = lr.compare_states(bundle, lr.take_rows(bundle, st4, [0]), st1)
+    assert torch.equal(lgn[:1], lg1)
+    cmp = lr.compare_states(bundle, lr.take_rows(bundle, stn, [0]), st1)
     assert cmp["bitwise"], cmp
 
 
@@ -2228,16 +2235,13 @@ def _f32_distance(a, b) -> float:
 
 def test_long_recurrent_decode_rows_across_batch_widths(recurrent_full_width):
     """Each row of an 8-row decode step against B = 1 decodes (the scene of
-    ``_decode_rows_scene``).  The rows are not bitwise across batch widths
-    on the card (ROADMAP Queue 3), so this holds what a fault that mixes
-    rows would break: each row's float32 state is at least 4x nearer its
-    own B = 1 decode than the B = 1 decode of a row with the other prompt's
-    state (measured on the card: xlstm's own distance 8.4e-3 of the
-    leaf's magnitude, ``mlstm/C``), its logits within the smoke's bf16
-    limit of its own; and the first op whose row 0 differs between a B = 1
-    step and 8 copies of the row is an f32 cuBLAS product of the
-    recurrences (the mLSTM / sLSTM step's batched products, the SSM's
-    ``dt`` projection or scan product), never a kernel's route."""
+    ``_decode_rows_scene``): each row's float32 state is at least 4x nearer
+    its own B = 1 decode than the B = 1 decode of a row with the other
+    prompt's state (a fault that mixes rows breaks it), its logits within
+    the smoke's bf16 limit of its own; and no op's row 0 differs between a
+    B = 1 step and 8 copies of the row (``first_row_variant_op`` names
+    none: the recurrences' f32 contractions run on the row-invariant
+    kernel; on cuBLAS they parted the rows)."""
     from repro_torch.bench import long_recurrent as lr
 
     cfg, bundle, params, st, tok, (lg8, st8), ones = _decode_rows_scene(recurrent_full_width)
@@ -2250,23 +2254,141 @@ def test_long_recurrent_decode_rows_across_batch_widths(recurrent_full_width):
         assert float((lg8[r:r + 1] - ones[r][0]).abs().max()) <= lr.LOGITS_LIMIT, r
     run = lr.Run(bundle, params, cfg, 256, log=lambda _: None)
     first = lr.trace_decode(run, st, tok)
-    if first["op"] is not None:
-        assert first["op"] in ("aten.bmm.default", "aten.mm.default", "aten.addmm.default"), first
-        assert any(fn in f for f in first["frames"]
-                   for fn in ("_mlstm_step", "_slstm_step", "_scan_step", "_ssm_coeffs")), first
+    assert first["op"] is None, first
 
 
 def test_long_recurrent_decode_rows_bitwise_across_batch_widths(recurrent_full_width):
     """Row-against-batch equality for cell (c): each row of the 8-row step
     gives the logits and every state leaf of its B = 1 decode, bit for bit.
-    FAILS on the card today: an open fault of the port, ROADMAP Queue 3
-    (the recurrences' f32 cuBLAS products change kernels with the batch
-    count; by inference, bf16 activations after them then round the other
-    way and carry the difference to later layers); a
-    repair that gives each row one reduction order turns it green."""
+    The recurrences' f32 contractions run on the row-invariant kernel
+    (``kernels/contract.py``: one summation order per row); on cuBLAS,
+    whose batched kernels change with the batch count, this failed."""
     from repro_torch.bench import long_recurrent as lr
 
     _, bundle, _, _, _, (lg8, st8), ones = _decode_rows_scene(recurrent_full_width)
     for r in range(8):
         cmp = lr.compare_states(bundle, lr.take_rows(bundle, st8, [r]), ones[r][1])
         assert torch.equal(lg8[r:r + 1], ones[r][0]) and cmp["bitwise"], (r, cmp)
+
+
+# ------------------------------------------- the recurrences' f32 contractions
+# Each site's operands at full width (xlstm-350m: 4 heads of 256; hymba-1.5b:
+# d_inner 3200, N 16, dt rank 100) for R rows: (a's shape, b's shape)
+CONTRACT_SITES = {
+    "mlstm num": lambda r: ((r, 4, 1, 256), (r, 4, 256, 256)),
+    "mlstm den": lambda r: ((r, 4, 1, 256), (r, 4, 256, 1)),
+    "slstm rec": lambda r: ((r, 4, 1, 256), (4, 256, 1024)),
+    "ssm scan": lambda r: ((r, 3200, 16), (r, 16, 1)),
+    "ssm dt": lambda r: ((r, 1, 100), (100, 3200)),
+}
+
+
+def _near_matmul(got, a, b) -> bool:
+    """Every element within gamma_K sum_k |x_k w_kj| of ``torch.matmul``."""
+    return bool(((got.double() - torch.matmul(a, b).double()).abs() <= ct.sum_bound(a, b)).all())
+
+
+def _contract_operands(site, rows, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sa, sb = CONTRACT_SITES[site](rows)
+    return (torch.randn(sa, generator=g, device=dev), torch.randn(sb, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("site", list(CONTRACT_SITES))
+def test_contract_kernel_bitwise_ordered_and_rows_across_counts(dev, site):
+    """The contraction kernel at each site's full-width shape at 1, 8 and
+    128 rows (site 5 also at hymba's 4 x 4,096 prefill rows): bitwise
+    ``ordered_contract`` (its order in torch ops), within gamma_K sum_k
+    |x_k w_kj| of ``torch.matmul``, one launch a call; and each row's bits
+    those of the same row at 128 rows (the first rows of a per-row site's
+    operands are the same rows)."""
+    a, b = _contract_operands(site, 128, dev)
+    n0 = ct.contract.launches
+    full = ct.contract(a, b)
+    torch.cuda.synchronize()
+    assert ct.contract.launches == n0 + 1
+    per_row = b.shape[0] == 128 and b.ndim == a.ndim
+    for rows in (1, 8, 128):
+        ar, br = a[:rows], (b[:rows] if per_row else b)
+        got = ct.contract(ar, br)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ct.ordered_contract(ar, br)), rows
+        assert _near_matmul(got, ar, br), rows
+        assert torch.equal(got, full[:rows]), rows
+    if site == "ssm dt":
+        g = torch.Generator(device=dev).manual_seed(1)
+        coef = torch.randn((4, 4096, 132), generator=g, device=dev)  # dt_r: a slice of x_proj's
+        x, w = coef[..., :100], b
+        got = ct.contract(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ct.ordered_contract(x, w))
+        assert _near_matmul(got, x, w)
+        assert torch.equal(ct.contract(x[:1, :8], w), got[:1, :8])
+
+
+def test_contract_kernel_reads_the_scans_views_in_place(dev):
+    """Operands as the scans hand them: a token of the mLSTM's [S, B, nh,
+    dh] q view (rows over two strided levels), the SSM's C_t and dt_r as
+    slices of the x projection's output; bitwise ``ordered_contract``, and
+    the same bits as their contiguous copies."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((8, 5, 4, 256), generator=g, device=dev).movedim(1, 0)[3][..., None, :]
+    C = torch.randn((8, 4, 256, 256), generator=g, device=dev)
+    coef = torch.randn((8, 5, 132), generator=g, device=dev)
+    Ct = coef[..., 116:].movedim(1, 0)[2][:, :, None]
+    h = torch.randn((8, 3200, 16), generator=g, device=dev)
+    w = torch.randn((100, 3200), generator=g, device=dev)
+    for a, b in ((q, C), (h, Ct), (coef[..., :100], w)):
+        got = ct.contract(a, b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ct.ordered_contract(a, b))
+        assert torch.equal(got, ct.contract(a.contiguous(), b.contiguous()))
+
+
+def test_contract_refuses_grad_dtype_and_devices_on_card(dev):
+    """A grad-requiring input, a bf16 operand and operands on two devices
+    raise before any launch."""
+    a, b = torch.randn((4, 8), device=dev), torch.randn((8, 3), device=dev)
+    n0 = ct.contract.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ct.contract(a.requires_grad_(), b)
+    a = a.detach()
+    with pytest.raises(TypeError):
+        ct.contract(a.bfloat16(), b)
+    with pytest.raises(ValueError):
+        ct.contract(a, b.cpu())
+    assert ct.contract.launches == n0
+
+
+def test_contract_launches_at_every_site_of_a_decode_step(recurrent_full_width, monkeypatch):
+    """One full-width, full-depth decode step at 8 rows launches the kernel
+    at each site: xlstm-350m's 21 mLSTM blocks twice (q . C, q . n) and its
+    3 sLSTM blocks once (the four recurrent products side by side);
+    hymba-1.5b's 32 SSM layers twice (the dt projection, the scan's h .
+    C_t).  No other call reaches the kernel."""
+    from repro_torch.bench import long_recurrent as lr
+
+    cfg, bundle, params = recurrent_full_width
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)).cuda()
+    _, st = bundle.prefill_fn(params, {"tokens": toks}, cfg.sliding_window or 1)
+    state = lr.take_rows(bundle, st, [r % 2 for r in range(8)])
+    tok = toks[:, 0].repeat(4)
+    pos = torch.full((8,), 16, dtype=torch.int32, device=tok.device)
+    sites, launch = [], ct.build.launch
+
+    def spy(entry, device, *args):  # (K, J) of each contraction launched
+        if entry.__name__ == "contract_forward":
+            sites.append(tuple(args[4:6]))
+        return launch(entry, device, *args)
+
+    monkeypatch.setattr(ct.build, "launch", spy)
+    n0 = ct.contract.launches
+    bundle.decode_fn(params, state, tok, pos)
+    torch.cuda.synchronize()
+    if cfg.name == "xlstm-350m":  # q . C, q . n, the sLSTM's four products side by side
+        want = {(256, 256): 21, (256, 1): 21, (256, 1024): 3}
+    else:  # the dt projection, the scan's h . C_t
+        want = {(100, 3200): 32, (16, 1): 32}
+    assert {k: sites.count(k) for k in set(sites)} == want, sites
+    assert ct.contract.launches - n0 == sum(want.values())
